@@ -1,0 +1,19 @@
+from repro_torch.checkpoint.ckpt import (
+    load_checkpoint,
+    load_extra,
+    load_flat,
+    manifest_path,
+    params_from_numpy,
+    save_checkpoint,
+    unflatten,
+)
+
+__all__ = [
+    "load_checkpoint",
+    "load_extra",
+    "load_flat",
+    "manifest_path",
+    "params_from_numpy",
+    "save_checkpoint",
+    "unflatten",
+]

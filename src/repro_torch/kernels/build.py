@@ -1,0 +1,87 @@
+"""Builds the port's CUDA kernels from the sources in ``csrc/`` at first
+use and loads them with ctypes.
+
+Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into a
+shared library with a plain C interface (no PyTorch headers, so a build
+takes seconds, not minutes), under ``<repo>/build/repro_torch/``. The
+library's file name carries a hash of its source and flags, so an edited
+source is rebuilt and a stale library is never loaded. Nothing is built
+when a module is imported: the CPU tests import every module, and the
+CPU has no ``nvcc``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+from typing import Dict, List, Optional
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+]
+
+_libs: Dict[str, ctypes.CDLL] = {}
+
+
+def _nvcc() -> str:
+    path = shutil.which("nvcc")
+    if path is None:
+        home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+        cand = Path(home) / "bin" / "nvcc"
+        path = str(cand) if cand.exists() else None
+    if path is None:
+        raise RuntimeError("nvcc not found (PATH or $CUDA_HOME/bin); the "
+                           "port's CUDA kernels are built with it at first use")
+    return path
+
+
+def _library_path(name: str) -> Path:
+    src = CSRC / f"{name}.cu"
+    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:12]}.so"
+
+
+def build_all(names: Optional[List[str]] = None) -> Dict[str, Path]:
+    """Compile the named sources (default: every ``csrc/*.cu``) that are
+    not built yet, one ``nvcc`` process per source, all started
+    together. Returns name -> library path. ptxas's report (registers,
+    shared memory, spills) is kept beside each library as ``.log``."""
+    names = names or sorted(p.stem for p in CSRC.glob("*.cu"))
+    out = {n: _library_path(n) for n in names}
+    todo = {n: p for n, p in out.items() if not p.exists()}
+    if not todo:
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    exe = _nvcc()
+    procs = {}
+    for n, p in todo.items():
+        tmp = p.with_name(f"{p.name}.{os.getpid()}.tmp")
+        cmd = [exe, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{n}.cu")]
+        procs[n] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                     stderr=subprocess.STDOUT, text=True),
+                    tmp)
+    failed = []
+    for n, (proc, tmp) in procs.items():
+        log, _ = proc.communicate()
+        out[n].with_suffix(".log").write_text(log)
+        if proc.returncode != 0:
+            failed.append(f"{n}:\n{log}")
+            continue
+        os.replace(tmp, out[n])  # atomic: a concurrent loader sees all or nothing
+    if failed:
+        raise RuntimeError("nvcc failed for " + "\n".join(failed))
+    return out
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu``, built if needed."""
+    if name not in _libs:
+        _libs[name] = ctypes.CDLL(str(build_all([name])[name]))
+    return _libs[name]

@@ -19,3 +19,10 @@ except ImportError:
 
 settings.register_profile("ci", max_examples=15, deadline=None)
 settings.load_profile("ci")
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers",
+        "cuda: runs a kernel of the PyTorch port on an NVIDIA card; skips "
+        "where torch.cuda.is_available() is false")
