@@ -67,12 +67,18 @@ def _to_tensor(arr, device, dtype: Optional[torch.dtype]) -> torch.Tensor:
 
 
 def params_from_numpy(tree, *, device, dtype: Optional[torch.dtype] = None):
-    """A nested dict of arrays (numpy, or anything ``np.asarray`` takes)
-    -> the same dict of tensors on ``device``. ``dtype`` casts the
-    floating leaves; integer leaves keep their type."""
+    """A nested tree of dicts and lists of arrays (numpy, or anything
+    ``np.asarray`` takes) -> the same tree of tensors on ``device``: the
+    LM trees of the serving slice and the Table-II trees
+    (``{'base': [layer, ...], 'modular': [...]}``, e.g. the reference's
+    ``init_client_model(PRNGKey(100 + k), cid)``) alike. ``dtype`` casts
+    the floating leaves; integer leaves keep their type."""
     if isinstance(tree, dict):
         return {k: params_from_numpy(v, device=device, dtype=dtype)
                 for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(params_from_numpy(v, device=device, dtype=dtype)
+                          for v in tree)
     return _to_tensor(tree, device, dtype)
 
 

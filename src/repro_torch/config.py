@@ -23,7 +23,7 @@ from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import Tuple
+from typing import Optional, Tuple
 
 
 @dataclass(frozen=True)
@@ -233,3 +233,42 @@ class ModelConfig:
         kw["mod_pattern"] = tuple(shrink(s) for s in mp)
         kw["mod_groups"] = 1
         return self.replace(**kw).validate()
+
+
+# ---------------------------------------------------------------------------
+# Run config (paper hyper-parameters live here)
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class RunConfig:
+    """Hyper-parameters of one collaborative-training run, field for
+    field and default for default the JAX package's ``RunConfig``.
+
+    The port runs the eager IFL trainer (``repro_torch.core.ifl``) in
+    sync mode over a concrete fleet; ``mode='async'`` and the population
+    fields (``n_population``, ``cohort``) are carried so a spec lowers to
+    the same config, and the trainer raises for them (ROADMAP.md queue 1).
+    """
+
+    n_clients: int = 4  # paper: N = 4
+    tau: int = 10  # paper: τ = 10 local base-block steps per round
+    rounds: int = 200  # paper: T = 200
+    batch_size: int = 32  # paper: B = 32
+    lr_base: float = 0.01  # paper: η_b
+    lr_modular: float = 0.01  # paper: η_m
+    d_fusion: int = 432  # paper's standardized fusion output dim
+    dirichlet_alpha: float = 0.5  # paper's non-IID concentration
+    optimizer: str = "sgd"  # paper uses plain SGD
+    codec: str = "fp32"  # wire codec for z (see repro_torch.core.codec)
+    # 'full' | 'k<K>' | 'bern<p>' | 'straggle(<frac>,<period>)'.
+    participation: str = "full"
+    # Fusion-cache staleness bound in rounds (None = never evict;
+    # 0 = fresh uploads only).
+    max_staleness: Optional[int] = None
+    broadcast: str = "full"  # downlink policy; 'delta' is not ported yet
+    mode: str = "sync"
+    trace: str = ""
+    tick: float = 1.0
+    n_population: int = 0
+    cohort: int = 0

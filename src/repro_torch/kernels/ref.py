@@ -43,3 +43,16 @@ def cached_attn_decode_ref(q: torch.Tensor, k: torch.Tensor,
     acc = torch.einsum("bkgqs,bskh->bkgqh", p, v.float())
     out = acc / denom.clamp_min(1e-30)
     return out.permute(0, 3, 1, 2, 4).to(q.dtype)
+
+
+def wire_encode_ref(z: torch.Tensor, codec) -> dict:
+    """The plain version of the ``wire_encode`` kernel: the codec's own
+    encode ops (``repro_torch.core.codec``), whose order of operations,
+    top-k tie order and sketch sum order the kernel reproduces."""
+    return codec.encode(z)
+
+
+def wire_encode_ef_ref(z: torch.Tensor, e: torch.Tensor, ef_codec):
+    """The plain version of the ``wire_encode_ef`` kernel: the EF codec's
+    ``encode_with_state`` -> (payload, e')."""
+    return ef_codec.encode_with_state(z, e)

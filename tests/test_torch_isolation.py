@@ -20,6 +20,13 @@ def test_import_loads_no_jax_and_no_reference_module():
         "import repro_torch, repro_torch.serve, repro_torch.launch.serve\n"
         "import repro_torch.kernels.ops, repro_torch.kernels.build\n"
         "import repro_torch.checkpoint, repro_torch.data.synthetic\n"
+        "import repro_torch.core, repro_torch.core.codec\n"
+        "import repro_torch.core.comm, repro_torch.core.exchange\n"
+        "import repro_torch.core.ifl, repro_torch.core.report\n"
+        "import repro_torch.core.rounds, repro_torch.api\n"
+        "import repro_torch.api.schemes, repro_torch.api.spec\n"
+        "import repro_torch.data.images, repro_torch.data.dirichlet\n"
+        "import repro_torch.models.small, repro_torch.launch.quickstart\n"
         "assert 'jax' not in sys.modules, 'jax loaded'\n"
         "bad = [m for m in sys.modules if m == 'repro' "
         "or m.startswith('repro.')]\n"
