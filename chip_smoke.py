@@ -63,8 +63,10 @@ WIRE_SCHEMES = ("int8_row", "int4", "topk", "sketch")
 WIRE_TOL = dict(rtol=1e-6, atol=1e-6)
 # Card against CPU for the short IFL run: the same draws and init, but
 # convolutions and products sum in other orders on the two devices, and
-# a last-bit difference in z can flip an int4 code.
-IFL_LOSS_TOL = 1e-3
+# a last-bit difference in z can flip an int4 code. One forced flip moves
+# this run's losses by at most 3.5e-5 on the CPU
+# (tests/test_torch_ifl.py::test_one_int4_code_flip_stays_within_chip_smoke_tolerance).
+IFL_LOSS_TOL = 1e-4
 
 
 def check(ok: bool, msg: str) -> None:
@@ -244,16 +246,17 @@ def reset_counts(ops) -> None:
 
 
 def ifl_run(codec, rounds, *, device, tau=10, participation="full",
-            n_train=4000, n_test=1000, report=True):
+            report=True):
     """Drive the eager IFL path as the quickstart does: ``build_ifl`` over
-    4 heterogeneous Table-II clients, then ``run_round`` x ``rounds``.
-    Returns (trainer, per-round wall seconds, data)."""
+    4 heterogeneous Table-II clients, then ``run_round`` x ``rounds``, on
+    synthetic KMNIST cut to 4000 train / 1000 test images.
+    Returns (trainer, spec, per-round wall seconds, data)."""
     from repro_torch.api import DataSpec, ExperimentSpec, build_ifl, load_data
 
     spec = ExperimentSpec(scheme="ifl", rounds=rounds, tau=tau, lr=0.01,
                           batch_size=32, d_fusion=432, codec=codec,
                           participation=participation, seed=0,
-                          data=DataSpec(n_train=n_train, n_test=n_test))
+                          data=DataSpec(n_train=4000, n_test=1000))
     data = load_data(spec)
     trainer = build_ifl(spec, data, device=device)
     walls = []
@@ -269,7 +272,7 @@ def ifl_run(codec, rounds, *, device, tau=10, participation="full",
                   f"participants {rep.participants} bytes "
                   f"{trainer.ledger.per_round[-1]} wall "
                   f"{walls[-1] * 1e3:.1f} ms", flush=True)
-    return trainer, walls, data
+    return trainer, spec, walls, data
 
 
 def main() -> None:
@@ -285,9 +288,9 @@ def main() -> None:
 
     from repro_torch.configs import get_config
     from repro_torch.core.codec import get_codec
-    from repro_torch.core.comm import ifl_round_bytes
     from repro_torch.kernels import build, ops, ref
     from repro_torch.launch.serve import build_demo_store, demo_requests
+    from repro_torch.launch.quickstart import round_bytes_match
     from repro_torch.models.modules import tree_map
     from repro_torch.models.transformer import (
         composed_decode_step,
@@ -435,7 +438,7 @@ def main() -> None:
     for codec, kern in (("int8_row", "wire_encode"),
                         ("ef(int4)", "wire_encode_ef")):
         reset_counts(ops)
-        trainer, walls, data = ifl_run(codec, 3, device="cuda")
+        trainer, spec, walls, data = ifl_run(codec, 3, device="cuda")
         counts = {"wire_encode": ops.wire_encode.launches,
                   "wire_encode_ef": ops.wire_encode_ef.launches,
                   "flash_decode": ops.flash_decode.launches}
@@ -445,12 +448,10 @@ def main() -> None:
               f"{n_part} participants over the rounds")
         check(all(v == 0 for k, v in counts.items() if k != kern),
               f"ifl {codec}: other kernels launched {counts}")
-        for rep, got in zip(trainer.engine.history, trainer.ledger.per_round):
-            exp = ifl_round_bytes(4, 32, 432, codec=codec,
-                                  participating=len(rep.participants),
-                                  broadcast_entries=rep["cache_size"])
-            check(got == exp, f"ifl {codec} round {rep.round}: measured "
-                  f"bytes {got} != analytic {exp}")
+        check(round_bytes_match(trainer, spec),
+              f"ifl {codec}: measured bytes {trainer.ledger.per_round} != "
+              f"analytic ifl_round_bytes in some round")
+        for rep in trainer.engine.history:
             check(np.isfinite(rep["base_loss"]) and np.isfinite(
                 rep["mod_loss"]), f"ifl {codec}: non-finite loss")
         accs = trainer.evaluate(data.test_x, data.test_y)

@@ -52,24 +52,23 @@ def main(argv=None) -> None:
                     help="full | k<K> | bern<p> | straggle(<frac>,<period>)")
     ap.add_argument("--rounds", type=int, default=20)
     ap.add_argument("--tau", type=int, default=10)
-    ap.add_argument("--n-train", type=int, default=6000)
-    ap.add_argument("--n-test", type=int, default=1500)
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda; 'cpu' to run there)")
     args = ap.parse_args(argv)
 
-    # lr 0.05, B 32, seed 0: the JAX package's quickstart spec.
+    # lr 0.05, B 32, seed 0, 6000/1500 samples: the JAX package's
+    # quickstart spec.
     spec = ExperimentSpec(
         scheme="ifl", rounds=args.rounds, tau=args.tau, lr=0.05,
         batch_size=32, codec=args.codec, participation=args.participation,
-        seed=0, data=DataSpec(n_train=args.n_train, n_test=args.n_test))
+        seed=0, data=DataSpec(n_train=6000, n_test=1500))
     data = load_data(spec)
     trainer = build_ifl(spec, data, device=args.device)
     dev = trainer.device
     name = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
     print(f"== ifl quickstart: 4 vendors (Table II), synthetic KMNIST "
-          f"{args.n_train}/{args.n_test}, codec {args.codec}, participation "
-          f"{args.participation}, tau {args.tau}, on {name} ==")
+          f"{spec.data.n_train}/{spec.data.n_test}, codec {args.codec}, "
+          f"participation {args.participation}, tau {args.tau}, on {name} ==")
     print(f"   spec {spec.spec_hash()}")
     for _ in range(args.rounds):
         t0 = time.perf_counter()

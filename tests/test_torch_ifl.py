@@ -10,8 +10,10 @@ rounding boundary a last-bit difference in z flips an int8/int4 code;
 such differences stay far below these bounds over 4 rounds.
 """
 
+import ast
 import io
 from contextlib import redirect_stdout
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -34,6 +36,7 @@ from repro_torch.core import Client, IFLTrainer
 from repro_torch.core.comm import fl_round_bytes, fsl_round_bytes
 from repro_torch.core.comm import ifl_round_bytes
 from repro_torch.core.rounds import RoundEngine, parse_participation
+from repro_torch.kernels import ops, ref
 from repro_torch.launch import quickstart
 
 SCHEDULES = ["full", "k2", "bern0.5", "straggle(0.25,4)"]
@@ -166,8 +169,7 @@ def test_quickstart_on_cpu():
     out = io.StringIO()
     with redirect_stdout(out):
         quickstart.main(["--device", "cpu", "--rounds", "2", "--tau", "1",
-                         "--codec", "ef(int4)", "--participation", "k2",
-                         "--n-train", "400", "--n-test", "100"])
+                         "--codec", "ef(int4)", "--participation", "k2"])
     text = out.getvalue()
     assert "round   1:" in text
     assert "measured == analytic ifl_round_bytes, every round: True" in text
@@ -208,8 +210,7 @@ def test_entry_points_run_on_the_card_unless_asked():
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         tapi.build_ifl(spec, data)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
-        quickstart.main(["--rounds", "1", "--n-train", "64",
-                         "--n-test", "16"])
+        quickstart.main(["--rounds", "1"])
 
 
 def test_run_config_and_spec_match_reference():
@@ -224,3 +225,57 @@ def test_run_config_and_spec_match_reference():
         assert tspec.canonical_json() == jspec.canonical_json()
         assert tspec.spec_hash() == jspec.spec_hash()
         assert tspec.run_config().__dict__ == jspec.run_config().__dict__
+
+
+def _chip_smoke_constant(name):
+    """A constant of chip_smoke.py, read without importing the script."""
+    tree = ast.parse((Path(__file__).parents[1] / "chip_smoke.py").read_text())
+    for node in tree.body:
+        if (isinstance(node, ast.Assign) and len(node.targets) == 1
+                and getattr(node.targets[0], "id", None) == name):
+            return ast.literal_eval(node.value)
+    raise KeyError(name)
+
+
+def test_one_int4_code_flip_stays_within_chip_smoke_tolerance(monkeypatch):
+    """chip_smoke.py holds its card-vs-CPU short run (ef(int4), 2 rounds,
+    tau 2, k2, Table-II fleet) to IFL_LOSS_TOL. A last-bit difference in z
+    may rightly flip one int4 code, so force one flip at each encode of the
+    run in turn (move the element of c = z + e nearest a rounding boundary
+    just across it) and check that the losses move by less than that."""
+    tol = _chip_smoke_constant("IFL_LOSS_TOL")
+    spec = tapi.ExperimentSpec(
+        scheme="ifl", rounds=2, tau=2, lr=0.01, batch_size=32, d_fusion=432,
+        codec="ef(int4)", participation="k2", seed=0,
+        data=tapi.DataSpec(n_train=4000, n_test=1000))
+    data = tapi.load_data(spec)
+
+    def losses(flip_at):
+        calls = [0]
+
+        def encode(z, e, ef_codec):
+            if calls[0] == flip_at:
+                c = z + e
+                scale = c.abs().amax(-1, keepdim=True) * np.float32(1 / 7)
+                y = c / scale
+                i = int((y - y.floor() - 0.5).abs().argmin())
+                r, col = divmod(i, z.shape[1])
+                z = z.clone()
+                z[r, col] += 2 * (y[r, col].floor() + 0.5 - y[r, col]) \
+                    * scale[r, 0]
+            calls[0] += 1
+            return ref.wire_encode_ef_ref(z, e, ef_codec)
+
+        monkeypatch.setattr(ops, "wire_encode_ef", encode)
+        trainer = tapi.build_ifl(spec, data, device="cpu")
+        for _ in range(spec.rounds):
+            trainer.run_round()
+        assert calls[0] == 4  # 2 participants x 2 rounds
+        return np.array([[r["base_loss"], r["mod_loss"]]
+                         for r in trainer.engine.history])
+
+    clean = losses(-1)
+    shifts = [float(np.abs(losses(k) - clean).max()) for k in range(4)]
+    print(f"loss shift of one forced int4 flip at each encode: {shifts}")
+    assert max(shifts) > 0  # the flips reached the losses
+    assert max(shifts) <= tol, (shifts, tol)
