@@ -15,13 +15,17 @@ port's two main paths through the entry points a user calls:
     ``run_round``, as ``python -m repro_torch.launch.quickstart`` runs
     it), the path of the ``wire_encode`` / ``wire_encode_ef`` kernels.
     The one cut is the dataset: synthetic KMNIST at 4000 train / 1000
-    test images instead of the paper's 60000 / 10000.
+    test images instead of the paper's 60000 / 10000;
+  * LM training: IFL on full-width qwen1.5-0.5b, 4 clients, tau 2, B 2,
+    S 512, 3 rounds, through ``python -m repro_torch.launch.train --arch
+    qwen1.5-0.5b --mode ifl``, and 3 steps of ``--mode dp``, the path of
+    the ``flash_attention`` / ``flash_attention_bwd`` kernels.
 
 It checks each path's results, compares short runs on the card with the
 same runs on the CPU, and times each kernel at the shapes its path gives
 it. ``--profile`` adds a torch.profiler breakdown of one more warm
-serving run and one more warm IFL round of each codec (device busy
-share, top kernels and host ops); it is a diagnostic, not a check, and
+serving run, one more warm IFL round of each codec and one more warm
+LM IFL round (device busy share, top kernels and host ops); it is a diagnostic, not a check, and
 is off by default. Every phase checks its result and raises on failure;
 nothing is caught. It needs a card: without one (or without the
 repo's ``src/`` beside it) it exits non-zero and prints no result.
@@ -240,9 +244,188 @@ def wire_times(ops, ref, get_codec, rows, d=432):
     return out
 
 
+# Flash attention against its plain version: (B, S, H, KVH, hd, window).
+# The LM path's shape first; then hd 128 with GQA (G 2), a partial last
+# tile (S 200) and a sliding window (48).
+ATTN_CASES = [(2, 512, 16, 16, 64, -1), (2, 256, 8, 4, 128, -1),
+              (2, 200, 16, 16, 64, -1), (2, 512, 16, 16, 64, 48)]
+# Tolerance, as max |kernel - plain| over max(1, max |plain|): fp32 sums
+# in another order; in bf16 the kernel rounds the unnormalized p of its
+# online softmax to bf16 where the plain version rounds the normalized
+# p, and the outputs are rounded to bf16.
+ATTN_TOL = {torch.float32: {"fwd": 2e-5, "bwd": 1e-4},
+            torch.bfloat16: {"fwd": 2e-2, "bwd": 3e-2}}
+
+
+def attn_inputs(B, S, H, KVH, hd, dtype, seed):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    q = torch.randn((B, S, H, hd), generator=gen, device="cuda").to(dtype)
+    k = torch.randn((B, S, KVH, hd), generator=gen, device="cuda").to(dtype)
+    v = torch.randn((B, S, KVH, hd), generator=gen, device="cuda").to(dtype)
+    do = torch.randn((B, S, H, hd), generator=gen, device="cuda").to(dtype)
+    return q, k, v, do
+
+
+def rel_err(got, want) -> float:
+    want = want.float()
+    return float((got.float() - want).abs().max()
+                 / max(1.0, float(want.abs().max())))
+
+
+def attn_lse_ref(q, k, window):
+    """Each row's softmax logsumexp, in fp32, from the plain scores."""
+    B, S, H, hd = q.shape
+    kf = k.float().repeat_interleave(H // k.shape[2], dim=2)
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), kf) / math.sqrt(hd)
+    i = torch.arange(S, device=q.device)
+    mask = i[None, :] <= i[:, None]
+    if window > 0:
+        mask &= i[None, :] > i[:, None] - window
+    return torch.logsumexp(s.masked_fill(~mask, float("-inf")), dim=-1)
+
+
+def attn_checks(ops, ref):
+    """Both attention kernels against their plain versions at every case
+    of ATTN_CASES in fp32 and bf16 -> max |err| of each kernel at the
+    path's case (bf16, its dtype) and over all cases (relative)."""
+    errs = {"path": {}, "all": {"fwd": 0.0, "bwd": 0.0}}
+    for B, S, H, KVH, hd, window in ATTN_CASES:
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v, do = attn_inputs(B, S, H, KVH, hd, dtype, seed=S + hd)
+            o, lse = ops.flash_attention_fwd(q, k, v, window=window)
+            grads = ops.flash_attention_bwd(q, k, v, o, lse, do,
+                                            window=window)
+            o_ref = ref.flash_attention_ref(q, k, v, window=window)
+            g_ref = ref.flash_attention_bwd_ref(q, k, v, do, window=window)
+            torch.cuda.synchronize()
+            label = (f"B {B} S {S} H {H} KVH {KVH} hd {hd} window {window} "
+                     f"{str(dtype)[6:]}")
+            tol = ATTN_TOL[dtype]
+            fwd = rel_err(o, o_ref)
+            lse_err = float((lse - attn_lse_ref(q, k, window)).abs().max())
+            bwd = max(rel_err(a, b) for a, b in zip(grads, g_ref))
+            check(all(g.dtype == dtype for g in grads), f"{label}: dtypes")
+            check(fwd <= tol["fwd"] and lse_err <= 1e-4,
+                  f"flash_attention {label}: err {fwd:.3e}, lse {lse_err:.3e}")
+            check(bwd <= tol["bwd"], f"flash_attention_bwd {label}: err "
+                  f"{bwd:.3e} > {tol['bwd']}")
+            print(f"[kernel] attention {label}: fwd {fwd:.3e} (lse "
+                  f"{lse_err:.3e}), bwd dq/dk/dv {bwd:.3e} (relative "
+                  f"max|err|)", flush=True)
+            errs["all"]["fwd"] = max(errs["all"]["fwd"], fwd)
+            errs["all"]["bwd"] = max(errs["all"]["bwd"], bwd)
+            if (B, S, H, KVH, hd, window) == ATTN_CASES[0] and \
+                    dtype == torch.bfloat16:
+                errs["path"] = {
+                    "fwd": float((o.float() - o_ref.float()).abs().max()),
+                    "bwd": max(float((a.float() - b.float()).abs().max())
+                               for a, b in zip(grads, g_ref))}
+    return errs
+
+
+def event_time_ms(fn, reps: int = 20) -> float:
+    """Device time of one eager call, in ms: ``reps`` calls back to back
+    between two CUDA events (for calls through autograd, which the
+    graph timer does not capture)."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(reps):
+        fn()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / reps
+
+
+def attn_times(ops, ref):
+    """Forward and backward times at the LM path's shape (bf16, causal):
+    kernel, plain version, SDPA (``is_causal=True``) and the bound.
+    Forwards are graph-replayed (16 input sets, ~8 MB each, so K/V come
+    from HBM as in the model); backwards are timed eagerly with events
+    (the plain and SDPA backwards run through autograd), each the
+    backward alone on a forward done once."""
+    B, S, H, KVH, hd, window = ATTN_CASES[0]
+    sets = [attn_inputs(B, S, H, KVH, hd, torch.bfloat16, seed=100 + i)
+            for i in range(16)]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    t = {}
+    t["fwd"] = graph_time_ms([lambda s=s: ops.flash_attention_fwd(
+        s[0], s[1], s[2], window=window) for s in sets])
+    t["fwd_plain"] = graph_time_ms([lambda s=s: ref.flash_attention_ref(
+        s[0], s[1], s[2], window=window) for s in sets])
+    bhsd = [tuple(x.transpose(1, 2) for x in s) for s in sets]
+    t["fwd_sdpa"] = graph_time_ms([lambda a=a: sdpa(a[0], a[1], a[2],
+                                                    is_causal=True)
+                                   for a in bhsd])
+    q, k, v, do = sets[0]
+    o, lse = ops.flash_attention_fwd(q, k, v, window=window)
+    t["bwd"] = event_time_ms(lambda: ops.flash_attention_bwd(
+        q, k, v, o, lse, do, window=window))
+    leaves = [x.detach().clone().requires_grad_() for x in (q, k, v)]
+    o_ref = ref.flash_attention_ref(*leaves, window=window)
+    t["bwd_plain"] = event_time_ms(lambda: torch.autograd.grad(
+        o_ref, leaves, do, retain_graph=True))
+    # SDPA in its own (B, H, S, hd) layout, contiguous.
+    leaves_t = [x.transpose(1, 2).contiguous().requires_grad_() for x in
+                (q, k, v)]
+    do_t = do.transpose(1, 2).contiguous()
+    o_sdpa = sdpa(*leaves_t, is_causal=True)
+    t["bwd_sdpa"] = event_time_ms(lambda: torch.autograd.grad(
+        o_sdpa, leaves_t, do_t, retain_graph=True))
+    # The least work these inputs need: every (query, key) pair the mask
+    # keeps, and each tensor moved once.
+    pairs = S * (S + 1) // 2
+    elt = B * S * H * hd * 2                 # one (B, S, H, hd) bf16 tensor
+    kv = B * S * KVH * hd * 2
+    lse_b = B * H * S * 4
+    bytes_fwd = 2 * elt + 2 * kv + lse_b     # q, k, v in; o, lse out
+    bytes_bwd = 4 * elt + 4 * kv + lse_b     # q, k, v, o, dO, lse in; dq, dk, dv out
+    flops_fwd = 4 * B * H * hd * pairs       # q.k and p.v
+    flops_bwd = 10 * B * H * hd * pairs      # q.k, dO.v, p^T dO, ds^T q, ds k
+    for key, nb, fl in (("fwd", bytes_fwd, flops_fwd),
+                        ("bwd", bytes_bwd, flops_bwd)):
+        b_ms = nb / HBM_BYTES_PER_S * 1e3
+        o_ms = fl / BF16_FLOPS * 1e3
+        t[key + "_bound"] = max(b_ms, o_ms)
+        t[key + "_bound_by"] = "bytes" if b_ms >= o_ms else "operations"
+        print(f"[time] flash_attention {key} at B {B} S {S} H {H} hd {hd} "
+              f"bf16 causal: kernel {t[key] * 1e3:.2f} us, plain "
+              f"{t[key + '_plain'] * 1e3:.2f} us, sdpa "
+              f"{t[key + '_sdpa'] * 1e3:.2f} us, bound "
+              f"{t[key + '_bound'] * 1e3:.3f} us ({nb} bytes, {fl} flops)",
+              flush=True)
+    return t
+
+
+def expected_attn_launches(cfg, *, steps_full, steps_mod, fwd_only):
+    """Attention launches the code makes: each differentiated pass over a
+    layer runs the forward kernel, again under remat (the backward
+    recomputes the checkpointed forward), and the backward kernel once.
+    ``steps_full``: passes through all layers with autograd;
+    ``steps_mod``: through the modular layers only; ``fwd_only``: base
+    forwards without autograd."""
+    _, bp, bg, mp, mg = cfg._resolved_program()
+    lb, lm = len(bp) * bg, len(mp) * mg
+    recompute = 2 if cfg.remat in ("group", "layer") else 1
+    fwd = (recompute * (steps_full * (lb + lm) + steps_mod * lm)
+           + fwd_only * lb)
+    bwd = steps_full * (lb + lm) + steps_mod * lm
+    return fwd, bwd
+
+
 def reset_counts(ops) -> None:
-    for fn in (ops.flash_decode, ops.wire_encode, ops.wire_encode_ef):
+    for fn in (ops.flash_decode, ops.wire_encode, ops.wire_encode_ef,
+               ops.flash_attention, ops.flash_attention_bwd):
         fn.launches = 0
+
+
+def launch_counts(ops):
+    return {fn.__name__: fn.launches for fn in (
+        ops.flash_decode, ops.wire_encode, ops.wire_encode_ef,
+        ops.flash_attention, ops.flash_attention_bwd)}
 
 
 def ifl_run(codec, rounds, *, device, tau=10, participation="full",
@@ -273,6 +456,169 @@ def ifl_run(codec, rounds, *, device, tau=10, participation="full",
                   f"{trainer.ledger.per_round[-1]} wall "
                   f"{walls[-1] * 1e3:.1f} ms", flush=True)
     return trainer, spec, walls, data
+
+
+LM_RUN = dict(arch="qwen1.5-0.5b", rounds=3, tau=2, n_clients=4, batch=2,
+              seq=512)
+
+
+def lm_train_phase(train_cli, ops, cfg, profile):
+    """Drive full-width LM IFL and DP through ``launch.train.main`` as a
+    user calls it, with the counts set to 0 just before each run; check
+    launches against the count the code makes, losses and ledger bytes.
+    Returns the IFL run's launches."""
+    import tempfile
+
+    r = LM_RUN
+    n, tau, b, s = r["n_clients"], r["tau"], r["batch"], r["seq"]
+    with tempfile.TemporaryDirectory() as out_dir:
+        argv = ["--arch", r["arch"], "--mode", "ifl", "--rounds",
+                str(r["rounds"]), "--tau", str(tau), "--n-clients", str(n),
+                "--batch", str(b), "--seq", str(s), "--out", out_dir]
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts(ops)
+        t0 = time.perf_counter()
+        out = train_cli.main(argv)
+        total_s = time.perf_counter() - t0
+        got = launch_counts(ops)
+        fwd, bwd = expected_attn_launches(
+            cfg, steps_full=r["rounds"] * n * tau,
+            steps_mod=r["rounds"] * n * n, fwd_only=r["rounds"] * n)
+        check(got["flash_attention"] == fwd
+              and got["flash_attention_bwd"] == bwd,
+              f"lm ifl: attention launches {got} != fwd {fwd}, bwd {bwd}")
+        check(got["flash_decode"] == got["wire_encode"] ==
+              got["wire_encode_ef"] == 0, f"lm ifl: other kernels {got}")
+        for rec in out["history"]:
+            check(np.isfinite(rec["base_loss"]) and
+                  np.isfinite(rec["mod_loss"]), f"lm ifl: loss {rec}")
+        # The reference's analytic ledger (train/loop.py:85-96): bf16 z
+        # plus int32 tokens per client up, every entry to every client.
+        up = n * (b * s * cfg.d_fusion * 2 + b * s * 4)
+        check(out["ledger"].per_round ==
+              [{"up": up, "down": n * up}] * r["rounds"],
+              f"lm ifl: ledger {out['ledger'].per_round}")
+        hist = json.loads((Path(out_dir) / f"{cfg.name}__ifl.json")
+                          .read_text())
+        check(hist == out["history"], "lm ifl: written history differs")
+        walls = out["walls"]
+        tokens = n * (tau + 1) * b * s
+        warm = walls[1:]
+        # The round's tokens come from the reference's numpy stream on the
+        # host, inside each round's wall: time one round's draw alone.
+        from repro_torch.data.synthetic import SyntheticLM
+        from repro_torch.train.loop import _ifl_batch
+
+        t0 = time.perf_counter()
+        _ifl_batch(SyntheticLM(cfg.vocab_size, seed=0), cfg, n, tau, b, s,
+                   r["rounds"], device="cpu")
+        draw_s = time.perf_counter() - t0
+        print(f"[lm ifl] {cfg.name} full width ({cfg.num_layers} layers, "
+              f"{cfg.compute_dtype}, remat {cfg.remat}), N {n}, tau {tau}, "
+              f"B {b}, S {s}: losses "
+              f"{[(round(h['base_loss'], 4), round(h['mod_loss'], 4)) for h in out['history']]}; "
+              f"attention launches fwd {fwd} bwd {bwd} == derived; ledger "
+              f"== analytic ({up} B up a round); wall per round (s) "
+              f"{[round(w, 3) for w in walls]}, warm mean "
+              f"{statistics.mean(warm):.3f} s = "
+              f"{tokens / statistics.mean(warm):.0f} tokens/s ({tokens} "
+              f"tokens drawn a round; drawing them on the host alone takes "
+              f"{draw_s:.3f} s); CLI total {total_s:.1f}s; peak memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB",
+              flush=True)
+        launches = {k: got[k] for k in ("flash_attention",
+                                        "flash_attention_bwd")}
+        del out
+        if profile:
+            profile_lm_round(cfg, n, tau, b, s)
+
+        steps = 3
+        reset_counts(ops)
+        out = train_cli.main(["--arch", r["arch"], "--mode", "dp",
+                              "--rounds", str(steps), "--batch", str(b),
+                              "--seq", str(s), "--out", out_dir])
+        got = launch_counts(ops)
+        fwd, bwd = expected_attn_launches(cfg, steps_full=steps,
+                                          steps_mod=0, fwd_only=0)
+        check(got["flash_attention"] == fwd
+              and got["flash_attention_bwd"] == bwd,
+              f"lm dp: attention launches {got} != fwd {fwd}, bwd {bwd}")
+        check(all(np.isfinite(h["loss"]) for h in out["history"]),
+              f"lm dp: {out['history']}")
+        print(f"[lm dp] {cfg.name} full width, B {b}, S {s}, {steps} steps: "
+              f"losses {[round(h['loss'], 4) for h in out['history']]}; "
+              f"attention launches fwd {fwd} bwd {bwd} == derived; wall per "
+              f"step (s) {[round(w, 3) for w in out['walls']]}", flush=True)
+        del out
+    return {"launches": launches}
+
+
+def profile_lm_round(cfg, n, tau, b, s):
+    """torch.profiler breakdown of one warm full-width LM IFL round."""
+    from repro_torch.core.ifl_spmd import init_ifl_state, make_ifl_round_step
+    from repro_torch.data.synthetic import SyntheticLM
+    from repro_torch.train.loop import _ifl_batch
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params, opt_state = init_ifl_state(cfg, n_clients=n, generator=gen,
+                                       device="cuda")
+    step = make_ifl_round_step(cfg, n_clients=n, tau=tau, lr_base=3e-3,
+                               lr_modular=3e-3)
+    stream = SyntheticLM(cfg.vocab_size, seed=0)
+    batches = [_ifl_batch(stream, cfg, n, tau, b, s, r, device="cuda")
+               for r in range(2)]
+
+    def one_round(i):
+        float(step(params, opt_state, batches[i])[2]["base_loss"])
+
+    one_round(0)
+    profile_run("lm ifl", lambda: one_round(1))
+    del params, opt_state
+
+
+# Card against CPU for the short LM IFL run at the reduced config: the same
+# params and tokens, fp32 on both sides; the card runs the attention
+# kernels, the CPU the reference's blocked path, and every product sums in
+# another order. The limit is set from the readings (PERF.md).
+LM_LOSS_TOL = 1e-4
+
+
+def lm_card_vs_cpu(small):
+    """Two IFL rounds of the reduced config (fp32, 2 layers) on the card
+    and on the CPU from the same init (drawn on the CPU) and tokens."""
+    from repro_torch.core.comm import tree_leaves
+    from repro_torch.core.ifl_spmd import init_ifl_state, make_ifl_round_step
+    from repro_torch.data.synthetic import SyntheticLM
+    from repro_torch.models.modules import tree_map
+    from repro_torch.train.loop import _ifl_batch
+
+    n, tau, b, s = 2, 2, 2, 128
+    gen = torch.Generator().manual_seed(0)
+    init, _ = init_ifl_state(small, n_clients=n, generator=gen, device="cpu")
+    stream = SyntheticLM(small.vocab_size, seed=0)
+    losses, final = {}, {}
+    for dev in ("cpu", "cuda"):
+        params = [tree_map(lambda a: a.to(dev).clone(), p) for p in init]
+        opt_state = [{"base": {}, "modular": {}} for _ in range(n)]
+        step = make_ifl_round_step(small, n_clients=n, tau=tau,
+                                   lr_base=3e-3, lr_modular=3e-3)
+        losses[dev] = []
+        for r in range(2):
+            m = step(params, opt_state,
+                     _ifl_batch(stream, small, n, tau, b, s, r,
+                                device=dev))[2]
+            losses[dev] += [float(m["base_loss"]), float(m["mod_loss"])]
+        final[dev] = [a.cpu() for a in tree_leaves(params)]
+    err = max(abs(a - c) for a, c in zip(losses["cuda"], losses["cpu"]))
+    p_err = max(float((a - c).abs().max())
+                for a, c in zip(final["cuda"], final["cpu"]))
+    check(all(np.isfinite(losses["cuda"])) and err <= LM_LOSS_TOL,
+          f"lm card vs CPU: losses {losses} differ by {err}")
+    print(f"[lm ifl] card vs CPU, {small.name} (fp32, 2 layers), N {n}, tau "
+          f"{tau}, B {b}, S {s}, 2 rounds, same init: losses "
+          f"{[round(x, 5) for x in losses['cuda']]}; max|card - cpu| "
+          f"{err:.2e} (tolerance {LM_LOSS_TOL}); params after the 2 rounds "
+          f"max|card - cpu| {p_err:.2e}", flush=True)
 
 
 def main() -> None:
@@ -349,6 +695,14 @@ def main() -> None:
           f"row, EF over 4 chained steps: codes, nibbles and indices "
           f"bitwise; float leaves and e' max|err| "
           f"{wire_err['wire_encode']:.3e} / {wire_err['wire_encode_ef']:.3e}",
+          flush=True)
+
+    attn_err = attn_checks(ops, ref)
+    print(f"[kernel] flash_attention / flash_attention_bwd vs plain at "
+          f"{len(ATTN_CASES)} cases x fp32, bf16: relative max|err| fwd "
+          f"{attn_err['all']['fwd']:.3e}, bwd {attn_err['all']['bwd']:.3e}; "
+          f"at the path's case (bf16) max|err| fwd "
+          f"{attn_err['path']['fwd']:.3e}, bwd {attn_err['path']['bwd']:.3e}",
           flush=True)
 
     # -- 4. full-width serve (the main path) ------------------------------
@@ -487,6 +841,14 @@ def main() -> None:
           f"{loss_err:.2e} (tolerance {IFL_LOSS_TOL})", flush=True)
     del runs
 
+    # -- 4e. LM IFL at full width through the training CLI ---------------
+    from repro_torch.launch import train as train_cli
+
+    lm = lm_train_phase(train_cli, ops, cfg, args.profile)
+
+    # -- 4f. the card against the CPU: LM IFL at the reduced config -------
+    lm_card_vs_cpu(cfg.reduced())
+
     # -- 5. times at the slice's shape ------------------------------------
     # 64 independent input sets (~1 MB of K/V each) cycle through the
     # 50 MB L2, as the cache of each layer arrives cold in a decode step.
@@ -557,6 +919,26 @@ def main() -> None:
             "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"],
             "library_ms": None,
+        })
+    at = attn_times(ops, ref)
+    for kname, key, err, replaces in (
+            ("flash_attention", "fwd", attn_err["path"]["fwd"],
+             "src/repro/kernels/flash_attention.py:167"),
+            # The JAX package has no backward kernel: jax.grad
+            # differentiates its jnp path, so nothing is replaced.
+            ("flash_attention_bwd", "bwd", attn_err["path"]["bwd"], None)):
+        kernels.append({
+            "name": kname,
+            "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+            "replaces": replaces,
+            "launches": lm["launches"][kname],
+            "max_abs_err": err,
+            "ms": at[key],
+            "plain_ms": at[key + "_plain"],
+            "bound_ms": at[key + "_bound"],
+            "bound_by": at[key + "_bound_by"],
+            "library_ms": at[key + "_sdpa"],
         })
     print(smi)
     print(json.dumps({"kernels": kernels}))

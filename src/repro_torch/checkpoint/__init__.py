@@ -5,7 +5,9 @@ from repro_torch.checkpoint.ckpt import (
     manifest_path,
     params_from_numpy,
     save_checkpoint,
+    stack_clients,
     unflatten,
+    unstack_clients,
 )
 
 __all__ = [
@@ -15,5 +17,7 @@ __all__ = [
     "manifest_path",
     "params_from_numpy",
     "save_checkpoint",
+    "stack_clients",
     "unflatten",
+    "unstack_clients",
 ]

@@ -82,6 +82,36 @@ def params_from_numpy(tree, *, device, dtype: Optional[torch.dtype] = None):
     return _to_tensor(tree, device, dtype)
 
 
+def unstack_clients(tree, *, device, dtype: Optional[torch.dtype] = None):
+    """A stacked-client tree (every leaf (N, ...), e.g. the reference's
+    ``init_ifl_state`` params or optimizer state as numpy) -> a list of
+    the N per-client trees of tensors on ``device`` that the port's LM
+    round step takes. A dict with no leaves (SGD's empty state) gives N
+    empty dicts."""
+    leaves = list(_flatten(tree).values())
+    n = len(leaves[0]) if leaves else None
+
+    def client(t, k):
+        if isinstance(t, dict):
+            return {key: client(v, k) for key, v in t.items()}
+        return _to_tensor(np.asarray(t)[k], device, dtype)
+
+    if n is None:
+        raise ValueError("unstack_clients: the tree has no leaves; pass "
+                         "the client count's list of empty states instead")
+    return [client(tree, k) for k in range(n)]
+
+
+def stack_clients(trees):
+    """Inverse of ``unstack_clients``: N per-client trees of tensors ->
+    one tree of numpy arrays with a leading (N,) dim (bf16 widened to
+    fp32), the reference's stacked layout."""
+    first = trees[0]
+    if isinstance(first, dict):
+        return {k: stack_clients([t[k] for t in trees]) for k in first}
+    return np.stack([_to_numpy(t) for t in trees])
+
+
 def manifest_path(path: str) -> str:
     """The JSON manifest that rides next to a checkpoint's .npz."""
     return (path[:-4] if path.endswith(".npz") else path) + ".json"

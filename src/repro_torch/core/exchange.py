@@ -19,9 +19,16 @@ topk, sketch and their ``ef(...)``) goes through
 card, the hand-written kernels; every other codec encodes with its plain
 ops on every device, the reference's rule.
 
+``SPMDFusionExchange`` is the one-card counterpart of the reference's
+SPMD backend: the wire block of the LM round step
+(``repro_torch.core.ifl_spmd``) over a stacked client dim, at full
+participation. On one card the 'client'-axis all-gather is the stacking
+of the N payloads, and the receivers decode them.
+
 Not ported yet (ROADMAP.md queue 1): the delta broadcast and its client
 mirrors, the population regime, snapshot/restore of the cache, and the
-SPMD backend.
+SPMD backend's partial participation (payload cache, ``max_staleness``)
+and host-side ``account_round``.
 """
 
 from __future__ import annotations
@@ -39,6 +46,8 @@ __all__ = [
     "CacheEntry",
     "FusionCache",
     "FusionExchange",
+    "SPMDFusionExchange",
+    "init_ef_state",
 ]
 
 
@@ -169,3 +178,80 @@ class FusionExchange(ExchangePlane):
         for _ in participants:
             self.down((payloads, Y))
         return Z, Y, entries
+
+
+_SPMD_TODO = ("ROADMAP.md queue 1, items 3b (partial participation, "
+              "staleness) and 4b (the SPMD trainer)")
+
+
+class SPMDFusionExchange(ExchangePlane):
+    """The fusion wire block of the LM round step over a stacked client
+    dim, on one card, at full participation.
+
+    ``wire(z, tokens, mask, cache, ef_state)`` takes the N clients'
+    fusion outputs stacked as z (N, Bc, S, d_fusion) and their tokens
+    (N, Bc, S). A codec with a wire scheme encodes all N clients' rows
+    in one ``wire_encode`` / ``wire_encode_ef`` call (the rows of a
+    row-wise scheme are independent, so this is the per-client encode;
+    the reference's fused path flattens the same axes), with z in fp32,
+    the kernel's input type (every scheme's plain encode upcasts to fp32
+    first). Every other codec encodes each client's z as it is. The
+    payloads, "gathered" (stacked), are decoded to z's dtype.
+    """
+
+    def __init__(self, codec: Union[str, Codec, None], *, n_clients: int,
+                 max_staleness: Optional[int] = None,
+                 broadcast: str = "full"):
+        if max_staleness is not None or broadcast != "full":
+            raise NotImplementedError(
+                f"max_staleness={max_staleness!r}, broadcast={broadcast!r}: "
+                f"only full participation with a full broadcast is ported "
+                f"({_SPMD_TODO})")
+        super().__init__()
+        self.codec = get_codec(codec)
+        self.n_clients = n_clients
+
+    def _encode_rows(self, z, ef_state):
+        """The fused encode of all rows -> (payload, ef') or None."""
+        zf = z.float()
+        if self.codec.has_state:
+            return self.codec.fused_encode_with_state(zf, ef_state)
+        payload = self.codec.fused_encode(zf)
+        return None if payload is None else (payload, ef_state)
+
+    def wire(self, z, tokens, mask, cache, ef_state):
+        """-> (zg, yg, valid, new_cache, ef_state'): the gathered decoded
+        fusion outputs (N, Bc, S, d_fusion) in z's dtype and their tokens,
+        ``valid`` and ``new_cache`` None (full participation), and the
+        EF residual (N, Bc, S, d_fusion) threaded through (``()`` for a
+        stateless codec)."""
+        if mask is not None or cache is not None:
+            raise NotImplementedError(
+                f"partial participation on the SPMD path ({_SPMD_TODO})")
+        shape = tuple(z.shape[1:])
+        out = self._encode_rows(z, ef_state)
+        if out is not None:
+            payload, ef_state = out
+            zg = self.codec.decode(payload, shape=tuple(z.shape),
+                                   dtype=z.dtype)
+            return zg, tokens, None, None, ef_state
+        payloads, efs = [], []
+        for k in range(z.shape[0]):
+            if self.codec.has_state:
+                p, e = self.codec.encode_with_state(z[k], ef_state[k])
+                efs.append(e)
+            else:
+                p = self.codec.encode(z[k])
+            payloads.append(p)
+        if self.codec.has_state:
+            ef_state = torch.stack(efs)
+        zg = torch.stack([self.codec.decode(p, shape=shape, dtype=z.dtype)
+                          for p in payloads])
+        return zg, tokens, None, None, ef_state
+
+
+def init_ef_state(codec, z_shape: Tuple[int, ...], *, device=None):
+    """Initial carried EF residual for ``make_ifl_round_step``: zeros of
+    the stacked fusion-output shape (N, Bc, S, d_fusion) for an
+    ``ef(...)`` codec, ``()`` for a stateless one."""
+    return get_codec(codec).init_state(tuple(z_shape), device=device)

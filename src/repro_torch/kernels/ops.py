@@ -5,8 +5,18 @@ tensor runs the plain PyTorch version (``ref.py``), a CUDA tensor
 launches the hand-written kernel or raises. There is no fallback and no
 flag that hides the kernel. Each kernel wrapper counts its launches in a
 plain int attribute (``flash_decode.launches``, ``wire_encode.launches``,
-``wire_encode_ef.launches``), so a run can show that its main path went
-through the kernel.
+``wire_encode_ef.launches``, ``flash_attention.launches``,
+``flash_attention_bwd.launches``), so a run can show that its main path
+went through the kernel.
+
+Full-sequence attention (``flash_attention``) is a
+``torch.autograd.Function`` on CUDA tensors: its forward launches the
+forward kernel and its backward the backward kernel
+(``csrc/flash_attention.cu``). The JAX package sends a sequence length
+that is not a multiple of 256 to its jnp path
+(``repro/models/attention.py:111 _pallas_eligible``); the port's kernel
+masks a partial last tile instead, so on the card every
+``blocked_attention`` call is a kernel launch, whatever S is.
 
 The wire-encode wrappers have one more rule, the JAX package's own
 (``repro/kernels/wire_fused.py:30-33``): a codec with no wire scheme
@@ -291,3 +301,135 @@ def wire_encode_ef(z: torch.Tensor, e: torch.Tensor, ef_codec):
 
 
 wire_encode_ef.launches = 0
+
+
+# ------------------------------------------------------ flash attention
+
+
+def _check_attn(name: str, q: torch.Tensor, k: torch.Tensor,
+                v: torch.Tensor) -> None:
+    dev = q.device
+    if dev.type != "cuda":
+        raise ValueError(f"{name} takes CUDA tensors, got {dev}")
+    if k.device != dev or v.device != dev:
+        raise ValueError(f"{name}: tensors on different devices")
+    if q.dtype not in _DTYPE_CODE or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise ValueError(f"{name}: dtypes {q.dtype}/{k.dtype}/{v.dtype}"
+                         " (float32 or bfloat16, all equal)")
+    if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
+        raise ValueError(f"{name}: shapes q {tuple(q.shape)} k "
+                         f"{tuple(k.shape)} v {tuple(v.shape)}")
+    B, S, H, hd = q.shape
+    KVH = k.shape[2]
+    if (k.shape[0] != B or k.shape[1] != S or k.shape[3] != hd
+            or H % KVH or hd not in _HEAD_DIMS or S < 1):
+        raise ValueError(f"{name}: q {tuple(q.shape)} and k "
+                         f"{tuple(k.shape)} are not (B, S, H, hd) / "
+                         f"(B, S, KVH, hd) with H % KVH == 0, hd in "
+                         f"{_HEAD_DIMS}, S >= 1")
+    if not all(t.is_contiguous() for t in (q, k, v)):
+        raise ValueError(f"{name}: tensors must be contiguous")
+
+
+def _attn_call(fn_name: str, *args) -> None:
+    lib = build.load("flash_attention")
+    fn = getattr(lib, fn_name)
+    fn.restype = ctypes.c_int
+    # pointers, then B, S, H, KVH, hd, window, dtype, then scale, stream
+    fn.argtypes = ([ctypes.c_void_p] * (len(args) - 9)
+                   + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p])
+    rc = fn(*args)
+    if rc != 0:
+        raise RuntimeError(f"{fn_name} launch failed (code {rc})")
+
+
+def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        *, window: int = -1, scale: Optional[float] = None):
+    """Launch the forward kernel on CUDA tensors q (B, S, H, hd), k, v
+    (B, S, KVH, hd) -> (o (B, S, H, hd) in q's dtype, lse (B, H, S)
+    fp32, each row's softmax logsumexp). Raises on anything the kernel
+    does not take. Counts in ``flash_attention.launches``."""
+    _check_attn("flash_attention", q, k, v)
+    B, S, H, hd = q.shape
+    scale = scale if scale is not None else 1.0 / math.sqrt(hd)
+    o = torch.empty_like(q)
+    lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        _attn_call("flash_attention_fwd", q.data_ptr(), k.data_ptr(),
+                   v.data_ptr(), o.data_ptr(), lse.data_ptr(), B, S, H,
+                   k.shape[2], hd, int(window), _DTYPE_CODE[q.dtype],
+                   float(scale), stream)
+    flash_attention.launches += 1
+    return o, lse
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
+                        *, window: int = -1, scale: Optional[float] = None):
+    """Launch the backward kernels (dQ with D = rowsum(dO * O), then dK
+    and dV) on the forward's tensors and dO -> (dq, dk, dv) in the
+    inputs' dtype. One call counts one launch of the backward."""
+    _check_attn("flash_attention_bwd", q, k, v)
+    B, S, H, hd = q.shape
+    if (o.shape != q.shape or do.shape != q.shape or o.dtype != q.dtype
+            or do.dtype != q.dtype or lse.shape != (B, H, S)
+            or lse.dtype != torch.float32
+            or not all(t.is_contiguous() and t.device == q.device
+                       for t in (o, do, lse))):
+        raise ValueError("flash_attention_bwd: o, dO must match q and lse "
+                         "be (B, H, S) fp32, all contiguous on q's device")
+    scale = scale if scale is not None else 1.0 / math.sqrt(hd)
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    dsum = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        _attn_call("flash_attention_bwd", q.data_ptr(), k.data_ptr(),
+                   v.data_ptr(), o.data_ptr(), do.data_ptr(),
+                   lse.data_ptr(), dsum.data_ptr(), dq.data_ptr(),
+                   dk.data_ptr(), dv.data_ptr(), B, S, H, k.shape[2], hd,
+                   int(window), _DTYPE_CODE[q.dtype], float(scale), stream)
+    flash_attention_bwd.launches += 1
+    return dq, dk, dv
+
+
+flash_attention_bwd.launches = 0
+
+
+class _FlashAttention(torch.autograd.Function):
+    """Forward kernel in ``forward``, backward kernel in ``backward``."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, window, scale):
+        o, lse = flash_attention_fwd(q, k, v, window=window, scale=scale)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.window, ctx.scale = window, scale
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do.contiguous(),
+                                         window=ctx.window, scale=ctx.scale)
+        return dq, dk, dv, None, None
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    window: int = -1,
+                    scale: Optional[float] = None) -> torch.Tensor:
+    """Causal (optionally sliding-window) attention over a full
+    sequence, the training path's dispatch point.
+
+    q: (B, S, H, hd); k, v: (B, S, KVH, hd), the model's layout, GQA
+    read directly (no repeated K/V). Returns (B, S, H, hd). CPU tensors
+    run ``ref.flash_attention_ref``; CUDA tensors run the kernels through
+    a ``torch.autograd.Function`` (contiguous, float32 or bfloat16, hd
+    in {64, 128}) or raise.
+    """
+    if q.device.type == "cpu":
+        return ref.flash_attention_ref(q, k, v, causal=True, window=window,
+                                       scale=scale)
+    return _FlashAttention.apply(q, k, v, window, scale)
+
+
+flash_attention.launches = 0

@@ -56,3 +56,57 @@ def wire_encode_ef_ref(z: torch.Tensor, e: torch.Tensor, ef_codec):
     """The plain version of the ``wire_encode_ef`` kernel: the EF codec's
     ``encode_with_state`` -> (payload, e')."""
     return ef_codec.encode_with_state(z, e)
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        *, causal: bool = True, window: int = -1,
+                        scale: Optional[float] = None) -> torch.Tensor:
+    """Plain causal (optionally sliding-window) softmax attention, the
+    plain version of the ``flash_attention`` kernel (a port of
+    ``repro/kernels/ref.py:79`` that takes GQA K/V directly).
+
+    q: (B, S, H, hd); k, v: (B, S, KVH, hd) with H % KVH == 0, the
+    model's layout. Returns (B, S, H, hd) in ``q.dtype``.
+
+    Scores, softmax and the weighted sum are fp32. The probabilities are
+    rounded to v's dtype before the PV product, as the TPU kernel does;
+    the rounding is straight-through for autograd, so the gradient is
+    the one of the unrounded softmax, which is what the backward kernel
+    computes (FlashAttention-2 recomputes P in fp32). A fully masked row
+    gives zeros, as the TPU kernel flushes them.
+    """
+    B, S, H, hd = q.shape
+    g = H // k.shape[2]
+    scale = scale if scale is not None else 1.0 / math.sqrt(hd)
+    kf = k.float().repeat_interleave(g, dim=2)
+    vf = v.float().repeat_interleave(g, dim=2)
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), kf) * scale
+    qi = torch.arange(S, device=q.device)[:, None]
+    ki = torch.arange(S, device=q.device)[None, :]
+    mask = torch.ones((S, S), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= ki <= qi
+    if window > 0:
+        mask &= ki > qi - window
+    s = torch.where(mask, s, NEG)
+    m = s.amax(dim=-1, keepdim=True).detach()
+    p = torch.exp(s - m) * mask
+    denom = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
+    p = p / denom
+    p = p + (p.to(v.dtype).float() - p).detach()
+    out = torch.einsum("bhqk,bkhd->bqhd", p, vf)
+    return out.to(q.dtype)
+
+
+def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, do: torch.Tensor, *,
+                            window: int = -1,
+                            scale: Optional[float] = None):
+    """The plain version of the ``flash_attention_bwd`` kernel: autograd
+    of ``flash_attention_ref`` (causal) -> (dq, dk, dv) in the inputs'
+    dtypes. dk and dv sum the G query heads that share a KV head."""
+    with torch.enable_grad():
+        qa, ka, va = (t.detach().requires_grad_() for t in (q, k, v))
+        out = flash_attention_ref(qa, ka, va, causal=True, window=window,
+                                  scale=scale)
+        return torch.autograd.grad(out, (qa, ka, va), do)

@@ -1,6 +1,14 @@
-"""GQA self-attention for decode: init, QKV projection, the KV cache,
-and the single-token decode step. Full-sequence attention, MLA,
-cross-attention and M-RoPE wait for later slices.
+"""GQA self-attention: init, QKV projection, full-sequence causal
+attention for training (``blocked_attention``, ``attn_forward``), the KV
+cache and the single-token decode step. MLA, cross-attention and M-RoPE
+wait for later slices.
+
+Full-sequence attention dispatches on the device of its tensors: on the
+CPU it is the reference's blocked path (a loop over ``q_block`` query
+tiles with an fp32 softmax per tile, windowed layers slicing K/V to
+``window + q_block``), so the CPU parity tests compare like with like;
+on the card every call is the ``flash_attention`` kernel pair
+(``kernels/ops.py``), forward and backward.
 
 Every batch row carries its own position: where the JAX package vmaps a
 B=1 step with a scalar ``pos`` over the W slots of a serving lane, the
@@ -11,6 +19,7 @@ the validity mask and the RoPE positions are therefore all per row.
 
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
@@ -44,6 +53,75 @@ def _project_qkv(p, cfg: ModelConfig, spec: LayerSpec, x, positions):
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
     return q, k, v
+
+
+# The mask value of the reference's blocked path (attention.py:29).
+NEG_INF = -0.7 * float(torch.finfo(torch.float32).max)
+
+
+def _gqa_block(q, k, v, q_idx, k_idx, *, window: int, scale: float):
+    """One query block against a KV span, fp32 softmax.
+
+    q: (B, qb, KVH, G, hd); k, v: (B, L, KVH, hd); q_idx: (qb,) and
+    k_idx: (L,) the global token indices of the rows.
+    """
+    s = torch.einsum("bqkgh,bskh->bkgqs", q, k).float() * scale
+    mask = k_idx[None, :] <= q_idx[:, None]
+    if window > 0:
+        mask &= k_idx[None, :] > q_idx[:, None] - window
+    s = torch.where(mask[None, None, None], s, NEG_INF)
+    m = torch.amax(s, dim=-1, keepdim=True)
+    p = torch.exp(s - m.detach())
+    p = p / (torch.sum(p, dim=-1, keepdim=True) + 1e-30)
+    return torch.einsum("bkgqs,bskh->bqkgh", p.to(v.dtype), v)
+
+
+def blocked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                      window: int = -1, q_block: int = 512,
+                      scale: Optional[float] = None) -> torch.Tensor:
+    """Causal (optionally sliding-window) attention over a full
+    sequence. q: (B, S, H, hd); k, v: (B, S, KVH, hd) -> (B, S, H, hd).
+
+    CUDA tensors: the ``flash_attention`` kernels, for any S. CPU
+    tensors: the reference's blocked path, which needs S divisible by
+    ``min(q_block, S)``."""
+    if q.device.type == "cuda":
+        return kops.flash_attention(q.contiguous(), k.contiguous(),
+                                    v.contiguous(), window=window,
+                                    scale=scale)
+    B, S, H, hd = q.shape
+    kvh = k.shape[2]
+    g = H // kvh
+    scale = scale if scale is not None else 1.0 / math.sqrt(hd)
+    qb = min(q_block, S)
+    n_blocks = S // qb
+    if n_blocks * qb != S:
+        raise ValueError(f"seq {S} not divisible by q_block {qb}")
+    qr = q.reshape(B, n_blocks, qb, kvh, g, hd)
+    ar = torch.arange(S, device=q.device)
+    outs = []
+    for qi in range(n_blocks):
+        q_start = qi * qb
+        q_idx = ar[q_start:q_start + qb]
+        if window > 0:
+            L = min(S, window + qb)
+            start = min(max(q_start + qb - L, 0), S - L)
+            ks, vs, k_idx = (k[:, start:start + L], v[:, start:start + L],
+                             ar[start:start + L])
+        else:
+            ks, vs, k_idx = k, v, ar
+        outs.append(_gqa_block(qr[:, qi], ks, vs, q_idx, k_idx,
+                               window=window, scale=scale))
+    return torch.stack(outs, dim=1).reshape(B, S, H, -1)
+
+
+def attn_forward(p, cfg: ModelConfig, spec: LayerSpec, x, positions):
+    """Full-sequence causal self-attention. x: (B, S, d); positions:
+    (B, S) int."""
+    B, S, _ = x.shape
+    q, k, v = _project_qkv(p, cfg, spec, x, positions)
+    out = blocked_attention(q, k, v, window=spec.window, q_block=cfg.q_block)
+    return nn.linear(p["wo"], out.reshape(B, S, -1))
 
 
 def init_attn_cache(cfg: ModelConfig, spec: LayerSpec, batch: int,

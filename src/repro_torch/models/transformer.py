@@ -1,5 +1,7 @@
-"""LM assembly for decode: layer program -> {base, modular} params, the
-composed decode step and the ragged cached prefill.
+"""LM assembly: layer program -> {base, modular} params; the
+full-sequence forward and losses that training runs (``base_forward``,
+``modular_forward``, ``lm_loss``); the composed decode step and the
+ragged cached prefill that serving runs.
 
 The parameter tree is the JAX package's, key for key:
 
@@ -12,10 +14,18 @@ stacked group-major too, ``(num_groups, B, ...)``, so one layer's K/V
 cache is a contiguous ``(B, L, KVH, hd)`` block, the layout the decode
 kernel reads.
 
+The full-sequence forward checkpoints as the reference's
+``jax.checkpoint`` does (``cfg.remat``: 'group' recomputes each group's
+forward inside the backward, 'layer' each layer's, 'none' keeps every
+activation), with ``torch.utils.checkpoint`` in its non-reentrant form.
+
 This slice covers dense GQA decoders (the layer program with 'attn'
 mixers and dense or no FFN, RoPE or NoPE, sliding windows, rmsnorm /
 layernorm / nonparam_ln). Every other family raises NotImplementedError
-naming the ROADMAP item that ports it.
+naming the ROADMAP item that ports it. Those families are also the only
+ones with an auxiliary loss (MoE routing) or extra inputs (images,
+encoder frames, MTP), so the port's forward functions return just their
+tensors where the reference returns ``(..., aux)`` with aux == 0 here.
 """
 
 from __future__ import annotations
@@ -23,10 +33,17 @@ from __future__ import annotations
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.config import LayerSpec, ModelConfig
 from repro_torch.models import modules as nn
-from repro_torch.models.attention import attn_decode, init_attn, init_attn_cache
+from repro_torch.models.attention import (
+    attn_decode,
+    attn_forward,
+    init_attn,
+    init_attn_cache,
+)
 from repro_torch.models.mlp import init_mlp, mlp_forward
 
 Params = Dict[str, Any]
@@ -83,6 +100,16 @@ def init_layer(generator, cfg: ModelConfig, spec: LayerSpec, *, device=None,
     return p
 
 
+def apply_layer(p, cfg: ModelConfig, spec: LayerSpec, x, positions):
+    """One layer over a full sequence. x: (B, S, d); positions: (B, S)."""
+    h = nn.apply_norm(p["norm1"], x, cfg.norm)
+    x = x + attn_forward(p["attn"], cfg, spec, h, positions)
+    if spec.ffn == "dense":
+        x = x + mlp_forward(p["ffn"], nn.apply_norm(p["norm2"], x, cfg.norm),
+                            cfg.act)
+    return x
+
+
 def decode_layer(p, cfg: ModelConfig, spec: LayerSpec, x, lcache, pos,
                  live=None):
     h = nn.apply_norm(p["norm1"], x, cfg.norm)
@@ -97,6 +124,43 @@ def init_layer_cache(cfg: ModelConfig, spec: LayerSpec, batch: int,
                      cache_len: int, dtype, *, device=None, lead=()) -> Params:
     return {"mix": init_attn_cache(cfg, spec, batch, cache_len, dtype,
                                    device=device, lead=lead)}
+
+
+def apply_group(p, cfg: ModelConfig, pattern, x, positions):
+    for i, spec in enumerate(pattern):
+        x = apply_layer(p[f"l{i}"], cfg, spec, x, positions)
+    return x
+
+
+def _remat(fn, *args):
+    """``fn(*args)``, recomputed in the backward when autograd records
+    (the reference's ``jax.checkpoint``)."""
+    if torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
+
+
+def scan_groups(groups_p, cfg: ModelConfig, pattern, n_groups: int, x,
+                positions):
+    """The stacked groups over a full sequence, one after another
+    (``lax.scan`` in JAX). remat='group' checkpoints each group's body,
+    remat='layer' each layer, remat='none' nothing."""
+    # One unbind per stacked leaf: its backward stacks the groups'
+    # gradients once, where indexing each group would scatter every
+    # group's gradient into a zeroed copy of the whole stack.
+    per_group = nn.tree_map(lambda a: a.unbind(0), groups_p)
+    for g in range(n_groups):
+        gp = nn.tree_map(lambda t: t[g], per_group)
+        if cfg.remat == "group":
+            x = _remat(lambda p_, x_: apply_group(p_, cfg, pattern, x_,
+                                                  positions), gp, x)
+        elif cfg.remat == "layer":
+            for i, spec in enumerate(pattern):
+                x = _remat(lambda p_, x_, spec=spec: apply_layer(
+                    p_, cfg, spec, x_, positions), gp[f"l{i}"], x)
+        else:
+            x = apply_group(gp, cfg, pattern, x, positions)
+    return x
 
 
 def _decode_groups(groups, caches, cfg: ModelConfig, pattern, n_groups: int,
@@ -147,6 +211,96 @@ def init_lm(cfg: ModelConfig, *, generator: torch.Generator,
     modular["lm_head"] = nn.init_linear(generator, cfg.d_model,
                                         cfg.vocab_size, **kw)
     return {"base": base, "modular": modular}
+
+
+# =========================================================================
+# Full-sequence forward and losses (training)
+# =========================================================================
+
+
+def _positions(cfg: ModelConfig, batch_size: int, seq: int, device):
+    return torch.arange(seq, device=device)[None].expand(batch_size, seq)
+
+
+def base_forward(base: Params, cfg: ModelConfig, batch) -> torch.Tensor:
+    """-> z (B, S, d_fusion) in the compute dtype: the fusion-layer
+    output that IFL shares, the only activation crossing the client
+    boundary. batch: {"tokens": (B, S) int}."""
+    pre, bp, bg, _, _ = cfg._resolved_program()
+    tokens = batch["tokens"]
+    B, S = tokens.shape
+    cdt = nn.dtype_of(cfg.compute_dtype)
+    x = nn.embedding(base["embed"], tokens, compute_dtype=cdt)
+    positions = _positions(cfg, B, S, tokens.device)
+    for i, spec in enumerate(pre):
+        x = apply_layer(base["prefix"][f"l{i}"], cfg, spec, x, positions)
+    if bg:
+        x = scan_groups(base["groups"], cfg, bp, bg, x, positions)
+    return nn.linear(base["fusion_in"], x).to(cdt)
+
+
+def modular_trunk(mod: Params, cfg: ModelConfig, z) -> torch.Tensor:
+    """z -> the final normed hidden state: everything above the fusion
+    interface except the LM head."""
+    _, _, _, mp, mg = cfg._resolved_program()
+    B, S, _ = z.shape
+    x = nn.linear(mod["fusion_out"], z.to(nn.dtype_of(cfg.compute_dtype)))
+    if mg:
+        x = scan_groups(mod["groups"], cfg, mp, mg, x,
+                        _positions(cfg, B, S, z.device))
+    return nn.apply_norm(mod["final_norm"], x, cfg.norm)
+
+
+def _head_logits(mod: Params, cfg: ModelConfig, x) -> torch.Tensor:
+    return nn.linear(mod["lm_head"], x).float()
+
+
+def modular_forward(mod: Params, cfg: ModelConfig, z) -> torch.Tensor:
+    """z: (B, S, d_fusion) -> logits (B, S, V) fp32."""
+    return _head_logits(mod, cfg, modular_trunk(mod, cfg, z))
+
+
+def chunked_ce(mod: Params, cfg: ModelConfig, h, tokens, *, offset: int,
+               start: int) -> torch.Tensor:
+    """Mean next-token CE without materializing the (tokens, vocab)
+    logits: ``cfg.ce_chunk`` positions at a time, each chunk's head
+    matmul and softmax recomputed in the backward."""
+    B, S, _ = h.shape
+    C = cfg.ce_chunk
+    T = S - offset - start
+    hs = h[:, start:start + T]
+    tgt = tokens[:, start + offset:start + offset + T]
+
+    def chunk_nll(hc, tc):
+        lp = F.log_softmax(_head_logits(mod, cfg, hc), dim=-1)
+        return -torch.gather(lp, -1, tc[..., None].long()).sum()
+
+    total = torch.zeros((), dtype=torch.float32, device=h.device)
+    for c0 in range(0, T, C):
+        total = total + _remat(chunk_nll, hs[:, c0:c0 + C],
+                               tgt[:, c0:c0 + C])
+    return total / (B * T)
+
+
+def lm_apply(params: Params, cfg: ModelConfig, batch) -> torch.Tensor:
+    z = base_forward(params["base"], cfg, batch)
+    return modular_forward(params["modular"], cfg, z)
+
+
+def _next_token_ce(logits, tokens, offset: int, start: int) -> torch.Tensor:
+    """Mean CE of predicting tokens[t + offset] from position t."""
+    lp = F.log_softmax(logits[:, start:logits.shape[1] - offset], dim=-1)
+    tgt = tokens[:, start + offset:]
+    return -torch.gather(lp, -1, tgt[..., None].long()).mean()
+
+
+def lm_loss(params: Params, cfg: ModelConfig, batch) -> torch.Tensor:
+    if cfg.ce_chunk:
+        z = base_forward(params["base"], cfg, batch)
+        h = modular_trunk(params["modular"], cfg, z)
+        return chunked_ce(params["modular"], cfg, h, batch["tokens"],
+                          offset=1, start=0)
+    return _next_token_ce(lm_apply(params, cfg, batch), batch["tokens"], 1, 0)
 
 
 # =========================================================================

@@ -1,5 +1,6 @@
 """The port's CUDA kernels (flash decode, wire encode with and without
-EF) against their plain PyTorch versions, on the card. Marked ``cuda``:
+EF, flash attention forward and backward) against their plain PyTorch
+versions, on the card. Marked ``cuda``:
 each test skips where no card is available. This file imports no JAX,
 so it runs on the machine with the card:
 
@@ -154,3 +155,99 @@ def test_wire_encode_rejects_bad_inputs_on_card():
         ops.wire_encode_ef(z, torch.zeros(4, 432, device="cuda"), ef)
     with pytest.raises(ValueError):
         ops.wire_encode_ef(z, torch.zeros(8, 432), ef)    # e on the CPU
+
+
+# ------------------------------------------------------- flash attention
+
+# (B, S, H, KVH, hd, window): the LM path's shape, GQA at hd 128, partial
+# last tiles (S 200, 77, 1), sliding windows.
+ATTN = [(2, 512, 16, 16, 64, -1), (2, 256, 8, 4, 128, -1),
+        (2, 200, 4, 4, 64, -1), (1, 130, 4, 2, 64, 48),
+        (3, 77, 6, 3, 128, 16), (1, 1, 2, 1, 64, -1)]
+# Relative to max(1, max |plain|): fp32 sums in another order; in bf16 the
+# kernel rounds the online softmax's unnormalized p, the plain version
+# the normalized p, and outputs are rounded to bf16.
+ATTN_TOL = {torch.float32: (2e-5, 1e-4), torch.bfloat16: (2e-2, 3e-2)}
+
+
+def _rel(got, want):
+    want = want.float()
+    return float((got.float() - want).abs().max()
+                 / max(1.0, float(want.abs().max())))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,H,KVH,hd,window", ATTN)
+def test_flash_attention_kernels_match_plain_on_card(B, S, H, KVH, hd,
+                                                     window, dtype):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    rng = np.random.default_rng(S + hd)
+    q, k, v, do = (torch.from_numpy(rng.standard_normal(shape).astype(
+        np.float32)).cuda().to(dtype) for shape in (
+        (B, S, H, hd), (B, S, KVH, hd), (B, S, KVH, hd), (B, S, H, hd)))
+    before = (ops.flash_attention.launches, ops.flash_attention_bwd.launches)
+    qa, ka, va = (t.clone().requires_grad_() for t in (q, k, v))
+    out = ops.flash_attention(qa, ka, va, window=window)
+    grads = torch.autograd.grad(out, (qa, ka, va), do)
+    torch.cuda.synchronize()
+    assert (ops.flash_attention.launches,
+            ops.flash_attention_bwd.launches) == (before[0] + 1,
+                                                  before[1] + 1)
+    fwd_tol, bwd_tol = ATTN_TOL[dtype]
+    assert _rel(out, ref.flash_attention_ref(q, k, v, window=window)) \
+        <= fwd_tol
+    want = ref.flash_attention_bwd_ref(q, k, v, do, window=window)
+    for g, w, name in zip(grads, want, "qkv"):
+        assert g.dtype == dtype and g.shape == w.shape
+        assert _rel(g, w) <= bwd_tol, f"d{name}"
+    # Deterministic: no atomics, the same bits on a second run.
+    again = ops.flash_attention_bwd(q, k, v, *ops.flash_attention_fwd(
+        q, k, v, window=window), do, window=window)
+    for a, b in zip(again, grads):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_lm_loss_on_card_launches_attention_kernels_per_layer():
+    """Every layer's attention is a kernel launch on the card: under
+    remat 'group' the forward kernel runs twice per layer (the backward
+    recomputes the checkpointed group), the backward kernel once."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from repro_torch.configs import get_config
+    from repro_torch.core.ifl_spmd import value_and_grad
+    from repro_torch.models.transformer import init_lm, lm_loss
+
+    cfg = get_config("qwen1.5-0.5b").reduced().replace(
+        compute_dtype="bfloat16", remat="group")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = init_lm(cfg, generator=gen, device="cuda")
+    tokens = torch.randint(0, cfg.vocab_size, (2, 100), device="cuda")
+    before = (ops.flash_attention.launches, ops.flash_attention_bwd.launches)
+    loss, grads = value_and_grad(lm_loss, params, cfg, {"tokens": tokens})
+    torch.cuda.synchronize()
+    assert torch.isfinite(loss)
+    L = cfg.num_layers
+    assert (ops.flash_attention.launches - before[0],
+            ops.flash_attention_bwd.launches - before[1]) == (2 * L, L)
+
+
+@pytest.mark.cuda
+def test_flash_attention_rejects_bad_inputs_on_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    q = torch.zeros((1, 8, 4, 64), device="cuda")
+    k = torch.zeros((1, 8, 2, 64), device="cuda")
+    with pytest.raises(ValueError):
+        ops.flash_attention(q.half(), k.half(), k.half())          # dtype
+    with pytest.raises(ValueError):
+        ops.flash_attention(q[..., :32].contiguous(),
+                            k[..., :32].contiguous(),
+                            k[..., :32].contiguous())              # hd 32
+    with pytest.raises(ValueError):
+        ops.flash_attention(q, k.transpose(1, 2), k.transpose(1, 2))
+    with pytest.raises(ValueError):
+        ops.flash_attention(q, torch.zeros((1, 8, 3, 64), device="cuda"),
+                            torch.zeros((1, 8, 3, 64), device="cuda"))

@@ -27,6 +27,8 @@ def test_import_loads_no_jax_and_no_reference_module():
         "import repro_torch.api.schemes, repro_torch.api.spec\n"
         "import repro_torch.data.images, repro_torch.data.dirichlet\n"
         "import repro_torch.models.small, repro_torch.launch.quickstart\n"
+        "import repro_torch.core.ifl_spmd, repro_torch.optim\n"
+        "import repro_torch.train.loop, repro_torch.launch.train\n"
         "assert 'jax' not in sys.modules, 'jax loaded'\n"
         "bad = [m for m in sys.modules if m == 'repro' "
         "or m.startswith('repro.')]\n"
