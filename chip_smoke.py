@@ -4,7 +4,7 @@
 
 Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``,
 holds each against its plain PyTorch version on the card, and drives the
-port's two main paths through the entry points a user calls:
+port's main paths through the entry points a user calls:
 
   * serving: full-width qwen1.5-0.5b to 4 tenants through the serving
     engine (``python -m repro_torch.launch.serve --no-reduced``), the
@@ -19,7 +19,15 @@ port's two main paths through the entry points a user calls:
   * LM training: IFL on full-width qwen1.5-0.5b, 4 clients, tau 2, B 2,
     S 512, 3 rounds, through ``python -m repro_torch.launch.train --arch
     qwen1.5-0.5b --mode ifl``, and 3 steps of ``--mode dp``, the path of
-    the ``flash_attention`` / ``flash_attention_bwd`` kernels.
+    the ``flash_attention`` / ``flash_attention_bwd`` kernels;
+  * the fused wire path at the client boundary: Table-II clients 2, 3
+    and 4 at B 32 on synthetic KMNIST run their base block up to the
+    fusion FC, then ``ops.fusion_proj_encode`` (and, under int8_row,
+    ``ops.fusion_proj_quant``) under int8_row and ef(int4); every payload
+    goes through ``ops.decode_proj`` into each modular block's first FC
+    and through the rest of the block by ``ops.fusion_proj``, the path
+    of the ``fusion_proj`` / ``fusion_proj_quant`` /
+    ``fusion_proj_encode`` / ``decode_proj`` kernels.
 
 It checks each path's results, compares short runs on the card with the
 same runs on the CPU, and times each kernel at the shapes its path gives
@@ -52,6 +60,9 @@ import torch
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
+# What "agree" means for two payloads of one codec (numpy only), shared
+# with the tests.
+sys.path.insert(0, str(ROOT / "tests"))
 
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, dense bf16 FLOP/s and
 # fp32 FLOP/s outside the tensor cores.
@@ -416,16 +427,19 @@ def expected_attn_launches(cfg, *, steps_full, steps_mod, fwd_only):
     return fwd, bwd
 
 
+def counted(ops):
+    return (ops.flash_decode, ops.wire_encode, ops.wire_encode_ef,
+            ops.flash_attention, ops.flash_attention_bwd, ops.fusion_proj,
+            ops.fusion_proj_quant, ops.fusion_proj_encode, ops.decode_proj)
+
+
 def reset_counts(ops) -> None:
-    for fn in (ops.flash_decode, ops.wire_encode, ops.wire_encode_ef,
-               ops.flash_attention, ops.flash_attention_bwd):
+    for fn in counted(ops):
         fn.launches = 0
 
 
 def launch_counts(ops):
-    return {fn.__name__: fn.launches for fn in (
-        ops.flash_decode, ops.wire_encode, ops.wire_encode_ef,
-        ops.flash_attention, ops.flash_attention_bwd)}
+    return {fn.__name__: fn.launches for fn in counted(ops)}
 
 
 def ifl_run(codec, rounds, *, device, tau=10, participation="full",
@@ -621,6 +635,399 @@ def lm_card_vs_cpu(small):
           f"max|card - cpu| {p_err:.2e}", flush=True)
 
 
+# ------------------------------------------------- the fused wire path
+
+# The fused wire path's kernels against their plain version (cuBLAS and
+# the codec): fp32 floats within FUSED_TOL of the tensor's largest
+# magnitude (the products sum in another order); bf16 outputs within
+# 2^-7 (one bf16 rounding of values that may differ in their last fp32
+# bits); integer codes within the JAX package's flip budget for these
+# kernels (tests/test_wire_fused.py:215-233, tests/_wire_budget.py):
+# fewer than 2% differ, each by one step; top-k decoded rows within one
+# quantum. Kernel against kernel (csrc/fusion_proj.cu) is bitwise.
+FUSED_TOL = 1e-5
+BF16_TOL = 2.0 ** -7
+D_FUSION = 432
+# Table-II: the fusion FC of clients 2, 3, 4 (K -> 432, relu); the other
+# FCs of the path (client 4's base, the modular blocks after their first).
+FUSION_K = {2: 1568, 3: 784, 4: 512}
+PATH_FCS = [(784, 1024), (1024, 512), (256, 128), (128, 64), (64, 10),
+            (128, 10)]
+LM_PROJ = (4096, 4096, 2048)
+
+
+def proj_inputs(M, K, N, seed, dtype=torch.float32, zero_row=True):
+    """x (M, K) with an all-zero row, w (K, N) at 1/sqrt(K), b (N,)."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn((M, K), generator=gen, device="cuda")
+    if zero_row:
+        x[min(3, M - 1)] = 0.0
+    w = torch.randn((K, N), generator=gen, device="cuda") / math.sqrt(K)
+    b = 0.1 * torch.randn((N,), generator=gen, device="cuda")
+    return x.to(dtype), w.to(dtype), b
+
+
+def same_payload(a, b, label):
+    check(sorted(a) == sorted(b) and all(torch.equal(a[k], b[k]) for k in b),
+          f"{label}: not bitwise equal")
+
+
+def decoded_err(codec, got, want, shape) -> float:
+    return float((codec.decode(got, shape=shape)
+                  - codec.decode(want, shape=shape)).abs().max())
+
+
+def fused_checks(ops, ref, get_codec):
+    """The four kernels against their plain versions and against each
+    other (bitwise), at the path's shapes, the Fig-2 (1024, 432, 432), a
+    ragged (33, 433, 433) and LM width for fusion_proj; every scheme, and
+    ef(int8_row) / ef(int4) over 3 chained steps. -> max |err| of each
+    kernel at the path's shapes, and the codes compared and flipped."""
+    import _wire_budget as budget
+
+    errs = dict.fromkeys(("fusion_proj", "fusion_proj_quant",
+                          "fusion_proj_encode", "decode_proj"), 0.0)
+    n_codes = n_flips = 0
+    path = {(32, k, n) for k, n in PATH_FCS}
+    cases = ([(32, k, n, "relu") for k, n in PATH_FCS]
+             + [(32, k, D_FUSION, "relu") for k in FUSION_K.values()]
+             + [(1024, 432, 432, "none"), (33, 433, 433, "silu"),
+                (*LM_PROJ, "relu")])
+    for M, K, N, act in cases:
+        for dtype in (torch.float32, torch.bfloat16):
+            x, w, b = proj_inputs(M, K, N, seed=K + N, dtype=dtype)
+            got = ops.fusion_proj(x, w, b, act)
+            want = ref.fusion_proj_ref(x, w, b, act)
+            torch.cuda.synchronize()
+            check(got.dtype == dtype, f"fusion_proj dtype {got.dtype}")
+            err = budget.floats_close(
+                got.float(), want.float(), FUSED_TOL if dtype == torch.float32
+                else BF16_TOL, f"fusion_proj ({M},{K},{N}) {act} "
+                f"{str(dtype)[6:]}")
+            if (M, K, N) in path and dtype == torch.float32:
+                errs["fusion_proj"] = max(errs["fusion_proj"], err)
+    enc_cases = [(32, k, D_FUSION, True) for k in FUSION_K.values()] + [
+        (1024, 432, 432, False), (33, 433, 433, False)]
+    for M, K, N, with_bias in enc_cases:
+        on_path = (M, N) == (32, D_FUSION)
+        x, w, b = proj_inputs(M, K, N, seed=M + K)
+        b = b if with_bias else None   # no bias: the zero row of x stays zero
+        y = ops.fusion_proj(x, w, b, "relu")
+        for scheme in WIRE_SCHEMES:
+            codec = get_codec(scheme)
+            label = f"fusion_proj_encode {scheme} ({M},{K},{N})"
+            p = ops.fusion_proj_encode(x, w, b, "relu", codec=codec)
+            same_payload(p, ops.wire_encode(y, codec), label + " vs wire_encode")
+            plain = ref.fusion_proj_encode_ref(x, w, b, "relu", codec=codec)
+            flips = budget.payload_close(scheme, p, plain, N, FUSED_TOL,
+                                         label)
+            n_codes += flips.size
+            n_flips += int(flips.sum())
+            if on_path:
+                errs["fusion_proj_encode"] = max(
+                    errs["fusion_proj_encode"],
+                    decoded_err(codec, p, plain, (M, N)))
+            if scheme == "int8_row":
+                q, s = ops.fusion_proj_quant(x, w, b, "relu")
+                same_payload({"q": q, "scale": s}, p, "fusion_proj_quant")
+                if on_path:
+                    errs["fusion_proj_quant"] = max(
+                        errs["fusion_proj_quant"],
+                        decoded_err(codec, {"q": q, "scale": s}, plain,
+                                    (M, N)))
+        for scheme in ("int8_row", "int4"):
+            ef = get_codec(f"ef({scheme})")
+            e = torch.zeros((M, N), device="cuda")
+            for t in range(3):
+                xt, _, _ = proj_inputs(M, K, N, seed=100 * t + K)
+                label = f"fusion_proj_encode ef({scheme}) ({M},{K},{N}) step {t}"
+                p, e_got = ops.fusion_proj_encode(xt, w, b, "relu", codec=ef,
+                                                  ef_state=e)
+                want, e_want = ops.wire_encode_ef(
+                    ops.fusion_proj(xt, w, b, "relu"), e, ef)
+                same_payload(p, want, label + " vs wire_encode_ef")
+                check(torch.equal(e_got, e_want), f"{label}: e' not bitwise")
+                plain, e_plain = ref.fusion_proj_encode_ref(
+                    xt, w, b, "relu", codec=ef, e=e)
+                flips = budget.payload_close(scheme, p, plain, N, FUSED_TOL,
+                                             label)
+                budget.residual_close(e_got, e_plain, flips, FUSED_TOL,
+                                      f"{label} e'")
+                n_codes += flips.size
+                n_flips += int(flips.sum())
+                e = e_got
+    dec_cases = [(32, 432, n) for n in (256, 128, 10)] + [
+        (1024, 432, 432), (33, 433, 433)]
+    for M, d, N in dec_cases:
+        _, w, b = proj_inputs(1, d, N, seed=d + N)
+        for scheme in WIRE_SCHEMES:
+            codec = get_codec(scheme)
+            p = codec.encode(wire_inputs(M, d, seed=M + N))
+            label = f"decode_proj {scheme} ({M},{d})->{N}"
+            got = ops.decode_proj(p, w, b, "relu", codec=codec, shape=(M, d))
+            check(torch.equal(got, ops.fusion_proj(
+                codec.decode(p, shape=(M, d)), w, b, "relu")),
+                f"{label}: not fusion_proj of the decode, bitwise")
+            err = budget.floats_close(got, ref.decode_proj_ref(
+                p, w, b, "relu", codec=codec, shape=(M, d)), FUSED_TOL, label)
+            if M == 32:
+                errs["decode_proj"] = max(errs["decode_proj"], err)
+    torch.cuda.synchronize()
+    return errs, n_codes, n_flips
+
+
+def boundary_forward(ops, small, models, cid, x, codec, e):
+    """One client boundary: client ``cid``'s base block up to its fusion
+    FC (convolutions in torch, FCs through ``ops.fusion_proj``), the
+    fusion FC and the wire encode in ``ops.fusion_proj_encode``, and each
+    modular block's first FC with the decode in ``ops.decode_proj``, the
+    rest of the block through ``ops.fusion_proj``.
+    -> (h, payload, e', logits of each modular block, calls by kernel)."""
+    calls = dict.fromkeys(("fusion_proj", "fusion_proj_quant",
+                           "fusion_proj_encode", "decode_proj"), 0)
+    params = models[cid]
+    h = x
+    for p, d in zip(params["base"][:-1], small.CLIENT_ARCHS[cid]["base"][:-1]):
+        if d[0] == "conv":
+            h = small._conv_pool_relu(p, h)
+        else:
+            h = ops.fusion_proj(h.reshape(h.shape[0], -1), p["w"], p["b"],
+                                "relu")
+            calls["fusion_proj"] += 1
+    h = h.reshape(h.shape[0], -1)
+    last = params["base"][-1]
+    out = ops.fusion_proj_encode(h, last["w"], last["b"], "relu", codec=codec,
+                                 ef_state=e)
+    calls["fusion_proj_encode"] += 1
+    payload, e_new = out if e is not None else (out, None)
+    if codec.name == "int8_row":
+        q, s = ops.fusion_proj_quant(h, last["w"], last["b"], "relu")
+        calls["fusion_proj_quant"] += 1
+        same_payload({"q": q, "scale": s}, payload, f"client {cid} quant")
+    logits = {}
+    for mid, mp in models.items():
+        layers = mp["modular"]
+        acts = ["relu"] * (len(layers) - 1) + ["none"]
+        y = ops.decode_proj(payload, layers[0]["w"], layers[0]["b"], acts[0],
+                            codec=codec, shape=(x.shape[0], D_FUSION))
+        calls["decode_proj"] += 1
+        for p, act in zip(layers[1:], acts[1:]):
+            y = ops.fusion_proj(y, p["w"], p["b"], act)
+            calls["fusion_proj"] += 1
+        logits[mid] = y
+    return h, payload, e_new, logits, calls
+
+
+def boundary_phase(ops, get_codec):
+    """The fused wire path at the Table-II client boundary (the main path
+    of this slice's kernels), counts set to 0 just before and read just
+    after; then each result against the unfused path on the card
+    (``client_base_apply`` -> the codec's encode / decode ->
+    ``client_modular_apply``). -> launches of each kernel."""
+    import _wire_budget as budget
+    from repro_torch.data.images import make_synth_kmnist
+    from repro_torch.device import resolve_device
+    from repro_torch.models import small
+
+    dev = resolve_device(None)      # fp32 products and convolutions in fp32
+    B = 32
+    images = make_synth_kmnist(n_train=2 * B, n_test=0, seed=0)[0]
+    batches = [torch.from_numpy(images[i * B:(i + 1) * B]).to(dev)
+               for i in range(2)]
+    gen = torch.Generator().manual_seed(0)
+    models = {cid: small.init_client_model(cid, generator=gen, device=dev)
+              for cid in (1, 2, 3, 4)}
+    runs = []
+    calls = dict.fromkeys(("fusion_proj", "fusion_proj_quant",
+                           "fusion_proj_encode", "decode_proj"), 0)
+    torch.cuda.synchronize()
+    reset_counts(ops)
+    t0 = time.perf_counter()
+    for name, steps in (("int8_row", 1), ("ef(int4)", 2)):
+        codec = get_codec(name)
+        for cid in FUSION_K:
+            e = codec.init_state((B, D_FUSION), device=dev) \
+                if codec.has_state else None
+            for t in range(steps):
+                h, payload, e_new, logits, c = boundary_forward(
+                    ops, small, models, cid, batches[t], codec, e)
+                for k, v in c.items():
+                    calls[k] += v
+                runs.append((name, cid, t, batches[t], e, payload, e_new,
+                             logits))
+                e = e_new
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = launch_counts(ops)
+    check(all(got[k] == v for k, v in calls.items()) and all(
+        v == 0 for k, v in got.items() if k not in calls),
+        f"boundary: launches {got} != calls {calls}")
+    logit_err = unfused_err = 0.0
+    n_flips = n_codes = 0
+    for name, cid, t, x, e, payload, e_new, logits in runs:
+        codec = get_codec(name)
+        kind = "int4" if name == "ef(int4)" else name
+        label = f"boundary {name} client {cid} step {t}"
+        check(codec.wire_bytes(payload) == codec.encoded_nbytes(
+            (B, D_FUSION)), f"{label}: payload bytes")
+        z = small.client_base_apply(models[cid], cid, x)
+        if e is not None:
+            plain, e_plain = codec.encode_with_state(z, e)
+        else:
+            plain, e_plain = codec.encode(z), None
+        flips = budget.payload_close(kind, payload, plain, D_FUSION,
+                                     FUSED_TOL, label)
+        if e_new is not None:
+            budget.residual_close(e_new, e_plain, flips, FUSED_TOL,
+                                  f"{label} e'")
+        ok = ~flips.any(axis=1)     # rows whose codes agree
+        n_flips += int(flips.sum())
+        n_codes += flips.size
+        z_hat = codec.decode(payload, shape=(B, D_FUSION))
+        z_plain = codec.decode(plain, shape=(B, D_FUSION))
+        for mid, y in logits.items():
+            check(bool(torch.isfinite(y).all()) and y.shape == (
+                B, small.NUM_CLASSES), f"{label} -> {mid}: logits")
+            # The same payload through the plain modular block.
+            logit_err = max(logit_err, budget.floats_close(
+                y, small.client_modular_apply(models[mid], mid, z_hat),
+                FUSED_TOL, f"{label} -> {mid}"))
+            # The unfused path end to end, on the rows whose codes agree.
+            unfused = small.client_modular_apply(models[mid], mid, z_plain)
+            unfused_err = max(unfused_err, budget.floats_close(
+                y.cpu().numpy()[ok], unfused.cpu().numpy()[ok], FUSED_TOL,
+                f"{label} -> {mid} unfused"))
+    print(f"[boundary] Table-II clients 2, 3, 4 at B {B} (synthetic KMNIST), "
+          f"int8_row (1 batch) and ef(int4) (2 chained batches), each "
+          f"payload into the 4 modular blocks: launches {calls} == calls; "
+          f"payload bytes == encoded_nbytes; codes vs the unfused path: "
+          f"{n_flips} of {n_codes} differ; logits vs the plain modular block "
+          f"on the same payload max|err| {logit_err:.3e}, vs the unfused "
+          f"path (rows whose codes agree) {unfused_err:.3e} (tolerance "
+          f"{FUSED_TOL} of max|logit|); wall {wall * 1e3:.1f} ms", flush=True)
+    return calls
+
+
+def fused_bound(nbytes, flops, rate):
+    b_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    o_ms = flops / rate * 1e3
+    return max(b_ms, o_ms), "bytes" if b_ms >= o_ms else "operations"
+
+
+def fused_times(ops, ref, get_codec):
+    """Device times of the four kernels, their plain versions, the one
+    PyTorch call that computes #4 (``torch.addmm`` and the activation)
+    and, for #3, #5 and #6, the unfused pair (cuBLAS and the codec /
+    ``wire_encode``), with the bounds; distinct input sets per graph so w
+    comes from HBM (32 sets at M 32). -> the JSON rows' numbers."""
+    out = {}
+
+    def time_proj(M, K, N, dtype, act="relu", sets=32):
+        ins = [proj_inputs(M, K, N, seed=500 + i, dtype=dtype, zero_row=False)
+               for i in range(sets)]
+        k_ms = graph_time_ms([lambda a=a: ops.fusion_proj(*a, act)
+                              for a in ins])
+        p_ms = graph_time_ms([lambda a=a: ref.fusion_proj_ref(*a, act)
+                              for a in ins])
+        bb = [(x, w, b.to(dtype)) for x, w, b in ins]
+        l_ms = graph_time_ms([lambda a=a: torch.relu_(torch.addmm(
+            a[2], a[0], a[1])) for a in bb])
+        esz = 2 if dtype == torch.bfloat16 else 4
+        nbytes = (M * K + K * N + M * N) * esz + N * 4
+        bound, by = fused_bound(nbytes, 2 * M * K * N, BF16_FLOPS
+                                if dtype == torch.bfloat16 else FP32_FLOPS)
+        print(f"[time] fusion_proj ({M},{K},{N}) {str(dtype)[6:]} {act}: "
+              f"kernel {k_ms * 1e3:.2f} us, plain {p_ms * 1e3:.2f} us, "
+              f"addmm+relu {l_ms * 1e3:.2f} us, bound {bound * 1e3:.4f} us "
+              f"({by}; {nbytes} bytes)", flush=True)
+        return dict(ms=k_ms, plain_ms=p_ms, library_ms=l_ms, bound_ms=bound,
+                    bound_by=by)
+
+    for k, n in PATH_FCS:
+        out[("fusion_proj", k, n)] = time_proj(32, k, n, torch.float32)
+    out["fusion_proj_1568"] = time_proj(32, 1568, D_FUSION, torch.float32)
+    for dtype in (torch.float32, torch.bfloat16):
+        out[("fusion_proj_lm", dtype)] = time_proj(*LM_PROJ, dtype, sets=2)
+
+    def time_encode(M, K, name, quant=False, sets=32):
+        codec = get_codec(name)
+        inner = codec.inner if codec.has_state else codec
+        N = D_FUSION
+        ins = [proj_inputs(M, K, N, seed=700 + i, zero_row=False)
+               for i in range(sets)]
+        es = [0.1 * wire_inputs(M, N, seed=900 + i) for i in range(sets)]
+        if quant:
+            def kern(a, e):
+                return ops.fusion_proj_quant(*a, "relu")
+
+            def plain(a, e):
+                return ref.fusion_proj_quant_ref(*a, "relu")
+        else:
+            def kern(a, e):
+                return ops.fusion_proj_encode(*a, "relu", codec=codec,
+                                              ef_state=e)
+
+            def plain(a, e):
+                return ref.fusion_proj_encode_ref(*a, "relu", codec=codec, e=e)
+
+        def unfused(a, e):
+            y = torch.relu_(torch.addmm(a[2], a[0], a[1]))
+            return (ops.wire_encode_ef(y, e, codec) if codec.has_state
+                    else ops.wire_encode(y, codec))
+
+        es = es if codec.has_state else [None] * sets
+        times = [graph_time_ms([lambda a=a, e=e: f(a, e)
+                                for a, e in zip(ins, es)])
+                 for f in (kern, plain, unfused)]
+        sch = ops.scheme_for(inner, N)
+        nbytes = ((M * K + K * N + N) * 4 + sch.payload_bytes(M)
+                  + sch.table_bytes() + (2 * M * N * 4 if codec.has_state
+                                         else 0))
+        bound, by = fused_bound(nbytes, 2 * M * K * N, FP32_FLOPS)
+        kname = "fusion_proj_quant" if quant else "fusion_proj_encode"
+        print(f"[time] {kname} {name} ({M},{K},{N}) relu: kernel "
+              f"{times[0] * 1e3:.2f} us, plain {times[1] * 1e3:.2f} us, "
+              f"unfused addmm+relu+wire_encode {times[2] * 1e3:.2f} us, bound "
+              f"{bound * 1e3:.4f} us ({by}; {nbytes} bytes)", flush=True)
+        return dict(ms=times[0], plain_ms=times[1], unfused_ms=times[2],
+                    bound_ms=bound, bound_by=by)
+
+    out["fusion_proj_quant"] = time_encode(32, 1568, "int8_row", quant=True)
+    out["fusion_proj_encode"] = time_encode(32, 1568, "int8_row")
+    out["fusion_proj_encode_ef"] = time_encode(32, 1568, "ef(int4)")
+    out["fusion_proj_encode_fig2"] = time_encode(1024, 432, "int8_row",
+                                                 sets=8)
+
+    def time_decode(N, name="int8_row", M=32, sets=32):
+        codec, d = get_codec(name), D_FUSION
+        ins = []
+        for i in range(sets):
+            _, w, b = proj_inputs(1, d, N, seed=1100 + i)
+            ins.append((codec.encode(wire_inputs(M, d, seed=1200 + i)), w, b))
+        shape = (M, d)
+        times = [graph_time_ms([lambda a=a: f(*a) for a in ins]) for f in (
+            lambda p, w, b: ops.decode_proj(p, w, b, "relu", codec=codec,
+                                            shape=shape),
+            lambda p, w, b: ref.decode_proj_ref(p, w, b, "relu", codec=codec,
+                                                shape=shape),
+            lambda p, w, b: torch.relu_(torch.addmm(
+                b, codec.decode(p, shape=shape), w)))]
+        sch = ops.scheme_for(codec, d)
+        nbytes = (sch.payload_bytes(M) + (d * N + N + M * N) * 4
+                  + (4 * (2 * d + sch.n) if name.startswith("sketch") else 0))
+        bound, by = fused_bound(nbytes, 2 * M * d * N, FP32_FLOPS)
+        print(f"[time] decode_proj {name} ({M},{d})->{N} relu: kernel "
+              f"{times[0] * 1e3:.2f} us, plain {times[1] * 1e3:.2f} us, "
+              f"unfused decode+addmm+relu {times[2] * 1e3:.2f} us, bound "
+              f"{bound * 1e3:.4f} us ({by}; {nbytes} bytes)", flush=True)
+        return dict(ms=times[0], plain_ms=times[1], unfused_ms=times[2],
+                    bound_ms=bound, bound_by=by)
+
+    for n in (256, 128, 10):
+        out[("decode_proj", n)] = time_decode(n)
+    return out
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", action="store_true",
@@ -703,6 +1110,19 @@ def main() -> None:
           f"{attn_err['all']['fwd']:.3e}, bwd {attn_err['all']['bwd']:.3e}; "
           f"at the path's case (bf16) max|err| fwd "
           f"{attn_err['path']['fwd']:.3e}, bwd {attn_err['path']['bwd']:.3e}",
+          flush=True)
+
+    fused_err, n_codes, n_flips = fused_checks(ops, ref, get_codec)
+    print(f"[kernel] fusion_proj / fusion_proj_quant / fusion_proj_encode / "
+          f"decode_proj vs plain at the path's shapes, (1024,432,432), "
+          f"(33,433,433) and {LM_PROJ} (fusion_proj, fp32 and bf16), schemes "
+          f"{WIRE_SCHEMES}, ef(int8_row) / ef(int4) over 3 chained steps, a "
+          f"zero row: fused payloads == wire_encode(fusion_proj) bitwise (e' "
+          f"included), quant == the int8_row payload, decode_proj == "
+          f"fusion_proj(decode) bitwise; against plain {n_flips} of "
+          f"{n_codes} coded positions differ (an int8/int4 code by one "
+          f"step, or top-k membership); max|err| at the path's "
+          f"shapes {json.dumps({k: float(f'{v:.3e}') for k, v in fused_err.items()})}",
           flush=True)
 
     # -- 4. full-width serve (the main path) ------------------------------
@@ -849,6 +1269,9 @@ def main() -> None:
     # -- 4f. the card against the CPU: LM IFL at the reduced config -------
     lm_card_vs_cpu(cfg.reduced())
 
+    # -- 4g. the fused wire path at the Table-II client boundary ---------
+    fused_launches = boundary_phase(ops, get_codec)
+
     # -- 5. times at the slice's shape ------------------------------------
     # 64 independent input sets (~1 MB of K/V each) cycle through the
     # 50 MB L2, as the cache of each layer arrives cold in a decode step.
@@ -940,6 +1363,36 @@ def main() -> None:
             "bound_by": at[key + "_bound_by"],
             "library_ms": at[key + "_sdpa"],
         })
+    # The fused wire path at its shapes: fusion_proj at client 4's first
+    # FC (32, 784, 1024), #5 and #6 at client 2's fusion FC (32, 1568,
+    # 432) under int8_row, decode_proj into a 256-wide first modular FC.
+    ft = fused_times(ops, ref, get_codec)
+    for kname, key, replaces in (
+            ("fusion_proj", ("fusion_proj", 784, 1024),
+             "src/repro/kernels/fusion_proj.py:80"),
+            ("fusion_proj_quant", "fusion_proj_quant",
+             "src/repro/kernels/fusion_proj.py:144"),
+            ("fusion_proj_encode", "fusion_proj_encode",
+             "src/repro/kernels/fusion_proj.py:262"),
+            ("decode_proj", ("decode_proj", 256),
+             "src/repro/kernels/wire_fused.py:445")):
+        t = ft[key]
+        row = {
+            "name": kname,
+            "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/fusion_proj.cu",
+            "replaces": replaces,
+            "launches": fused_launches[kname],
+            "max_abs_err": fused_err[kname],
+            "ms": t["ms"],
+            "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"],
+            "library_ms": t.get("library_ms"),
+        }
+        if "unfused_ms" in t:   # cuBLAS and the codec, two launches or more
+            row["unfused_ms"] = t["unfused_ms"]
+        kernels.append(row)
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -4,8 +4,9 @@ use and loads them with ctypes.
 Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into a
 shared library with a plain C interface (no PyTorch headers, so a build
 takes seconds, not minutes), under ``<repo>/build/repro_torch/``. The
-library's file name carries a hash of its source and flags, so an edited
-source is rebuilt and a stale library is never loaded. Nothing is built
+library's file name carries a hash of its source, of every shared header
+``csrc/*.cuh`` and of the flags, so an edited source or header is
+rebuilt and a stale library is never loaded. Nothing is built
 when a module is imported: the CPU tests import every module, and the
 CPU has no ``nvcc``.
 """
@@ -43,8 +44,10 @@ def _nvcc() -> str:
 
 
 def _library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.name.encode() + header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:12]}.so"
 
 

@@ -6,8 +6,10 @@ launches the hand-written kernel or raises. There is no fallback and no
 flag that hides the kernel. Each kernel wrapper counts its launches in a
 plain int attribute (``flash_decode.launches``, ``wire_encode.launches``,
 ``wire_encode_ef.launches``, ``flash_attention.launches``,
-``flash_attention_bwd.launches``), so a run can show that its main path
-went through the kernel.
+``flash_attention_bwd.launches``, ``fusion_proj.launches``,
+``fusion_proj_quant.launches``, ``fusion_proj_encode.launches``,
+``decode_proj.launches``), so a run can show that its main path went
+through the kernel.
 
 Full-sequence attention (``flash_attention``) is a
 ``torch.autograd.Function`` on CUDA tensors: its forward launches the
@@ -26,6 +28,17 @@ return None and the caller encodes with the codec's plain ops. That is
 which function the codec computes, decided from the codec and the shape
 alone, not a way around a kernel that failed: a CUDA tensor of a codec
 that has a scheme launches the kernel or raises.
+
+The fused wire path at the client boundary (``fusion_proj``,
+``fusion_proj_quant``, ``fusion_proj_encode``, ``decode_proj``;
+``csrc/fusion_proj.cu``) keeps that rule: a codec with no wire scheme,
+or a fusion dim above ``MAX_FUSED_D``, runs the plain composition (the
+projection, then the codec's own encode or decode) on every device. The
+JAX wrappers' TPU tiling conditions are not carried over (padded rows,
+``N % min(256, N)`` in ``decode_proj``, an even d for int4): the port's
+kernels mask partial tiles and take any shape. ``decode_proj`` of an
+``ef(...)`` codec decodes with its inner codec's scheme (the EF wire
+format is the inner one), where the JAX wrapper runs its jnp path.
 """
 
 from __future__ import annotations
@@ -136,10 +149,20 @@ _SCHEME_CODE = {"int8_row": 0, "int4": 1, "topk": 2, "sketch": 3}
 
 @dataclass(frozen=True)
 class WireScheme:
-    """One codec's encode as the kernel computes it: ``kind`` is one of
-    int8_row / int4 / topk / sketch, ``d`` the fusion dim, ``n`` the
+    """One codec's wire format as the kernels compute it: ``kind`` is one
+    of int8_row / int4 / topk / sketch, ``d`` the fusion dim, ``n`` the
     kept count k (topk) or bucket count w (sketch), ``seed`` the sketch
-    tables' seed."""
+    tables' seed.
+
+    The decode side (``decode_proj``) reads the payload leaves in the
+    order of ``leaves`` and undoes them as the reference's
+    ``decode_block`` does (``repro/kernels/wire_fused.py:144,174,208,
+    250``): int8_row q * scale; int4 unpacks the low nibble to the even
+    column and the high nibble to the odd one, u - 8, times the scale,
+    dropping an odd d's pad column; topk scatters the values to their
+    indices in a zero row; sketch gathers the bucket means sketch *
+    inv_counts by the hash h and multiplies by the sign s. The tables are
+    the port's own ``sketch_tables`` (``tables``)."""
 
     kind: str
     d: int
@@ -165,9 +188,42 @@ class WireScheme:
                    for tail, dt in self.leaves.values())
 
     def table_bytes(self) -> int:
-        """Bytes of the sketch tables the kernel reads (sign, hash and
+        """Bytes of the sketch tables the encode reads (sign, hash and
         order over d, inv_counts over w, ptr over w + 1)."""
         return 4 * (3 * self.d + 2 * self.n + 1) if self.kind == "sketch" else 0
+
+    def tables(self, device) -> Tuple[Optional[torch.Tensor], ...]:
+        """The kernels' table arguments (sign, inv_counts, hash, order,
+        ptr) on ``device``, made once per device; all None but for the
+        sketch. The decode reads the first three."""
+        if self.kind != "sketch":
+            return (None,) * 5
+        t = codec_mod.sketch_device_tables(self.d, self.n, self.seed,
+                                           str(device))
+        return tuple(t[k] for k in ("sign", "inv_counts", "hash", "order",
+                                    "ptr"))
+
+    def payload_rows(self, payload: dict, rows: int, device):
+        """The payload leaves as contiguous (rows, tail) tensors in the
+        kernels' order; raises on a leaf of another name, dtype, shape
+        or device."""
+        if sorted(payload) != sorted(self.leaves):
+            raise ValueError(f"{self.kind} payload leaves {sorted(payload)}"
+                             f" != {sorted(self.leaves)}")
+        out = []
+        for name, (tail, dt) in self.leaves.items():
+            v = payload[name]
+            if v.dtype != dt or v.device != device or v.numel() != rows * int(
+                    np.prod(tail)) or tuple(v.shape[-len(tail):]) != tail:
+                raise ValueError(f"{self.kind} payload leaf {name}: "
+                                 f"{v.dtype}{tuple(v.shape)} on {v.device}, "
+                                 f"want {dt} (..., {tail}) x {rows} rows "
+                                 f"on {device}")
+            if not v.is_contiguous():
+                raise ValueError(f"{self.kind} payload leaf {name} is not "
+                                 "contiguous")
+            out.append(v.reshape(rows, *tail))
+        return out
 
 
 def scheme_for(codec, d: int) -> Optional[WireScheme]:
@@ -195,10 +251,35 @@ def wire_bytes_moved(scheme: WireScheme, rows: int, ef: bool) -> int:
             + scheme.table_bytes())
 
 
-_WIRE_ARGTYPES = [ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 2 + [
-    ctypes.c_int] * 3 + [ctypes.c_float] * 2 + [ctypes.c_int,
-                                                ctypes.c_float] + [
-    ctypes.c_void_p] * 9
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+
+
+def _c_fn(lib: str, name: str, argtypes):
+    fn = getattr(build.load(lib), name)
+    fn.restype = ctypes.c_int
+    fn.argtypes = argtypes
+    return fn
+
+
+def _stream(dev: torch.device) -> int:
+    return torch.cuda.current_stream(dev).cuda_stream
+
+
+def _nullable(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
+
+
+def _qparams(scheme: WireScheme):
+    """(inv_qmax, qmax) of a row scheme as the kernels take them:
+    float32(1 / qmax) rounded from the double, as the codec computes it."""
+    qmax = 7 if scheme.kind == "int4" else 127
+    return float(np.float32(1.0 / qmax)), float(qmax)
+
+
+def _clip(max_ratio: Optional[float]):
+    """(clip flag, max_ratio as float32) of the EF trust-region clip."""
+    clip = max_ratio is not None and bool(np.isfinite(max_ratio))
+    return int(clip), float(np.float32(max_ratio)) if clip else 0.0
 
 
 def _check_rows(name: str, t: torch.Tensor, d: int) -> None:
@@ -224,30 +305,15 @@ def _launch_wire(scheme: WireScheme, z: torch.Tensor,
             for name, (tail, dt) in scheme.leaves.items()}
     bufs = list(outs.values()) + [None] * (2 - len(outs))
     e_out = torch.empty_like(z) if e is not None else None
-    if scheme.kind == "sketch":
-        t = codec_mod.sketch_device_tables(scheme.d, scheme.n, scheme.seed,
-                                           str(dev))
-        tables = tuple(t[k] for k in ("sign", "inv_counts", "hash", "order",
-                                      "ptr"))
-    else:
-        tables = (None,) * 5
-    qmax = 7 if scheme.kind == "int4" else 127
-    clip = max_ratio is not None and bool(np.isfinite(max_ratio))
-    lib = build.load("wire_encode")
-    fn = lib.wire_encode
-    fn.restype = ctypes.c_int
-    fn.argtypes = _WIRE_ARGTYPES
-
-    def ptr(t):
-        return None if t is None else t.data_ptr()
-
+    fn = _c_fn("wire_encode", "wire_encode",
+               [_I, _I, _P, _P, _I, _I, _I, _F, _F, _I, _F] + [_P] * 9)
     with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = fn(_SCHEME_CODE[scheme.kind], int(e is not None), ptr(z), ptr(e),
-                rows, d, scheme.n, float(np.float32(1.0 / qmax)), float(qmax),
-                int(clip), float(np.float32(max_ratio)) if clip else 0.0,
-                *(ptr(t) for t in tables), ptr(bufs[0]), ptr(bufs[1]),
-                ptr(e_out), stream)
+        rc = fn(_SCHEME_CODE[scheme.kind], int(e is not None), z.data_ptr(),
+                _nullable(e), rows, d, scheme.n, *_qparams(scheme),
+                *_clip(max_ratio),
+                *(_nullable(t) for t in scheme.tables(dev)),
+                _nullable(bufs[0]), _nullable(bufs[1]), _nullable(e_out),
+                _stream(dev))
     if rc != 0:
         raise RuntimeError(f"wire_encode launch failed (code {rc})")
     payload = {name: o.reshape(*lead, *o.shape[1:])
@@ -301,6 +367,209 @@ def wire_encode_ef(z: torch.Tensor, e: torch.Tensor, ef_codec):
 
 
 wire_encode_ef.launches = 0
+
+
+# ------------------------------------- fused projection and wire path
+
+_ACT_CODE = {"none": 0, "relu": 1, "silu": 2}
+
+
+def _act_code(act: str) -> int:
+    if act not in _ACT_CODE:
+        raise ValueError(f"act {act!r} not in {sorted(_ACT_CODE)}")
+    return _ACT_CODE[act]
+
+
+def _check_proj(name: str, x: torch.Tensor, w: torch.Tensor,
+                b: Optional[torch.Tensor], dev: torch.device):
+    """x (..., K) or None (decode_proj), w (K, N), b (N,) or None on one
+    CUDA device, x and w of one dtype (float32 or bfloat16),
+    contiguous -> b as a contiguous fp32 tensor (or None)."""
+    if dev.type != "cuda":
+        raise ValueError(f"{name} takes CUDA tensors, got {dev}")
+    if w.device != dev or (b is not None and b.device != dev):
+        raise ValueError(f"{name}: tensors on different devices")
+    if w.dtype not in _DTYPE_CODE or (x is not None and x.dtype != w.dtype):
+        raise ValueError(f"{name}: dtypes x {None if x is None else x.dtype}"
+                         f" w {w.dtype} (float32 or bfloat16, equal)")
+    if (w.dim() != 2 or w.numel() == 0 or (x is not None and (
+            x.dim() < 1 or x.shape[-1] != w.shape[0] or x.numel() == 0))
+            or (b is not None and tuple(b.shape) != (w.shape[1],))):
+        raise ValueError(f"{name}: shapes x {None if x is None else tuple(x.shape)}"
+                         f" w {tuple(w.shape)} b "
+                         f"{None if b is None else tuple(b.shape)}")
+    if not w.is_contiguous() or (x is not None and not x.is_contiguous()):
+        raise ValueError(f"{name}: tensors must be contiguous")
+    return None if b is None else b.float().contiguous()
+
+
+def fusion_proj(x: torch.Tensor, w: torch.Tensor,
+                b: Optional[torch.Tensor] = None,
+                act: str = "none") -> torch.Tensor:
+    """y = act(x @ w + b); x (..., K), w (K, N), b (N,) -> (..., N) in
+    x's dtype, accumulated in fp32; act in {none, relu, silu}.
+
+    A CPU tensor takes the plain version (``ref.fusion_proj_ref``); a
+    CUDA tensor launches ``csrc/fusion_proj.cu`` (x and w fp32 or bf16,
+    one dtype, contiguous, any M, K, N) or raises."""
+    code = _act_code(act)
+    if x.device.type == "cpu":
+        return ref.fusion_proj_ref(x, w, b, act)
+    bf = _check_proj("fusion_proj", x, w, b, x.device)
+    K, N = w.shape
+    M = x.numel() // K
+    y = torch.empty((*x.shape[:-1], N), dtype=x.dtype, device=x.device)
+    fn = _c_fn("fusion_proj", "fusion_proj", [_P] * 4 + [_I] * 5 + [_P])
+    with torch.cuda.device(x.device):
+        rc = fn(x.data_ptr(), w.data_ptr(), _nullable(bf), y.data_ptr(), M, K,
+                N, _DTYPE_CODE[x.dtype], code, _stream(x.device))
+    if rc != 0:
+        raise RuntimeError(f"fusion_proj launch failed (code {rc})")
+    fusion_proj.launches += 1
+    return y
+
+
+fusion_proj.launches = 0
+
+
+def fusion_proj_quant(x: torch.Tensor, w: torch.Tensor,
+                      b: Optional[torch.Tensor] = None, act: str = "none"):
+    """The projection with the int8_row wire encode in one launch:
+    x (..., K), w (K, N) -> (q int8 (..., N), scale fp32 (..., 1)), the
+    fp32 activation never in device memory.
+
+    A CPU tensor, or N above ``MAX_FUSED_D`` on any device, takes the
+    plain version (``ref.fusion_proj_quant_ref``); a CUDA tensor launches
+    the kernel or raises."""
+    code = _act_code(act)
+    N = w.shape[-1]
+    if x.device.type == "cpu" or scheme_for(codec_mod.CODECS["int8_row"],
+                                            N) is None:
+        return ref.fusion_proj_quant_ref(x, w, b, act)
+    bf = _check_proj("fusion_proj_quant", x, w, b, x.device)
+    K = w.shape[0]
+    lead = tuple(x.shape[:-1])
+    q = torch.empty((*lead, N), dtype=torch.int8, device=x.device)
+    scale = torch.empty((*lead, 1), dtype=torch.float32, device=x.device)
+    inv_qmax, _ = _qparams(WireScheme("int8_row", N))
+    fn = _c_fn("fusion_proj", "fusion_proj_quant",
+               [_P] * 3 + [_I] * 5 + [_F] + [_P] * 3)
+    with torch.cuda.device(x.device):
+        rc = fn(x.data_ptr(), w.data_ptr(), _nullable(bf), x.numel() // K, K,
+                N, _DTYPE_CODE[x.dtype], code, inv_qmax, q.data_ptr(),
+                scale.data_ptr(), _stream(x.device))
+    if rc != 0:
+        raise RuntimeError(f"fusion_proj_quant launch failed (code {rc})")
+    fusion_proj_quant.launches += 1
+    return q, scale
+
+
+fusion_proj_quant.launches = 0
+
+
+def fusion_proj_encode(x: torch.Tensor, w: torch.Tensor,
+                       b: Optional[torch.Tensor] = None, act: str = "none",
+                       *, codec, ef_state: Optional[torch.Tensor] = None):
+    """The projection with ``codec``'s wire encode (and the EF21 step)
+    in one launch: x (..., K), w (K, N) -> the payload, or (payload, e')
+    with ``ef_state``, the carried residual of an ``ef(...)`` codec,
+    shaped like the output. The fp32 activation never reaches device
+    memory; only the payload (and e') do.
+
+    A codec with no wire scheme at N (module docstring) runs the plain
+    composition on every device; so does a CPU tensor
+    (``ref.fusion_proj_encode_ref``). A CUDA tensor of a codec with a
+    scheme launches the kernel (x, w fp32 or bf16, e fp32, contiguous)
+    or raises."""
+    code = _act_code(act)
+    is_ef = isinstance(codec, codec_mod.EFCodec)
+    if ef_state is not None and not is_ef:
+        raise ValueError(f"fusion_proj_encode: ef_state needs an ef(...) "
+                         f"codec, got {codec.name}")
+    N = w.shape[-1]
+    scheme = scheme_for(codec.inner if is_ef else codec, N)
+    if scheme is None or x.device.type == "cpu":
+        return ref.fusion_proj_encode_ref(x, w, b, act, codec=codec,
+                                          e=ef_state)
+    dev = x.device
+    bf = _check_proj("fusion_proj_encode", x, w, b, dev)
+    lead = tuple(x.shape[:-1])
+    ef = ef_state is not None
+    if ef and (ef_state.device != dev or ef_state.dtype != torch.float32
+               or tuple(ef_state.shape) != (*lead, N)
+               or not ef_state.is_contiguous()):
+        raise ValueError(f"fusion_proj_encode: ef_state "
+                         f"{ef_state.dtype}{tuple(ef_state.shape)} on "
+                         f"{ef_state.device}, want contiguous float32 "
+                         f"{(*lead, N)} on {dev}")
+    K = w.shape[0]
+    outs = {name: torch.empty((*lead, *tail), dtype=dt, device=dev)
+            for name, (tail, dt) in scheme.leaves.items()}
+    bufs = list(outs.values()) + [None] * (2 - len(outs))
+    e_out = torch.empty_like(ef_state) if ef else None
+    fn = _c_fn("fusion_proj", "fusion_proj_encode",
+               [_I, _I] + [_P] * 4 + [_I] * 6 + [_F, _F, _I, _F] + [_P] * 9)
+    with torch.cuda.device(dev):
+        rc = fn(_SCHEME_CODE[scheme.kind], int(ef), x.data_ptr(),
+                w.data_ptr(), _nullable(bf), _nullable(ef_state),
+                x.numel() // K, K, N, scheme.n, _DTYPE_CODE[x.dtype], code,
+                *_qparams(scheme), *_clip(codec.max_ratio if is_ef else None),
+                *(_nullable(t) for t in scheme.tables(dev)),
+                _nullable(bufs[0]), _nullable(bufs[1]), _nullable(e_out),
+                _stream(dev))
+    if rc != 0:
+        raise RuntimeError(f"fusion_proj_encode launch failed (code {rc})")
+    fusion_proj_encode.launches += 1
+    return (outs, e_out) if ef else outs
+
+
+fusion_proj_encode.launches = 0
+
+
+def decode_proj(payload: dict, w: torch.Tensor,
+                b: Optional[torch.Tensor] = None, act: str = "none", *,
+                codec, shape) -> torch.Tensor:
+    """Decode as the prologue of the modular block's first FC:
+    act(codec.decode(payload) @ w + b) in one launch, the fp32
+    reconstruction held in shared memory. ``shape`` is z's shape (...,
+    d); w (d, N); returns (*shape[:-1], N) fp32.
+
+    A codec with no wire scheme at d runs the plain composition on every
+    device; so does a payload on the CPU (``ref.decode_proj_ref``). A
+    CUDA payload of a codec with a scheme launches the kernel (the
+    scheme's leaves, contiguous; w fp32 or bf16) or raises."""
+    code = _act_code(act)
+    shape = tuple(int(s) for s in shape)
+    d = shape[-1]
+    scheme = scheme_for(codec.inner if isinstance(codec, codec_mod.EFCodec)
+                        else codec, d)
+    dev = next(iter(payload.values())).device
+    if scheme is None or dev.type == "cpu":
+        return ref.decode_proj_ref(payload, w, b, act, codec=codec,
+                                   shape=shape)
+    bf = _check_proj("decode_proj", None, w, b, dev)
+    if w.shape[0] != d:
+        raise ValueError(f"decode_proj: w {tuple(w.shape)} is not ({d}, N)")
+    rows = int(np.prod(shape[:-1]))
+    leaves = scheme.payload_rows(payload, rows, dev)
+    N = w.shape[1]
+    y = torch.empty((rows, N), dtype=torch.float32, device=dev)
+    sign, inv_counts, hsh, _, _ = scheme.tables(dev)
+    fn = _c_fn("fusion_proj", "decode_proj",
+               [_I] + [_P] * 5 + [_I] * 6 + [_P] * 4)
+    with torch.cuda.device(dev):
+        rc = fn(_SCHEME_CODE[scheme.kind], leaves[0].data_ptr(),
+                _nullable(leaves[1] if len(leaves) > 1 else None),
+                w.data_ptr(), _nullable(bf), y.data_ptr(), rows, d, N,
+                scheme.n, _DTYPE_CODE[w.dtype], code, _nullable(sign),
+                _nullable(inv_counts), _nullable(hsh), _stream(dev))
+    if rc != 0:
+        raise RuntimeError(f"decode_proj launch failed (code {rc})")
+    decode_proj.launches += 1
+    return y.reshape(*shape[:-1], N)
+
+
+decode_proj.launches = 0
 
 
 # ------------------------------------------------------ flash attention

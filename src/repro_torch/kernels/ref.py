@@ -7,6 +7,9 @@ import math
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
+
+from repro_torch.core.codec import quantize_rows_sym
 
 # The mask value of the TPU kernel (kernels/flash_attention.py:25).
 NEG = -1e30
@@ -56,6 +59,72 @@ def wire_encode_ef_ref(z: torch.Tensor, e: torch.Tensor, ef_codec):
     """The plain version of the ``wire_encode_ef`` kernel: the EF codec's
     ``encode_with_state`` -> (payload, e')."""
     return ef_codec.encode_with_state(z, e)
+
+
+def _bias_act(y: torch.Tensor, b: Optional[torch.Tensor],
+              act: str) -> torch.Tensor:
+    if b is not None:
+        y = y + b.float()
+    if act == "relu":
+        return torch.relu(y)
+    if act == "silu":
+        return F.silu(y)
+    if act != "none":
+        raise ValueError(act)
+    return y
+
+
+def _proj(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor],
+          act: str) -> torch.Tensor:
+    """act(x @ w + b) in fp32: the product of the fp32-widened inputs."""
+    return _bias_act(torch.matmul(x.float(), w.float()), b, act)
+
+
+def fusion_proj_ref(x: torch.Tensor, w: torch.Tensor,
+                    b: Optional[torch.Tensor] = None,
+                    act: str = "none") -> torch.Tensor:
+    """The fusion-layer projection act(x @ w + b), the plain version of
+    the ``fusion_proj`` kernel (a port of ``repro/kernels/ref.py:12``).
+    x: (..., K), w: (K, N), b: (N,); act in {none, relu, silu}. The
+    product accumulates in fp32; the output takes x's dtype."""
+    return _proj(x, w, b, act).to(x.dtype)
+
+
+def fusion_proj_quant_ref(x: torch.Tensor, w: torch.Tensor,
+                          b: Optional[torch.Tensor] = None,
+                          act: str = "none"):
+    """The projection with the int8_row encode, the plain version of the
+    ``fusion_proj_quant`` kernel (``repro/kernels/ref.py:28``):
+    ``quantize_rows_sym`` of the fp32 projection -> (q int8 (..., N),
+    scale fp32 (..., 1))."""
+    return quantize_rows_sym(_proj(x, w, b, act))
+
+
+def fusion_proj_encode_ref(x: torch.Tensor, w: torch.Tensor,
+                           b: Optional[torch.Tensor] = None,
+                           act: str = "none", *, codec,
+                           e: Optional[torch.Tensor] = None):
+    """The projection, then the codec's own encode, the plain version of
+    the ``fusion_proj_encode`` kernel (``repro/kernels/ref.py:50``): the
+    fp32 activation is materialized and encoded by ``codec.encode``, or
+    by ``codec.encode_with_state`` with the EF residual ``e``.
+    -> payload, or (payload, e')."""
+    y = fusion_proj_ref(x, w, b, act).float()
+    if e is not None:
+        return codec.encode_with_state(y, e)
+    return codec.encode(y)
+
+
+def decode_proj_ref(payload, w: torch.Tensor,
+                    b: Optional[torch.Tensor] = None, act: str = "none", *,
+                    codec, shape):
+    """The codec's decode, then the projection, the plain version of the
+    ``decode_proj`` kernel (``repro/kernels/ref.py:65``):
+    act(codec.decode(payload) @ w + b) with the fp32 reconstruction
+    materialized. ``shape`` is z's shape; -> (*shape[:-1], N) fp32."""
+    z_hat = codec.decode(payload, shape=tuple(shape), dtype=torch.float32)
+    return fusion_proj_ref(z_hat.reshape(-1, shape[-1]), w, b, act).reshape(
+        *shape[:-1], w.shape[-1])
 
 
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -1,6 +1,7 @@
 """The port's CUDA kernels (flash decode, wire encode with and without
-EF, flash attention forward and backward) against their plain PyTorch
-versions, on the card. Marked ``cuda``:
+EF, flash attention forward and backward, the fused wire path's
+projection, projection-encode and decode-projection) against their plain
+PyTorch versions, on the card. Marked ``cuda``:
 each test skips where no card is available. This file imports no JAX,
 so it runs on the machine with the card:
 
@@ -11,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+import _wire_budget as budget
 from repro_torch.core.codec import get_codec
 from repro_torch.kernels import ops, ref
 
@@ -251,3 +253,190 @@ def test_flash_attention_rejects_bad_inputs_on_card():
     with pytest.raises(ValueError):
         ops.flash_attention(q, torch.zeros((1, 8, 3, 64), device="cuda"),
                             torch.zeros((1, 8, 3, 64), device="cuda"))
+
+
+# ------------------------------------------------- the fused wire path
+
+# (M, K, N): the IFL path's fusion FCs, a ragged shape and degenerate ones.
+PROJ = [(32, 1568, 432), (32, 784, 432), (33, 433, 433), (1, 1, 1),
+        (5, 20, 300), (70, 17, 10)]
+# fp32 against cuBLAS: sums in another order, relative to max |plain|;
+# bf16 outputs: one bf16 rounding of a value that may differ in its
+# last fp32 bits (2^-7 relative).
+PROJ_TOL = {torch.float32: 1e-5, torch.bfloat16: 2.0 ** -7}
+
+
+def _proj_inputs(M, K, N, seed, dtype=torch.float32):
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((M, K)).astype(np.float32)
+    x[min(2, M - 1)] = 0.0                    # a zero row
+    w = (rng.standard_normal((K, N)) / np.sqrt(K)).astype(np.float32)
+    b = (0.1 * rng.standard_normal(N)).astype(np.float32)
+    return tuple(torch.from_numpy(a).cuda().to(dtype) for a in (x, w, b))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("act", ["none", "relu", "silu"])
+@pytest.mark.parametrize("M,K,N", PROJ)
+def test_fusion_proj_kernel_matches_plain_on_card(M, K, N, act, dtype):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    x, w, b = _proj_inputs(M, K, N, seed=M + K + N, dtype=dtype)
+    for bias in (b, None):
+        before = ops.fusion_proj.launches
+        got = ops.fusion_proj(x, w, bias, act)
+        torch.cuda.synchronize()
+        assert ops.fusion_proj.launches == before + 1
+        want = ref.fusion_proj_ref(x, w, bias, act)
+        assert got.dtype == dtype and got.shape == (M, N)
+        budget.floats_close(got.float(), want.float(), PROJ_TOL[dtype])
+    # Leading dims are flattened.
+    got = ops.fusion_proj(x.reshape(1, M, K), w, b, act)
+    assert torch.equal(got, ops.fusion_proj(x, w, b, act).reshape(1, M, N))
+
+
+SCHEMES = ["int8_row", "int4", "topk", "sketch"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", SCHEMES + ["topk0.1", "sketch0.5"])
+@pytest.mark.parametrize("M,K,N", [(32, 1568, 432), (33, 433, 433),
+                                   (1024, 432, 432), (3, 40, 8192)])
+def test_fusion_proj_encode_is_the_wire_encode_of_fusion_proj(M, K, N, name):
+    """Bitwise: the fused payload is wire_encode of the kernel's own
+    projection, e' of 3 chained EF steps included; against the plain
+    version (cuBLAS) codes within the flip budget."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    codec, ef = get_codec(name), get_codec(f"ef({name})")
+    kind = ops.scheme_for(codec, N).kind
+    x, w, b = _proj_inputs(M, K, N, seed=K + N)
+    before = ops.fusion_proj_encode.launches
+    got = ops.fusion_proj_encode(x, w, b, "relu", codec=codec)
+    torch.cuda.synchronize()
+    assert ops.fusion_proj_encode.launches == before + 1
+    y = ops.fusion_proj(x, w, b, "relu")
+    want = ops.wire_encode(y, codec)
+    assert sorted(got) == sorted(want)
+    for k in want:
+        assert torch.equal(got[k], want[k]), k
+    budget.payload_close(kind, got, ref.fusion_proj_encode_ref(
+        x, w, b, "relu", codec=codec), N, 1e-5)
+    e = torch.zeros((M, N), device="cuda")
+    for t in range(3):
+        x, _, _ = _proj_inputs(M, K, N, seed=t)
+        got, e_got = ops.fusion_proj_encode(x, w, b, "relu", codec=ef,
+                                            ef_state=e)
+        want, e_want = ops.wire_encode_ef(ops.fusion_proj(x, w, b, "relu"),
+                                          e, ef)
+        for k in want:
+            assert torch.equal(got[k], want[k]), (t, k)
+        assert torch.equal(e_got, e_want), t
+        plain, e_plain = ref.fusion_proj_encode_ref(x, w, b, "relu",
+                                                    codec=ef, e=e)
+        flips = budget.payload_close(kind, got, plain, N, 1e-5)
+        budget.residual_close(e_got, e_plain, flips, 1e-5)
+        e = e_got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("act", ["none", "relu", "silu"])
+@pytest.mark.parametrize("M,K,N", [(32, 1568, 432), (33, 433, 433),
+                                   (4096, 96, 432)])
+def test_fusion_proj_quant_is_the_int8_row_payload(M, K, N, act):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    x, w, b = _proj_inputs(M, K, N, seed=7)
+    codec = get_codec("int8_row")
+    before = ops.fusion_proj_quant.launches
+    q, scale = ops.fusion_proj_quant(x, w, b, act)
+    torch.cuda.synchronize()
+    assert ops.fusion_proj_quant.launches == before + 1
+    assert q.dtype == torch.int8 and q.shape == (M, N)
+    assert scale.dtype == torch.float32 and scale.shape == (M, 1)
+    p = ops.fusion_proj_encode(x, w, b, act, codec=codec)
+    assert torch.equal(q, p["q"]) and torch.equal(scale, p["scale"])
+    qr, sr = ref.fusion_proj_quant_ref(x, w, b, act)
+    budget.payload_close("int8_row", {"q": q, "scale": scale},
+                         {"q": qr, "scale": sr}, N, 1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", SCHEMES + ["topk0.1"])
+@pytest.mark.parametrize("M,d,N", [(32, 432, 256), (32, 432, 10),
+                                   (33, 433, 433), (1024, 432, 432),
+                                   (2, 8192, 5)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_proj_is_fusion_proj_of_the_decode(M, d, N, name, dtype):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    codec = get_codec(name)
+    z = _wire_z(M, d, seed=d + N)
+    payload = codec.encode(z)
+    _, w, b = _proj_inputs(1, d, N, seed=N, dtype=dtype)
+    before = ops.decode_proj.launches
+    got = ops.decode_proj(payload, w, b, "relu", codec=codec, shape=(M, d))
+    torch.cuda.synchronize()
+    assert ops.decode_proj.launches == before + 1
+    assert got.dtype == torch.float32 and got.shape == (M, N)
+    if dtype == torch.float32:
+        z_hat = codec.decode(payload, shape=(M, d))
+        assert torch.equal(got, ops.fusion_proj(z_hat, w, b, "relu"))
+    want = ref.decode_proj_ref(payload, w, b, "relu", codec=codec,
+                               shape=(M, d))
+    budget.floats_close(got, want, 1e-5)
+    # An ef(...) codec decodes with its inner scheme: the same launch.
+    again = ops.decode_proj(payload, w, b, "relu", codec=get_codec(
+        f"ef({name})"), shape=(M, d))
+    assert torch.equal(again, got)
+
+
+@pytest.mark.cuda
+def test_fused_wire_path_without_a_scheme_runs_plain_on_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    x, w, b = _proj_inputs(8, 40, 432, seed=1)
+    counters = (ops.fusion_proj_encode, ops.decode_proj, ops.fusion_proj,
+                ops.fusion_proj_quant)
+    before = [c.launches for c in counters]
+    for name in ("fp32", "bf16", "int8"):
+        codec = get_codec(name)
+        p = ops.fusion_proj_encode(x, w, b, "relu", codec=codec)
+        y = ops.decode_proj(p, w.t().contiguous(), None, "none",
+                            codec=codec, shape=(8, 432))
+        assert y.shape == (8, 40) and y.device.type == "cuda"
+    _, wide, _ = _proj_inputs(1, 40, ops.MAX_FUSED_D + 1, seed=2)
+    q, _ = ops.fusion_proj_quant(x, wide)
+    assert q.shape == (8, ops.MAX_FUSED_D + 1)
+    assert [c.launches for c in counters] == before
+
+
+@pytest.mark.cuda
+def test_fused_wire_path_rejects_bad_inputs_on_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    x, w, b = _proj_inputs(8, 40, 432, seed=3)
+    codec, ef = get_codec("int8_row"), get_codec("ef(int8_row)")
+    with pytest.raises(ValueError):
+        ops.fusion_proj(x.half(), w.half())                     # dtype
+    with pytest.raises(ValueError):
+        ops.fusion_proj(x, w.to(torch.bfloat16))                # mixed
+    with pytest.raises(ValueError):
+        ops.fusion_proj(x, w.t().contiguous().t())              # layout
+    with pytest.raises(ValueError):
+        ops.fusion_proj(x, w, b, "gelu")                        # act
+    with pytest.raises(ValueError):
+        ops.fusion_proj_encode(x, w, b.cpu(), codec=codec)      # device
+    with pytest.raises(ValueError):
+        ops.fusion_proj_encode(x, w, codec=codec,
+                               ef_state=torch.zeros(8, 432, device="cuda"))
+    with pytest.raises(ValueError):
+        ops.fusion_proj_encode(x, w, codec=ef,
+                               ef_state=torch.zeros(4, 432, device="cuda"))
+    p = codec.encode(_wire_z(8, 432, seed=0))
+    with pytest.raises(ValueError):
+        ops.decode_proj({"q": p["q"]}, w.t().contiguous(), codec=codec,
+                        shape=(8, 432))                         # leaves
+    with pytest.raises(ValueError):
+        ops.decode_proj(p, w, codec=codec, shape=(8, 432))      # w rows

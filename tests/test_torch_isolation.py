@@ -19,6 +19,7 @@ def test_import_loads_no_jax_and_no_reference_module():
         "import sys\n"
         "import repro_torch, repro_torch.serve, repro_torch.launch.serve\n"
         "import repro_torch.kernels.ops, repro_torch.kernels.build\n"
+        "import repro_torch.kernels.ref, repro_torch.device\n"
         "import repro_torch.checkpoint, repro_torch.data.synthetic\n"
         "import repro_torch.core, repro_torch.core.codec\n"
         "import repro_torch.core.comm, repro_torch.core.exchange\n"

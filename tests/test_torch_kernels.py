@@ -90,3 +90,22 @@ def test_flash_decode_refuses_cpu_tensors():
                       _inputs(3, B=4, L=16, KVH=2, G=1, hd=64))
     with pytest.raises(ValueError, match="CUDA tensors"):
         ops.flash_decode(q[:, 0], k, v, valid)
+
+
+def test_library_name_follows_its_source_and_every_shared_header(
+        tmp_path, monkeypatch):
+    """An edited source or header builds a new library: a stale one is
+    never loaded (names only; nothing is compiled here)."""
+    from repro_torch.kernels import build
+
+    (tmp_path / "k.cu").write_text('#include "row.cuh"\n')
+    (tmp_path / "row.cuh").write_text("// v1\n")
+    monkeypatch.setattr(build, "CSRC", tmp_path)
+    first = build._library_path("k")
+    assert build._library_path("k") == first
+    (tmp_path / "row.cuh").write_text("// v2\n")
+    second = build._library_path("k")
+    assert second != first
+    (tmp_path / "k.cu").write_text('#include "row.cuh"\n// edited\n')
+    assert build._library_path("k") not in (first, second)
+    assert second.parent == build.BUILD_DIR and second.suffix == ".so"
