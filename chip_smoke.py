@@ -27,7 +27,16 @@ port's main paths through the entry points a user calls:
     goes through ``ops.decode_proj`` into each modular block's first FC
     and through the rest of the block by ``ops.fusion_proj``, the path
     of the ``fusion_proj`` / ``fusion_proj_quant`` /
-    ``fusion_proj_encode`` / ``decode_proj`` kernels.
+    ``fusion_proj_encode`` / ``decode_proj`` kernels;
+  * RMSNorm: ``ops.rmsnorm``, the only entry point of the ``rmsnorm``
+    kernel in either package (no model path calls it), at kernel_bench's
+    (8192, 4096) fp32, the LM clients' (4096, 1024) bf16 rows with fp32
+    params, and ragged shapes;
+  * the front door: ``run_experiment`` of the eager IFL spec (Table-II
+    width, ef(int4), k2, max_staleness 2) under the delta broadcast,
+    4 rounds with evaluations, against the same spec under the full
+    broadcast, and a run saved by ``save_trainer`` after 2 rounds and
+    resumed by ``load_trainer`` in a fresh trainer.
 
 It checks each path's results, compares short runs on the card with the
 same runs on the CPU, and times each kernel at the shapes its path gives
@@ -430,7 +439,8 @@ def expected_attn_launches(cfg, *, steps_full, steps_mod, fwd_only):
 def counted(ops):
     return (ops.flash_decode, ops.wire_encode, ops.wire_encode_ef,
             ops.flash_attention, ops.flash_attention_bwd, ops.fusion_proj,
-            ops.fusion_proj_quant, ops.fusion_proj_encode, ops.decode_proj)
+            ops.fusion_proj_quant, ops.fusion_proj_encode, ops.decode_proj,
+            ops.rmsnorm)
 
 
 def reset_counts(ops) -> None:
@@ -1028,6 +1038,273 @@ def fused_times(ops, ref, get_codec):
     return out
 
 
+# ------------------------------------------------------------- rmsnorm
+
+# The op's calls in the rmsnorm phase: (M, D, x dtype, scale dtype,
+# scale). kernel_bench's (8192, 4096) fp32 with ones and with a random
+# scale; the four LM clients' B * S rows at qwen1.5-0.5b's d_model in
+# bf16 with fp32 params; M off a multiple of 256, an odd D (rows not on
+# 16 bytes), a long row, each in fp32 and in bf16.
+F32, BF16 = torch.float32, torch.bfloat16
+RMS_CALLS = ([(8192, 4096, F32, F32, "ones"), (8192, 4096, F32, F32, "random"),
+              (4096, 1024, BF16, F32, "random")]
+             + [(M, D, xd, F32, "random") for M, D in ((1, 432), (1000, 432),
+                                                      (37, 1023), (3, 8192))
+                for xd in (F32, BF16)])
+# Kernel against plain: fp32 within 2e-5 of max(1, max |plain|), the
+# reference's fp32 tolerance (tests/test_kernels.py:188; the sums run in
+# another order); bf16 within one bf16 rounding of the plain value.
+RMS_FP32_TOL = 2e-5
+
+
+def rms_inputs(M, D, xd, sd, scale, seed):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    x = 2.0 * torch.randn((M, D), generator=gen, device="cuda")
+    s = (torch.ones((D,), device="cuda") if scale == "ones"
+         else torch.randn((D,), generator=gen, device="cuda"))
+    return x.to(xd), s.to(sd)
+
+
+def rmsnorm_phase(ops, ref):
+    """The op ``ops.rmsnorm`` is the kernel's only path (no model path of
+    either package calls it): its calls at RMS_CALLS and the scale
+    invariance pair, counts set to 0 just before and read just after;
+    then each output against the plain version. -> (launches, max |err|
+    of the fp32 calls)."""
+    ins = [rms_inputs(M, D, xd, sd, sc, seed=M + D + i)
+           for i, (M, D, xd, sd, sc) in enumerate(RMS_CALLS)]
+    inv_x = rms_inputs(16, 64, F32, F32, "ones", seed=7)
+    torch.cuda.synchronize()
+    reset_counts(ops)
+    outs = [ops.rmsnorm(x, s) for x, s in ins]
+    inv = [ops.rmsnorm(inv_x[0], inv_x[1]),
+           ops.rmsnorm(3.7 * inv_x[0], inv_x[1])]
+    torch.cuda.synchronize()
+    got = launch_counts(ops)
+    calls = len(outs) + len(inv)
+    check(got["rmsnorm"] == calls and all(
+        v == 0 for k, v in got.items() if k != "rmsnorm"),
+        f"rmsnorm: launches {got} != {calls} calls")
+    err32 = 0.0
+    errs = []
+    for (M, D, xd, sd, sc), (x, s), y in zip(RMS_CALLS, ins, outs):
+        want = ref.rmsnorm_ref(x, s).float()
+        check(y.dtype == xd and y.shape == (M, D), f"rmsnorm ({M},{D}) dtype")
+        err = (y.float() - want).abs()
+        label = f"rmsnorm ({M},{D}) x {str(xd)[6:]} scale {str(sd)[6:]} {sc}"
+        if xd == F32:
+            lim = RMS_FP32_TOL * max(1.0, float(want.abs().max()))
+            check(float(err.max()) <= lim, f"{label}: max|err| "
+                  f"{float(err.max()):.3e} > {lim:.3e}")
+            err32 = max(err32, float(err.max()))
+        else:
+            check(bool((err <= BF16_TOL * want.abs()).all()),
+                  f"{label}: beyond one bf16 rounding")
+        errs.append(f"({M},{D}) {str(xd)[6:]}/{str(sd)[6:]} {sc}: "
+                    f"{float(err.max()):.2e}")
+    inv_err = float((inv[0] - inv[1]).abs().max())
+    check(inv_err <= 1e-5, f"rmsnorm scale invariance: {inv_err}")
+    print(f"[rmsnorm] {calls} calls of ops.rmsnorm (no model path in either "
+          f"package), launches {got['rmsnorm']} == calls; max|kernel - "
+          f"plain| {'; '.join(errs)} (fp32 within {RMS_FP32_TOL} of "
+          f"max(1,|plain|), bf16 within one rounding); RMSNorm(3.7x) vs "
+          f"RMSNorm(x) {inv_err:.2e}", flush=True)
+    return got["rmsnorm"], err32
+
+
+def rms_times(ops, ref):
+    """Device times at (8192, 4096) fp32 and (4096, 1024) bf16 x / fp32
+    scale: kernel, plain, ``F.rms_norm`` (scale cast to x's dtype, the
+    one PyTorch call for the function) and the byte bound. Enough input
+    sets per graph that the inputs come from HBM (2 x 128 MB; 8 x 8 MB)."""
+    out = {}
+    for M, D, xd, sd, sets in ((8192, 4096, F32, F32, 2),
+                               (4096, 1024, BF16, F32, 8)):
+        ins = [rms_inputs(M, D, xd, sd, "random", seed=300 + i)
+               for i in range(sets)]
+        k_ms = graph_time_ms([lambda a=a: ops.rmsnorm(*a) for a in ins])
+        p_ms = graph_time_ms([lambda a=a: ref.rmsnorm_ref(*a) for a in ins])
+        lib = [(x, s.to(xd)) for x, s in ins]
+        l_ms = graph_time_ms([lambda a=a: torch.nn.functional.rms_norm(
+            a[0], (D,), a[1], 1e-6) for a in lib])
+        xb, sb = (2 if xd == BF16 else 4), (2 if sd == BF16 else 4)
+        nbytes = 2 * M * D * xb + D * sb      # x in, y out, scale in
+        bound, by = fused_bound(nbytes, 4 * M * D, FP32_FLOPS)
+        out[(M, D)] = dict(ms=k_ms, plain_ms=p_ms, library_ms=l_ms,
+                           bound_ms=bound, bound_by=by)
+        print(f"[time] rmsnorm ({M},{D}) x {str(xd)[6:]} scale "
+              f"{str(sd)[6:]}: kernel {k_ms * 1e3:.2f} us, plain "
+              f"{p_ms * 1e3:.2f} us, F.rms_norm {l_ms * 1e3:.2f} us, bound "
+              f"{bound * 1e3:.2f} us ({by}; {nbytes} bytes); kernel at "
+              f"{nbytes / (k_ms * 1e-3) / 1e12:.2f} TB/s", flush=True)
+    return out
+
+
+# ------------------------------------------------------- the front door
+
+# Card against card (delta against full broadcast, a resumed run against
+# the uninterrupted one): the same draws and the same decoded pairs, but
+# two runs of the same rounds on the H100 are not bitwise equal: cuDNN's
+# convolution backward may sum with atomics, in an order that changes
+# from run to run (measured: the delta and full runs' parameters differ
+# in their last bits, resumed losses by 1.2e-07; PERF.md). The
+# phase prints whether they were bitwise equal.
+IFL_CARD_TOL = 1e-4
+FRONT_DOOR = dict(scheme="ifl", rounds=4, tau=10, lr=0.01, batch_size=32,
+                  d_fusion=432, codec="ef(int4)", participation="k2",
+                  max_staleness=2, broadcast="delta", eval_every=2, seed=0)
+
+
+class round_walls:
+    """Host wall of every ``IFLTrainer.run_round`` inside the block,
+    ending in a device sync, as the quickstart's run would see it."""
+
+    def __enter__(self):
+        from repro_torch.core.ifl import IFLTrainer
+
+        self.cls, self.orig, self.walls = IFLTrainer, IFLTrainer.run_round, []
+
+        def timed(trainer):
+            t0 = time.perf_counter()
+            rep = self.orig(trainer)
+            torch.cuda.synchronize()
+            self.walls.append(time.perf_counter() - t0)
+            return rep
+
+        IFLTrainer.run_round = timed
+        return self.walls
+
+    def __exit__(self, *exc):
+        self.cls.run_round = self.orig
+
+
+def same_reports(a, b, keys=("participants", "cache_size", "uplink_mb")):
+    return all(x[k] == y[k] for x, y in zip(a, b) for k in keys)
+
+
+def max_metric_diff(a, b, keys=("base_loss", "mod_loss")) -> float:
+    return max(abs(x[k] - y[k]) for x, y in zip(a, b) for k in keys)
+
+
+def front_door_phase(ops, round_bytes_match):
+    """``run_experiment`` at Table-II width under the delta broadcast, the
+    path a user calls (counts set to 0 just before, read just after),
+    then the same spec under the full broadcast, and a run saved after 2
+    rounds and resumed in a fresh trainer."""
+    import tempfile
+
+    from repro_torch.api import (DataSpec, ExperimentSpec, build_trainer,
+                                 load_trainer, run_experiment, save_trainer)
+    from repro_torch.core.comm import tree_leaves
+
+    spec = ExperimentSpec(**FRONT_DOOR,
+                          data=DataSpec(n_train=4000, n_test=1000))
+    torch.cuda.synchronize()
+    reset_counts(ops)
+    with round_walls() as walls_delta:
+        delta = run_experiment(spec, device="cuda", keep_trainer=True)
+    got = launch_counts(ops)
+    n_part = sum(len(r["participants"]) for r in delta.reports)
+    check(got["wire_encode_ef"] == n_part and n_part > 0 and all(
+        v == 0 for k, v in got.items() if k != "wire_encode_ef"),
+        f"front door: launches {got} != {n_part} participants")
+    tr = delta.trainer
+    check(round_bytes_match(tr, spec),
+          f"front door: ledger {tr.ledger.per_round} != the delta formula")
+    check([r["round"] for r in delta.records] == [0, 2, 3] and all(
+        "matrix" in r and "sd_per_base" in r for r in delta.records),
+        f"front door: records {[sorted(r) for r in delta.records]}")
+    for rep in delta.reports:
+        check(np.isfinite(rep["base_loss"]) and np.isfinite(rep["mod_loss"]),
+              f"front door: loss {rep}")
+
+    with round_walls() as walls_full:
+        full = run_experiment(spec.replace(broadcast="full"), device="cuda",
+                              keep_trainer=True)
+    check(same_reports(delta.reports, full.reports),
+          "front door: delta and full differ in participants, cache or "
+          "uplink")
+    d_down = [r["down"] for r in tr.ledger.per_round]
+    f_down = [r["down"] for r in full.trainer.ledger.per_round]
+    check(all(a <= b for a, b in zip(d_down, f_down)),
+          f"front door: delta downlink {d_down} above full's {f_down}")
+    train_err = max_metric_diff(delta.reports, full.reports)
+    acc_err = max(abs(a - b) for x, y in zip(delta.records, full.records)
+                  for a, b in zip(x["accs"], y["accs"]))
+    check(train_err <= IFL_CARD_TOL and acc_err <= IFL_CARD_TOL,
+          f"front door: delta vs full losses {train_err}, accuracies "
+          f"{acc_err} > {IFL_CARD_TOL}")
+    bitwise = train_err == 0 and acc_err == 0 and all(
+        torch.equal(a, b) for a, b in zip(
+            tree_leaves([c.params for c in tr.clients]),
+            tree_leaves([c.params for c in full.trainer.clients])))
+
+    with tempfile.TemporaryDirectory() as tmp, round_walls() as walls_direct:
+        first = build_trainer(spec, device="cuda")
+        for _ in range(2):
+            first.run_round()
+        path = str(Path(tmp) / "trainer")
+        save_trainer(path, first)
+        resumed = load_trainer(path, build_trainer(spec, device="cuda"))
+        tail = [resumed.run_round() for _ in range(2)]
+    check(same_reports(tail, delta.reports[2:], ("round", "participants",
+                                                  "cache_size",
+                                                  "shipped_entries",
+                                                  "uplink_mb", "downlink_mb"))
+          and resumed.ledger.per_round == tr.ledger.per_round[2:],
+          "front door: resumed rounds differ in participants or bytes")
+    resume_err = max_metric_diff(tail, delta.reports[2:])
+    check(resume_err <= IFL_CARD_TOL,
+          f"front door: resumed losses differ by {resume_err}")
+    print(f"[front door] run_experiment(ifl, 4 clients, d_fusion 432, B 32, "
+          f"tau 10, ef(int4), k2, max_staleness 2, delta, 4 rounds, eval "
+          f"every 2; 4000/1000 images) on the card: wire_encode_ef launches "
+          f"{got['wire_encode_ef']} == {n_part} participants; ledger == "
+          f"ifl_round_bytes(delta, shipped_entries) every round; shipped "
+          f"{[r['shipped_entries'] for r in delta.reports]}; records carry "
+          f"matrix and sd_per_base; final acc_mean "
+          f"{delta.final['acc_mean']:.3f}", flush=True)
+    print(f"[front door] delta vs full: participants, cache and uplink "
+          f"equal; downlink {d_down} vs {f_down} bytes; losses max|diff| "
+          f"{train_err:.2e}, accuracies {acc_err:.2e} (tolerance "
+          f"{IFL_CARD_TOL}); bitwise equal on the card: {bitwise}; round "
+          f"walls (ms) delta {[round(w * 1e3, 1) for w in walls_delta]}, "
+          f"full {[round(w * 1e3, 1) for w in walls_full]}", flush=True)
+    print(f"[front door] save_trainer after 2 rounds, load_trainer into a "
+          f"fresh build_trainer, rounds 3-4: participants, shipped entries "
+          f"and bytes == the uninterrupted run; losses max|diff| "
+          f"{resume_err:.2e} (tolerance {IFL_CARD_TOL}); round walls (ms) of "
+          f"these 4 rounds, run_round called directly: "
+          f"{[round(w * 1e3, 1) for w in walls_direct]}", flush=True)
+
+
+def front_door_card_vs_cpu():
+    """One short ``run_experiment`` under delta on the CPU and on the
+    card (ef(int4), k2, 2 rounds, tau 2): the same participants, shipped
+    entries and bytes, losses within IFL_LOSS_TOL."""
+    from repro_torch.api import DataSpec, ExperimentSpec, run_experiment
+
+    spec = ExperimentSpec(**{**FRONT_DOOR, "rounds": 2, "tau": 2,
+                             "eval_every": 0},
+                          data=DataSpec(n_train=4000, n_test=1000))
+    runs = {dev: run_experiment(spec, device=dev, keep_trainer=True)
+            for dev in ("cpu", "cuda")}
+    check(same_reports(runs["cuda"].reports, runs["cpu"].reports,
+                       ("participants", "shipped_entries", "uplink_mb",
+                        "downlink_mb"))
+          and runs["cuda"].trainer.ledger.per_round
+          == runs["cpu"].trainer.ledger.per_round,
+          "front door card vs CPU: participants or bytes differ")
+    err = max_metric_diff(runs["cuda"].reports, runs["cpu"].reports)
+    check(err <= IFL_LOSS_TOL, f"front door card vs CPU: losses differ by "
+          f"{err} > {IFL_LOSS_TOL}")
+    print(f"[front door] card vs CPU, run_experiment under delta (ef(int4), "
+          f"k2, 2 rounds, tau 2): participants "
+          f"{[r['participants'] for r in runs['cuda'].reports]}, shipped "
+          f"entries and bytes equal; losses max|card - cpu| {err:.2e} "
+          f"(tolerance {IFL_LOSS_TOL})", flush=True)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", action="store_true",
@@ -1260,6 +1537,7 @@ def main() -> None:
           f"{runs['cuda'].ledger.per_round} equal; losses max|card - cpu| "
           f"{loss_err:.2e} (tolerance {IFL_LOSS_TOL})", flush=True)
     del runs
+    front_door_card_vs_cpu()
 
     # -- 4e. LM IFL at full width through the training CLI ---------------
     from repro_torch.launch import train as train_cli
@@ -1271,6 +1549,12 @@ def main() -> None:
 
     # -- 4g. the fused wire path at the Table-II client boundary ---------
     fused_launches = boundary_phase(ops, get_codec)
+
+    # -- 4h. rmsnorm: the op is the kernel's only path ---------------------
+    rms_launches, rms_err = rmsnorm_phase(ops, ref)
+
+    # -- 4i. the front door: run_experiment under delta, resume ----------
+    front_door_phase(ops, round_bytes_match)
 
     # -- 5. times at the slice's shape ------------------------------------
     # 64 independent input sets (~1 MB of K/V each) cycle through the
@@ -1393,6 +1677,21 @@ def main() -> None:
         if "unfused_ms" in t:   # cuBLAS and the codec, two launches or more
             row["unfused_ms"] = t["unfused_ms"]
         kernels.append(row)
+    # rmsnorm at kernel_bench's (8192, 4096) fp32.
+    t = rms_times(ops, ref)[(8192, 4096)]
+    kernels.append({
+        "name": "rmsnorm",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/rmsnorm.cu",
+        "replaces": "src/repro/kernels/rmsnorm.py:25",
+        "launches": rms_launches,
+        "max_abs_err": rms_err,
+        "ms": t["ms"],
+        "plain_ms": t["plain_ms"],
+        "bound_ms": t["bound_ms"],
+        "bound_by": t["bound_by"],
+        "library_ms": t["library_ms"],
+    })
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

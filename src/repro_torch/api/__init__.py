@@ -1,34 +1,48 @@
-"""The port's front door, as far as slice 2 goes: ``ExperimentSpec``
-(identical canonical dict and ``spec_hash()``), data loading, fleet
-construction and the ``ifl`` builder.
+"""repro_torch.api — the port's front door, the twin of ``repro.api``.
 
-The reference's scheme registry, ``run_experiment`` with its result
-cache, ``ExperimentResult`` and ``save_trainer``/``load_trainer`` are not
-ported yet (ROADMAP.md queue 1, item 2f); they raise
-``NotImplementedError``.
+    from repro_torch.api import ExperimentSpec, run_experiment
+
+    result = run_experiment(ExperimentSpec(
+        scheme="ifl", rounds=20, codec="ef(int4)", participation="k2",
+    ))                                  # on the card; device="cpu" there
+    print(result.final["acc_mean"], result.uplink_mb)
+
+Pieces (each its own module, all re-exported here):
+
+  ExperimentSpec / DataSpec / FleetSpec   what to run (frozen; the same
+                                          ``spec_hash()`` as the JAX
+                                          package's)
+  register_scheme / get_scheme /          scheme registry: the reference's
+  available_schemes                       five names; only ``ifl`` is
+                                          ported, the others' builders
+                                          raise ``NotImplementedError``
+  Trainer / RoundReport / RunResult       the protocol and its outputs
+  run_experiment / build_trainer          the runner (spec-hash caching,
+                                          ``device=``, ``params=``)
+  save_trainer / load_trainer             mid-run checkpoint + resume
+                                          (the JAX package's format)
 """
 
+from repro_torch.api.spec import DataSpec, ExperimentSpec, FleetSpec  # noqa: F401
+from repro_torch.api.registry import (  # noqa: F401
+    SchemeEntry,
+    available_schemes,
+    get_scheme,
+    register_scheme,
+)
+from repro_torch.core.report import RoundReport  # noqa: F401
+from repro_torch.api.result import RunResult  # noqa: F401
+from repro_torch.api.trainer import Trainer, load_trainer, save_trainer  # noqa: F401
+from repro_torch.api import schemes  # noqa: F401  (registers the schemes)
 from repro_torch.api.schemes import (  # noqa: F401
     DataBundle,
     apply_fns,
     build_fleet,
     build_ifl,
-    build_scheme,
     load_data,
 )
-from repro_torch.api.spec import DataSpec, ExperimentSpec, FleetSpec  # noqa: F401
-
-_FRONT_DOOR = ("not ported yet (ROADMAP.md queue 1, item 2f: "
-               "registry, runner, result, save/load)")
-
-
-def run_experiment(*args, **kwargs):
-    raise NotImplementedError(f"run_experiment is {_FRONT_DOOR}")
-
-
-def save_trainer(*args, **kwargs):
-    raise NotImplementedError(f"save_trainer is {_FRONT_DOOR}")
-
-
-def load_trainer(*args, **kwargs):
-    raise NotImplementedError(f"load_trainer is {_FRONT_DOOR}")
+from repro_torch.api.runner import (  # noqa: F401
+    PAPER_RESULTS,
+    build_trainer,
+    run_experiment,
+)

@@ -1,6 +1,6 @@
-"""Data loading, fleet construction and the IFL builder.
+"""Registered schemes: data loading, fleet construction, trainer builders.
 
-The port's copy of the ``ifl`` half of ``repro.api.schemes``: the same
+The port's copy of ``repro.api.schemes``: the same
 make-data -> Dirichlet-partition -> Client-list -> trainer sequence
 (shard seed ``spec.seed``, heterogeneous fleets cycling the four Table-II
 architectures, trainer seed ``spec.seed``), so a spec replays the
@@ -13,9 +13,10 @@ to start from the reference's own init; without it, client k draws the
 same distributions from ``torch.Generator().manual_seed(100 + k)`` on the
 CPU, so a run on the card and a run on the CPU start from equal weights.
 
-Not ported yet: the ``fsl``/``fl1``/``fl2`` baselines (ROADMAP.md queue 1,
-item 3a), ``ifl_spmd`` (item 4b), the token dataset (item 4b) and
-population fleets (item 3b); each raises ``NotImplementedError``.
+The registry holds the reference's five names. Not ported yet: the
+``fsl``/``fl1``/``fl2`` baselines (ROADMAP.md queue 1, item 3a),
+``ifl_spmd`` (item 4b), the token dataset (item 4b) and population fleets
+(item 3b); their builders raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -26,6 +27,7 @@ from typing import NamedTuple, Optional, Sequence
 import numpy as np
 import torch
 
+from repro_torch.api.registry import register_scheme
 from repro_torch.api.spec import ExperimentSpec
 from repro_torch.checkpoint import params_from_numpy
 from repro_torch.core.ifl import Client, IFLTrainer
@@ -39,7 +41,7 @@ from repro_torch.models.small import (
 )
 
 __all__ = ["DataBundle", "load_data", "apply_fns", "build_fleet",
-           "build_ifl", "build_scheme"]
+           "build_ifl"]
 
 
 class DataBundle(NamedTuple):
@@ -102,6 +104,8 @@ def build_fleet(spec: ExperimentSpec, data: DataBundle, *,
     return clients
 
 
+@register_scheme("ifl", summary="Interoperable FL (the paper, Algorithm 1): "
+                                "heterogeneous fleet, fusion-output exchange")
 def build_ifl(spec: ExperimentSpec, data: DataBundle, *,
               params: Optional[Sequence] = None, device=None) -> IFLTrainer:
     """The paper's Algorithm 1: a heterogeneous fleet exchanging fusion
@@ -111,19 +115,20 @@ def build_ifl(spec: ExperimentSpec, data: DataBundle, *,
                       spec.run_config(), seed=spec.seed, device=dev)
 
 
-_NOT_PORTED = {
-    "fsl": "ROADMAP.md queue 1, item 3a",
-    "fl1": "ROADMAP.md queue 1, item 3a",
-    "fl2": "ROADMAP.md queue 1, item 3a",
-    "ifl_spmd": "ROADMAP.md queue 1, item 4b",
-}
+def _not_ported(name: str, item: str, summary: str) -> None:
+    """Register ``name`` with a builder that raises, naming its item."""
+
+    @register_scheme(name, summary=summary)
+    def build(spec, data, **kw):
+        raise NotImplementedError(f"scheme {name!r} is not ported yet "
+                                  f"(ROADMAP.md queue 1, item {item})")
 
 
-def build_scheme(spec: ExperimentSpec, data: DataBundle, **kw):
-    """The trainer of ``spec.scheme``; only ``ifl`` is ported."""
-    if spec.scheme == "ifl":
-        return build_ifl(spec, data, **kw)
-    if spec.scheme in _NOT_PORTED:
-        raise NotImplementedError(f"scheme {spec.scheme!r} is not ported "
-                                  f"yet ({_NOT_PORTED[spec.scheme]})")
-    raise ValueError(f"unknown scheme {spec.scheme!r}")
+_not_ported("fsl", "3a", "federated split learning baseline "
+                         "(SplitFed-style shared server block)")
+_not_ported("fl1", "3a", "FedAvg, client 1's smallest arch cloned "
+                         "fleet-wide (paper FL-1)")
+_not_ported("fl2", "3a", "FedAvg, client 2's larger arch cloned "
+                         "fleet-wide (paper FL-2)")
+_not_ported("ifl_spmd", "4b", "IFL as one SPMD round step (LM-scale, "
+                              "stacked-client mesh)")

@@ -1,0 +1,58 @@
+"""The unified `Trainer` protocol and checkpoint plumbing for resume.
+
+The port's copy of ``repro.api.trainer``. Every scheme the registry
+builds satisfies one structural interface:
+
+  run_round()  -> RoundReport     one communication round
+  evaluate(test_x, test_y)        per-client accuracies (or a scalar)
+  snapshot()   -> (tree, aux)     tensor tree + JSON-able aux state
+  restore(tree, aux)              inverse of snapshot
+  ledger       : CommLedger       bytes that crossed the client boundary
+
+``save_trainer`` / ``load_trainer`` write and read the tree through
+``repro_torch.checkpoint`` (the .npz of the JAX package's format, aux in
+the manifest's ``extra``), so a trainer resumes bit for bit mid-run, and
+a checkpoint the JAX package's ``save_trainer`` wrote resumes here.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Protocol, Tuple, runtime_checkable
+
+from repro_torch.checkpoint import load_checkpoint, load_extra, save_checkpoint
+from repro_torch.core.comm import CommLedger
+from repro_torch.core.report import RoundReport
+
+__all__ = ["Trainer", "save_trainer", "load_trainer"]
+
+
+@runtime_checkable
+class Trainer(Protocol):
+    """Structural interface every registered scheme's trainer satisfies."""
+
+    ledger: CommLedger
+
+    def run_round(self) -> RoundReport: ...
+
+    def evaluate(self, test_x, test_y): ...
+
+    def snapshot(self) -> Tuple[Any, Dict[str, Any]]: ...
+
+    def restore(self, tree, aux) -> None: ...
+
+
+def save_trainer(path: str, trainer: Trainer) -> None:
+    """Checkpoint a mid-run trainer (.npz + manifest)."""
+    tree, aux = trainer.snapshot()
+    save_checkpoint(path, tree, step=int(aux.get("round_idx", 0)), extra=aux)
+
+
+def load_trainer(path: str, trainer: Trainer) -> Trainer:
+    """Restore ``trainer`` (built from the same spec) in place and return
+    it. The trainer's own ``snapshot()`` tree is the template the
+    checkpoint is checked against, shape by shape, so restoring across
+    another fleet or codec fails instead of mixing states."""
+    extra = load_extra(path)
+    template, _ = trainer.snapshot()
+    trainer.restore(load_checkpoint(path, template), extra)
+    return trainer

@@ -1,8 +1,10 @@
 """Flattened-tree .npz checkpoints with a JSON manifest, in the JAX
-package's format: keys are '/'-joined dict paths, bf16 leaves are
-widened to fp32 in the file, and the manifest rides next to the .npz.
-A checkpoint or serving artifact written by either package loads in the
-other.
+package's format: keys are '/'-joined tree paths (a dict level by its
+key, a list or tuple level by its index, as
+``jax.tree_util.tree_flatten_with_path`` names them; None and empty
+tuples hold no leaf), bf16 leaves are widened to fp32 in the file, and
+the manifest rides next to the .npz. A checkpoint or serving artifact
+written by either package loads in the other.
 
 ``params_from_numpy`` carries a parameter tree across: it turns the JAX
 package's tree (as numpy arrays) into the port's, leaf for leaf and with
@@ -20,11 +22,24 @@ import numpy as np
 import torch
 
 
+def _children(tree):
+    """(key, child) pairs of a dict, list or tuple level, else None."""
+    if isinstance(tree, dict):
+        return [(str(k), v) for k, v in tree.items()]
+    if isinstance(tree, (list, tuple)):
+        return [(str(i), v) for i, v in enumerate(tree)]
+    return None
+
+
+def _join(prefix: str, key: str) -> str:
+    return f"{prefix}/{key}" if prefix else key
+
+
 def _flatten(tree, prefix: str = "") -> Dict[str, Any]:
     flat: Dict[str, Any] = {}
-    for k, v in tree.items():
-        key = f"{prefix}/{k}" if prefix else str(k)
-        if isinstance(v, dict):
+    for k, v in _children(tree):
+        key = _join(prefix, k)
+        if _children(v) is not None:
             flat.update(_flatten(v, key))
         elif v is not None:
             flat[key] = v
@@ -149,22 +164,23 @@ def load_flat(path: str) -> Dict[str, np.ndarray]:
 
 
 def load_checkpoint(path: str, template) -> Any:
-    """Restore into the structure of ``template`` (shape-checked; each
-    leaf takes the template leaf's dtype and device)."""
+    """Restore into the structure of ``template``, a tree of dicts, lists
+    and tuples of tensors (shape-checked; each leaf takes the template
+    leaf's dtype and device)."""
     flat = load_flat(path)
 
-    def restore(t, prefix):
-        out = {}
-        for k, leaf in t.items():
-            key = f"{prefix}/{k}" if prefix else str(k)
-            if isinstance(leaf, dict):
-                out[k] = restore(leaf, key)
-                continue
-            arr = flat[key]
-            if tuple(arr.shape) != tuple(leaf.shape):
-                raise ValueError(f"{key}: checkpoint shape {arr.shape} != "
-                                 f"template shape {tuple(leaf.shape)}")
-            out[k] = _to_tensor(arr, leaf.device, leaf.dtype)
-        return out
+    def restore(t, key):
+        if isinstance(t, dict):
+            return {k: restore(v, _join(key, str(k))) for k, v in t.items()}
+        if isinstance(t, (list, tuple)):
+            return type(t)(restore(v, _join(key, str(i)))
+                           for i, v in enumerate(t))
+        if t is None:
+            return None
+        arr = flat[key]
+        if tuple(arr.shape) != tuple(t.shape):
+            raise ValueError(f"{key}: checkpoint shape {arr.shape} != "
+                             f"template shape {tuple(t.shape)}")
+        return _to_tensor(arr, t.device, t.dtype)
 
     return restore(template, "")

@@ -266,7 +266,7 @@ class RunConfig:
     # Fusion-cache staleness bound in rounds (None = never evict;
     # 0 = fresh uploads only).
     max_staleness: Optional[int] = None
-    broadcast: str = "full"  # downlink policy; 'delta' is not ported yet
+    broadcast: str = "full"  # downlink policy: 'full' | 'delta'
     mode: str = "sync"
     trace: str = ""
     tick: float = 1.0

@@ -13,7 +13,6 @@ from dataclasses import dataclass, field
 from typing import Dict, List, Optional
 
 
-
 def tree_leaves(tree) -> list:
     """Leaves of a tree of dicts, lists and tuples, in key / item order."""
     if isinstance(tree, dict):
@@ -83,23 +82,35 @@ class CommLedger:
 # ------------------------------------------------------------ analytic
 
 
+# Per shipped delta-broadcast entry: one int32 slot index plus one int32
+# upload round (the staleness anchor a client mirror needs to apply the
+# server's eviction rule locally). See repro_torch.core.exchange.
+DELTA_SIDECAR_BYTES = 8
+
+
 def ifl_round_bytes(n_clients: int, batch: int, d_fusion: int,
                     label_bytes: int = 4, act_bytes: int = 4,
                     codec=None, participating: Optional[int] = None,
                     broadcast_entries: Optional[int] = None,
-                    broadcast: str = "full") -> Dict[str, int]:
+                    broadcast: str = "full",
+                    delta_entries: Optional[int] = None) -> Dict[str, int]:
     """One IFL round: each of the K participants uploads (z_k, y_k); the
-    server sends the M valid fusion-cache entries to each participant
+    server serves the M valid fusion-cache entries to the participants
     (Algorithm 1 lines 13-21 at full participation: K = M = N).
 
     ``codec`` switches z to its wire format through the codec's own
     analytic ``encoded_nbytes``, so ledger parity holds per codec; labels
-    ride uncompressed (int32). Only ``broadcast='full'`` is ported; the
-    delta policy is ROADMAP.md queue 1, item 2f."""
-    if broadcast != "full":
-        raise NotImplementedError(
-            f"broadcast={broadcast!r}: only 'full' is ported; delta "
-            "broadcast is ROADMAP.md queue 1, item 2f")
+    ride uncompressed (int32). ``broadcast`` is the downlink policy
+    (``repro_torch.core.exchange``):
+
+      ``"full"``   the M-entry cache to each of the K participants:
+                   ``down = K * M * (z + y)``.
+      ``"delta"``  clients mirror the server cache, so each entry ships
+                   at most once a round, with a ``DELTA_SIDECAR_BYTES``
+                   sidecar: ``down = E * (z + y + sidecar)``. E is
+                   ``delta_entries`` (a round's ``shipped_entries``
+                   metric); it defaults to K, exact only at full
+                   participation."""
     if codec is not None:
         from repro_torch.core.codec import get_codec
 
@@ -109,7 +120,15 @@ def ifl_round_bytes(n_clients: int, batch: int, d_fusion: int,
     y = batch * label_bytes
     k = n_clients if participating is None else participating
     m = n_clients if broadcast_entries is None else broadcast_entries
-    return {"up": k * (z + y), "down": k * m * (z + y)}
+    if broadcast == "full":
+        down = k * m * (z + y)
+    elif broadcast == "delta":
+        e = k if delta_entries is None else delta_entries
+        down = e * (z + y + DELTA_SIDECAR_BYTES)
+    else:
+        raise ValueError(f"unknown broadcast policy {broadcast!r}; expected "
+                         "'full' or 'delta'")
+    return {"up": k * (z + y), "down": down}
 
 
 def fl_round_bytes(n_clients: int, model_bytes: int,

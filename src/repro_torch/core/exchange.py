@@ -7,17 +7,32 @@ The port's copy of the eager half of ``repro.core.exchange``:
   ``FusionCache``     the server's staleness-bounded cache of decoded
                       fusion payloads, one entry per client slot.
   ``FusionExchange``  codec + per-client EF21 residuals + the cache +
-                      the full-broadcast policy.
+                      the broadcast policy.
 
 ``FusionExchange.upload`` encodes with the EF residual threaded through,
 ledgers exactly the encoded payload and the labels, and decodes once into
-the cache; ``broadcast_round`` serves the valid cache, in slot order, to
-every participant (``broadcast='full'``: K * M entries down). The encode
-is the kernel dispatch point: a codec with a wire scheme (int8_row, int4,
-topk, sketch and their ``ef(...)``) goes through
+the cache. The encode is the kernel dispatch point: a codec with a wire
+scheme (int8_row, int4, topk, sketch and their ``ef(...)``) goes through
 ``repro_torch.kernels.ops.wire_encode`` / ``wire_encode_ef`` — on the
 card, the hand-written kernels; every other codec encodes with its plain
 ops on every device, the reference's rule.
+
+Broadcast policy (the downlink): ``broadcast_round`` serves the valid
+cache, in slot order. Under ``"full"`` every participant receives the
+whole M-entry cache (K * M entries down). Under ``"delta"`` every client
+keeps a *mirror* of the server cache (``_DeltaMirrors``, versioned by
+upload round): the server ships each (slot, payload, y) entry at most
+once a round, the union of what the participants' mirrors lack, plus a
+``DELTA_SIDECAR_BYTES`` sidecar per entry, and every participant's
+mirror becomes the server's valid cache. The decoded pairs the modular
+updates train on are the same under both policies by construction; only
+the downlink bytes differ (``comm.ifl_round_bytes(..., broadcast=,
+delta_entries=)``, in exact per-round parity with the ledger).
+
+``cache_tree`` / ``restore_cache`` and ``aux_state`` / ``restore_aux``
+snapshot the cache (stacked over all N slots, so the tree's shape does
+not depend on the round) and the mirrors, so a resumed run replays its
+mid-staleness broadcasts bit for bit.
 
 ``SPMDFusionExchange`` is the one-card counterpart of the reference's
 SPMD backend: the wire block of the LM round step
@@ -25,10 +40,10 @@ SPMD backend: the wire block of the LM round step
 participation. On one card the 'client'-axis all-gather is the stacking
 of the N payloads, and the receivers decode them.
 
-Not ported yet (ROADMAP.md queue 1): the delta broadcast and its client
-mirrors, the population regime, snapshot/restore of the cache, and the
-SPMD backend's partial participation (payload cache, ``max_staleness``)
-and host-side ``account_round``.
+Not ported yet (ROADMAP.md queue 1): the population regime (item 3b),
+and the SPMD backend's partial participation (payload cache,
+``max_staleness``), delta broadcast and host-side ``account_round``
+(items 3b and 4b).
 """
 
 from __future__ import annotations
@@ -39,9 +54,11 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 import torch
 
 from repro_torch.core.codec import Codec, get_codec
-from repro_torch.core.comm import CommLedger
+from repro_torch.core.comm import DELTA_SIDECAR_BYTES, CommLedger
 
 __all__ = [
+    "BROADCAST_POLICIES",
+    "parse_broadcast",
     "ExchangePlane",
     "CacheEntry",
     "FusionCache",
@@ -49,6 +66,19 @@ __all__ = [
     "SPMDFusionExchange",
     "init_ef_state",
 ]
+
+
+BROADCAST_POLICIES = ("full", "delta")
+
+
+def parse_broadcast(spec: Optional[str]) -> str:
+    """Validate a broadcast-policy spec: ``full`` | ``delta``."""
+    if spec is None:
+        return "full"
+    if spec not in BROADCAST_POLICIES:
+        raise ValueError(f"unknown broadcast policy {spec!r}; expected one "
+                         f"of {BROADCAST_POLICIES}")
+    return spec
 
 
 class ExchangePlane:
@@ -64,6 +94,17 @@ class ExchangePlane:
     def down(self, tree) -> None:
         """Server -> client: ledger the measured bytes of ``tree``."""
         self.ledger.send_down(tree)
+
+    def down_bytes(self, b: int) -> None:
+        self.ledger.send_down_bytes(b)
+
+    def aux_state(self) -> Dict[str, Any]:
+        """JSON-able plane state beyond the ledger (which the engine's aux
+        carries). Empty for the base plane."""
+        return {}
+
+    def restore_aux(self, aux: Dict[str, Any]) -> None:
+        pass
 
 
 @dataclass
@@ -117,28 +158,66 @@ class FusionCache:
         return slot in self._entries
 
 
+class _DeltaMirrors:
+    """Per-client mirrors of the server fusion cache, versions only: a
+    mirror maps slot -> upload round of the entry the client holds (one
+    upload per slot per round makes the round a monotone version).
+    ``sync`` ships the union of the valid entries the participants'
+    mirrors lack and sets each participant's mirror to the server's
+    valid cache; absent clients' mirrors are untouched and catch up the
+    round they rejoin."""
+
+    def __init__(self, n_clients: int):
+        self.versions: List[Dict[int, int]] = [{} for _ in range(n_clients)]
+
+    def note_upload(self, slot: int, round_idx: int) -> None:
+        """The uploader made this payload itself: its own mirror entry is
+        current with no downlink."""
+        self.versions[slot][slot] = int(round_idx)
+
+    def sync(self, participants: Sequence[int],
+             valid: Sequence[Tuple[int, int]]) -> List[int]:
+        """-> the sorted slots shipped; every participant's mirror becomes
+        the server's valid cache (``valid``: (slot, version) pairs)."""
+        valid_d = {int(s): int(v) for s, v in valid}
+        shipped: set = set()
+        for p in participants:
+            mine = self.versions[int(p)]
+            shipped.update(s for s, v in valid_d.items() if mine.get(s) != v)
+            self.versions[int(p)] = dict(valid_d)
+        return sorted(shipped)
+
+    # JSON-able state (a manifest's ``extra`` turns int keys into strings).
+
+    def aux_state(self) -> List[Dict[str, int]]:
+        return [{str(s): int(v) for s, v in m.items()}
+                for m in self.versions]
+
+    def restore_aux(self, aux: List[Dict[str, int]]) -> None:
+        self.versions = [{int(s): int(v) for s, v in m.items()}
+                         for m in aux]
+
+
 class FusionExchange(ExchangePlane):
-    """Eager IFL wire pipeline: codec + EF residuals + cache + broadcast.
+    """Eager IFL wire pipeline: codec + EF residuals + cache + policy.
 
     ``z_shape`` is one client's fusion-output shape ``(batch_size,
-    d_fusion)``; ``device`` is where the EF residuals live (the fusion
-    outputs' device)."""
+    d_fusion)``; ``device`` is where the EF residuals and the snapshot's
+    empty cache slots live (the fusion outputs' device)."""
 
     def __init__(self, codec: Union[str, Codec, None], n_clients: int,
                  z_shape: Tuple[int, ...], *,
                  max_staleness: Optional[int] = None,
                  broadcast: str = "full",
                  device=None):
-        if broadcast != "full":
-            raise NotImplementedError(
-                f"broadcast={broadcast!r}: only 'full' is ported; delta "
-                "broadcast is ROADMAP.md queue 1, item 2f")
         super().__init__()
         self.codec = get_codec(codec)
         self.n_clients = n_clients
         self.z_shape = tuple(z_shape)
-        self.broadcast = broadcast
+        self.broadcast = parse_broadcast(broadcast)
+        self.device = device
         self.cache = FusionCache(max_staleness)
+        self.mirrors = _DeltaMirrors(n_clients)
         # Per-client EF residual (an empty tuple for stateless codecs),
         # keyed by client slot; client-private, never ledgered.
         self.ef_state: Dict[int, Any] = {
@@ -166,18 +245,78 @@ class FusionExchange(ExchangePlane):
         self.up((payload, y))  # the ONLY uplink bytes in IFL
         self.cache.put(slot, payload=payload, z_hat=self.decode(payload),
                        y=y, round_idx=round_idx)
+        self.mirrors.note_upload(slot, round_idx)
 
     def broadcast_round(self, participants: Sequence[int], round_idx: int):
-        """Serve the valid cache to the participants -> (Z, Y, entries):
-        the decoded pairs the modular updates consume, in slot order, and
-        the (slot, entry) list behind them."""
+        """Serve the valid cache to the participants under the policy ->
+        (Z, Y, entries, shipped): the decoded pairs the modular updates
+        consume, in slot order (the same under both policies), the (slot,
+        entry) list behind them, and the slots the delta policy shipped
+        (empty under ``full``)."""
         entries = self.cache.valid_entries(round_idx)
         Z = [e.z_hat for _, e in entries]
         Y = [e.y for _, e in entries]
-        payloads = [e.payload for _, e in entries]
-        for _ in participants:
-            self.down((payloads, Y))
-        return Z, Y, entries
+        shipped: List[int] = []
+        if self.broadcast == "full":
+            payloads = [e.payload for _, e in entries]
+            for _ in participants:
+                self.down((payloads, Y))
+        else:
+            shipped = self.mirrors.sync(
+                participants, [(s, e.round_idx) for s, e in entries])
+            if shipped:
+                by_slot = dict(entries)
+                self.down(([by_slot[s].payload for s in shipped],
+                           [by_slot[s].y for s in shipped]))
+                self.down_bytes(len(shipped) * DELTA_SIDECAR_BYTES)
+        return Z, Y, entries, shipped
+
+    # ------------------------------------------------- snapshot / restore
+
+    def cache_tree(self) -> Dict[str, Any]:
+        """The cache as a fixed-shape tree: every one of the N slots
+        stacked (an empty slot carries ``encode(zeros)``, zero z_hat and
+        labels), so a checkpoint template holds it whatever the round;
+        ``aux_state()['cache_rounds']`` marks the real slots."""
+        z0 = torch.zeros(self.z_shape, dtype=torch.float32,
+                         device=self.device)
+        empty = self.codec.encode(z0)
+        y0 = torch.zeros((self.z_shape[0],), dtype=torch.int32,
+                         device=self.device)
+        pays, zhs, ys = [], [], []
+        for s in range(self.n_clients):
+            e = self.cache._entries.get(s)
+            pays.append(e.payload if e is not None else empty)
+            zhs.append(e.z_hat if e is not None else z0)
+            ys.append(e.y if e is not None else y0)
+        return {"payload": {k: torch.stack([p[k] for p in pays])
+                            for k in empty},
+                "z_hat": torch.stack(zhs),
+                "y": torch.stack(ys)}
+
+    def restore_cache(self, tree: Dict[str, Any],
+                      cache_rounds: Sequence[Optional[int]]) -> None:
+        """Inverse of ``cache_tree``: rebuild the entries in place (the
+        engine and the trainer hold this cache object)."""
+        self.cache._entries = {
+            s: CacheEntry(payload={k: v[s] for k, v in tree["payload"].items()},
+                          z_hat=tree["z_hat"][s], y=tree["y"][s],
+                          round_idx=int(r))
+            for s, r in enumerate(cache_rounds) if r is not None
+        }
+
+    def aux_state(self) -> Dict[str, Any]:
+        entries = self.cache._entries
+        return {
+            "cache_rounds": [int(entries[s].round_idx) if s in entries
+                             else None for s in range(self.n_clients)],
+            "mirrors": self.mirrors.aux_state(),
+        }
+
+    def restore_aux(self, aux: Dict[str, Any]) -> None:
+        # The entries are arrays: the trainer hands its snapshot tree to
+        # ``restore_cache`` (with aux['cache_rounds']) after this.
+        self.mirrors.restore_aux(aux["mirrors"])
 
 
 _SPMD_TODO = ("ROADMAP.md queue 1, items 3b (partial participation, "

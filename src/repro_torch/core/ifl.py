@@ -20,15 +20,22 @@ the reference's order (schedule mask, then each participant's τ
 minibatches, then each participant's fusion minibatch), so participants,
 minibatches and ledger bytes match the reference exactly.
 
-Not ported yet (ROADMAP.md queue 1): async rounds, population fleets,
-delta broadcast, and ``snapshot``/``restore``; each raises
-``NotImplementedError``.
+The wire side (encode, EF residuals, cache, ledger, broadcast policy)
+lives on the exchange plane (``repro_torch.core.exchange``);
+``cfg.broadcast='delta'`` switches the downlink to mirror-sync delta
+shipping (the same decoded training signal, each entry shipped once).
+``snapshot``/``restore`` give the fixed fleet's state as an array tree
+plus JSON aux, in the reference's layout, so a checkpoint written by
+either package resumes in the other (``repro_torch.api.save_trainer``).
+
+Not ported yet (ROADMAP.md queue 1, item 3b): async rounds and
+population fleets; each raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Callable, Dict, List, Sequence
+from typing import Any, Callable, Dict, List, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -159,9 +166,10 @@ class IFLTrainer:
                                  f"!= {cfg.d_fusion}")
             self.exchange.upload(int(k), z, y, eng.round_idx)
 
-        # Steps 4-5: the valid cache to every participant.
-        Z, Y, entries = self.exchange.broadcast_round(participants,
-                                                      eng.round_idx)
+        # Steps 4-5: the valid cache to the participants under the
+        # broadcast policy (the same decoded pairs under both).
+        Z, Y, entries, shipped = self.exchange.broadcast_round(
+            participants, eng.round_idx)
 
         # Step 6: modular updates on every cached pair, in cache order.
         mod_losses = []
@@ -183,14 +191,36 @@ class IFLTrainer:
             "cache_size": len(entries),
             "max_staleness_seen": max(staleness.values(), default=0),
         }
+        if self.exchange.broadcast == "delta":
+            # E of ifl_round_bytes(broadcast='delta', delta_entries=E).
+            metrics["shipped_entries"] = len(shipped)
         return eng.end_round(metrics)
 
-    def snapshot(self):
-        raise NotImplementedError(
-            "IFLTrainer.snapshot/restore and save_trainer/load_trainer are "
-            "not ported yet (ROADMAP.md queue 1, item 2f)")
+    # ---------------------------------------------------- snapshot/restore
 
-    restore = snapshot
+    def snapshot(self) -> Tuple[Dict[str, Any], Dict[str, Any]]:
+        """(tensor tree, JSON-able aux), the Trainer protocol's state: every
+        client's params, the EF residuals in slot order and the fusion
+        cache stacked over all slots (``FusionExchange.cache_tree``);
+        the aux is the engine's (round, rng, ledger totals, cache entry
+        rounds, delta mirrors). The reference's tree, key for key."""
+        tree = {
+            "clients": [c.params for c in self.clients],
+            "ef": [self.exchange.ef_state[k]
+                   for k in range(len(self.clients))],
+            "cache": self.exchange.cache_tree(),
+        }
+        return tree, self.engine.aux_state()
+
+    def restore(self, tree, aux) -> None:
+        for k, (c, p, e) in enumerate(
+                zip(self.clients, tree["clients"], tree["ef"])):
+            c.params = p
+            self.exchange.ef_state[k] = e
+        self.engine.restore_aux(aux)  # clears the cache in place ...
+        # ... and the snapshot refills it.
+        self.exchange.restore_cache(tree["cache"],
+                                    aux["exchange"]["cache_rounds"])
 
     # ------------------------------------------------------------ eval
 

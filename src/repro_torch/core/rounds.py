@@ -229,6 +229,39 @@ class RoundEngine:
         return (torch.from_numpy(client.data_x[idx]).to(device),
                 torch.from_numpy(client.data_y[idx]).to(device))
 
+    def aux_state(self) -> Dict[str, Any]:
+        """JSON-able engine state for checkpoint resume: round counter,
+        the numpy bit-generator state and the ledger totals, plus the
+        exchange plane's host state under ``'exchange'`` (cache entry
+        rounds and delta-mirror versions of the fusion plane). The
+        cache's arrays ride in the trainer's snapshot tree."""
+        aux = {
+            "round_idx": self.round_idx,
+            "rng": self.rng.bit_generator.state,
+            "ledger": {"uplink": self.ledger.uplink,
+                       "downlink": self.ledger.downlink},
+        }
+        ex = self.exchange.aux_state()
+        if ex:
+            aux["exchange"] = ex
+        return aux
+
+    def restore_aux(self, aux: Dict[str, Any]) -> None:
+        self.round_idx = int(aux["round_idx"])
+        self.rng.bit_generator.state = aux["rng"]
+        self.ledger.uplink = int(aux["ledger"]["uplink"])
+        self.ledger.downlink = int(aux["ledger"]["downlink"])
+        if "exchange" in aux:
+            self.exchange.restore_aux(aux["exchange"])
+        # Clear the cache in place (the plane and the trainer hold it): an
+        # in-place rewind may hold payloads uploaded after the snapshot
+        # round, which the rewound counter would never expire. The
+        # trainer refills it from its snapshot tree. History and per-round
+        # ledger trails past the restored round go.
+        self.cache._entries.clear()
+        del self.history[self.round_idx:]
+        del self.ledger.per_round[self.round_idx:]
+
     def end_round(self, metrics: Dict[str, Any]) -> RoundReport:
         """Close the ledger round, log metrics, advance the counter."""
         self.ledger.end_round()

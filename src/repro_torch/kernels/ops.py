@@ -8,8 +8,12 @@ plain int attribute (``flash_decode.launches``, ``wire_encode.launches``,
 ``wire_encode_ef.launches``, ``flash_attention.launches``,
 ``flash_attention_bwd.launches``, ``fusion_proj.launches``,
 ``fusion_proj_quant.launches``, ``fusion_proj_encode.launches``,
-``decode_proj.launches``), so a run can show that its main path went
-through the kernel.
+``decode_proj.launches``, ``rmsnorm.launches``), so a run can show that
+its main path went through the kernel.
+
+``rmsnorm`` is the JAX package's ``repro.kernels.ops.rmsnorm``: no model
+path of either package calls it (the models normalize inline), so the op
+itself is its path.
 
 Full-sequence attention (``flash_attention``) is a
 ``torch.autograd.Function`` on CUDA tensors: its forward launches the
@@ -570,6 +574,51 @@ def decode_proj(payload: dict, w: torch.Tensor,
 
 
 decode_proj.launches = 0
+
+
+# ---------------------------------------------------------------- rmsnorm
+
+
+def rmsnorm(x: torch.Tensor, scale: torch.Tensor, *,
+            eps: float = 1e-6) -> torch.Tensor:
+    """RMSNorm over the last dim: x (..., D), scale (D,) -> x's shape and
+    dtype, y = x * rsqrt(mean x^2 + eps) * scale in fp32 inside.
+
+    A CPU tensor takes the plain version (``ref.rmsnorm_ref``) on the
+    flattened (M, D) rows; a CUDA tensor launches ``csrc/rmsnorm.cu``
+    (x fp32 or bf16, scale fp32 or bf16 independently, both contiguous,
+    any M >= 1 and D >= 1) or raises."""
+    if x.dim() < 1:
+        raise ValueError("rmsnorm: x is 0-d, want (..., D)")
+    D = x.shape[-1]
+    if x.device.type == "cpu":
+        return ref.rmsnorm_ref(x.reshape(-1, D), scale, eps).reshape(x.shape)
+    if x.device.type != "cuda":
+        raise ValueError(f"rmsnorm takes CUDA tensors, got {x.device}")
+    if scale.device != x.device:
+        raise ValueError(f"rmsnorm: scale on {scale.device}, x on {x.device}")
+    if x.dtype not in _DTYPE_CODE or scale.dtype not in _DTYPE_CODE:
+        raise ValueError(f"rmsnorm: dtypes x {x.dtype} scale {scale.dtype} "
+                         "(float32 or bfloat16)")
+    if x.numel() == 0 or tuple(scale.shape) != (D,):
+        raise ValueError(f"rmsnorm: shapes x {tuple(x.shape)} scale "
+                         f"{tuple(scale.shape)}, want (..., D) and (D,)")
+    if not x.is_contiguous() or not scale.is_contiguous():
+        raise ValueError("rmsnorm: tensors must be contiguous")
+    y = torch.empty_like(x)
+    fn = _c_fn("rmsnorm", "rmsnorm",
+               [_P] * 3 + [ctypes.c_longlong] + [_I] * 3 + [_F, _P])
+    with torch.cuda.device(x.device):
+        rc = fn(x.data_ptr(), scale.data_ptr(), y.data_ptr(), x.numel() // D,
+                D, _DTYPE_CODE[x.dtype], _DTYPE_CODE[scale.dtype], float(eps),
+                _stream(x.device))
+    if rc != 0:
+        raise RuntimeError(f"rmsnorm launch failed (code {rc})")
+    rmsnorm.launches += 1
+    return y
+
+
+rmsnorm.launches = 0
 
 
 # ------------------------------------------------------ flash attention

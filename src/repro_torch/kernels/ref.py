@@ -179,3 +179,15 @@ def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor,
         out = flash_attention_ref(qa, ka, va, causal=True, window=window,
                                   scale=scale)
         return torch.autograd.grad(out, (qa, ka, va), do)
+
+
+def rmsnorm_ref(x: torch.Tensor, scale: torch.Tensor,
+                eps: float = 1e-6) -> torch.Tensor:
+    """RMSNorm over the last dim, the plain version of the ``rmsnorm``
+    kernel (a port of ``repro/kernels/ref.py:121``): x (M, D), scale (D,)
+    -> (M, D) in x's dtype. fp32 inside, in the order of the port's
+    inline norm (``models/modules.py`` ``apply_norm``): x * rsqrt(mean
+    x^2 + eps), then times the scale, rounded once at the end."""
+    xf = x.float()
+    y = xf * torch.rsqrt(torch.mean(xf * xf, dim=-1, keepdim=True) + eps)
+    return (y * scale.float()).to(x.dtype)

@@ -1,20 +1,25 @@
 """Quickstart of the port: collaborative IFL training (the paper's
-Algorithm 1), end to end, the twin of ``examples/quickstart.py``.
+Algorithm 1), end to end through the front door, the twin of
+``examples/quickstart.py``.
 
 Four vendors with the paper's Table-II architectures train on non-IID
 synthetic KMNIST while exchanging only fusion-layer outputs through the
-chosen wire codec, then compose each other's modular blocks (eq. 11):
+chosen wire codec, then compose each other's modular blocks (eq. 11).
+The whole run is one ``run_experiment(spec, keep_trainer=True,
+on_record=...)``:
 
   PYTHONPATH=src python -m repro_torch.launch.quickstart              # the card
   PYTHONPATH=src python -m repro_torch.launch.quickstart --device cpu
   PYTHONPATH=src python -m repro_torch.launch.quickstart --codec "ef(int4)" \
-      --participation k2 --rounds 10 --tau 10
+      --participation k2 --max-staleness 2 --broadcast delta --rounds 10
 
-Each round prints the base and modular losses, the participants and the
-round's ledger bytes; at the end it prints whether every round's measured
-bytes equal the analytic ``ifl_round_bytes`` and the cross-vendor
-composition matrix. It runs on the card unless ``--device cpu``, and
-raises where there is no CUDA.
+``--broadcast delta`` has the vendors mirror the server cache, so each
+entry ships at most once a round: the same training, fewer downlink
+bytes. Every eval round (each 5th and the last) prints the losses, the
+participants, the cumulative ledger MB and the accuracies; at the end it
+prints whether every round's measured bytes equal the analytic
+``ifl_round_bytes`` and the cross-vendor composition matrix. It runs on
+the card unless ``--device cpu``, and raises where there is no CUDA.
 """
 
 from __future__ import annotations
@@ -25,18 +30,22 @@ import time
 import numpy as np
 import torch
 
-from repro_torch.api import DataSpec, ExperimentSpec, build_ifl, load_data
+from repro_torch.api import DataSpec, ExperimentSpec, run_experiment
 from repro_torch.core.comm import ifl_round_bytes
+from repro_torch.device import resolve_device
 
 
 def round_bytes_match(trainer, spec: ExperimentSpec) -> bool:
     """Every closed round's ledger bytes == the analytic formula at that
-    round's participants and cache size."""
+    round's participants, cache size and (under delta) shipped entries."""
     for rep, got in zip(trainer.engine.history, trainer.ledger.per_round):
         exp = ifl_round_bytes(spec.fleet.population, spec.batch_size,
                               spec.d_fusion, codec=spec.codec,
                               participating=len(rep.participants),
-                              broadcast_entries=rep["cache_size"])
+                              broadcast_entries=rep["cache_size"],
+                              broadcast=spec.broadcast,
+                              delta_entries=rep.metrics.get(
+                                  "shipped_entries"))
         if got != exp:
             return False
     return True
@@ -50,46 +59,57 @@ def main(argv=None) -> None:
                          "sketch<r> | ef(<codec>)")
     ap.add_argument("--participation", default="full",
                     help="full | k<K> | bern<p> | straggle(<frac>,<period>)")
+    ap.add_argument("--max-staleness", type=int, default=None,
+                    help="fusion-cache staleness bound in rounds "
+                         "(default: never evict)")
+    ap.add_argument("--broadcast", default="full", choices=["full", "delta"],
+                    help="downlink policy: the full cache to every "
+                         "participant, or delta mirror-sync (each entry "
+                         "ships once a round)")
     ap.add_argument("--rounds", type=int, default=20)
     ap.add_argument("--tau", type=int, default=10)
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda; 'cpu' to run there)")
     args = ap.parse_args(argv)
 
-    # lr 0.05, B 32, seed 0, 6000/1500 samples: the JAX package's
-    # quickstart spec.
+    dev = resolve_device(args.device)
+    # lr 0.05, B 32, seed 0, eval every 5th round, 6000/1500 samples: the
+    # JAX package's quickstart spec.
     spec = ExperimentSpec(
         scheme="ifl", rounds=args.rounds, tau=args.tau, lr=0.05,
         batch_size=32, codec=args.codec, participation=args.participation,
-        seed=0, data=DataSpec(n_train=6000, n_test=1500))
-    data = load_data(spec)
-    trainer = build_ifl(spec, data, device=args.device)
-    dev = trainer.device
+        max_staleness=args.max_staleness, broadcast=args.broadcast,
+        eval_every=5, seed=0, data=DataSpec(n_train=6000, n_test=1500))
     name = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
     print(f"== ifl quickstart: 4 vendors (Table II), synthetic KMNIST "
           f"{spec.data.n_train}/{spec.data.n_test}, codec {args.codec}, "
-          f"participation {args.participation}, tau {args.tau}, on {name} ==")
+          f"participation {args.participation}, broadcast {args.broadcast}, "
+          f"tau {args.tau}, on {name} ==")
     print(f"   spec {spec.spec_hash()}")
-    for _ in range(args.rounds):
-        t0 = time.perf_counter()
-        rep = trainer.run_round()
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
-        wall = time.perf_counter() - t0
-        got = trainer.ledger.per_round[-1]
-        print(f"round {rep.round:3d}: base_loss {rep['base_loss']:.4f} "
-              f"mod_loss {rep['mod_loss']:.4f} participants "
-              f"{rep.participants} (cache {rep['cache_size']}) "
-              f"up {got['up']} B down {got['down']} B, {wall * 1e3:.1f} ms")
 
+    def progress(rec, report):
+        print(f"round {rec['round']:3d}: base_loss {report['base_loss']:.4f} "
+              f"mod_loss {report['mod_loss']:.4f} participants "
+              f"{report.participants} (cache {report['cache_size']}), "
+              f"cumulative uplink {rec['uplink_mb']:.4f} MB, total "
+              f"{rec['total_mb']:.4f} MB, accs "
+              f"{[round(a, 3) for a in rec['accs']]}")
+
+    t0 = time.perf_counter()
+    result = run_experiment(spec, keep_trainer=True, on_record=progress,
+                            device=dev)
+    wall = time.perf_counter() - t0
+    trainer = result.trainer
     ok = round_bytes_match(trainer, spec)
-    print(f"\nper-round bytes measured == analytic ifl_round_bytes, every "
+    print(f"\n{args.rounds} rounds in {wall:.2f} s (evaluations included)")
+    print(f"per-round bytes measured == analytic ifl_round_bytes, every "
           f"round: {ok}")
-    accs = trainer.evaluate(data.test_x, data.test_y)
+    print(f"ledger totals: uplink {trainer.ledger.uplink_mb:.3f} MB, "
+          f"downlink {trainer.ledger.downlink_mb:.3f} MB")
     print(f"local accuracy per vendor (eq. 10): "
-          f"{[round(a, 3) for a in accs]}")
+          f"{[round(a, 3) for a in result.final['accs']]}")
     print("cross-vendor composition matrix (eq. 11), [base k, modular i]:")
-    print(np.round(trainer.accuracy_matrix(data.test_x, data.test_y), 3))
+    print(np.round(np.asarray(result.final["matrix"]), 3))
 
 
 if __name__ == "__main__":

@@ -1,7 +1,8 @@
 """The port's CUDA kernels (flash decode, wire encode with and without
 EF, flash attention forward and backward, the fused wire path's
-projection, projection-encode and decode-projection) against their plain
-PyTorch versions, on the card. Marked ``cuda``:
+projection, projection-encode and decode-projection, RMSNorm) against
+their plain PyTorch versions, on the card, and the front door
+(``run_experiment`` under the delta broadcast) there. Marked ``cuda``:
 each test skips where no card is available. This file imports no JAX,
 so it runs on the machine with the card:
 
@@ -440,3 +441,101 @@ def test_fused_wire_path_rejects_bad_inputs_on_card():
                         shape=(8, 432))                         # leaves
     with pytest.raises(ValueError):
         ops.decode_proj(p, w, codec=codec, shape=(8, 432))      # w rows
+
+
+# ---------------------------------------------------------------- rmsnorm
+
+# (M, D): kernel_bench's shape, the LM clients' B*S rows at qwen1.5-0.5b's
+# d_model, the Table-II fusion width, M off a multiple of 256, an odd D
+# with unaligned rows, a long row.
+RMS_SHAPES = [(8192, 4096), (4096, 1024), (1, 432), (1000, 432), (37, 1023),
+              (3, 8192)]
+RMS_TYPES = [(torch.float32, torch.float32), (torch.bfloat16, torch.float32),
+             (torch.bfloat16, torch.bfloat16), (torch.float32, torch.bfloat16)]
+
+
+def _rms_inputs(M, D, xd, sd, seed):
+    rng = np.random.default_rng(seed)
+    x = (rng.standard_normal((M, D)) * 2.0).astype(np.float32)
+    s = rng.standard_normal((D,)).astype(np.float32)
+    return torch.from_numpy(x).cuda().to(xd), torch.from_numpy(s).cuda().to(sd)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("xd,sd", RMS_TYPES)
+@pytest.mark.parametrize("M,D", RMS_SHAPES)
+def test_rmsnorm_kernel_matches_plain_on_card(M, D, xd, sd):
+    """fp32 within 2e-5 of max(1, |plain|) (the reference's fp32
+    tolerance); bf16 within one bf16 rounding of the plain value."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    x, s = _rms_inputs(M, D, xd, sd, seed=M + D)
+    before = ops.rmsnorm.launches
+    got = ops.rmsnorm(x, s)
+    torch.cuda.synchronize()
+    assert ops.rmsnorm.launches == before + 1
+    assert got.dtype == xd and got.shape == (M, D)
+    want = ref.rmsnorm_ref(x, s).float()
+    err = (got.float() - want).abs()
+    if xd == torch.float32:
+        assert float(err.max()) <= 2e-5 * max(1.0, float(want.abs().max()))
+    else:
+        assert bool((err <= 2.0 ** -7 * want.abs()).all())
+
+
+@pytest.mark.cuda
+def test_rmsnorm_on_card_is_scale_invariant_and_keeps_leading_dims():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    x, s = _rms_inputs(16, 64, torch.float32, torch.float32, seed=0)
+    s = torch.ones_like(s)
+    torch.testing.assert_close(ops.rmsnorm(3.7 * x, s), ops.rmsnorm(x, s),
+                               atol=1e-5, rtol=0)
+    x3 = x.reshape(2, 8, 64)
+    assert torch.equal(ops.rmsnorm(x3, s).reshape(16, 64), ops.rmsnorm(x, s))
+
+
+@pytest.mark.cuda
+def test_rmsnorm_rejects_bad_inputs_on_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    x, s = _rms_inputs(8, 64, torch.float32, torch.float32, seed=1)
+    before = ops.rmsnorm.launches
+    for bad in ((x.half(), s), (x, s.cpu()), (x, s[:32]),
+                (x.t().contiguous().t(), s), (x[:0], s), (x[0, 0], s)):
+        with pytest.raises(ValueError):
+            ops.rmsnorm(*bad)
+    assert ops.rmsnorm.launches == before
+
+
+# ----------------------------------------------------------- front door
+
+
+@pytest.mark.cuda
+def test_run_experiment_under_delta_on_card_matches_cpu():
+    """A short ``run_experiment`` under delta on the card: one
+    ``wire_encode_ef`` launch per participant, ledger == the delta
+    formula every round, and the same run on the CPU gives the same
+    participants and bytes, losses within 1e-4."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from repro_torch.api import DataSpec, ExperimentSpec, run_experiment
+    from repro_torch.launch.quickstart import round_bytes_match
+
+    spec = ExperimentSpec(scheme="ifl", rounds=2, tau=2, lr=0.01,
+                          codec="ef(int4)", participation="k2",
+                          max_staleness=2, broadcast="delta", eval_every=1,
+                          data=DataSpec(n_train=800, n_test=200))
+    before = ops.wire_encode_ef.launches
+    card = run_experiment(spec, keep_trainer=True, device="cuda")
+    torch.cuda.synchronize()
+    n_part = sum(len(r["participants"]) for r in card.reports)
+    assert ops.wire_encode_ef.launches == before + n_part
+    assert round_bytes_match(card.trainer, spec)
+    cpu = run_experiment(spec, keep_trainer=True, device="cpu")
+    assert card.trainer.ledger.per_round == cpu.trainer.ledger.per_round
+    for a, b in zip(card.reports, cpu.reports):
+        assert a["participants"] == b["participants"]
+        assert a["shipped_entries"] == b["shipped_entries"]
+        for key in ("base_loss", "mod_loss"):
+            assert abs(a[key] - b[key]) <= 1e-4, (key, a[key], b[key])

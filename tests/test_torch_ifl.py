@@ -181,25 +181,18 @@ def test_unported_parts_raise_not_implemented():
     data = tapi.load_data(spec)
     for scheme in ("fsl", "fl1", "fl2", "ifl_spmd"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tapi.build_scheme(spec.replace(scheme=scheme), data,
-                              device="cpu")
-    for fn in (tapi.run_experiment, tapi.save_trainer, tapi.load_trainer):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            fn(spec)
+            tapi.get_scheme(scheme).build(spec.replace(scheme=scheme), data,
+                                          device="cpu")
     for spec_str in ("zipf(1.1)", "diurnal(24,4)"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             parse_participation(spec_str)
     _, tc = _linear_fleets()
-    for cfg in (RunConfig(d_fusion=16, batch_size=4, broadcast="delta"),
-                RunConfig(d_fusion=16, batch_size=4, mode="async",
+    for cfg in (RunConfig(d_fusion=16, batch_size=4, mode="async",
                           trace="poisson(0.5)"),
                 RunConfig(d_fusion=16, batch_size=4, cohort=2,
                           n_population=4)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             IFLTrainer(tc, cfg, device="cpu")
-    tt = IFLTrainer(tc, RunConfig(d_fusion=16, batch_size=4), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tt.snapshot()
 
 
 def test_entry_points_run_on_the_card_unless_asked():

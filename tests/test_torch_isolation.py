@@ -26,6 +26,8 @@ def test_import_loads_no_jax_and_no_reference_module():
         "import repro_torch.core.ifl, repro_torch.core.report\n"
         "import repro_torch.core.rounds, repro_torch.api\n"
         "import repro_torch.api.schemes, repro_torch.api.spec\n"
+        "import repro_torch.api.registry, repro_torch.api.runner\n"
+        "import repro_torch.api.result, repro_torch.api.trainer\n"
         "import repro_torch.data.images, repro_torch.data.dirichlet\n"
         "import repro_torch.models.small, repro_torch.launch.quickstart\n"
         "import repro_torch.core.ifl_spmd, repro_torch.optim\n"
