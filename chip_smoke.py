@@ -58,6 +58,7 @@ from __future__ import annotations
 import argparse
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -128,12 +129,13 @@ def graph_time_ms(calls, reps: int = 50) -> float:
     return statistics.median(a.elapsed_time(b) for a, b in marks) / len(calls)
 
 
-def profile_run(label: str, run, top: int = 8) -> None:
+def profile_run(label: str, run, top: int = 8, groups=()) -> None:
     """Where the time of one warm run goes: wall time (with the profiler
     on), the device's busy share (the sum of its kernel and copy times
     over the wall time), the kernels that take the most device time and
     the ops that take the most host time. ``run`` is the work, a
-    callable."""
+    callable; each of ``groups`` (a substring of kernel names) also
+    prints the device time of the kernels whose names hold it."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -151,6 +153,12 @@ def profile_run(label: str, run, top: int = 8) -> None:
     print(f"[profile {label}] warm run {wall:.3f}s wall, device busy "
           f"{busy:.3f}s ({100 * busy / wall:.1f}%, idle "
           f"{100 * (1 - busy / wall):.1f}%)")
+    for sub in groups:
+        rs = [r for r in dev_rows if sub in r.key]
+        t = sum(r.self_device_time_total for r in rs) / 1e3
+        print(f"[profile {label} {sub}*] {t:9.1f} ms "
+              f"{sum(r.count for r in rs):7d}x "
+              f"({100 * t / 1e3 / busy:.1f}% of device busy)")
     for where, key, rs in (("device", "self_device_time_total", dev_rows),
                            ("host", "self_cpu_time_total", rows)):
         for r in sorted(rs, key=lambda r: -getattr(r, key))[:top]:
@@ -266,9 +274,18 @@ def wire_times(ops, ref, get_codec, rows, d=432):
 
 # Flash attention against its plain version: (B, S, H, KVH, hd, window).
 # The LM path's shape first; then hd 128 with GQA (G 2), a partial last
-# tile (S 200) and a sliding window (48).
+# tile (S 200) and a sliding window (48); then the edges of the bf16
+# kernels' 64-row tiles (S 63, 64, 65, 129), windows of 1 and 65 keys,
+# G 8 at hd 128 (H 16, KVH 2) and hd 128 at S 512.
 ATTN_CASES = [(2, 512, 16, 16, 64, -1), (2, 256, 8, 4, 128, -1),
-              (2, 200, 16, 16, 64, -1), (2, 512, 16, 16, 64, 48)]
+              (2, 200, 16, 16, 64, -1), (2, 512, 16, 16, 64, 48),
+              (2, 63, 16, 16, 64, -1), (2, 64, 16, 16, 64, -1),
+              (2, 65, 16, 16, 64, -1), (2, 129, 16, 16, 64, -1),
+              (2, 512, 16, 16, 64, 1), (2, 512, 16, 16, 64, 65),
+              (2, 512, 16, 2, 128, -1), (2, 512, 16, 16, 128, -1)]
+# Timed shapes (bf16, causal): the LM path's (qwen1.5-0.5b), and hd 128
+# as olmo-1b's attention has it.
+ATTN_TIMED = [ATTN_CASES[0], (2, 512, 16, 16, 128, -1)]
 # Tolerance, as max |kernel - plain| over max(1, max |plain|): fp32 sums
 # in another order; in bf16 the kernel rounds the unnormalized p of its
 # online softmax to bf16 where the plain version rounds the normalized
@@ -360,14 +377,14 @@ def event_time_ms(fn, reps: int = 20) -> float:
     return a.elapsed_time(b) / reps
 
 
-def attn_times(ops, ref):
-    """Forward and backward times at the LM path's shape (bf16, causal):
-    kernel, plain version, SDPA (``is_causal=True``) and the bound.
-    Forwards are graph-replayed (16 input sets, ~8 MB each, so K/V come
-    from HBM as in the model); backwards are timed eagerly with events
-    (the plain and SDPA backwards run through autograd), each the
-    backward alone on a forward done once."""
-    B, S, H, KVH, hd, window = ATTN_CASES[0]
+def attn_times(ops, ref, shape):
+    """Forward and backward times at ``shape`` (B, S, H, KVH, hd, window;
+    bf16, causal): kernel, plain version, SDPA (``is_causal=True``) and
+    the bound. Forwards are graph-replayed (16 input sets, ~8 MB each at
+    hd 64, so K/V come from HBM as in the model); backwards are timed
+    eagerly with events (the plain and SDPA backwards run through
+    autograd), each the backward alone on a forward done once."""
+    B, S, H, KVH, hd, window = shape
     sets = [attn_inputs(B, S, H, KVH, hd, torch.bfloat16, seed=100 + i)
             for i in range(16)]
     sdpa = torch.nn.functional.scaled_dot_product_attention
@@ -411,8 +428,8 @@ def attn_times(ops, ref):
         o_ms = fl / BF16_FLOPS * 1e3
         t[key + "_bound"] = max(b_ms, o_ms)
         t[key + "_bound_by"] = "bytes" if b_ms >= o_ms else "operations"
-        print(f"[time] flash_attention {key} at B {B} S {S} H {H} hd {hd} "
-              f"bf16 causal: kernel {t[key] * 1e3:.2f} us, plain "
+        print(f"[time] flash_attention {key} at B {B} S {S} H {H} KVH {KVH} "
+              f"hd {hd} bf16 causal: kernel {t[key] * 1e3:.2f} us, plain "
               f"{t[key + '_plain'] * 1e3:.2f} us, sdpa "
               f"{t[key + '_sdpa'] * 1e3:.2f} us, bound "
               f"{t[key + '_bound'] * 1e3:.3f} us ({nb} bytes, {fl} flops)",
@@ -596,7 +613,7 @@ def profile_lm_round(cfg, n, tau, b, s):
         float(step(params, opt_state, batches[i])[2]["base_loss"])
 
     one_round(0)
-    profile_run("lm ifl", lambda: one_round(1))
+    profile_run("lm ifl", lambda: one_round(1), groups=("attn_",))
     del params, opt_state
 
 
@@ -1347,8 +1364,18 @@ def main() -> None:
         lines = log.read_text().splitlines() if log.exists() else []
         regs = [int(x.split("Used ")[1].split()[0]) for x in lines
                 if "Used " in x]
-        spills = [x.strip() for x in lines
-                  if "spill" in x and "0 bytes spill stores" not in x]
+        # Each spill line under the kernel it belongs to: the mangled
+        # name's identifier and template arguments ("IfLi128": float, 128).
+        spills, entry = [], "?"
+        for x in lines:
+            if "Function properties for " in x:
+                entry = x.split("Function properties for ")[1].strip()
+                m = re.search(r"_cu_[0-9a-f]{8}(\d+)", entry)
+                if m:
+                    n = m.end() + int(m.group(1))
+                    entry = entry[m.end():n] + entry[n:].split("EE")[0]
+            elif "spill" in x and "0 bytes spill stores" not in x:
+                spills.append(f"{entry}: {x.strip()}")
         print(f"[ptxas {name}] {len(regs)} instantiations, registers "
               f"{min(regs, default=0)}..{max(regs, default=0)}, "
               f"{len(spills)} spilling: {spills}")
@@ -1627,7 +1654,9 @@ def main() -> None:
             "bound_by": t["bound_by"],
             "library_ms": None,
         })
-    at = attn_times(ops, ref)
+    at = attn_times(ops, ref, ATTN_TIMED[0])
+    for shape in ATTN_TIMED[1:]:   # printed as [time] lines only
+        attn_times(ops, ref, shape)
     for kname, key, err, replaces in (
             ("flash_attention", "fwd", attn_err["path"]["fwd"],
              "src/repro/kernels/flash_attention.py:167"),

@@ -647,6 +647,9 @@ def _check_attn(name: str, q: torch.Tensor, k: torch.Tensor,
                          f"{_HEAD_DIMS}, S >= 1")
     if not all(t.is_contiguous() for t in (q, k, v)):
         raise ValueError(f"{name}: tensors must be contiguous")
+    if any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError(f"{name}: tensors must start on 16 bytes (the "
+                         "bf16 kernels copy 16-byte chunks)")
 
 
 def _attn_call(fn_name: str, *args) -> None:
@@ -694,9 +697,11 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             or do.dtype != q.dtype or lse.shape != (B, H, S)
             or lse.dtype != torch.float32
             or not all(t.is_contiguous() and t.device == q.device
-                       for t in (o, do, lse))):
+                       for t in (o, do, lse))
+            or o.data_ptr() % 16 or do.data_ptr() % 16):
         raise ValueError("flash_attention_bwd: o, dO must match q and lse "
-                         "be (B, H, S) fp32, all contiguous on q's device")
+                         "be (B, H, S) fp32, all contiguous on q's device, "
+                         "o and dO starting on 16 bytes")
     scale = scale if scale is not None else 1.0 / math.sqrt(hd)
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     dsum = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
@@ -741,8 +746,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     q: (B, S, H, hd); k, v: (B, S, KVH, hd), the model's layout, GQA
     read directly (no repeated K/V). Returns (B, S, H, hd). CPU tensors
     run ``ref.flash_attention_ref``; CUDA tensors run the kernels through
-    a ``torch.autograd.Function`` (contiguous, float32 or bfloat16, hd
-    in {64, 128}) or raise.
+    a ``torch.autograd.Function`` (contiguous and starting on 16 bytes,
+    float32 or bfloat16, hd in {64, 128}) or raise: bf16 on the
+    tensor-core kernels, float32 on the SIMT ones (tensor cores would
+    take it only as TF32).
     """
     if q.device.type == "cpu":
         return ref.flash_attention_ref(q, k, v, causal=True, window=window,

@@ -29,9 +29,12 @@ from repro_torch.models import attention as tattn
 
 HD = 64
 # Every S and window; GQA (4 query heads on 2 KV heads) at S 64 and 192,
-# MHA at S 128.
+# MHA at S 128. Then the edges of the card's bf16 kernel tiles (64 rows):
+# S 63, 65 and 129, and windows of 1 and 65 keys, which the card tests
+# hold the kernels to this plain version at.
 CASES = [(S, w, 2 if S != 128 else 4) for S in (64, 128, 192)
-         for w in (-1, 16, 48)]
+         for w in (-1, 16, 48)] + [
+    (63, -1, 2), (65, -1, 2), (129, -1, 4), (129, 1, 2), (129, 65, 2)]
 TOLS = {"float32": 2e-5, "bfloat16": 4e-2}
 
 

@@ -163,10 +163,16 @@ def test_wire_encode_rejects_bad_inputs_on_card():
 # ------------------------------------------------------- flash attention
 
 # (B, S, H, KVH, hd, window): the LM path's shape, GQA at hd 128, partial
-# last tiles (S 200, 77, 1), sliding windows.
+# last tiles (S 200, 77, 1), sliding windows; then the edges of the bf16
+# kernels' 64-row tiles (S 63, 64, 65, 129), windows of 1 and 65 keys,
+# G 8 at hd 128 (H 16, KVH 2) and hd 128 at S 512.
 ATTN = [(2, 512, 16, 16, 64, -1), (2, 256, 8, 4, 128, -1),
         (2, 200, 4, 4, 64, -1), (1, 130, 4, 2, 64, 48),
-        (3, 77, 6, 3, 128, 16), (1, 1, 2, 1, 64, -1)]
+        (3, 77, 6, 3, 128, 16), (1, 1, 2, 1, 64, -1),
+        (2, 63, 4, 2, 64, -1), (1, 64, 4, 4, 64, -1),
+        (2, 65, 4, 1, 128, -1), (1, 129, 4, 4, 64, -1),
+        (1, 200, 4, 2, 64, 1), (1, 200, 4, 2, 64, 65),
+        (1, 129, 16, 2, 128, -1), (1, 512, 4, 4, 128, -1)]
 # Relative to max(1, max |plain|): fp32 sums in another order; in bf16 the
 # kernel rounds the online softmax's unnormalized p, the plain version
 # the normalized p, and outputs are rounded to bf16.
@@ -254,6 +260,11 @@ def test_flash_attention_rejects_bad_inputs_on_card():
     with pytest.raises(ValueError):
         ops.flash_attention(q, torch.zeros((1, 8, 3, 64), device="cuda"),
                             torch.zeros((1, 8, 3, 64), device="cuda"))
+    # Contiguous, but 2 bytes off the 16 the bf16 kernels' copies need.
+    flat = torch.zeros(8 * 4 * 64 + 1, dtype=torch.bfloat16, device="cuda")
+    kb = k.bfloat16()
+    with pytest.raises(ValueError):
+        ops.flash_attention(flat[1:].view(1, 8, 4, 64), kb, kb)
 
 
 # ------------------------------------------------- the fused wire path
