@@ -733,6 +733,16 @@ def fused_checks(ops, ref, get_codec):
                 f"{str(dtype)[6:]}")
             if (M, K, N) in path and dtype == torch.float32:
                 errs["fusion_proj"] = max(errs["fusion_proj"], err)
+    # bf16 on the tensor cores with structured inputs, where any wrong
+    # fragment or lane map moves whole entries: x's rows are rows of the
+    # identity, w[k, n] = (k N + n) % 256, so y[m] = w[m % K] exactly.
+    for M, K, N in ((32, 784, 1024), LM_PROJ):
+        x = torch.zeros((M, K), device="cuda")
+        x[torch.arange(M), torch.arange(M) % K] = 1.0
+        w = (torch.arange(K * N, device="cuda") % 256).float().reshape(K, N)
+        got = ops.fusion_proj(x.bfloat16(), w.bfloat16())
+        check(torch.equal(got.float(), w[torch.arange(M) % K]),
+              f"fusion_proj bf16 ({M},{K},{N}) structured: not exact")
     enc_cases = [(32, k, D_FUSION, True) for k in FUSION_K.values()] + [
         (1024, 432, 432, False), (33, 433, 433, False)]
     for M, K, N, with_bias in enc_cases:
@@ -966,13 +976,15 @@ def fused_times(ops, ref, get_codec):
         print(f"[time] fusion_proj ({M},{K},{N}) {str(dtype)[6:]} {act}: "
               f"kernel {k_ms * 1e3:.2f} us, plain {p_ms * 1e3:.2f} us, "
               f"addmm+relu {l_ms * 1e3:.2f} us, bound {bound * 1e3:.4f} us "
-              f"({by}; {nbytes} bytes)", flush=True)
+              f"({by}; {nbytes} bytes); kernel / addmm+relu "
+              f"{k_ms / l_ms:.2f}x", flush=True)
         return dict(ms=k_ms, plain_ms=p_ms, library_ms=l_ms, bound_ms=bound,
                     bound_by=by)
 
     for k, n in PATH_FCS:
         out[("fusion_proj", k, n)] = time_proj(32, k, n, torch.float32)
     out["fusion_proj_1568"] = time_proj(32, 1568, D_FUSION, torch.float32)
+    out["fusion_proj_bf16"] = time_proj(32, 784, 1024, torch.bfloat16)
     for dtype in (torch.float32, torch.bfloat16):
         out[("fusion_proj_lm", dtype)] = time_proj(*LM_PROJ, dtype, sets=2)
 
@@ -1153,7 +1165,8 @@ def rms_times(ops, ref):
               f"{str(sd)[6:]}: kernel {k_ms * 1e3:.2f} us, plain "
               f"{p_ms * 1e3:.2f} us, F.rms_norm {l_ms * 1e3:.2f} us, bound "
               f"{bound * 1e3:.2f} us ({by}; {nbytes} bytes); kernel at "
-              f"{nbytes / (k_ms * 1e-3) / 1e12:.2f} TB/s", flush=True)
+              f"{nbytes / (k_ms * 1e-3) / 1e12:.2f} TB/s; kernel / F.rms_norm "
+              f"{k_ms / l_ms:.2f}x", flush=True)
     return out
 
 
@@ -1419,7 +1432,8 @@ def main() -> None:
     fused_err, n_codes, n_flips = fused_checks(ops, ref, get_codec)
     print(f"[kernel] fusion_proj / fusion_proj_quant / fusion_proj_encode / "
           f"decode_proj vs plain at the path's shapes, (1024,432,432), "
-          f"(33,433,433) and {LM_PROJ} (fusion_proj, fp32 and bf16), schemes "
+          f"(33,433,433) and {LM_PROJ} (fusion_proj, fp32 and bf16; bf16 "
+          f"exact on structured inputs at (32,784,1024) and {LM_PROJ}), schemes "
           f"{WIRE_SCHEMES}, ef(int8_row) / ef(int4) over 3 chained steps, a "
           f"zero row: fused payloads == wire_encode(fusion_proj) bitwise (e' "
           f"included), quant == the int8_row payload, decode_proj == "

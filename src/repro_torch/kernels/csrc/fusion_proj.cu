@@ -28,37 +28,69 @@
 // version, which runs cuBLAS, the floats agree within rounding and an
 // integer code may flip by one step where y sits on a rounding edge.
 //
-// Layout. Every tile has 256 threads in RL row lanes x 256 / RL column
-// lanes; a thread owns TM rows x TN adjacent columns (Cfg below). k
-// advances in steps of 16: each thread loads its share of the x (or
-// decoded-row) tile and the w tile into registers, the next step's loads
-// in flight while this step's products run, and stores them to shared
-// memory as fp32 (bf16 inputs are widened on the load). The projection
-// tiles (M, N) freely: 64 x 256, 16 x 256 or 4 x 256 tiles, the largest
-// that still gives 132 blocks. The fused encode gives a block whole rows
-// (16, or 4 at small M, in one 512-wide column tile for N <= 512): it
-// keeps the finished y (BM x N fp32, up to N = 8192 with the opt-in above
-// 48 KB) in shared memory and then encodes the rows one by one with the
-// whole block. decode_proj decodes its BM payload rows into a (d x BM)
-// shared tile and multiplies it by w's column tile. The TPU kernels'
-// (8, 128) tiling, padded rows and the N % bn rule are gone: partial
-// tiles are masked, so any M, K and N work.
+// The projection (#4) has its own main loop; the other three share
+// gemm_tile. Both keep the chain rule in fp32, so the identities hold.
 //
-// What bounds it on the card. At the IFL path's shapes (M 32, K up to
-// 1568, N 432) the bytes of w: ~2.7 MB for 0.9 us at 3.35 TB/s. A
-// full-row epilogue leaves M / BM blocks to read them (8 at M 32), each
-// block all of w, with one k-step's loads in flight at a time: the
-// kernels wait on memory latency, far from the bound. At large M the
-// fp32 operations (67 TFLOP/s). These are simple SIMT kernels: no tensor
-// cores, no TMA, no split-K, no thread-block clusters; bf16 inputs run on
-// the same fp32 FMAs.
+// #4, what bounds it and what the design does, by regime:
+//  * fp32 at small M (the Table-II boundary: M 32, K 64..1568, N 10..
+//    1024). The bytes are few (w: 2.7 MB, 0.8 us at 3.35 TB/s), and the
+//    chain rule forbids split-K, so each output is a chain of K
+//    dependent FMAs (~4 cycles each, ~3.5 us at K 1568). On the card
+//    what bounds it is the shared-memory loads that feed the chains: a
+//    warp issues one every few cycles. So the tile is small (8 x 16
+//    outputs, 64 threads, 2 chains a thread, 108..256 blocks at M 32)
+//    and x is staged as it lies, so one float4 read gives 4 k of a row
+//    and a k step costs 1.25 loads (x's quarter and w's float2) for 2
+//    FMAs; 4 stages of 64 k stay in flight in a cp.async ring, one
+//    barrier a stage. Every copy is 16 bytes where K and N allow.
+//  * fp32 at large M (the LM shape (4096, 4096, 2048)): the fp32 FMAs
+//    (67 TFLOP/s). A register-tiled SIMT GEMM: 128 x 128 tiles, 8 x 8
+//    outputs a thread in two 4-wide runs each way, float4 reads of the
+//    staged tiles (x transposed by 4-byte copies, w by 16-byte ones,
+//    rows padded), a 3-stage ring of 16 k. 64 x 64 tiles where 128 x
+//    128 would not fill the card but 64 x 64 give half a wave.
+//  * bf16: the tensor cores. Every product is mma.sync m16n8k16 bf16
+//    with fp32 accumulation; x and w tiles stay bf16 in a 16-byte
+//    cp.async ring (4..8 stages of 32 k), rows padded 16 bytes so the
+//    ldmatrix fragment loads (A from x's rows, B by .trans from w's k
+//    rows) are conflict-free; 128 x 128 tiles of 8 warps at large M,
+//    32 x 32 or 16 x 32 where those would not fill the card.
+//    The epilogue is bias_act in fp32, then one rounding to bf16. The
+//    tensor cores sum in their own order, so the bf16 #4 is not bitwise
+//    equal to the SIMT #3/#5/#6 on the same bf16 inputs (nor is it
+//    compared so); the fp32 identities above are untouched.
+// A launch takes the first tile of its list that gives enough blocks.
+// Tiles stage by 16-byte copies where rows and starts allow (fp32: K
+// and N % 4 == 0; bf16: % 8; x, w and y on 16 bytes), else by 4-byte
+// copies (fp32) or element loads (bf16): one kernel, chosen per launch.
+// Partial tiles are zero-filled; an fp32 chain still stops at K, adding
+// no term past it.
+//
+// #3, #5, #6 (gemm_tile). Every tile has 256 threads in RL row lanes x
+// 256 / RL column lanes; a thread owns TM rows x TN adjacent columns
+// (Cfg below). k advances in steps of 16: each thread loads its share of
+// the x (or decoded-row) tile and the w tile into registers, the next
+// step's loads in flight while this step's products run, and stores them
+// to shared memory as fp32 (bf16 inputs are widened on the load). The
+// fused encode gives a block whole rows (16, or 4 at small M, in one
+// 512-wide column tile for N <= 512): it keeps the finished y (BM x N
+// fp32, up to N = 8192 with the opt-in above 48 KB) in shared memory and
+// then encodes the rows one by one with the whole block. decode_proj
+// decodes its BM payload rows into a (d x BM) shared tile and multiplies
+// it by w's column tile. The TPU kernels' (8, 128) tiling, padded rows
+// and the N % bn rule are gone: partial tiles are masked, so any M, K
+// and N work. At M 32 these wait on memory latency (one k-step's loads
+// in flight, M / BM blocks reading all of w), far from their bounds: the
+// next step for them is #4's ring.
 
 #include <cuda_bf16.h>
 
+#include "mma_sm90.cuh"
 #include "wire_row.cuh"
 
 namespace {
 
+using namespace sm90;
 using namespace wire;
 
 constexpr int kBK = 16;  // k per staged step
@@ -76,7 +108,6 @@ struct Cfg {
   static constexpr int CL = kThreads / RL;
   static constexpr int BM = RL * TM, BN = CL * TN;
 };
-using Big = Cfg<4, 16, 4>;    // 64 x 256: large M
 using Mid = Cfg<4, 4, 4>;     // 16 x 256
 using Small = Cfg<1, 4, 1>;   // 4 x 256: M 32 and the like
 using Wide = Cfg<1, 4, 2>;    // 4 x 512: a 432-wide fusion row in one tile
@@ -226,6 +257,11 @@ constexpr size_t tile_floats() {
 }
 
 // ---------------------------------------------------------------- #4
+//
+// The projection alone has its own main loop. Tiles are staged by
+// cp.async into a ring of ST stages in shared memory, ST - 1 stages in
+// flight while the block multiplies the oldest, one barrier a stage. fp32
+// keeps the chain rule above on SIMT FMAs; bf16 runs on the tensor cores.
 
 struct ProjArgs {
   const void* x;
@@ -235,33 +271,366 @@ struct ProjArgs {
   int M, K, N, dtype, act;
 };
 
-template <class C>
-__global__ void __launch_bounds__(kThreads) fusion_proj_kernel(ProjArgs a) {
-  extern __shared__ float smem[];
-  float* As = smem;
-  float* Bs = smem + kBK * C::BM;
-  const int m0 = blockIdx.x * C::BM, n0 = blockIdx.y * C::BN;
-  float acc[C::TM][C::TN];
-  gemm_tile<C>(acc, a.x, nullptr, a.w, a.dtype, a.M, a.K, a.N, m0, n0, As,
-               Bs);
-  const int cl = threadIdx.x % C::CL, rl = threadIdx.x / C::CL;
+// An fp32 tile: BM x BN outputs, BK of k a stage, ST stages. A thread owns
+// TM rows x TN columns, in runs of RV = min(TM, 4) rows (CV columns) that
+// lie RT RV rows (CT CV columns) apart, so a warp's reads of the staged
+// tiles are broadcasts or distinct consecutive words. w is staged as it
+// lies (k rows of BN). x is staged either transposed (k rows of BM, by
+// 4-byte copies; KX false: one float4 read gives 4 rows of one k) or as
+// it lies (rows of BK, by 16-byte copies; KX true: one float4 read gives
+// 4 k of one row). Rows are padded by 4 floats.
+template <int BM_, int BN_, int TM_, int TN_, int BK_, int ST_, int MINB_,
+          bool KX_>
+struct F32Tile {
+  static constexpr int BM = BM_, BN = BN_, TM = TM_, TN = TN_, BK = BK_;
+  static constexpr int ST = ST_, MINB = MINB_;
+  static constexpr bool KX = KX_, kBf16 = false;
+  // The fewest blocks at which a launch takes this tile (the last tile of
+  // a list takes any): measured, 64 x 64 tiles beat the small ones from
+  // half a wave on, as at (1024, 432, 432).
+  static constexpr int kWave = BM >= 128 ? kSMs : kSMs / 2;
+  static constexpr int RV = TM < 4 ? TM : 4, CV = TN < 4 ? TN : 4;
+  static constexpr int RT = BM / TM, CT = BN / TN;  // threads along M, N
+  static constexpr int kThreads = RT * CT;
+  static constexpr int LDA = KX ? BK + 4 : BM + 4, LDB = BN + 4;
+  static constexpr int kA = KX ? BM * LDA : BK * LDA;  // floats a stage
+  static constexpr int kB = BK * LDB;
+  static constexpr size_t smem = sizeof(float) * ST * (kA + kB);
+  static_assert(BM * BK % (4 * kThreads) == 0 &&
+                    BK * BN % (4 * kThreads) == 0 && BK % 4 == 0,
+                "a stage's copies split evenly over the threads");
+};
+// Large M: 8 x 8 outputs a thread, x transposed.
+using F32Big = F32Tile<128, 128, 8, 8, 16, 3, 2, false>;  // 256 threads
+using F32Mid = F32Tile<64, 64, 4, 4, 16, 4, 1, false>;    // 256
+// Small M: a thread 1 row x 2 columns (two chains), 4 k of its row in one
+// read; a warp 4 rows x 16 columns, so a k row of w is 8 distinct float2.
+// 64 k a stage: the fewer barriers and stage switches, the faster.
+using F32Row = F32Tile<8, 16, 1, 2, 64, 4, 1, true>;  // 64
+
+// Stage t of the fp32 tile into ring slot t % ST: x[m0 + m][k0 + kk] at
+// As[kk][m] (or As[m][kk] with KX), w[k0 + kk][n0 + n] at Bs[kk][n], zeros
+// outside x and w. VEC: 16-byte copies where rows run along the copy.
+template <class T, bool VEC>
+__device__ __forceinline__ void stage_f32(float* As, float* Bs,
+                                          const ProjArgs& a, int m0, int n0,
+                                          int t) {
+  const int k0 = t * T::BK;
+  As += (t % T::ST) * T::kA;
+  Bs += (t % T::ST) * T::kB;
+  const float* x = static_cast<const float*>(a.x);
+  const float* w = static_cast<const float*>(a.w);
+  if constexpr (T::KX && VEC) {
 #pragma unroll
-  for (int i = 0; i < C::TM; ++i) {
-    const int m = m0 + rl * C::TM + i;
+    for (int i = 0; i < T::BM * T::BK / (4 * T::kThreads); ++i) {
+      const int idx = threadIdx.x + i * T::kThreads;
+      const int m = idx / (T::BK / 4), kk = idx % (T::BK / 4) * 4;
+      const bool ok = m0 + m < a.M && k0 + kk < a.K;
+      cp_async_16(As + m * T::LDA + kk,
+                  ok ? x + static_cast<size_t>(m0 + m) * a.K + k0 + kk : x,
+                  ok);
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < T::BM * T::BK / T::kThreads; ++i) {
+      const int idx = threadIdx.x + i * T::kThreads;
+      const int kk = idx % T::BK, m = idx / T::BK;  // lanes along k: coalesced
+      const bool ok = m0 + m < a.M && k0 + kk < a.K;
+      cp_async_4(As + (T::KX ? m * T::LDA + kk : kk * T::LDA + m),
+                 ok ? x + static_cast<size_t>(m0 + m) * a.K + k0 + kk : x, ok);
+    }
+  }
+  if constexpr (VEC) {
+#pragma unroll
+    for (int i = 0; i < T::BK * T::BN / (4 * T::kThreads); ++i) {
+      const int idx = threadIdx.x + i * T::kThreads;
+      const int kk = idx / (T::BN / 4), n = idx % (T::BN / 4) * 4;
+      const bool ok = k0 + kk < a.K && n0 + n < a.N;
+      cp_async_16(Bs + kk * T::LDB + n,
+                  ok ? w + static_cast<size_t>(k0 + kk) * a.N + n0 + n : w,
+                  ok);
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < T::BK * T::BN / T::kThreads; ++i) {
+      const int idx = threadIdx.x + i * T::kThreads;
+      const int kk = idx / T::BN, n = idx % T::BN;
+      const bool ok = k0 + kk < a.K && n0 + n < a.N;
+      cp_async_4(Bs + kk * T::LDB + n,
+                 ok ? w + static_cast<size_t>(k0 + kk) * a.N + n0 + n : w,
+                 ok);
+    }
+  }
+}
+
+// acc[i][j] = fmaf(x[row i][k], w[k][col j], acc[i][j]) for the stage's k
+// in ascending order; a partial last stage stops at kn, adding no term.
+template <class T>
+__device__ __forceinline__ void steps_f32(float (&acc)[T::TM][T::TN],
+                                          const float* As, const float* Bs,
+                                          int kn) {
+  constexpr int RG = T::TM / T::RV, CG = T::TN / T::CV;  // runs a thread
+  const int tx = threadIdx.x % T::CT, ty = threadIdx.x / T::CT;
+  auto row = [&](int i) { return (i / T::RV * T::RT + ty) * T::RV + i % T::RV; };
+  const float* bc = Bs + tx * T::CV;  // this thread's first column
+  // av[g][r] is row g RT RV + ty RV + r at k row kk.
+  auto fma_k = [&](const float (&av)[RG][T::RV], int kk) {
+    float bv[CG][T::CV];
+#pragma unroll
+    for (int h = 0; h < CG; ++h)
+      read_vec(bv[h], bc + kk * T::LDB + h * T::CT * T::CV);
+#pragma unroll
+    for (int i = 0; i < T::TM; ++i)
+#pragma unroll
+      for (int j = 0; j < T::TN; ++j)
+        acc[i][j] = fmaf(av[i / T::RV][i % T::RV], bv[j / T::CV][j % T::CV],
+                         acc[i][j]);
+  };
+  auto step = [&](int kk) {
+    float av[RG][T::RV];
+#pragma unroll
+    for (int i = 0; i < T::TM; ++i)
+      av[i / T::RV][i % T::RV] =
+          T::KX ? As[row(i) * T::LDA + kk] : As[kk * T::LDA + row(i)];
+    fma_k(av, kk);
+  };
+  if (kn != T::BK) {
+    for (int kk = 0; kk < kn; ++kk) step(kk);
+  } else if constexpr (T::KX) {
+    // 4 k of each row in one read, then those 4 k in order.
+#pragma unroll
+    for (int k4 = 0; k4 < T::BK; k4 += 4) {
+      float a4[T::TM][4];
+#pragma unroll
+      for (int i = 0; i < T::TM; ++i) read_vec(a4[i], As + row(i) * T::LDA + k4);
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        float av[RG][T::RV];
+#pragma unroll
+        for (int i = 0; i < T::TM; ++i) av[i / T::RV][i % T::RV] = a4[i][q];
+        fma_k(av, k4 + q);
+      }
+    }
+  } else {
+    const float* ar = As + ty * T::RV;  // this thread's first row
+#pragma unroll
+    for (int kk = 0; kk < T::BK; ++kk) {
+      float av[RG][T::RV];
+#pragma unroll
+      for (int g = 0; g < RG; ++g)
+        read_vec(av[g], ar + kk * T::LDA + g * T::RT * T::RV);
+      fma_k(av, kk);
+    }
+  }
+}
+
+template <class T, bool VEC>
+__global__ void __launch_bounds__(T::kThreads, T::MINB)
+    proj_f32_kernel(ProjArgs a) {
+  extern __shared__ float smem[];
+  float* As = smem;                   // ST x kA
+  float* Bs = smem + T::ST * T::kA;   // ST x kB
+  const int m0 = blockIdx.x * T::BM, n0 = blockIdx.y * T::BN;
+  const int nk = (a.K + T::BK - 1) / T::BK;
+#pragma unroll
+  for (int t = 0; t < T::ST - 1; ++t) {
+    if (t < nk) stage_f32<T, VEC>(As, Bs, a, m0, n0, t);
+    cp_async_commit();
+  }
+  float acc[T::TM][T::TN];
+#pragma unroll
+  for (int i = 0; i < T::TM; ++i)
+#pragma unroll
+    for (int j = 0; j < T::TN; ++j) acc[i][j] = 0.f;
+  for (int t = 0; t < nk; ++t) {
+    cp_async_wait<T::ST - 2>();  // stage t has landed (this thread's copies)
+    __syncthreads();             // ... everyone's; slot (t - 1) % ST is free
+    if (t + T::ST - 1 < nk) stage_f32<T, VEC>(As, Bs, a, m0, n0, t + T::ST - 1);
+    cp_async_commit();
+    const int slot = t % T::ST;
+    steps_f32<T>(acc, As + slot * T::kA, Bs + slot * T::kB,
+                 min(T::BK, a.K - t * T::BK));
+  }
+  const int tx = threadIdx.x % T::CT, ty = threadIdx.x / T::CT;
+  float* y = static_cast<float*>(a.y);
+#pragma unroll
+  for (int i = 0; i < T::TM; ++i) {
+    const int m = m0 + (i / T::RV * T::RT + ty) * T::RV + i % T::RV;
     if (m >= a.M) continue;
 #pragma unroll
-    for (int j = 0; j < C::TN; ++j) {
-      const int n = n0 + cl * C::TN + j;
-      if (n >= a.N) continue;
-      const float y = bias_act(acc[i][j], a.b, n, a.act);
-      const size_t o = static_cast<size_t>(m) * a.N + n;
-      if (a.dtype == kBF16) {
-        static_cast<__nv_bfloat16*>(a.y)[o] = __float2bfloat16_rn(y);
+    for (int h = 0; h < T::TN / T::CV; ++h) {
+      const int n = n0 + (h * T::CT + tx) * T::CV;
+      float v[T::CV];
+#pragma unroll
+      for (int j = 0; j < T::CV; ++j)
+        v[j] = n + j < a.N ? bias_act(acc[i][h * T::CV + j], a.b, n + j, a.act)
+                           : 0.f;
+      float* o = y + static_cast<size_t>(m) * a.N + n;
+      if constexpr (VEC && T::CV == 4) {  // N % 4 == 0: all four or none
+        if (n < a.N)
+          *reinterpret_cast<float4*>(o) = make_float4(v[0], v[1], v[2], v[3]);
       } else {
-        static_cast<float*>(a.y)[o] = y;
+#pragma unroll
+        for (int j = 0; j < T::CV; ++j)
+          if (n + j < a.N) o[j] = v[j];
       }
     }
   }
+}
+
+// A bf16 tile: BM x BN outputs of WM x WN warps, BK 32 of k a stage, ST
+// stages. A warp owns MI m16 blocks x 2 NJ n8 blocks of mma.sync
+// m16n8k16 with fp32 accumulators. x (BM x BK) and w (BK x BN) are staged
+// as they lie, rows padded by 16 bytes so ldmatrix is conflict-free: the A
+// fragments by ldmatrix.x4 from x's rows, the B fragments by
+// ldmatrix.x4.trans from w's k rows (w is k x n row-major, as V is in
+// attention's P V).
+template <int BM_, int BN_, int WM_, int WN_, int ST_, int MINB_>
+struct BfTile {
+  static constexpr int BM = BM_, BN = BN_, WM = WM_, WN = WN_, ST = ST_;
+  static constexpr int MINB = MINB_, BK = 32;
+  static constexpr bool kBf16 = true;
+  static constexpr int kWave = kSMs;
+  static constexpr int kThreads = WM * WN * 32;
+  static constexpr int MI = BM / WM / 16, NJ = BN / WN / 16;
+  static constexpr int LDA = BK + 8, LDB = BN + 8;
+  static constexpr size_t smem =
+      sizeof(__nv_bfloat16) * ST * (BM * LDA + BK * LDB);
+  static_assert(MI >= 1 && NJ >= 1, "a warp owns whole 16 x 16 blocks");
+  static_assert(BM * BK % (8 * kThreads) == 0 && BK * BN % (8 * kThreads) == 0,
+                "a stage's 16-byte copies split evenly over the threads");
+};
+using BfBig = BfTile<128, 128, 2, 4, 4, 2>;  // 256 threads, a warp 64 x 32
+using BfRow32 = BfTile<32, 32, 2, 2, 6, 1>;  // 128, a warp 16 x 16
+using BfRow16 = BfTile<16, 32, 1, 2, 8, 1>;  // 64, a warp 16 x 16
+
+// Stage t of the bf16 tile into ring slot t % ST: As[m][kk] = x[m0 + m]
+// [k0 + kk], Bs[kk][n] = w[k0 + kk][n0 + n], zeros outside x and w. VEC:
+// 16-byte copies (K and N multiples of 8, x and w on 16 bytes); else one
+// element at a time through registers.
+template <class T, bool VEC>
+__device__ __forceinline__ void stage_bf16(__nv_bfloat16* As,
+                                           __nv_bfloat16* Bs,
+                                           const ProjArgs& a, int m0, int n0,
+                                           int t) {
+  const int k0 = t * T::BK;
+  As += (t % T::ST) * T::BM * T::LDA;
+  Bs += (t % T::ST) * T::BK * T::LDB;
+  const __nv_bfloat16* x = static_cast<const __nv_bfloat16*>(a.x);
+  const __nv_bfloat16* w = static_cast<const __nv_bfloat16*>(a.w);
+  if constexpr (VEC) {
+#pragma unroll
+    for (int i = 0; i < T::BM * T::BK / (8 * T::kThreads); ++i) {
+      const int idx = threadIdx.x + i * T::kThreads;
+      const int m = idx / (T::BK / 8), kk = idx % (T::BK / 8) * 8;
+      const bool ok = m0 + m < a.M && k0 + kk < a.K;
+      cp_async_16(As + m * T::LDA + kk,
+                  ok ? x + static_cast<size_t>(m0 + m) * a.K + k0 + kk : x,
+                  ok);
+    }
+#pragma unroll
+    for (int i = 0; i < T::BK * T::BN / (8 * T::kThreads); ++i) {
+      const int idx = threadIdx.x + i * T::kThreads;
+      const int kk = idx / (T::BN / 8), n = idx % (T::BN / 8) * 8;
+      const bool ok = k0 + kk < a.K && n0 + n < a.N;
+      cp_async_16(Bs + kk * T::LDB + n,
+                  ok ? w + static_cast<size_t>(k0 + kk) * a.N + n0 + n : w,
+                  ok);
+    }
+  } else {
+    const __nv_bfloat16 zero = __float2bfloat16_rn(0.f);
+    for (int idx = threadIdx.x; idx < T::BM * T::BK; idx += T::kThreads) {
+      const int m = idx / T::BK, kk = idx % T::BK;
+      As[m * T::LDA + kk] =
+          m0 + m < a.M && k0 + kk < a.K
+              ? x[static_cast<size_t>(m0 + m) * a.K + k0 + kk] : zero;
+    }
+    for (int idx = threadIdx.x; idx < T::BK * T::BN; idx += T::kThreads) {
+      const int kk = idx / T::BN, n = idx % T::BN;
+      Bs[kk * T::LDB + n] =
+          k0 + kk < a.K && n0 + n < a.N
+              ? w[static_cast<size_t>(k0 + kk) * a.N + n0 + n] : zero;
+    }
+  }
+}
+
+template <class T, bool VEC>
+__global__ void __launch_bounds__(T::kThreads, T::MINB)
+    proj_bf16_kernel(ProjArgs a) {
+  extern __shared__ float smem[];
+  __nv_bfloat16* As = reinterpret_cast<__nv_bfloat16*>(smem);  // ST x BM x LDA
+  __nv_bfloat16* Bs = As + T::ST * T::BM * T::LDA;             // ST x BK x LDB
+  const int m0 = blockIdx.x * T::BM, n0 = blockIdx.y * T::BN;
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int wr = warp / T::WN * T::MI * 16;  // the warp's first row, column
+  const int wc = warp % T::WN * T::NJ * 16;
+  const int nk = (a.K + T::BK - 1) / T::BK;
+#pragma unroll
+  for (int t = 0; t < T::ST - 1; ++t) {
+    if (t < nk) stage_bf16<T, VEC>(As, Bs, a, m0, n0, t);
+    cp_async_commit();
+  }
+  float acc[T::MI][2 * T::NJ][4];
+#pragma unroll
+  for (int i = 0; i < T::MI; ++i)
+#pragma unroll
+    for (int j = 0; j < 2 * T::NJ; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+  for (int t = 0; t < nk; ++t) {
+    cp_async_wait<T::ST - 2>();
+    __syncthreads();
+    if (t + T::ST - 1 < nk) stage_bf16<T, VEC>(As, Bs, a, m0, n0, t + T::ST - 1);
+    cp_async_commit();
+    const __nv_bfloat16* as = As + (t % T::ST) * T::BM * T::LDA;
+    const __nv_bfloat16* bs = Bs + (t % T::ST) * T::BK * T::LDB;
+#pragma unroll
+    for (int kb = 0; kb < T::BK; kb += 16) {
+      uint32_t af[T::MI][4];
+#pragma unroll
+      for (int i = 0; i < T::MI; ++i)
+        ldmatrix_x4(af[i], as + (wr + i * 16 + (lane & 15)) * T::LDA + kb +
+                               (lane >> 4) * 8);
+#pragma unroll
+      for (int j = 0; j < T::NJ; ++j) {
+        uint32_t bf[4];  // n8 blocks wc + 16 j and wc + 16 j + 8, k kb..kb+15
+        ldmatrix_x4_trans(bf, bs + (kb + (lane & 7) + ((lane >> 3) & 1) * 8) *
+                                       T::LDB +
+                                   wc + j * 16 + (lane >> 4) * 8);
+#pragma unroll
+        for (int i = 0; i < T::MI; ++i) {
+          mma_bf16(acc[i][2 * j], af[i], bf[0], bf[1]);
+          mma_bf16(acc[i][2 * j + 1], af[i], bf[2], bf[3]);
+        }
+      }
+    }
+  }
+  // Lane 4 g + q holds rows g and g + 8, columns 2 q and 2 q + 1 of each
+  // 16 x 8 accumulator.
+  __nv_bfloat16* y = static_cast<__nv_bfloat16*>(a.y);
+  const int g = lane >> 2, q = lane & 3;
+#pragma unroll
+  for (int i = 0; i < T::MI; ++i)
+#pragma unroll
+    for (int j = 0; j < 2 * T::NJ; ++j) {
+      const int n = n0 + wc + j * 8 + 2 * q;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int m = m0 + wr + i * 16 + g + 8 * h;
+        if (m >= a.M || n >= a.N) continue;
+        __nv_bfloat16* o = y + static_cast<size_t>(m) * a.N + n;
+        const float v0 = bias_act(acc[i][j][2 * h], a.b, n, a.act);
+        if (n + 1 < a.N && a.N % 2 == 0) {
+          *reinterpret_cast<__nv_bfloat162*>(o) = __floats2bfloat162_rn(
+              v0, bias_act(acc[i][j][2 * h + 1], a.b, n + 1, a.act));
+        } else {
+          o[0] = __float2bfloat16_rn(v0);
+          if (n + 1 < a.N)
+            o[1] = __float2bfloat16_rn(
+                bias_act(acc[i][j][2 * h + 1], a.b, n + 1, a.act));
+        }
+      }
+    }
 }
 
 // ------------------------------------------------------------ #5, #6
@@ -385,7 +754,7 @@ bool fills_card(int M, int N) {
 
 template <class Kernel, class A>
 int launch(Kernel kernel, dim3 grid, size_t smem, const A& args,
-           cudaStream_t s) {
+           cudaStream_t s, int threads = kThreads) {
   if (smem > static_cast<size_t>(kSmemLimit)) return -1;
   if (smem > kOptInAbove) {
     const cudaError_t rc = cudaFuncSetAttribute(
@@ -393,8 +762,39 @@ int launch(Kernel kernel, dim3 grid, size_t smem, const A& args,
         static_cast<int>(smem));
     if (rc != cudaSuccess) return static_cast<int>(rc);
   }
-  kernel<<<grid, kThreads, smem, s>>>(args);
+  kernel<<<grid, threads, smem, s>>>(args);
   return 0;
+}
+
+// #4 with the tile T and 16-byte copies where vec holds.
+template <class T>
+int launch_proj(const ProjArgs& a, bool vec, cudaStream_t s) {
+  const dim3 grid = grid_of<T>(a.M, a.N);
+  if constexpr (T::kBf16) {
+    return vec ? launch(proj_bf16_kernel<T, true>, grid, T::smem, a, s,
+                        T::kThreads)
+               : launch(proj_bf16_kernel<T, false>, grid, T::smem, a, s,
+                        T::kThreads);
+  } else {
+    return vec ? launch(proj_f32_kernel<T, true>, grid, T::smem, a, s,
+                        T::kThreads)
+               : launch(proj_f32_kernel<T, false>, grid, T::smem, a, s,
+                        T::kThreads);
+  }
+}
+
+// The largest of the tiles (largest first) whose grid reaches its kWave
+// blocks, else the last.
+template <class T, class... Rest>
+int launch_proj_fill(const ProjArgs& a, bool vec, cudaStream_t s) {
+  if constexpr (sizeof...(Rest) == 0) {
+    return launch_proj<T>(a, vec, s);
+  } else {
+    const dim3 g = grid_of<T>(a.M, a.N);
+    if (static_cast<long>(g.x) * g.y >= T::kWave)
+      return launch_proj<T>(a, vec, s);
+    return launch_proj_fill<Rest...>(a, vec, s);
+  }
 }
 
 // The fused encode with Mid tiles (16 rows a block) where that still
@@ -453,16 +853,16 @@ extern "C" int fusion_proj(const void* x, const void* w, const float* b,
   if (bad_common(M, K, N, dtype, act)) return -1;
   const ProjArgs a{x, w, b, y, M, K, N, dtype, act};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  auto on16 = [](const void* p) {
+    return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+  };
   int rc;
-  if (fills_card<Big>(M, N)) {
-    rc = launch(fusion_proj_kernel<Big>, grid_of<Big>(M, N),
-                sizeof(float) * tile_floats<Big>(), a, s);
-  } else if (fills_card<Mid>(M, N)) {
-    rc = launch(fusion_proj_kernel<Mid>, grid_of<Mid>(M, N),
-                sizeof(float) * tile_floats<Mid>(), a, s);
+  if (dtype == kBF16) {
+    const bool vec = K % 8 == 0 && N % 8 == 0 && on16(x) && on16(w);
+    rc = launch_proj_fill<BfBig, BfRow32, BfRow16>(a, vec, s);
   } else {
-    rc = launch(fusion_proj_kernel<Small>, grid_of<Small>(M, N),
-                sizeof(float) * tile_floats<Small>(), a, s);
+    const bool vec = K % 4 == 0 && N % 4 == 0 && on16(x) && on16(w) && on16(y);
+    rc = launch_proj_fill<F32Big, F32Mid, F32Row>(a, vec, s);
   }
   if (rc != 0) return rc;
   return static_cast<int>(cudaGetLastError());

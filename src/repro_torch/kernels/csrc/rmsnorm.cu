@@ -6,29 +6,37 @@
 // pallas_call at :31; arithmetic at :18-22, the jnp oracle
 // src/repro/kernels/ref.py:121-125). x is fp32 or bf16, scale fp32 or
 // bf16 independently of x, and y takes x's type. The TPU wrapper pads M
-// to 256-row blocks (src/repro/kernels/ops.py:163-166); here a grid of
-// ceil(M / rows-per-block) blocks takes any M >= 1 and any D >= 1.
+// to 256-row blocks (src/repro/kernels/ops.py:163-166); here any M >= 1
+// and any D >= 1.
 //
 // What bounds it on the card: bytes. Each element is read, squared and
-// summed, then read again, scaled and written: 3 flops and 2 element
-// moves, far below Hopper's ~20 fp32 flops per byte. The design keeps
-// the one read and one write of device memory the function needs:
+// summed, scaled and written: 3 flops and 2 element moves, far below
+// Hopper's ~20 fp32 flops per byte, so the kernel should read each byte
+// of x once, write each byte of y once, and keep enough bytes in flight
+// to cover device memory's latency. The design:
 //
-//  * a row of D <= 1024 goes to one warp (8 rows per 256-thread block),
-//    a longer row to the whole block, so a row's sum of squares is a
-//    warp-shuffle tree, or shuffle trees joined through shared memory;
-//  * a row whose x and y start on 16 bytes is read and written in 16-byte
-//    vectors (4 fp32 or 8 bf16), its last D % V elements one by one; an
-//    unaligned row (D * sizeof(x) not a multiple of 16) goes element by
-//    element;
-//  * the second pass re-reads the row the same block just read, from L1
-//    or L2 rather than device memory (a 16 KB row of the (8192, 4096)
-//    fp32 case, ~8 rows resident per SM).
+//  * one read of each row, held in registers: a row of D <= 1024 goes to
+//    one warp (at most 32 elements a lane: 8 float4 or 4 x 8 bf16), a
+//    row of D <= 8192 to the whole 256-thread block (32 a thread), so
+//    the row is squared, summed (a warp-shuffle tree, joined through
+//    shared memory for a block) and scaled from registers, in 16-byte
+//    loads and stores;
+//  * the scale is read once per thread, in 16-byte (or 8-byte) vectors
+//    where it starts on 16 bytes, and kept in registers while the thread
+//    walks its rows: a grid of at most 2 blocks an SM, grid-stride, each
+//    row slot walking ceil(M / slots) rows, the next row's loads issued
+//    before this row's sum;
+//  * rows the registers do not take, longer ones (D > 8192) and rows not
+//    all on 16 bytes (D not a multiple of 4 fp32 or 8 bf16, or x or y
+//    off 16 bytes), go to the two-pass kernel: a warp or the block reads
+//    the row for its sum of squares, then again from L1 or L2 to scale
+//    it, in 16-byte vectors where that row starts on 16 bytes (its last
+//    D % V elements one by one), else element by element.
 //
 // Sums are taken in another order than the plain version's (a tree over
 // threads, not PyTorch's CPU reduction), so fp32 outputs agree within a
-// few ulps, not bitwise. This first version is simple and right, not
-// tuned.
+// few ulps, not bitwise; each element is still (x * r) * scale with r =
+// rsqrt(sum / D + eps), one rounding at the end.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -37,7 +45,11 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kWarpRowMaxD = 1024;  // rows up to this length: a warp each
+constexpr int kBlocksPerSM = 2;   // resident blocks a launch plans for
+constexpr int kSMs = 132;         // H100 SXM
+constexpr int kEPT = 32;          // row elements a thread holds in registers
+constexpr int kWarpRowMaxD = 32 * kEPT;         // 1024: a warp a row
+constexpr int kBlockRowMaxD = kThreads * kEPT;  // 8192: a block a row
 
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) {
@@ -53,7 +65,10 @@ __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
   return __float2bfloat16_rn(v);
 }
 
-// The sum of v over the TPR threads of a row, in every one of them.
+// The sum of v over the TPR threads of a row, in every one of them. A
+// block-wide sum (TPR == kThreads) goes through red[kThreads / 32]; a
+// caller that sums again before every thread has read red passes the
+// other half of a double buffer.
 template <int TPR>
 __device__ __forceinline__ float row_sum(float v, float* red) {
 #pragma unroll
@@ -68,11 +83,117 @@ __device__ __forceinline__ float row_sum(float v, float* red) {
   return t;
 }
 
-// TPR threads per row: 32 (a warp) or kThreads (the block).
+// V elements of type T from p into floats: 16-byte loads (8-byte for 4
+// bf16) when vec, else one at a time.
+template <typename T, int V>
+__device__ __forceinline__ void load_run(float (&o)[V], const T* p,
+                                         bool vec) {
+  constexpr int kBytes = V * static_cast<int>(sizeof(T));
+  if constexpr (kBytes % 16 == 0) {
+    if (vec) {
+#pragma unroll
+      for (int q = 0; q < kBytes / 16; ++q) {
+        const uint4 raw = reinterpret_cast<const uint4*>(p)[q];
+        const T* e = reinterpret_cast<const T*>(&raw);
+#pragma unroll
+        for (int i = 0; i < 16 / static_cast<int>(sizeof(T)); ++i)
+          o[q * (16 / sizeof(T)) + i] = to_f(e[i]);
+      }
+      return;
+    }
+  } else if constexpr (kBytes == 8) {
+    if (vec) {
+      const uint2 raw = *reinterpret_cast<const uint2*>(p);
+      const T* e = reinterpret_cast<const T*>(&raw);
+#pragma unroll
+      for (int i = 0; i < V; ++i) o[i] = to_f(e[i]);
+      return;
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < V; ++i) o[i] = to_f(p[i]);
+}
+
+template <typename TX>
+__device__ __forceinline__ float at(const uint4& raw, int e) {
+  return to_f(reinterpret_cast<const TX*>(&raw)[e]);
+}
+
+// One read of each row, held in registers; every row starts on 16 bytes
+// (d a multiple of V = 16 / sizeof(x), x and y on 16 bytes). The row's
+// TPR threads (a warp, or the block) split it into 16-byte slots; thread
+// `lane` holds slots lane + TPR j, j < NS. Its slots of the scale are read
+// once and kept while it walks rows first, first + stride, ...; the next
+// row's loads are issued before this row's sum.
+template <typename TX, typename TS, int TPR>
+__global__ void __launch_bounds__(kThreads, kBlocksPerSM)
+rmsnorm_reg_kernel(const TX* __restrict__ x, const TS* __restrict__ s,
+                   TX* __restrict__ y, long long rows, int d, float eps,
+                   bool s_vec) {
+  constexpr int V = 16 / sizeof(TX);
+  constexpr int NS = kEPT / V;
+  constexpr int kRowsPerBlock = kThreads / TPR;
+  __shared__ float red[2][kThreads / 32];
+  const int lane = threadIdx.x % TPR;
+  const int nslot = d / V;
+  const long long stride = static_cast<long long>(gridDim.x) * kRowsPerBlock;
+  long long row =
+      static_cast<long long>(blockIdx.x) * kRowsPerBlock + threadIdx.x / TPR;
+
+  // Slot j of this thread lies TPR V j elements past its first.
+  float sc[NS][V];
+  const TS* sl = s + lane * V;
+#pragma unroll
+  for (int j = 0; j < NS; ++j)
+    if (lane + TPR * j < nslot) load_run<TS, V>(sc[j], sl + TPR * V * j, s_vec);
+  auto load_row = [&](uint4 (&v)[NS], long long r) {
+    const uint4* xl = reinterpret_cast<const uint4*>(x + r * d) + lane;
+#pragma unroll
+    for (int j = 0; j < NS; ++j)
+      if (lane + TPR * j < nslot) v[j] = xl[TPR * j];
+  };
+  uint4 cur[NS], next[NS];
+  if (row < rows) load_row(cur, row);
+  // Every thread of a block-wide row walks the same rows, so none leaves
+  // the loop while others still meet the barrier in row_sum.
+  for (int par = 0; row < rows; row += stride, par ^= 1) {
+    if (row + stride < rows) load_row(next, row + stride);
+    float ss = 0.0f;
+#pragma unroll
+    for (int j = 0; j < NS; ++j) {
+      if (lane + TPR * j < nslot) {
+#pragma unroll
+        for (int e = 0; e < V; ++e) ss += at<TX>(cur[j], e) * at<TX>(cur[j], e);
+      }
+    }
+    ss = row_sum<TPR>(ss, red[par]);
+    const float r = rsqrtf(ss / static_cast<float>(d) + eps);
+    uint4* yl = reinterpret_cast<uint4*>(y + row * d) + lane;
+#pragma unroll
+    for (int j = 0; j < NS; ++j) {
+      if (lane + TPR * j >= nslot) continue;
+      uint4 out;
+      TX* o = reinterpret_cast<TX*>(&out);
+#pragma unroll
+      for (int e = 0; e < V; ++e) o[e] = from_f<TX>(at<TX>(cur[j], e) * r * sc[j][e]);
+      yl[TPR * j] = out;
+    }
+#pragma unroll
+    for (int j = 0; j < NS; ++j) cur[j] = next[j];
+  }
+}
+
+// Rows the registers do not take: longer than kBlockRowMaxD, or not all
+// on 16 bytes. TPR threads a row (a warp, or the block) read it twice,
+// once for the sum of squares and once to scale it; the second read finds
+// it in L1 or L2. A row whose x and y start on 16 bytes goes in 16-byte
+// vectors, its last d % V elements one by one; an unaligned row element
+// by element.
 template <typename TX, typename TS, int TPR>
 __global__ void __launch_bounds__(kThreads)
-rmsnorm_kernel(const TX* __restrict__ x, const TS* __restrict__ s,
-               TX* __restrict__ y, long long rows, int d, float eps) {
+rmsnorm_two_pass_kernel(const TX* __restrict__ x, const TS* __restrict__ s,
+                        TX* __restrict__ y, long long rows, int d,
+                        float eps) {
   constexpr int V = 16 / sizeof(TX);  // elements in 16 bytes
   constexpr int kRowsPerBlock = kThreads / TPR;
   __shared__ float red[kThreads / 32];
@@ -93,10 +214,9 @@ rmsnorm_kernel(const TX* __restrict__ x, const TS* __restrict__ s,
   float ss = 0.0f;
   for (int i = lane; i < nvec; i += TPR) {
     const uint4 raw = reinterpret_cast<const uint4*>(xr)[i];
-    const TX* v = reinterpret_cast<const TX*>(&raw);
 #pragma unroll
     for (int j = 0; j < V; ++j) {
-      const float f = to_f(v[j]);
+      const float f = at<TX>(raw, j);
       ss += f * f;
     }
   }
@@ -109,16 +229,48 @@ rmsnorm_kernel(const TX* __restrict__ x, const TS* __restrict__ s,
 
   for (int i = lane; i < nvec; i += TPR) {
     const uint4 raw = reinterpret_cast<const uint4*>(xr)[i];
-    const TX* v = reinterpret_cast<const TX*>(&raw);
     uint4 out;
     TX* o = reinterpret_cast<TX*>(&out);
 #pragma unroll
     for (int j = 0; j < V; ++j)
-      o[j] = from_f<TX>(to_f(v[j]) * r * to_f(s[i * V + j]));
+      o[j] = from_f<TX>(at<TX>(raw, j) * r * to_f(s[i * V + j]));
     reinterpret_cast<uint4*>(yr)[i] = out;
   }
   for (int i = nvec * V + lane; i < d; i += TPR)
     yr[i] = from_f<TX>(to_f(xr[i]) * r * to_f(s[i]));
+}
+
+bool on16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
+
+// The register kernel with TPR threads a row: a grid of at most
+// kBlocksPerSM blocks an SM, the rows split evenly over its row slots
+// (each slot walks ceil(rows / slots) rows).
+template <typename TX, typename TS, int TPR>
+int launch_reg(const TX* x, const TS* s, TX* y, long long rows, int d,
+               float eps, cudaStream_t stream) {
+  constexpr long long kRowsPerBlock = kThreads / TPR;
+  constexpr long long kSlots = kSMs * kBlocksPerSM * kRowsPerBlock;
+  const long long per = (rows + kSlots - 1) / kSlots;  // rows a slot walks
+  const long long blocks =
+      (rows + per * kRowsPerBlock - 1) / (per * kRowsPerBlock);
+  // The scale in vector loads: 16 bytes of x's elements are 8, 16 or 32
+  // bytes of scale, each on its size when s is on 16 bytes.
+  rmsnorm_reg_kernel<TX, TS, TPR><<<static_cast<unsigned>(blocks), kThreads,
+                                    0, stream>>>(x, s, y, rows, d, eps,
+                                                 on16(s));
+  return 0;
+}
+
+template <typename TX, typename TS, int TPR>
+int launch_two_pass(const TX* x, const TS* s, TX* y, long long rows, int d,
+                    float eps, cudaStream_t stream) {
+  constexpr long long kRowsPerBlock = kThreads / TPR;
+  const long long blocks = (rows + kRowsPerBlock - 1) / kRowsPerBlock;
+  if (blocks > 0x7fffffffLL) return -1;
+  rmsnorm_two_pass_kernel<TX, TS, TPR><<<static_cast<unsigned>(blocks),
+                                         kThreads, 0, stream>>>(x, s, y, rows,
+                                                                d, eps);
+  return 0;
 }
 
 template <typename TX, typename TS>
@@ -127,18 +279,14 @@ int launch(const void* x, const void* s, void* y, long long rows, int d,
   const TX* xp = static_cast<const TX*>(x);
   const TS* sp = static_cast<const TS*>(s);
   TX* yp = static_cast<TX*>(y);
-  if (d <= kWarpRowMaxD) {
-    constexpr int kRows = kThreads / 32;
-    const long long blocks = (rows + kRows - 1) / kRows;
-    if (blocks > 0x7fffffffLL) return -1;
-    rmsnorm_kernel<TX, TS, 32><<<static_cast<unsigned>(blocks), kThreads, 0,
-                                 stream>>>(xp, sp, yp, rows, d, eps);
-  } else {
-    if (rows > 0x7fffffffLL) return -1;
-    rmsnorm_kernel<TX, TS, kThreads><<<static_cast<unsigned>(rows), kThreads,
-                                       0, stream>>>(xp, sp, yp, rows, d, eps);
-  }
-  return 0;
+  const bool aligned = d % (16 / sizeof(TX)) == 0 && on16(x) && on16(y);
+  if (d <= kWarpRowMaxD)
+    return aligned ? launch_reg<TX, TS, 32>(xp, sp, yp, rows, d, eps, stream)
+                   : launch_two_pass<TX, TS, 32>(xp, sp, yp, rows, d, eps,
+                                                 stream);
+  if (d <= kBlockRowMaxD && aligned)
+    return launch_reg<TX, TS, kThreads>(xp, sp, yp, rows, d, eps, stream);
+  return launch_two_pass<TX, TS, kThreads>(xp, sp, yp, rows, d, eps, stream);
 }
 
 }  // namespace

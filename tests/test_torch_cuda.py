@@ -454,6 +454,114 @@ def test_fused_wire_path_rejects_bad_inputs_on_card():
         ops.decode_proj(p, w, codec=codec, shape=(8, 432))      # w rows
 
 
+# The edges of fusion_proj's tiles: rows around its 4-, 8-, 16-, 64- and
+# 128-row tiles, k around its 16- and 32-deep stages, N off the 16-byte
+# rows (10, 433) and on them (300 fp32).
+EDGE_M = [1, 7, 8, 9, 31, 33, 127, 129]
+EDGE_K = [17, 31, 33, 433]
+EDGE_N = [10, 300, 433]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("M", EDGE_M)
+def test_fusion_proj_tile_edges_match_plain_on_card(M, dtype):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    for K in EDGE_K:
+        for N in EDGE_N:
+            x, w, b = _proj_inputs(M, K, N, seed=M * K + N, dtype=dtype)
+            got = ops.fusion_proj(x, w, b, "silu")
+            torch.cuda.synchronize()
+            assert got.dtype == dtype and got.shape == (M, N)
+            budget.floats_close(got.float(), ref.fusion_proj_ref(
+                x, w, b, "silu").float(), PROJ_TOL[dtype], f"({M},{K},{N})")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", EDGE_M)
+def test_fusion_proj_tile_edges_keep_the_fused_chain_bitwise(M):
+    """fp32: the projection's own main loop sums each output in the same
+    fmaf chain as the fused encode's, so its int8_row payload is the
+    fused kernel's, bitwise, at every edge shape."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    codec = get_codec("int8_row")
+    for K in EDGE_K:
+        for N in EDGE_N:
+            x, w, b = _proj_inputs(M, K, N, seed=M + K * N)
+            fused = ops.fusion_proj_encode(x, w, b, "relu", codec=codec)
+            unfused = ops.wire_encode(ops.fusion_proj(x, w, b, "relu"), codec)
+            for k in unfused:
+                assert torch.equal(fused[k], unfused[k]), (K, N, k)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,K,N", [(1024, 432, 432), (1536, 40, 1536),
+                                   (1408, 33, 1410)])
+def test_fusion_proj_large_tiles_keep_the_fused_chain_bitwise(M, K, N):
+    """fp32 on the 64 x 64 and 128 x 128 tiles (the last with 4-byte
+    copies, N off 16 bytes): the fused encode's chain, bitwise, and the
+    plain version within 1e-5."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    codec = get_codec("int8_row")
+    x, w, b = _proj_inputs(M, K, N, seed=M + N)
+    y = ops.fusion_proj(x, w, b, "relu")
+    budget.floats_close(y, ref.fusion_proj_ref(x, w, b, "relu"), 1e-5)
+    fused = ops.fusion_proj_encode(x, w, b, "relu", codec=codec)
+    unfused = ops.wire_encode(y, codec)
+    for k in unfused:
+        assert torch.equal(fused[k], unfused[k]), k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fusion_proj_unaligned_starts_match_plain_on_card(dtype):
+    """x and w starting one element off 16 bytes (slices of longer
+    buffers) take the narrow copies and give the aligned result."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    M, K, N = 32, 784, 1024
+    x, w, b = _proj_inputs(M, K, N, seed=9, dtype=dtype)
+    xs = torch.empty(M * K + 1, dtype=dtype, device="cuda")
+    xs[1:] = x.reshape(-1)
+    ws = torch.empty(K * N + 1, dtype=dtype, device="cuda")
+    ws[1:] = w.reshape(-1)
+    got = ops.fusion_proj(xs[1:].view(M, K), ws[1:].view(K, N), b, "relu")
+    want = ops.fusion_proj(x, w, b, "relu")
+    if dtype == torch.float32:
+        assert torch.equal(got, want)     # the same chain, other copies
+    budget.floats_close(got.float(), ref.fusion_proj_ref(
+        x, w, b, "relu").float(), PROJ_TOL[dtype])
+
+
+@pytest.mark.cuda
+def test_fusion_proj_bf16_at_large_m_matches_plain_on_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    x, w, b = _proj_inputs(512, 1024, 768, seed=5, dtype=torch.bfloat16)
+    got = ops.fusion_proj(x, w, b, "relu")
+    budget.floats_close(got.float(), ref.fusion_proj_ref(
+        x, w, b, "relu").float(), PROJ_TOL[torch.bfloat16])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,K,N", [(16, 16, 16), (33, 40, 24), (300, 48, 520),
+                                   (1536, 64, 1536), (70, 17, 10)])
+def test_fusion_proj_bf16_fragments_are_exact_on_structured_inputs(M, K, N):
+    """x's rows are rows of the identity and w[k, n] = (k N + n) % 256, so
+    y[m] = w[m % K] exactly in bf16: a wrong fragment or lane map moves
+    whole entries, not last bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    x = torch.zeros((M, K), device="cuda")
+    x[torch.arange(M), torch.arange(M) % K] = 1.0
+    w = (torch.arange(K * N, device="cuda") % 256).float().reshape(K, N)
+    got = ops.fusion_proj(x.bfloat16(), w.bfloat16())
+    assert torch.equal(got.float(), w[torch.arange(M) % K])
+
+
 # ---------------------------------------------------------------- rmsnorm
 
 # (M, D): kernel_bench's shape, the LM clients' B*S rows at qwen1.5-0.5b's
@@ -517,6 +625,38 @@ def test_rmsnorm_rejects_bad_inputs_on_card():
         with pytest.raises(ValueError):
             ops.rmsnorm(*bad)
     assert ops.rmsnorm.launches == before
+
+
+# Around the kernel's register limits (a warp a row up to D 1024, a block a
+# row up to 8192, then two passes), with row counts off a block's 8 rows.
+RMS_EDGES = [(13, 1023), (13, 1024), (13, 1025), (5, 8191), (5, 8192),
+             (5, 8193), (2113, 64), (531, 4096)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("xd,sd", RMS_TYPES)
+@pytest.mark.parametrize("M,D", RMS_EDGES)
+def test_rmsnorm_register_limits_and_unaligned_starts_on_card(M, D, xd, sd):
+    """The RMS_SHAPES limits; then x and scale starting one element off
+    16 bytes (slices of a longer buffer), which take the element-wise
+    loads, against the same plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    x, s = _rms_inputs(M, D, xd, sd, seed=M * D)
+    xs = torch.empty(M * D + 1, dtype=xd, device="cuda")
+    xs[1:] = x.reshape(-1)
+    ss = torch.empty(D + 1, dtype=sd, device="cuda")
+    ss[1:] = s
+    for xi, si in ((x, s), (xs[1:].view(M, D), ss[1:])):
+        got = ops.rmsnorm(xi, si)
+        torch.cuda.synchronize()
+        assert got.dtype == xd and got.shape == (M, D)
+        want = ref.rmsnorm_ref(x, s).float()
+        err = (got.float() - want).abs()
+        if xd == torch.float32:
+            assert float(err.max()) <= 2e-5 * max(1.0, float(want.abs().max()))
+        else:
+            assert bool((err <= 2.0 ** -7 * want.abs()).all())
 
 
 # ----------------------------------------------------------- front door
