@@ -178,6 +178,113 @@ def decode_inputs(gen, B, L, KVH, G, hd, dtype, lengths):
     return q, k, v, valid
 
 
+# flash_decode against its plain version at the split's edges: (B, L,
+# KVH, G, hd, dtype, lengths). One tile (S 1) at L 1; two splits at L
+# 65; at L 4097 the splits of the path's heads (S 4) and of llama3-405b's
+# head layout (G 16, hd 128, S 8), with rows whose later splits are
+# wholly masked and a fully masked row (length 0), in both dtypes.
+DECODE_SPLIT_CASES = [
+    (4, 1, 2, 1, 64, torch.float32, [1, 1, 1, 0]),
+    (4, 65, 2, 1, 64, torch.bfloat16, [65, 5, 64, 0]),
+    (4, 4097, 16, 1, 64, torch.bfloat16, [4097, 1000, 5, 0]),
+    (4, 4097, 16, 1, 64, torch.float32, [4097, 1000, 5, 0]),
+    (4, 4097, 8, 16, 128, torch.bfloat16, [4097, 300, 2000, 0]),
+    (4, 4097, 8, 16, 128, torch.float32, [4097, 300, 2000, 0]),
+    (2, 300, 2, 4, 128, torch.float32, [300, 0]),
+]
+# Timed beside the path's shape: a 4,096-row cache, Qwen1.5-0.5B's
+# published 32,768-token context, and llama3-405b's head layout (KVH 8,
+# G 16, hd 128), every row live; (B, L, KVH, G, hd, input sets) with
+# enough sets that their K and V exceed the 50 MB L2.
+DECODE_TIMED = [(4, 4096, 16, 1, 64, 2), (4, 32768, 16, 1, 64, 1),
+                (4, 4096, 8, 16, 128, 2)]
+
+
+def decode_split_checks(ops, ref, gen):
+    """flash_decode at DECODE_SPLIT_CASES (fp32 within 1e-5, bf16 within
+    the bf16 defaults, fully masked rows exactly zero, one launch a
+    call), and a split call captured twice in one CUDA graph and
+    replayed (the arrival counters are zero at every launch).
+    -> max |err| over the fp32 cases."""
+    err = 0.0
+    for B, L, KVH, G, hd, dtype, lengths in DECODE_SPLIT_CASES:
+        S, _ = ops.decode_splits(B, KVH, G, L, hd)
+        check(S > 1 or L <= ops.decode_tile_rows(hd),
+              f"flash_decode L {L}: {S} split")
+        ins = decode_inputs(gen, B, L, KVH, G, hd, dtype, lengths)
+        before = ops.flash_decode.launches
+        got = ops.cached_attn_decode(*ins)
+        want = ref.cached_attn_decode_ref(*ins)
+        torch.cuda.synchronize()
+        check(ops.flash_decode.launches == before + 1,
+              "flash_decode: not one launch a call")
+        tol = dict(rtol=1e-5, atol=1e-5) if dtype == torch.float32 else {}
+        torch.testing.assert_close(got, want, **tol)
+        for b, n in enumerate(lengths):
+            check(n > 0 or bool(torch.all(got[b] == 0)),
+                  f"flash_decode {(B, L, KVH, G, hd)}: masked row not zero")
+        if dtype == torch.float32:
+            err = max(err, float((got - want).abs().max()))
+    ins = decode_inputs(gen, 4, 4097, 16, 1, 64, torch.bfloat16,
+                        [4097, 1000, 5, 0])
+    want = ref.cached_attn_decode_ref(*ins)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        ops.cached_attn_decode(*ins)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = [ops.cached_attn_decode(*ins) for _ in range(2)]
+    for _ in range(3):
+        graph.replay()
+        torch.cuda.synchronize()
+        for o in outs:
+            torch.testing.assert_close(o, want)
+            check(bool(torch.all(o[3] == 0)), "graph replay: masked row")
+    return err
+
+
+def decode_times(ops, ref, gen, B, L, KVH, G, hd, lengths, n_sets):
+    """flash_decode's device time at one bf16 shape over ``n_sets`` input
+    sets, with its plain version, SDPA and the bound. -> the JSON row's
+    numbers."""
+    sets = [decode_inputs(gen, B, L, KVH, G, hd, torch.bfloat16, lengths)
+            for _ in range(n_sets)]
+    kernel_ms = graph_time_ms(
+        [lambda s=s: ops.cached_attn_decode(*s) for s in sets])
+    plain_ms = graph_time_ms(
+        [lambda s=s: ref.cached_attn_decode_ref(*s) for s in sets])
+    sdpa = []
+    for q, k, v, valid in sets:
+        sdpa.append((q.reshape(B, KVH * G, 1, hd), k.transpose(1, 2),
+                     v.transpose(1, 2), valid[:, None, None, :]))
+    gqa = {"enable_gqa": True} if G > 1 else {}
+    library_ms = graph_time_ms(
+        [lambda a=a: torch.nn.functional.scaled_dot_product_attention(
+            a[0], a[1], a[2], attn_mask=a[3], **gqa) for a in sdpa])
+    # The least work this data needs: masked cache rows cannot change the
+    # output, so only the live rows of K and V count.
+    live = int(sets[0][3].sum())
+    esz = 2  # bf16
+    nbytes = (2 * live * KVH * hd * esz       # live K and V rows, read once
+              + 2 * B * KVH * G * hd * esz    # q in, out
+              + B * L)                        # valid
+    flops = 4 * live * KVH * G * hd           # q.k and p.v
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = flops / BF16_FLOPS * 1e3
+    S, chunk = ops.decode_splits(B, KVH, G, L, hd)
+    print(f"[time] flash_decode at B={B} L={L} KVH={KVH} G={G} hd={hd} bf16 "
+          f"(S {S} x {chunk} rows): kernel {kernel_ms * 1e3:.2f} us, plain "
+          f"{plain_ms * 1e3:.2f} us, sdpa {library_ms * 1e3:.2f} us, bound "
+          f"{max(bytes_ms, ops_ms) * 1e3:.3f} us ({nbytes} bytes, {live} of "
+          f"{B * L} cache rows live); {nbytes / kernel_ms / 1e9:.3f} TB/s",
+          flush=True)
+    return dict(ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
+                bound_ms=max(bytes_ms, ops_ms),
+                bound_by="bytes" if bytes_ms >= ops_ms else "operations")
+
+
 def wire_inputs(rows, d, seed, scale=2.0):
     """Fusion-output-like rows on the card: normal values, an all-zero
     row, dead-ReLU zeros and ties in |z|."""
@@ -743,8 +850,11 @@ def fused_checks(ops, ref, get_codec):
         got = ops.fusion_proj(x.bfloat16(), w.bfloat16())
         check(torch.equal(got.float(), w[torch.arange(M) % K]),
               f"fusion_proj bf16 ({M},{K},{N}) structured: not exact")
+    # The encode's 8-row groups: M 33 ends in a group of 1, (32, 40,
+    # 8192) has 512 column tiles a group and stages its rows one at a time.
     enc_cases = [(32, k, D_FUSION, True) for k in FUSION_K.values()] + [
-        (1024, 432, 432, False), (33, 433, 433, False)]
+        (1024, 432, 432, False), (1000, 432, 432, False),
+        (33, 433, 433, False), (32, 40, 8192, False)]
     for M, K, N, with_bias in enc_cases:
         on_path = (M, N) == (32, D_FUSION)
         x, w, b = proj_inputs(M, K, N, seed=M + K)
@@ -793,6 +903,20 @@ def fused_checks(ops, ref, get_codec):
                 n_codes += flips.size
                 n_flips += int(flips.sum())
                 e = e_got
+    # bf16 on #4's tensor-core tiles: the fp32 projection is encoded, not
+    # its bf16 rounding, so the plain version is that of the widened
+    # inputs; codes within its budget.
+    for M, K, N in ((32, FUSION_K[2], D_FUSION), (1000, 432, 432)):
+        x, w, b = proj_inputs(M, K, N, seed=M + N, dtype=torch.bfloat16)
+        for scheme in WIRE_SCHEMES:
+            codec = get_codec(scheme)
+            flips = budget.payload_close(
+                scheme, ops.fusion_proj_encode(x, w, b, "relu", codec=codec),
+                ref.fusion_proj_encode_ref(x.float(), w.float(), b, "relu",
+                                           codec=codec), N,
+                FUSED_TOL, f"fusion_proj_encode bf16 {scheme} ({M},{K},{N})")
+            n_codes += flips.size
+            n_flips += int(flips.sum())
     dec_cases = [(32, 432, n) for n in (256, 128, 10)] + [
         (1024, 432, 432), (33, 433, 433)]
     for M, d, N in dec_cases:
@@ -1036,6 +1160,8 @@ def fused_times(ops, ref, get_codec):
     out["fusion_proj_encode_ef"] = time_encode(32, 1568, "ef(int4)")
     out["fusion_proj_encode_fig2"] = time_encode(1024, 432, "int8_row",
                                                  sets=8)
+    time_encode(1024, 432, "ef(int4)", sets=8)
+    time_encode(4096, 96, "int8_row", sets=4)
 
     def time_decode(N, name="int8_row", M=32, sets=32):
         codec, d = get_codec(name), D_FUSION
@@ -1413,6 +1539,12 @@ def main() -> None:
     print(f"[kernel] flash_decode vs plain: bf16 (B={B} L={L} KVH={KVH} "
           f"G={G} hd={hd}) max|err| {err_bf16:.3e}; fp32 GQA (G=4 hd=128 "
           f"L=40, masked row) max|err| {err_fp32:.3e}", flush=True)
+    split_err = decode_split_checks(ops, ref, gen)
+    print(f"[kernel] flash_decode split-L at {len(DECODE_SPLIT_CASES)} cases "
+          f"(L 1, 65, 4097; G 1, 4, 16; hd 64, 128; wholly masked splits, "
+          f"fully masked rows zero; one launch a call) and a split call "
+          f"twice in one CUDA graph, replayed 3 times: fp32 max|err| "
+          f"{split_err:.3e}", flush=True)
     wire_err = wire_checks(ops, ref, get_codec)
     print(f"[kernel] wire_encode / wire_encode_ef vs plain, schemes "
           f"{WIRE_SCHEMES} at (32,432), (32,433), (4096,432) with a zero "
@@ -1600,36 +1732,13 @@ def main() -> None:
     # -- 5. times at the slice's shape ------------------------------------
     # 64 independent input sets (~1 MB of K/V each) cycle through the
     # 50 MB L2, as the cache of each layer arrives cold in a decode step.
-    lengths = [64, 40, 33, 17]
-    sets = [decode_inputs(gen, B, L, KVH, G, hd, torch.bfloat16, lengths)
-            for _ in range(64)]
-    kernel_ms = graph_time_ms(
-        [lambda s=s: ops.cached_attn_decode(*s) for s in sets])
-    plain_ms = graph_time_ms(
-        [lambda s=s: ref.cached_attn_decode_ref(*s) for s in sets])
-    sdpa = []
-    for q, k, v, valid in sets:
-        sdpa.append((q.reshape(B, KVH * G, 1, hd), k.transpose(1, 2),
-                     v.transpose(1, 2), valid[:, None, None, :]))
-    library_ms = graph_time_ms(
-        [lambda a=a: torch.nn.functional.scaled_dot_product_attention(
-            a[0], a[1], a[2], attn_mask=a[3]) for a in sdpa])
-    # The least work this data needs: masked cache rows cannot change the
-    # output, so only the live rows of K and V count.
-    live = int(sets[0][3].sum())
-    esz = 2  # bf16
-    nbytes = (2 * live * KVH * hd * esz       # live K and V rows, read once
-              + 2 * B * KVH * G * hd * esz    # q in, out
-              + B * L)                        # valid
-    flops = 4 * live * KVH * G * hd           # q.k and p.v
-    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = flops / BF16_FLOPS * 1e3
-    bound_ms = max(bytes_ms, ops_ms)
-    print(f"[time] flash_decode at B={B} L={L} KVH={KVH} G={G} hd={hd} bf16: "
-          f"kernel {kernel_ms * 1e3:.2f} us, plain {plain_ms * 1e3:.2f} us, "
-          f"sdpa {library_ms * 1e3:.2f} us, bound {bound_ms * 1e3:.3f} us "
-          f"({nbytes} bytes, {live} of {B * L} cache rows live); {cfg.num_layers} launches per composed step",
+    dt = decode_times(ops, ref, gen, B, L, KVH, G, hd, [64, 40, 33, 17], 64)
+    print(f"[time] flash_decode: {cfg.num_layers} launches per composed step",
           flush=True)
+    for shape in DECODE_TIMED:   # printed as [time] lines only
+        Bt, Lt, KVHt, Gt, hdt, n_sets = shape
+        decode_times(ops, ref, gen, Bt, Lt, KVHt, Gt, hdt, [Lt] * Bt, n_sets)
+        torch.cuda.empty_cache()
 
     wire_t = {}
     for rows in (32, 4096):
@@ -1642,11 +1751,11 @@ def main() -> None:
         "replaces": "src/repro/kernels/flash_attention.py:121",
         "launches": launches,
         "max_abs_err": err_bf16,
-        "ms": kernel_ms,
-        "plain_ms": plain_ms,
-        "bound_ms": bound_ms,
-        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-        "library_ms": library_ms,
+        "ms": dt["ms"],
+        "plain_ms": dt["plain_ms"],
+        "bound_ms": dt["bound_ms"],
+        "bound_by": dt["bound_by"],
+        "library_ms": dt["library_ms"],
     }]
     # The IFL path's codecs at its shape (32, 432): int8_row through
     # wire_encode, ef(int4) through wire_encode_ef.

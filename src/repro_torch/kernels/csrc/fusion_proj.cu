@@ -28,8 +28,9 @@
 // version, which runs cuBLAS, the floats agree within rounding and an
 // integer code may flip by one step where y sits on a rounding edge.
 //
-// The projection (#4) has its own main loop; the other three share
-// gemm_tile. Both keep the chain rule in fp32, so the identities hold.
+// The projection (#4) has its own main loop, which the fused encode
+// (#5, #6) runs too; #3 keeps gemm_tile. Both loops keep the chain rule
+// in fp32, so the identities hold.
 //
 // #4, what bounds it and what the design does, by regime:
 //  * fp32 at small M (the Table-II boundary: M 32, K 64..1568, N 10..
@@ -56,9 +57,9 @@
 //    rows) are conflict-free; 128 x 128 tiles of 8 warps at large M,
 //    32 x 32 or 16 x 32 where those would not fill the card.
 //    The epilogue is bias_act in fp32, then one rounding to bf16. The
-//    tensor cores sum in their own order, so the bf16 #4 is not bitwise
-//    equal to the SIMT #3/#5/#6 on the same bf16 inputs (nor is it
-//    compared so); the fp32 identities above are untouched.
+//    tensor cores sum in their own order, so bf16 #4 is not bitwise
+//    equal to the SIMT #3 on the same bf16 inputs (nor is it compared
+//    so); the fp32 identities above are untouched.
 // A launch takes the first tile of its list that gives enough blocks.
 // Tiles stage by 16-byte copies where rows and starts allow (fp32: K
 // and N % 4 == 0; bf16: % 8; x, w and y on 16 bytes), else by 4-byte
@@ -66,22 +67,35 @@
 // Partial tiles are zero-filled; an fp32 chain still stops at K, adding
 // no term past it.
 //
-// #3, #5, #6 (gemm_tile). Every tile has 256 threads in RL row lanes x
-// 256 / RL column lanes; a thread owns TM rows x TN adjacent columns
-// (Cfg below). k advances in steps of 16: each thread loads its share of
-// the x (or decoded-row) tile and the w tile into registers, the next
-// step's loads in flight while this step's products run, and stores them
-// to shared memory as fp32 (bf16 inputs are widened on the load). The
-// fused encode gives a block whole rows (16, or 4 at small M, in one
-// 512-wide column tile for N <= 512): it keeps the finished y (BM x N
-// fp32, up to N = 8192 with the opt-in above 48 KB) in shared memory and
-// then encodes the rows one by one with the whole block. decode_proj
-// decodes its BM payload rows into a (d x BM) shared tile and multiplies
-// it by w's column tile. The TPU kernels' (8, 128) tiling, padded rows
-// and the N % bn rule are gone: partial tiles are masked, so any M, K
-// and N work. At M 32 these wait on memory latency (one k-step's loads
-// in flight, M / BM blocks reading all of w), far from their bounds: the
-// next step for them is #4's ring.
+// #5, #6 (the fused encode). At the Table-II boundary (M 32, K 1568, N
+// 432) the bytes are few (w: 2.7 MB, 0.87 us); what bounds it is #4's
+// chain of K dependent FMAs an output, then the encode of each row. So
+// y is computed in #4's main loop: fp32 in #4's 8 x 16 tile at small M
+// (108 blocks at (32, 432)), or in a 16 x 64 tile of the same loop where
+// that gives a wave of blocks (at large M the encode of a row group, not
+// the product, sets the time, so groups stay small); bf16 in #4's 16 x 32
+// mma.sync tile, the fp32 bias_act value encoded, not its bf16 rounding. Each fp32 output is #4's
+// one fmaf chain, so y is #4's y bitwise. Each block writes its y tile to
+// an fp32 scratch y (L2-resident: 55 KB at (32, 432)) and counts its
+// arrival on its row group's counter (__threadfence, then atomicAdd; the
+// last block resets it to 0). The last of the group's N / BN column tiles
+// to arrive encodes the group's rows, reading y back through L2, with
+// encode_row a row a warp on the warps of its block that have room in
+// shared memory for a row's buffers. A warp plays wire_encode.cu's 256
+// threads in encode_row's sums, so the payload and e' are its bits. Any
+// M, N <= 8192.
+//
+// #3 (gemm_tile). Every tile has 256 threads in RL row lanes x 256 / RL
+// column lanes; a thread owns TM rows x TN adjacent columns (Cfg below).
+// k advances in steps of 16: each thread loads its share of the decoded-
+// row tile and the w tile into registers, the next step's loads in flight
+// while this step's products run, and stores them to shared memory as
+// fp32 (bf16 inputs are widened on the load). decode_proj decodes its BM
+// payload rows into a (d x BM) shared tile and multiplies it by w's
+// column tile. The TPU kernel's (8, 128) tiling, padded rows and the N %
+// bn rule are gone: partial tiles are masked, so any M, K and N work. At
+// M 32 it waits on memory latency (one k-step's loads in flight), far
+// from its bound: the next step for it is #4's ring.
 
 #include <cuda_bf16.h>
 
@@ -110,7 +124,6 @@ struct Cfg {
 };
 using Mid = Cfg<4, 4, 4>;     // 16 x 256
 using Small = Cfg<1, 4, 1>;   // 4 x 256: M 32 and the like
-using Wide = Cfg<1, 4, 2>;    // 4 x 512: a 432-wide fusion row in one tile
 
 // The epilogue every kernel here shares: bias, then the activation.
 __device__ __forceinline__ float bias_act(float acc, const float* b, int n,
@@ -251,11 +264,6 @@ __device__ void gemm_tile(float (&acc)[C::TM][C::TN], const void* x,
   }
 }
 
-template <class C>
-constexpr size_t tile_floats() {
-  return kBK * C::BM + kBK * C::BN;
-}
-
 // ---------------------------------------------------------------- #4
 //
 // The projection alone has its own main loop. Tiles are staged by
@@ -307,6 +315,9 @@ using F32Mid = F32Tile<64, 64, 4, 4, 16, 4, 1, false>;    // 256
 // read; a warp 4 rows x 16 columns, so a k row of w is 8 distinct float2.
 // 64 k a stage: the fewer barriers and stage switches, the faster.
 using F32Row = F32Tile<8, 16, 1, 2, 64, 4, 1, true>;  // 64
+// The fused encode at large M: 16-row groups, so the last block's eight
+// warps encode two rows each; a thread 2 x 2 outputs, 2 stages of 64 k.
+using F32Enc = F32Tile<16, 64, 2, 2, 64, 2, 1, false>;  // 256
 
 // Stage t of the fp32 tile into ring slot t % ST: x[m0 + m][k0 + kk] at
 // As[kk][m] (or As[m][kk] with KX), w[k0 + kk][n0 + n] at Bs[kk][n], zeros
@@ -424,17 +435,19 @@ __device__ __forceinline__ void steps_f32(float (&acc)[T::TM][T::TN],
   }
 }
 
-template <class T, bool VEC>
-__global__ void __launch_bounds__(T::kThreads, T::MINB)
-    proj_f32_kernel(ProjArgs a) {
-  extern __shared__ float smem[];
+// One fp32 tile, (blockIdx.x, blockIdx.y), of y = act(x @ w + b) into
+// a.y (fp32). With IDLE the block has more threads than the tile (the
+// fused encode's 256): those keep the barriers and nothing else.
+template <class T, bool VEC, bool IDLE>
+__device__ __forceinline__ void proj_f32_tile(const ProjArgs& a, float* smem) {
+  const bool work = !IDLE || threadIdx.x < T::kThreads;
   float* As = smem;                   // ST x kA
   float* Bs = smem + T::ST * T::kA;   // ST x kB
   const int m0 = blockIdx.x * T::BM, n0 = blockIdx.y * T::BN;
   const int nk = (a.K + T::BK - 1) / T::BK;
 #pragma unroll
   for (int t = 0; t < T::ST - 1; ++t) {
-    if (t < nk) stage_f32<T, VEC>(As, Bs, a, m0, n0, t);
+    if (work && t < nk) stage_f32<T, VEC>(As, Bs, a, m0, n0, t);
     cp_async_commit();
   }
   float acc[T::TM][T::TN];
@@ -445,12 +458,15 @@ __global__ void __launch_bounds__(T::kThreads, T::MINB)
   for (int t = 0; t < nk; ++t) {
     cp_async_wait<T::ST - 2>();  // stage t has landed (this thread's copies)
     __syncthreads();             // ... everyone's; slot (t - 1) % ST is free
-    if (t + T::ST - 1 < nk) stage_f32<T, VEC>(As, Bs, a, m0, n0, t + T::ST - 1);
+    if (work && t + T::ST - 1 < nk)
+      stage_f32<T, VEC>(As, Bs, a, m0, n0, t + T::ST - 1);
     cp_async_commit();
     const int slot = t % T::ST;
-    steps_f32<T>(acc, As + slot * T::kA, Bs + slot * T::kB,
-                 min(T::BK, a.K - t * T::BK));
+    if (work)
+      steps_f32<T>(acc, As + slot * T::kA, Bs + slot * T::kB,
+                   min(T::BK, a.K - t * T::BK));
   }
+  if (!work) return;
   const int tx = threadIdx.x % T::CT, ty = threadIdx.x / T::CT;
   float* y = static_cast<float*>(a.y);
 #pragma unroll
@@ -476,6 +492,13 @@ __global__ void __launch_bounds__(T::kThreads, T::MINB)
       }
     }
   }
+}
+
+template <class T, bool VEC>
+__global__ void __launch_bounds__(T::kThreads, T::MINB)
+    proj_f32_kernel(ProjArgs a) {
+  extern __shared__ float smem[];
+  proj_f32_tile<T, VEC, false>(a, smem);
 }
 
 // A bf16 tile: BM x BN outputs of WM x WN warps, BK 32 of k a stage, ST
@@ -554,10 +577,11 @@ __device__ __forceinline__ void stage_bf16(__nv_bfloat16* As,
   }
 }
 
-template <class T, bool VEC>
-__global__ void __launch_bounds__(T::kThreads, T::MINB)
-    proj_bf16_kernel(ProjArgs a) {
-  extern __shared__ float smem[];
+// One bf16 tile of y into a.y: bf16, or with F32 the fp32 bias_act value
+// before its rounding (the fused encode's y). IDLE as in proj_f32_tile.
+template <class T, bool VEC, bool F32, bool IDLE>
+__device__ __forceinline__ void proj_bf16_tile(const ProjArgs& a, float* smem) {
+  const bool work = !IDLE || threadIdx.x < T::kThreads;
   __nv_bfloat16* As = reinterpret_cast<__nv_bfloat16*>(smem);  // ST x BM x LDA
   __nv_bfloat16* Bs = As + T::ST * T::BM * T::LDA;             // ST x BK x LDB
   const int m0 = blockIdx.x * T::BM, n0 = blockIdx.y * T::BN;
@@ -567,7 +591,7 @@ __global__ void __launch_bounds__(T::kThreads, T::MINB)
   const int nk = (a.K + T::BK - 1) / T::BK;
 #pragma unroll
   for (int t = 0; t < T::ST - 1; ++t) {
-    if (t < nk) stage_bf16<T, VEC>(As, Bs, a, m0, n0, t);
+    if (work && t < nk) stage_bf16<T, VEC>(As, Bs, a, m0, n0, t);
     cp_async_commit();
   }
   float acc[T::MI][2 * T::NJ][4];
@@ -580,8 +604,10 @@ __global__ void __launch_bounds__(T::kThreads, T::MINB)
   for (int t = 0; t < nk; ++t) {
     cp_async_wait<T::ST - 2>();
     __syncthreads();
-    if (t + T::ST - 1 < nk) stage_bf16<T, VEC>(As, Bs, a, m0, n0, t + T::ST - 1);
+    if (work && t + T::ST - 1 < nk)
+      stage_bf16<T, VEC>(As, Bs, a, m0, n0, t + T::ST - 1);
     cp_async_commit();
+    if (!work) continue;
     const __nv_bfloat16* as = As + (t % T::ST) * T::BM * T::LDA;
     const __nv_bfloat16* bs = Bs + (t % T::ST) * T::BK * T::LDB;
 #pragma unroll
@@ -605,9 +631,9 @@ __global__ void __launch_bounds__(T::kThreads, T::MINB)
       }
     }
   }
+  if (!work) return;
   // Lane 4 g + q holds rows g and g + 8, columns 2 q and 2 q + 1 of each
   // 16 x 8 accumulator.
-  __nv_bfloat16* y = static_cast<__nv_bfloat16*>(a.y);
   const int g = lane >> 2, q = lane & 3;
 #pragma unroll
   for (int i = 0; i < T::MI; ++i)
@@ -618,80 +644,88 @@ __global__ void __launch_bounds__(T::kThreads, T::MINB)
       for (int h = 0; h < 2; ++h) {
         const int m = m0 + wr + i * 16 + g + 8 * h;
         if (m >= a.M || n >= a.N) continue;
-        __nv_bfloat16* o = y + static_cast<size_t>(m) * a.N + n;
         const float v0 = bias_act(acc[i][j][2 * h], a.b, n, a.act);
-        if (n + 1 < a.N && a.N % 2 == 0) {
-          *reinterpret_cast<__nv_bfloat162*>(o) = __floats2bfloat162_rn(
-              v0, bias_act(acc[i][j][2 * h + 1], a.b, n + 1, a.act));
+        const size_t off = static_cast<size_t>(m) * a.N + n;
+        if constexpr (F32) {
+          float* o = static_cast<float*>(a.y) + off;
+          o[0] = v0;
+          if (n + 1 < a.N) o[1] = bias_act(acc[i][j][2 * h + 1], a.b, n + 1, a.act);
         } else {
-          o[0] = __float2bfloat16_rn(v0);
-          if (n + 1 < a.N)
-            o[1] = __float2bfloat16_rn(
-                bias_act(acc[i][j][2 * h + 1], a.b, n + 1, a.act));
+          __nv_bfloat16* o = static_cast<__nv_bfloat16*>(a.y) + off;
+          if (n + 1 < a.N && a.N % 2 == 0) {
+            *reinterpret_cast<__nv_bfloat162*>(o) = __floats2bfloat162_rn(
+                v0, bias_act(acc[i][j][2 * h + 1], a.b, n + 1, a.act));
+          } else {
+            o[0] = __float2bfloat16_rn(v0);
+            if (n + 1 < a.N)
+              o[1] = __float2bfloat16_rn(
+                  bias_act(acc[i][j][2 * h + 1], a.b, n + 1, a.act));
+          }
         }
       }
     }
 }
 
+template <class T, bool VEC>
+__global__ void __launch_bounds__(T::kThreads, T::MINB)
+    proj_bf16_kernel(ProjArgs a) {
+  extern __shared__ float smem[];
+  proj_bf16_tile<T, VEC, false, false>(a, smem);
+}
+
 // ------------------------------------------------------------ #5, #6
+//
+// y in #4's tiles and main loop, written to an fp32 scratch y; the last of
+// a row group's N / BN column tiles to arrive encodes the group's rows
+// with encode_row, a row a warp, on as many of its warps as have room for
+// a row's buffers (a.teams). Blocks have 256 threads, so 8 rows of a
+// group are encoded at once; a smaller tile's own threads run #4's main
+// loop, the others only keep its barriers.
 
 struct EncArgs {
   const void* x;
   const void* w;
   const float* b;
   const float* e;
+  float* y;      // (M, N) fp32 scratch
+  int* count;    // a counter per row group, 0 between calls
   int M, K, dtype, act;
-  Params p;  // p.d is N
+  int teams;     // warps that encode, each with its c and scratch
+  Params p;      // p.d is N
 };
 
-// Shared floats of the fused encode: y (BM x N), then one region that
-// holds the staged tiles during the matmul and the row c with its
-// scratch during the encode.
-template <class C>
-size_t encode_smem_floats(int S, int N, int n) {
-  const size_t row = N + scratch_floats(S, N, n);
-  return static_cast<size_t>(C::BM) * N +
-         (tile_floats<C>() > row ? tile_floats<C>() : row);
-}
-
-// encode_row as a called function: inlined, its registers would count
-// against the matmul loop's (232 with spills where it was).
-template <int S, bool EF>
-__device__ __noinline__ void encode_row_call(const Params& p, const float* z,
-                                             const float* e, float* c,
-                                             float* scratch, float* red,
-                                             size_t row) {
-  encode_row<S, EF>(p, z, e, c, scratch, red, row);
-}
-
-template <class C, int S, bool EF>
-__global__ void __launch_bounds__(kThreads) proj_encode_kernel(EncArgs a) {
+template <class T, bool VEC, int S, bool EF>
+__global__ void __launch_bounds__(kThreads, 1) proj_encode_kernel(EncArgs a) {
   extern __shared__ float smem[];
-  __shared__ float red[kThreads / 32];
+  __shared__ int last;
   const int N = a.p.d;
-  float* y = smem;                                       // BM x N
-  float* region = smem + static_cast<size_t>(C::BM) * N; // tiles | c, scratch
-  const int m0 = blockIdx.x * C::BM;
-  const int cl = threadIdx.x % C::CL, rl = threadIdx.x / C::CL;
-  for (int n0 = 0; n0 < N; n0 += C::BN) {
-    float acc[C::TM][C::TN];
-    gemm_tile<C>(acc, a.x, nullptr, a.w, a.dtype, a.M, a.K, N, m0, n0,
-                 region, region + kBK * C::BM);
-#pragma unroll
-    for (int i = 0; i < C::TM; ++i)
-#pragma unroll
-      for (int j = 0; j < C::TN; ++j) {
-        const int n = n0 + cl * C::TN + j;
-        if (n < N)
-          y[(rl * C::TM + i) * N + n] = bias_act(acc[i][j], a.b, n, a.act);
-      }
+  const ProjArgs pa{a.x, a.w, a.b, a.y, a.M, a.K, N, a.dtype, a.act};
+  if constexpr (T::kBf16) {
+    proj_bf16_tile<T, VEC, true, true>(pa, smem);
+  } else {
+    proj_f32_tile<T, VEC, true>(pa, smem);
   }
-  const int rows = min(C::BM, a.M - m0);
-  for (int r = 0; r < rows; ++r) {
+  __threadfence();  // this tile of y is visible before it arrives
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    const int prev = atomicAdd(a.count + blockIdx.x, 1);
+    last = prev == static_cast<int>(gridDim.y) - 1;
+    if (last) a.count[blockIdx.x] = 0;  // ready for the next call on this stream
+  }
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  // Every tile of the group has landed; the ring is free for the rows' c
+  // and scratch.
+  const int warp = threadIdx.x / 32;
+  if (warp >= a.teams) return;
+  const int m0 = blockIdx.x * T::BM;
+  const int rows = min(T::BM, a.M - m0);
+  float* c = smem + warp * (N + scratch_floats(S, N, a.p.n));
+  for (int r = warp; r < rows; r += a.teams) {
     const size_t row = static_cast<size_t>(m0) + r;
-    encode_row_call<S, EF>(a.p, y + static_cast<size_t>(r) * N,
-                      EF ? a.e + row * N : nullptr, region, region + N, red,
-                      row);
+    encode_row<S, EF, 32>(a.p, a.y + row * N, EF ? a.e + row * N : nullptr,
+                          c, c + N, nullptr, row);
   }
 }
 
@@ -756,7 +790,7 @@ template <class Kernel, class A>
 int launch(Kernel kernel, dim3 grid, size_t smem, const A& args,
            cudaStream_t s, int threads = kThreads) {
   if (smem > static_cast<size_t>(kSmemLimit)) return -1;
-  if (smem > kOptInAbove) {
+  if (smem > 48 * 1024 - 256) {  // the default limit counts static arrays too
     const cudaError_t rc = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));
@@ -797,18 +831,37 @@ int launch_proj_fill(const ProjArgs& a, bool vec, cudaStream_t s) {
   }
 }
 
-// The fused encode with Mid tiles (16 rows a block) where that still
-// gives a full wave of blocks and fits, else Wide (4 rows, the 432-wide
-// row in one column tile: 8 blocks at M 32).
+// The fused encode on the tile T, 16-byte copies where vec holds. All 8
+// warps encode where their rows' buffers fit in T's ring or in 48 KB,
+// else as many as fit (at least one).
+template <class T, int S, bool EF>
+int launch_encode_tile(EncArgs a, bool vec, cudaStream_t s) {
+  const size_t team = sizeof(float) * (a.p.d + scratch_floats(S, a.p.d, a.p.n));
+  const size_t room = T::smem > 48 * 1024 ? T::smem : 48 * 1024;
+  const size_t fit = room / team;
+  a.teams = static_cast<int>(fit < 1 ? 1 : fit > kThreads / 32 ? kThreads / 32 : fit);
+  const size_t enc = a.teams * team;
+  const size_t smem = enc > T::smem ? enc : T::smem;
+  const dim3 grid = grid_of<T>(a.M, a.p.d);
+  return vec ? launch(proj_encode_kernel<T, true, S, EF>, grid, smem, a, s)
+             : launch(proj_encode_kernel<T, false, S, EF>, grid, smem, a, s);
+}
+
+// The encode's tiles: bf16 #4's 16 x 32 mma.sync tile; fp32 #4's 8 x 16
+// tile, or 16 x 64 where that gives a wave of blocks (16-row groups: the
+// encode of a group, not the product, sets the time at large M).
 template <int S, bool EF>
 int launch_encode(const EncArgs& a, cudaStream_t s) {
-  const int N = a.p.d;
-  const size_t mid = sizeof(float) * encode_smem_floats<Mid>(S, N, a.p.n);
-  if (fills_card<Mid>(a.M, 1) && mid <= static_cast<size_t>(kSmemLimit))
-    return launch(proj_encode_kernel<Mid, S, EF>, grid_of<Mid>(a.M, 1), mid,
-                  a, s);
-  return launch(proj_encode_kernel<Wide, S, EF>, grid_of<Wide>(a.M, 1),
-                sizeof(float) * encode_smem_floats<Wide>(S, N, a.p.n), a, s);
+  auto on16 = [](const void* p) {
+    return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+  };
+  const int K = a.K, N = a.p.d;
+  if (a.dtype == kBF16)
+    return launch_encode_tile<BfRow16, S, EF>(
+        a, K % 8 == 0 && N % 8 == 0 && on16(a.x) && on16(a.w), s);
+  const bool vec = K % 4 == 0 && N % 4 == 0 && on16(a.x) && on16(a.w) && on16(a.y);
+  return fills_card<F32Enc>(a.M, N) ? launch_encode_tile<F32Enc, S, EF>(a, vec, s)
+                                    : launch_encode_tile<F32Row, S, EF>(a, vec, s);
 }
 
 template <bool EF>
@@ -870,10 +923,13 @@ extern "C" int fusion_proj(const void* x, const void* w, const float* b,
 
 // The projection with wire_row.cuh's encode of each row of y (N = the
 // fusion dim <= 8192) into out0/out1; with ef, c = y + e and e' into
-// e_out. The sketch tables may be null for the other schemes.
+// e_out. The sketch tables may be null for the other schemes. y (M x N
+// fp32) and count (ncount >= ceil(M / 8) ints, all 0; the kernel leaves
+// them 0) are scratch.
 extern "C" int fusion_proj_encode(int scheme, int ef, const void* x,
                                   const void* w, const float* b,
-                                  const float* e, int M, int K, int N, int n,
+                                  const float* e, float* y, int* count,
+                                  int ncount, int M, int K, int N, int n,
                                   int dtype, int act, float inv_qmax,
                                   float qmax, int clip, float max_ratio,
                                   const float* sign, const float* inv_counts,
@@ -881,11 +937,12 @@ extern "C" int fusion_proj_encode(int scheme, int ef, const void* x,
                                   const int* ptr, void* out0, void* out1,
                                   float* e_out, void* stream) {
   if (bad_common(M, K, N, dtype, act) || N > kMaxD) return -1;
+  if (!y || !count || ncount < (M + F32Row::BM - 1) / F32Row::BM) return -1;
   if ((scheme == kTopK || scheme == kSketch) && (n < 1 || n > N)) return -1;
   if (scheme == kSketch && (!sign || !inv_counts || !hash || !order || !ptr))
     return -1;
   if (ef && (!e || !e_out)) return -1;
-  const EncArgs a{x, w, b, e, M, K, dtype, act,
+  const EncArgs a{x, w, b, e, y, count, M, K, dtype, act, 0,
                   {N, n, inv_qmax, qmax, clip, max_ratio, sign, inv_counts,
                    hash, order, ptr, out0, out1, e_out}};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -896,13 +953,16 @@ extern "C" int fusion_proj_encode(int scheme, int ef, const void* x,
 }
 
 // The projection with the int8_row encode: q int8 (M, N), scale fp32
-// (M, 1). The template of fusion_proj_encode at int8_row, its own entry.
+// (M, 1). The template of fusion_proj_encode at int8_row, its own entry;
+// y and count as there.
 extern "C" int fusion_proj_quant(const void* x, const void* w, const float* b,
-                                 int M, int K, int N, int dtype, int act,
+                                 float* y, int* count, int ncount, int M,
+                                 int K, int N, int dtype, int act,
                                  float inv_qmax, void* q, float* scale,
                                  void* stream) {
   if (bad_common(M, K, N, dtype, act) || N > kMaxD) return -1;
-  const EncArgs a{x, w, b, nullptr, M, K, dtype, act,
+  if (!y || !count || ncount < (M + F32Row::BM - 1) / F32Row::BM) return -1;
+  const EncArgs a{x, w, b, nullptr, y, count, M, K, dtype, act, 0,
                   {N, 0, inv_qmax, 127.f, 0, 0.f, nullptr, nullptr, nullptr,
                    nullptr, nullptr, q, scale, nullptr}};
   const int rc = launch_encode<kInt8Row, false>(a, static_cast<cudaStream_t>(stream));

@@ -1,9 +1,9 @@
 // The per-row wire encode shared by wire_encode.cu and fusion_proj.cu: one
-// fusion row z (in global or shared memory) -> its codec payload row, with
-// or without the EF21 epilogue, computed by a whole block of kThreads
-// threads. wire_encode.cu runs it on rows read from global memory; the
-// fused projection kernels run it on the rows of their own matmul, kept
-// in shared memory, so the fp32 activation never reaches global memory.
+// fusion row z in device memory -> its codec payload row, with or without
+// the EF21 epilogue, computed by a team of threads: a whole block of
+// kThreads (wire_encode.cu) or one warp (the fused projection's encode,
+// fusion_proj.cu, a row a warp on the rows of its own matmul, which it
+// reads back from an L2-resident scratch). Team below.
 //
 // It computes the four wire schemes of src/repro/kernels/wire_fused.py
 // (:133-253):
@@ -110,45 +110,128 @@ __host__ __device__ inline size_t scratch_floats(int scheme, int d, int n) {
   return scheme == kTopK ? d : scheme == kSketch ? n : 0;
 }
 
+// The threads that encode one row together: the whole block (NT =
+// kThreads, as wire_encode.cu runs it) or one warp (NT = 32, the fused
+// projection's encode of a row group, a row a warp). Team thread t plays
+// the block threads v NT + t, v < V: it visits the elements each of them
+// would, in the same order, keeps a partial sum for each, and adds the
+// partials in block_reduce's tree (each block warp's lanes by the same
+// shuffles, then the warps in order). So a row encodes to the same bits,
+// e' included, whichever team runs it.
+template <int NT>
+struct Team {
+  static_assert(NT == kThreads || NT == 32, "the block or one warp");
+  static constexpr int V = kThreads / NT;  // block threads a team thread plays
+  __device__ static int thread() {
+    return NT == kThreads ? threadIdx.x : threadIdx.x & 31;
+  }
+  __device__ static void sync() {
+    if constexpr (NT == kThreads) {
+      __syncthreads();
+    } else {
+      __syncwarp();
+    }
+  }
+  // The max or sum over the block threads of part[v] (block thread v NT +
+  // t), as block_reduce computes it; the same in every team thread.
+  template <bool kMax>
+  __device__ static float reduce(const float (&part)[V], float* red) {
+    if constexpr (NT == kThreads) {
+      return block_reduce<kMax>(part[0], red);
+    } else {
+      float r = 0.f;
+#pragma unroll
+      for (int v = 0; v < V; ++v) {
+        float x = part[v];
+        for (int off = 16; off > 0; off >>= 1) {
+          const float o = __shfl_xor_sync(0xffffffffu, x, off);
+          x = kMax ? fmaxf(x, o) : __fadd_rn(x, o);
+        }
+        r = v == 0 ? x : kMax ? fmaxf(r, x) : __fadd_rn(r, x);
+      }
+      return r;
+    }
+  }
+};
+
 // Encode row `row` of the output. z (and e with EF) point at the row's d
-// inputs; c (d floats) and scratch (scratch_floats) are shared memory.
-// Every thread of the block calls it; it starts with a barrier, so a
-// caller may run it on one row after another with the same buffers.
-template <int S, bool EF>
+// inputs in device memory, read through L2 (another block may just have
+// written them); c (d floats) and scratch (scratch_floats) are the team's
+// shared memory. Every thread of the team calls it; it starts with a
+// team barrier, so a caller may run it on one row after another with the
+// same buffers. red: kThreads / 32 shared floats (the block team only).
+template <int S, bool EF, int NT = kThreads>
 __device__ void encode_row(const Params& p, const float* z, const float* e,
                            float* c, float* scratch, float* red, size_t row) {
+  using T = Team<NT>;
+  constexpr int V = T::V;
   int* rank = reinterpret_cast<int*>(scratch);  // topk: d ranks
   float* bucket = scratch;                      // sketch: w sums
   const int d = p.d;
-  __syncthreads();  // earlier readers of c and scratch are done
-
-  float zsq = 0.f;
-  for (int i = threadIdx.x; i < d; i += kThreads) {
-    const float zi = z[i];
-    float ci = zi;
-    if (EF) {
-      ci = __fadd_rn(zi, e[i]);
-      zsq = __fadd_rn(zsq, __fmul_rn(zi, zi));
+  const int t = T::thread();
+  // f(i, v) for each element i of block thread v NT + t, in its order.
+  auto each = [&](auto f) {
+#pragma unroll 2
+    for (int base = 0; base < d; base += kThreads) {
+#pragma unroll
+      for (int v = 0; v < V; ++v) {
+        const int i = base + v * NT + t;
+        if (i < d) f(i, v);
+      }
     }
-    c[i] = ci;
+  };
+  T::sync();  // earlier readers of c and scratch are done
+
+  // c = z (+ e): two passes' loads are issued before their stores, so a
+  // team thread has 2 V of them in flight, not one.
+  float zsq[V];
+#pragma unroll
+  for (int v = 0; v < V; ++v) zsq[v] = 0.f;
+  for (int base = 0; base < d; base += 2 * kThreads) {
+    float zv[2][V], ev[2][V];
+#pragma unroll
+    for (int u = 0; u < 2; ++u)
+#pragma unroll
+      for (int v = 0; v < V; ++v) {
+        const int i = base + u * kThreads + v * NT + t;
+        zv[u][v] = i < d ? __ldcg(z + i) : 0.f;
+        ev[u][v] = EF && i < d ? __ldcg(e + i) : 0.f;
+      }
+#pragma unroll
+    for (int u = 0; u < 2; ++u)
+#pragma unroll
+      for (int v = 0; v < V; ++v) {
+        const int i = base + u * kThreads + v * NT + t;
+        if (i >= d) continue;
+        float ci = zv[u][v];
+        if (EF) {
+          ci = __fadd_rn(zv[u][v], ev[u][v]);
+          zsq[v] = __fadd_rn(zsq[v], __fmul_rn(zv[u][v], zv[u][v]));
+        }
+        c[i] = ci;
+      }
   }
-  __syncthreads();
+  T::sync();
 
   float scale = 1.f;
   if (S == kInt8Row || S == kInt4) {
-    float am = 0.f;
-    for (int i = threadIdx.x; i < d; i += kThreads) am = fmaxf(am, fabsf(c[i]));
-    am = block_reduce<true>(am, red);
-    scale = am > 0.f ? fmaxf(__fmul_rn(am, p.inv_qmax), 1e-12f) : 1.f;
-    if (threadIdx.x == 0) static_cast<float*>(p.out1)[row] = scale;
+    float am[V];
+#pragma unroll
+    for (int v = 0; v < V; ++v) am[v] = 0.f;
+    each([&](int i, int v) { am[v] = fmaxf(am[v], fabsf(c[i])); });
+    const float mx = T::template reduce<true>(am, red);
+    scale = mx > 0.f ? fmaxf(__fmul_rn(mx, p.inv_qmax), 1e-12f) : 1.f;
+    if (t == 0) static_cast<float*>(p.out1)[row] = scale;
     if (S == kInt8Row) {
       int8_t* q = static_cast<int8_t*>(p.out0) + row * d;
-      for (int i = threadIdx.x; i < d; i += kThreads)
+#pragma unroll 4
+      for (int i = t; i < d; i += NT)
         q[i] = static_cast<int8_t>(static_cast<int>(quant(c[i], scale, p.qmax)));
     } else {
       const int dp = (d + 1) / 2;
       uint8_t* q4 = static_cast<uint8_t*>(p.out0) + row * dp;
-      for (int j = threadIdx.x; j < dp; j += kThreads) {
+#pragma unroll 4
+      for (int j = t; j < dp; j += NT) {
         const int lo = static_cast<int>(quant(c[2 * j], scale, p.qmax)) + 8;
         const int hi = 2 * j + 1 < d
             ? static_cast<int>(quant(c[2 * j + 1], scale, p.qmax)) + 8 : 8;
@@ -159,7 +242,7 @@ __device__ void encode_row(const Params& p, const float* z, const float* e,
     const int k = p.n;
     float* vals = static_cast<float*>(p.out0) + row * k;
     int* idx = static_cast<int*>(p.out1) + row * k;
-    for (int i = threadIdx.x; i < d; i += kThreads) {
+    for (int i = t; i < d; i += NT) {
       const float a = fabsf(c[i]);
       int r = 0;
       for (int j = 0; j < d; ++j) {
@@ -175,10 +258,10 @@ __device__ void encode_row(const Params& p, const float* z, const float* e,
   } else {  // kSketch
     const int w = p.n;
     float* sk = static_cast<float*>(p.out0) + row * w;
-    for (int b = threadIdx.x; b < w; b += kThreads) {
+    for (int b = t; b < w; b += NT) {
       float acc = 0.f;
-      for (int t = p.ptr[b]; t < p.ptr[b + 1]; ++t) {
-        const int i = p.order[t];
+      for (int j = p.ptr[b]; j < p.ptr[b + 1]; ++j) {
+        const int i = p.order[j];
         acc = __fadd_rn(acc, __fmul_rn(c[i], p.sign[i]));
       }
       bucket[b] = acc;
@@ -186,7 +269,7 @@ __device__ void encode_row(const Params& p, const float* z, const float* e,
     }
   }
   if (!EF) return;
-  __syncthreads();  // ranks / bucket sums visible to every thread
+  T::sync();  // ranks / bucket sums visible to every team thread
 
   // z_hat_i: the decode of element i, from the row and the scheme state.
   auto zhat = [&](int i) -> float {
@@ -202,16 +285,19 @@ __device__ void encode_row(const Params& p, const float* z, const float* e,
   float* e_out = p.e_out + row * d;
   float factor = 1.f;
   if (p.clip) {
-    float esq = 0.f;
-    for (int i = threadIdx.x; i < d; i += kThreads) {
+    float esq[V];
+#pragma unroll
+    for (int v = 0; v < V; ++v) esq[v] = 0.f;
+    each([&](int i, int v) {
       const float ei = __fsub_rn(c[i], zhat(i));
-      esq = __fadd_rn(esq, __fmul_rn(ei, ei));
-    }
-    const float zn = sqrtf(block_reduce<false>(zsq, red));
-    const float en = sqrtf(block_reduce<false>(esq, red));
+      esq[v] = __fadd_rn(esq[v], __fmul_rn(ei, ei));
+    });
+    const float zn = sqrtf(T::template reduce<false>(zsq, red));
+    const float en = sqrtf(T::template reduce<false>(esq, red));
     factor = fminf(1.f, __fdiv_rn(__fmul_rn(p.max_ratio, zn), fmaxf(en, 1e-12f)));
   }
-  for (int i = threadIdx.x; i < d; i += kThreads) {
+#pragma unroll 4
+  for (int i = t; i < d; i += NT) {
     const float ei = __fsub_rn(c[i], zhat(i));
     e_out[i] = p.clip ? __fmul_rn(ei, factor) : ei;
   }

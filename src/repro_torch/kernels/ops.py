@@ -63,19 +63,66 @@ _HEAD_DIMS = (64, 128)  # every dense config the port builds
 _MAX_GROUP = 16
 
 
-def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
-    return ctypes.c_void_p(t.data_ptr())
+# The split of the cache across blocks (csrc/flash_decode.cu). A tile is
+# 4096 / hd cache rows (16 KB of K and V in bf16); a split is whole
+# tiles; the kernel merges at most MAX_DECODE_SPLITS partials.
+_SMS = 132  # H100 SXM
+MAX_DECODE_SPLITS = 128
+DECODE_BLOCKS_PER_SM = 4
+
+
+def decode_tile_rows(hd: int) -> int:
+    """Cache rows a ``flash_decode`` block stages at once."""
+    return 4096 // hd
+
+
+def decode_splits(B: int, KVH: int, G: int, L: int, hd: int) -> Tuple[int, int]:
+    """(S, chunk): ``flash_decode`` splits each (row, KV head)'s L cache
+    rows into S splits of ``chunk`` rows (the last may be shorter, none
+    is empty), whole tiles a split. Aims at DECODE_BLOCKS_PER_SM (4)
+    blocks an SM over the B * KVH * S blocks, one wave (an SM holds
+    more than 4): on an H100 it beat 2 and 8 at G 1 and tied 2 at G 16
+    (``PERF.md``), so G, which each block serves whole, does not enter.
+    S = 1 where the cache is one tile, as at the serving path's L 64."""
+    tile = decode_tile_rows(hd)
+    n_tiles = -(-L // tile)
+    want = max(1, round(DECODE_BLOCKS_PER_SM * _SMS / (B * KVH)))
+    S = min(want, n_tiles, MAX_DECODE_SPLITS)
+    per = -(-n_tiles // S)          # tiles a split
+    return -(-n_tiles // per), per * tile
+
+
+_COUNTERS: Dict[Tuple[int, int], torch.Tensor] = {}
+
+
+def _arrival_counters(dev: torch.device, n: int) -> torch.Tensor:
+    """n int32 counters, all 0, for one launch of a kernel whose blocks
+    count their arrivals (the last to arrive resets its counter to 0).
+    Eager calls on one stream run in order, so they share one buffer per
+    (device, stream); a call captured into a CUDA graph gets its own,
+    zeroed in the graph, so no two streams or graphs share a live
+    counter."""
+    if torch.cuda.is_current_stream_capturing():
+        return torch.zeros(n, dtype=torch.int32, device=dev)
+    key = (dev.index, torch.cuda.current_stream(dev).cuda_stream)
+    buf = _COUNTERS.get(key)
+    if buf is None or buf.numel() < n:
+        buf = _COUNTERS[key] = torch.zeros(max(n, 1024), dtype=torch.int32,
+                                           device=dev)
+    return buf
 
 
 def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  valid: torch.Tensor,
                  scale: Optional[float] = None) -> torch.Tensor:
-    """Launch the CUDA flash-decode kernel (``csrc/flash_decode.cu``).
+    """Launch the CUDA flash-decode kernel (``csrc/flash_decode.cu``),
+    one launch, the cache split as ``decode_splits`` says.
 
     q: (B, KVH, G, hd); k, v: (B, L, KVH, hd), the cache in the model's
     layout; valid: (B, L) bool. All contiguous, on one CUDA device, q/k/v
-    of one dtype (float32 or bfloat16), hd in {64, 128}, G <= 16.
-    Returns (B, KVH, G, hd) in q's dtype. Raises on anything else.
+    of one dtype (float32 or bfloat16) on 16 bytes, hd in {64, 128},
+    G <= 16. Returns (B, KVH, G, hd) in q's dtype. Raises on anything
+    else.
     """
     B, KVH, G, hd = q.shape
     L = k.shape[1]
@@ -99,20 +146,24 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"G {G} > {_MAX_GROUP}, or empty cache")
     if not all(t.is_contiguous() for t in (q, k, v, valid)):
         raise ValueError("flash_decode: tensors must be contiguous")
-    if k.data_ptr() % 16 or v.data_ptr() % 16:
-        raise ValueError("flash_decode: k/v must be 16-byte aligned")
+    if q.data_ptr() % 16 or k.data_ptr() % 16 or v.data_ptr() % 16:
+        raise ValueError("flash_decode: q/k/v must be 16-byte aligned")
     scale = scale if scale is not None else 1.0 / math.sqrt(hd)
+    S, chunk = decode_splits(B, KVH, G, L, hd)
     out = torch.empty_like(q)
-    lib = build.load("flash_decode")
-    fn = lib.flash_decode
-    fn.restype = ctypes.c_int
+    part_ml = part_acc = count = None
+    if S > 1:
+        part_ml = torch.empty((B * KVH, S, G, 2), dtype=torch.float32,
+                              device=dev)
+        part_acc = torch.empty((B * KVH, S, G, hd), dtype=torch.float32,
+                               device=dev)
+        count = _arrival_counters(dev, B * KVH)
+    fn = _c_fn("flash_decode", "flash_decode", [_P] * 8 + [_I] * 8 + [_F, _P])
     with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = fn(_ptr(q), _ptr(k), _ptr(v), _ptr(valid), _ptr(out),
-                ctypes.c_int(B), ctypes.c_int(L), ctypes.c_int(KVH),
-                ctypes.c_int(G), ctypes.c_int(hd),
-                ctypes.c_int(_DTYPE_CODE[q.dtype]), ctypes.c_float(scale),
-                ctypes.c_void_p(stream))
+        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), valid.data_ptr(),
+                out.data_ptr(), _nullable(part_ml), _nullable(part_acc),
+                _nullable(count), B, L, KVH, G, hd, S, chunk,
+                _DTYPE_CODE[q.dtype], scale, _stream(dev))
     if rc != 0:
         raise RuntimeError(f"flash_decode launch failed (code {rc})")
     flash_decode.launches += 1
@@ -436,11 +487,20 @@ def fusion_proj(x: torch.Tensor, w: torch.Tensor,
 fusion_proj.launches = 0
 
 
+def _encode_scratch(M: int, N: int, dev: torch.device):
+    """The fused encode's scratch: y (M, N) fp32, which its tiles write
+    and the last tile of each row group encodes, and the groups' arrival
+    counters, one for each 8 rows (the smallest row group)."""
+    return (torch.empty((M, N), dtype=torch.float32, device=dev),
+            _arrival_counters(dev, -(-M // 8)))
+
+
 def fusion_proj_quant(x: torch.Tensor, w: torch.Tensor,
                       b: Optional[torch.Tensor] = None, act: str = "none"):
     """The projection with the int8_row wire encode in one launch:
-    x (..., K), w (K, N) -> (q int8 (..., N), scale fp32 (..., 1)), the
-    fp32 activation never in device memory.
+    x (..., K), w (K, N) -> (q int8 (..., N), scale fp32 (..., 1)); the
+    fp32 activation goes only to a scratch the kernel reads back from
+    L2 (``_encode_scratch``).
 
     A CPU tensor, or N above ``MAX_FUSED_D`` on any device, takes the
     plain version (``ref.fusion_proj_quant_ref``); a CUDA tensor launches
@@ -452,15 +512,18 @@ def fusion_proj_quant(x: torch.Tensor, w: torch.Tensor,
         return ref.fusion_proj_quant_ref(x, w, b, act)
     bf = _check_proj("fusion_proj_quant", x, w, b, x.device)
     K = w.shape[0]
+    M = x.numel() // K
     lead = tuple(x.shape[:-1])
     q = torch.empty((*lead, N), dtype=torch.int8, device=x.device)
     scale = torch.empty((*lead, 1), dtype=torch.float32, device=x.device)
+    y, count = _encode_scratch(M, N, x.device)
     inv_qmax, _ = _qparams(WireScheme("int8_row", N))
     fn = _c_fn("fusion_proj", "fusion_proj_quant",
-               [_P] * 3 + [_I] * 5 + [_F] + [_P] * 3)
+               [_P] * 5 + [_I] * 6 + [_F] + [_P] * 3)
     with torch.cuda.device(x.device):
-        rc = fn(x.data_ptr(), w.data_ptr(), _nullable(bf), x.numel() // K, K,
-                N, _DTYPE_CODE[x.dtype], code, inv_qmax, q.data_ptr(),
+        rc = fn(x.data_ptr(), w.data_ptr(), _nullable(bf), y.data_ptr(),
+                count.data_ptr(), count.numel(), M, K, N,
+                _DTYPE_CODE[x.dtype], code, inv_qmax, q.data_ptr(),
                 scale.data_ptr(), _stream(x.device))
     if rc != 0:
         raise RuntimeError(f"fusion_proj_quant launch failed (code {rc})")
@@ -477,8 +540,9 @@ def fusion_proj_encode(x: torch.Tensor, w: torch.Tensor,
     """The projection with ``codec``'s wire encode (and the EF21 step)
     in one launch: x (..., K), w (K, N) -> the payload, or (payload, e')
     with ``ef_state``, the carried residual of an ``ef(...)`` codec,
-    shaped like the output. The fp32 activation never reaches device
-    memory; only the payload (and e') do.
+    shaped like the output. The fp32 activation goes only to a scratch
+    the kernel reads back from L2 (``_encode_scratch``); the payload
+    (and e') are the outputs.
 
     A codec with no wire scheme at N (module docstring) runs the plain
     composition on every device; so does a CPU tensor
@@ -507,16 +571,19 @@ def fusion_proj_encode(x: torch.Tensor, w: torch.Tensor,
                          f"{ef_state.device}, want contiguous float32 "
                          f"{(*lead, N)} on {dev}")
     K = w.shape[0]
+    M = x.numel() // K
     outs = {name: torch.empty((*lead, *tail), dtype=dt, device=dev)
             for name, (tail, dt) in scheme.leaves.items()}
     bufs = list(outs.values()) + [None] * (2 - len(outs))
     e_out = torch.empty_like(ef_state) if ef else None
+    y, count = _encode_scratch(M, N, dev)
     fn = _c_fn("fusion_proj", "fusion_proj_encode",
-               [_I, _I] + [_P] * 4 + [_I] * 6 + [_F, _F, _I, _F] + [_P] * 9)
+               [_I, _I] + [_P] * 6 + [_I] * 7 + [_F, _F, _I, _F] + [_P] * 9)
     with torch.cuda.device(dev):
         rc = fn(_SCHEME_CODE[scheme.kind], int(ef), x.data_ptr(),
                 w.data_ptr(), _nullable(bf), _nullable(ef_state),
-                x.numel() // K, K, N, scheme.n, _DTYPE_CODE[x.dtype], code,
+                y.data_ptr(), count.data_ptr(), count.numel(),
+                M, K, N, scheme.n, _DTYPE_CODE[x.dtype], code,
                 *_qparams(scheme), *_clip(codec.max_ratio if is_ef else None),
                 *(_nullable(t) for t in scheme.tables(dev)),
                 _nullable(bufs[0]), _nullable(bufs[1]), _nullable(e_out),

@@ -48,6 +48,53 @@ def cached_attn_decode_ref(q: torch.Tensor, k: torch.Tensor,
     return out.permute(0, 3, 1, 2, 4).to(q.dtype)
 
 
+def flash_decode_split_ref(q: torch.Tensor, k: torch.Tensor,
+                           v: torch.Tensor, valid: torch.Tensor, *,
+                           splits, tile: int,
+                           scale: Optional[float] = None) -> torch.Tensor:
+    """The ``flash_decode`` kernel's split-and-merge arithmetic in plain
+    PyTorch, for the tests: the same function as
+    ``cached_attn_decode_ref`` (same arguments and layout), summed in
+    the kernel's order. ``splits`` is (S, chunk): split s takes cache
+    rows [s * chunk, (s + 1) * chunk) and walks them ``tile`` rows at a
+    time, keeping a running fp32 (m, l, acc) rescaled once a tile; the
+    S partials merge as w_s = exp(m_s - max m), out = sum w_s acc_s /
+    max(sum w_s l_s, 1e-30). A split with no live row has m = NEG, l = 0
+    and merges as nothing; a fully masked row gives zeros."""
+    B, _, KVH, G, hd = q.shape
+    L = k.shape[1]
+    S, chunk = splits
+    scale = scale if scale is not None else 1.0 / math.sqrt(hd)
+    qf = q[:, 0].float()                                 # (B, KVH, G, hd)
+    parts = []
+    for s in range(S):
+        m = torch.full((B, KVH, G), NEG, device=q.device)
+        l = torch.zeros((B, KVH, G), device=q.device)
+        acc = torch.zeros((B, KVH, G, hd), device=q.device)
+        for t0 in range(s * chunk, min(L, (s + 1) * chunk), tile):
+            t1 = min(L, (s + 1) * chunk, t0 + tile)
+            sc = torch.einsum("bkgh,bskh->bkgs", qf,
+                              k[:, t0:t1].float()) * scale
+            live = valid[:, None, None, t0:t1]
+            m_new = torch.maximum(m, torch.where(live, sc, NEG).amax(-1))
+            p = torch.where(live, torch.exp(sc - m_new[..., None]), 0.0)
+            alpha = torch.exp(m - m_new)
+            l = l * alpha + p.sum(-1)
+            acc = acc * alpha[..., None] + torch.einsum(
+                "bkgs,bskh->bkgh", p, v[:, t0:t1].float())
+            m = m_new
+        parts.append((m, l, acc))
+    top = torch.stack([m for m, _, _ in parts]).amax(0)
+    den = torch.zeros_like(top)
+    num = torch.zeros_like(parts[0][2])
+    for m, l, acc in parts:
+        w = torch.exp(m - top)
+        den = den + w * l
+        num = num + w[..., None] * acc
+    out = num / den.clamp_min(1e-30)[..., None]
+    return out[:, None].to(q.dtype)
+
+
 def wire_encode_ref(z: torch.Tensor, codec) -> dict:
     """The plain version of the ``wire_encode`` kernel: the codec's own
     encode ops (``repro_torch.core.codec``), whose order of operations,

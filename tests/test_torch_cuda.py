@@ -38,7 +38,9 @@ def _inputs(seed, B, L, KVH, G, hd):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("G,hd,L", [(1, 64, 64), (2, 128, 40), (4, 64, 300),
                                     (16, 128, 33), (3, 128, 70),
-                                    (1, 128, 200)])
+                                    (1, 128, 200), (1, 64, 1), (1, 64, 65),
+                                    (1, 64, 4097), (16, 128, 4097),
+                                    (16, 64, 1000), (4, 128, 31)])
 def test_flash_decode_kernel_matches_plain_on_card(dtype, G, hd, L):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
@@ -55,6 +57,69 @@ def test_flash_decode_kernel_matches_plain_on_card(dtype, G, hd, L):
     else:
         torch.testing.assert_close(got, want)
     assert torch.all(got[3] == 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("G,hd,L", [(1, 64, 65), (1, 64, 4097),
+                                    (16, 128, 4097), (4, 64, 1000)])
+def test_flash_decode_splits_and_merges_on_card(G, hd, L):
+    """S > 1 splits of the cache, one launch: row 0 lives only in the
+    first split (the others wholly masked), row 3 is fully masked and
+    exactly zero; fp32 within 1e-5 of the plain version and of the
+    plain mirror of the kernel's split-and-merge order."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    splits = ops.decode_splits(4, 2, G, L, hd)
+    assert splits[0] > 1
+    q, k, v, valid = (torch.from_numpy(a).cuda() for a in
+                      _inputs(L + G, B=4, L=L, KVH=2, G=G, hd=hd))
+    before = ops.flash_decode.launches
+    got = ops.cached_attn_decode(q, k, v, valid)
+    torch.cuda.synchronize()
+    assert ops.flash_decode.launches == before + 1
+    torch.testing.assert_close(got, ref.cached_attn_decode_ref(q, k, v, valid),
+                               **TOL)
+    torch.testing.assert_close(got, ref.flash_decode_split_ref(
+        q, k, v, valid, splits=splits, tile=ops.decode_tile_rows(hd)), **TOL)
+    assert torch.all(got[3] == 0)
+    # The counters of this stream are back to zero for the next call.
+    assert all(int(c.abs().sum()) == 0 for c in ops._COUNTERS.values())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("G,hd,L", [(1, 64, 4097), (16, 128, 300)])
+def test_flash_decode_twice_in_one_cuda_graph(dtype, G, hd, L):
+    """The same split call captured twice in one graph and the graph
+    replayed: each replay gives the plain version's output, so the
+    arrival counters were zero at every launch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    assert ops.decode_splits(4, 2, G, L, hd)[0] > 1
+    q, k, v, valid = (torch.from_numpy(a).cuda() for a in
+                      _inputs(3 * L + G, B=4, L=L, KVH=2, G=G, hd=hd))
+    q, k, v = (t.to(dtype) for t in (q, k, v))
+    q2 = torch.from_numpy(_inputs(7, B=4, L=L, KVH=2, G=G, hd=hd)[0]).cuda()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        ops.cached_attn_decode(q, k, v, valid)
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        a = ops.cached_attn_decode(q, k, v, valid)
+        b = ops.cached_attn_decode(q, k, v, valid)
+    tol = TOL if dtype == torch.float32 else {}
+    for step in range(3):
+        if step == 2:
+            q.copy_(q2.to(dtype))         # a replay reads its inputs anew
+        graph.replay()
+        torch.cuda.synchronize()
+        want = ref.cached_attn_decode_ref(q, k, v, valid)
+        torch.testing.assert_close(a, want, **tol)
+        assert torch.equal(a, b)
+        assert torch.all(a[3] == 0)
 
 
 # ------------------------------------------------------------ wire encode
@@ -314,7 +379,8 @@ SCHEMES = ["int8_row", "int4", "topk", "sketch"]
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", SCHEMES + ["topk0.1", "sketch0.5"])
 @pytest.mark.parametrize("M,K,N", [(32, 1568, 432), (33, 433, 433),
-                                   (1024, 432, 432), (3, 40, 8192)])
+                                   (1024, 432, 432), (3, 40, 8192),
+                                   (32, 40, 8192), (1000, 432, 432)])
 def test_fusion_proj_encode_is_the_wire_encode_of_fusion_proj(M, K, N, name):
     """Bitwise: the fused payload is wire_encode of the kernel's own
     projection, e' of 3 chained EF steps included; against the plain
@@ -494,6 +560,65 @@ def test_fusion_proj_tile_edges_keep_the_fused_chain_bitwise(M):
             unfused = ops.wire_encode(ops.fusion_proj(x, w, b, "relu"), codec)
             for k in unfused:
                 assert torch.equal(fused[k], unfused[k]), (K, N, k)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["ef(int4)", "ef(topk)", "ef(sketch0.5)"])
+@pytest.mark.parametrize("M", [7, 8, 9, 17, 40])
+def test_fused_encode_row_groups_keep_ef_bitwise(M, name):
+    """The fused encode's 8-row groups and 16-column tiles at their
+    edges, N from one tile to more rows than one staging of shared memory
+    holds: payload and e' of 2 chained EF steps == wire_encode_ef of the
+    projection, bitwise."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    ef = get_codec(name)
+    for K, N in ((33, 10), (40, 433), (17, 2000), (8, 8192)):
+        _, w, b = _proj_inputs(M, K, N, seed=M * N)
+        e = torch.zeros((M, N), device="cuda")
+        for t in range(2):
+            x, _, _ = _proj_inputs(M, K, N, seed=t + N)
+            got, e_got = ops.fusion_proj_encode(x, w, b, "relu", codec=ef,
+                                                ef_state=e)
+            want, e_want = ops.wire_encode_ef(
+                ops.fusion_proj(x, w, b, "relu"), e, ef)
+            for k in want:
+                assert torch.equal(got[k], want[k]), (K, N, t, k)
+            assert torch.equal(e_got, e_want), (K, N, t)
+            e = e_got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", SCHEMES)
+@pytest.mark.parametrize("M,K,N", [(32, 1568, 432), (33, 433, 433),
+                                   (1000, 432, 432)])
+def test_fusion_proj_encode_bf16_matches_plain_on_card(M, K, N, name):
+    """bf16 x and w on the tensor cores (#4's mma.sync tiles): the fp32
+    projection is encoded, not its bf16 rounding, so the plain version
+    is the one of the fp32-widened inputs; codes within its flip budget,
+    floats within 1e-5, e' of 2 EF steps too."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    codec, ef = get_codec(name), get_codec(f"ef({name})")
+    kind = ops.scheme_for(codec, N).kind
+    x, w, b = _proj_inputs(M, K, N, seed=M + N, dtype=torch.bfloat16)
+    b = b.float()
+    before = ops.fusion_proj_encode.launches
+    got = ops.fusion_proj_encode(x, w, b, "relu", codec=codec)
+    torch.cuda.synchronize()
+    assert ops.fusion_proj_encode.launches == before + 1
+    budget.payload_close(kind, got, ref.fusion_proj_encode_ref(
+        x.float(), w.float(), b, "relu", codec=codec), N, 1e-5)
+    e = torch.zeros((M, N), device="cuda")
+    for t in range(2):
+        xt = _proj_inputs(M, K, N, seed=t, dtype=torch.bfloat16)[0]
+        got, e_got = ops.fusion_proj_encode(xt, w, b, "relu", codec=ef,
+                                            ef_state=e)
+        plain, e_plain = ref.fusion_proj_encode_ref(
+            xt.float(), w.float(), b, "relu", codec=ef, e=e)
+        flips = budget.payload_close(kind, got, plain, N, 1e-5)
+        budget.residual_close(e_got, e_plain, flips, 1e-5)
+        e = e_got
 
 
 @pytest.mark.cuda
