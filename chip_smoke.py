@@ -1,6 +1,6 @@
 """Chip smoke test of the PyTorch port on one NVIDIA card.
 
-    python3 chip_smoke.py [--profile]
+    python3 chip_smoke.py [--profile | --kernel-times]
 
 Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``,
 holds each against its plain PyTorch version on the card, and drives the
@@ -43,7 +43,11 @@ same runs on the CPU, and times each kernel at the shapes its path gives
 it. ``--profile`` adds a torch.profiler breakdown of one more warm
 serving run, one more warm IFL round of each codec and one more warm
 LM IFL round (device busy share, top kernels and host ops); it is a diagnostic, not a check, and
-is off by default. Every phase checks its result and raises on failure;
+is off by default. ``--kernel-times`` only builds and times
+``flash_decode`` and the fused encode at their timed shapes, with no
+checks and no result line; a copy of this file at the root of another
+checkout times that checkout's kernels the same way, so one card call
+can time a parent beside a change. Every phase checks its result and raises on failure;
 nothing is caught. It needs a card: without one (or without the
 repo's ``src/`` beside it) it exits non-zero and prints no result.
 
@@ -192,12 +196,16 @@ DECODE_SPLIT_CASES = [
     (4, 4097, 8, 16, 128, torch.float32, [4097, 300, 2000, 0]),
     (2, 300, 2, 4, 128, torch.float32, [300, 0]),
 ]
-# Timed beside the path's shape: a 4,096-row cache, Qwen1.5-0.5B's
-# published 32,768-token context, and llama3-405b's head layout (KVH 8,
-# G 16, hd 128), every row live; (B, L, KVH, G, hd, input sets) with
-# enough sets that their K and V exceed the 50 MB L2.
-DECODE_TIMED = [(4, 4096, 16, 1, 64, 2), (4, 32768, 16, 1, 64, 1),
-                (4, 4096, 8, 16, 128, 2)]
+# flash_decode's timed shapes, (B, L, KVH, G, hd, live lengths, input
+# sets): the serving path's (W 4, cache 64; 64 sets of ~1 MB of K/V
+# cycle through the 50 MB L2, as each layer's cache arrives cold in a
+# decode step), then a 4,096-row cache, Qwen1.5-0.5B's published
+# 32,768-token context and llama3-405b's head layout (KVH 8, G 16, hd
+# 128), every row live, with enough sets that their K and V exceed L2.
+DECODE_SHAPES = [(4, 64, 16, 1, 64, [64, 40, 33, 17], 64),
+                 (4, 4096, 16, 1, 64, [4096] * 4, 2),
+                 (4, 32768, 16, 1, 64, [32768] * 4, 1),
+                 (4, 4096, 8, 16, 128, [4096] * 4, 2)]
 
 
 def decode_split_checks(ops, ref, gen):
@@ -245,10 +253,10 @@ def decode_split_checks(ops, ref, gen):
     return err
 
 
-def decode_times(ops, ref, gen, B, L, KVH, G, hd, lengths, n_sets):
+def decode_times(ops, ref, gen, B, L, KVH, G, hd, lengths, n_sets, note=""):
     """flash_decode's device time at one bf16 shape over ``n_sets`` input
-    sets, with its plain version, SDPA and the bound. -> the JSON row's
-    numbers."""
+    sets, with its plain version, SDPA and the bound; ``note`` goes into
+    the printed line. -> the JSON row's numbers."""
     sets = [decode_inputs(gen, B, L, KVH, G, hd, torch.bfloat16, lengths)
             for _ in range(n_sets)]
     kernel_ms = graph_time_ms(
@@ -273,9 +281,8 @@ def decode_times(ops, ref, gen, B, L, KVH, G, hd, lengths, n_sets):
     flops = 4 * live * KVH * G * hd           # q.k and p.v
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     ops_ms = flops / BF16_FLOPS * 1e3
-    S, chunk = ops.decode_splits(B, KVH, G, L, hd)
     print(f"[time] flash_decode at B={B} L={L} KVH={KVH} G={G} hd={hd} bf16 "
-          f"(S {S} x {chunk} rows): kernel {kernel_ms * 1e3:.2f} us, plain "
+          f"{note}: kernel {kernel_ms * 1e3:.2f} us, plain "
           f"{plain_ms * 1e3:.2f} us, sdpa {library_ms * 1e3:.2f} us, bound "
           f"{max(bytes_ms, ops_ms) * 1e3:.3f} us ({nbytes} bytes, {live} of "
           f"{B * L} cache rows live); {nbytes / kernel_ms / 1e9:.3f} TB/s",
@@ -1075,6 +1082,20 @@ def fused_bound(nbytes, flops, rate):
     return max(b_ms, o_ms), "bytes" if b_ms >= o_ms else "operations"
 
 
+# The fused encode's timed calls: (M, K, codec, quant, input sets). #5
+# and #6 at client 2's fusion FC (32, 1568, 432), under int8_row and
+# ef(int4); #6 at fig2's (1024, 432, 432) and at (4096, 96, 432), where
+# #4's larger tiles fill the card.
+ENCODE_TIMED = {
+    "fusion_proj_quant": (32, 1568, "int8_row", True, 32),
+    "fusion_proj_encode": (32, 1568, "int8_row", False, 32),
+    "fusion_proj_encode_ef": (32, 1568, "ef(int4)", False, 32),
+    "fusion_proj_encode_fig2": (1024, 432, "int8_row", False, 8),
+    "fusion_proj_encode_fig2_ef": (1024, 432, "ef(int4)", False, 8),
+    "fusion_proj_encode_4096": (4096, 96, "int8_row", False, 4),
+}
+
+
 def fused_times(ops, ref, get_codec):
     """Device times of the four kernels, their plain versions, the one
     PyTorch call that computes #4 (``torch.addmm`` and the activation)
@@ -1112,56 +1133,8 @@ def fused_times(ops, ref, get_codec):
     for dtype in (torch.float32, torch.bfloat16):
         out[("fusion_proj_lm", dtype)] = time_proj(*LM_PROJ, dtype, sets=2)
 
-    def time_encode(M, K, name, quant=False, sets=32):
-        codec = get_codec(name)
-        inner = codec.inner if codec.has_state else codec
-        N = D_FUSION
-        ins = [proj_inputs(M, K, N, seed=700 + i, zero_row=False)
-               for i in range(sets)]
-        es = [0.1 * wire_inputs(M, N, seed=900 + i) for i in range(sets)]
-        if quant:
-            def kern(a, e):
-                return ops.fusion_proj_quant(*a, "relu")
-
-            def plain(a, e):
-                return ref.fusion_proj_quant_ref(*a, "relu")
-        else:
-            def kern(a, e):
-                return ops.fusion_proj_encode(*a, "relu", codec=codec,
-                                              ef_state=e)
-
-            def plain(a, e):
-                return ref.fusion_proj_encode_ref(*a, "relu", codec=codec, e=e)
-
-        def unfused(a, e):
-            y = torch.relu_(torch.addmm(a[2], a[0], a[1]))
-            return (ops.wire_encode_ef(y, e, codec) if codec.has_state
-                    else ops.wire_encode(y, codec))
-
-        es = es if codec.has_state else [None] * sets
-        times = [graph_time_ms([lambda a=a, e=e: f(a, e)
-                                for a, e in zip(ins, es)])
-                 for f in (kern, plain, unfused)]
-        sch = ops.scheme_for(inner, N)
-        nbytes = ((M * K + K * N + N) * 4 + sch.payload_bytes(M)
-                  + sch.table_bytes() + (2 * M * N * 4 if codec.has_state
-                                         else 0))
-        bound, by = fused_bound(nbytes, 2 * M * K * N, FP32_FLOPS)
-        kname = "fusion_proj_quant" if quant else "fusion_proj_encode"
-        print(f"[time] {kname} {name} ({M},{K},{N}) relu: kernel "
-              f"{times[0] * 1e3:.2f} us, plain {times[1] * 1e3:.2f} us, "
-              f"unfused addmm+relu+wire_encode {times[2] * 1e3:.2f} us, bound "
-              f"{bound * 1e3:.4f} us ({by}; {nbytes} bytes)", flush=True)
-        return dict(ms=times[0], plain_ms=times[1], unfused_ms=times[2],
-                    bound_ms=bound, bound_by=by)
-
-    out["fusion_proj_quant"] = time_encode(32, 1568, "int8_row", quant=True)
-    out["fusion_proj_encode"] = time_encode(32, 1568, "int8_row")
-    out["fusion_proj_encode_ef"] = time_encode(32, 1568, "ef(int4)")
-    out["fusion_proj_encode_fig2"] = time_encode(1024, 432, "int8_row",
-                                                 sets=8)
-    time_encode(1024, 432, "ef(int4)", sets=8)
-    time_encode(4096, 96, "int8_row", sets=4)
+    for key, (M, K, name, quant, sets) in ENCODE_TIMED.items():
+        out[key] = encode_times(ops, ref, get_codec, M, K, name, quant, sets)
 
     def time_decode(N, name="int8_row", M=32, sets=32):
         codec, d = get_codec(name), D_FUSION
@@ -1191,6 +1164,54 @@ def fused_times(ops, ref, get_codec):
     for n in (256, 128, 10):
         out[("decode_proj", n)] = time_decode(n)
     return out
+
+
+def encode_times(ops, ref, get_codec, M, K, name, quant=False, sets=32):
+    """Device times of the fused encode #6 (or, with ``quant``, #5) at
+    (M, K, 432) relu under codec ``name``, its plain version and the
+    unfused ``addmm`` + relu + ``wire_encode`` pair, with the bound,
+    over ``sets`` distinct input sets. -> the JSON row's numbers."""
+    codec = get_codec(name)
+    inner = codec.inner if codec.has_state else codec
+    N = D_FUSION
+    ins = [proj_inputs(M, K, N, seed=700 + i, zero_row=False)
+           for i in range(sets)]
+    es = [0.1 * wire_inputs(M, N, seed=900 + i) for i in range(sets)]
+    if quant:
+        def kern(a, e):
+            return ops.fusion_proj_quant(*a, "relu")
+
+        def plain(a, e):
+            return ref.fusion_proj_quant_ref(*a, "relu")
+    else:
+        def kern(a, e):
+            return ops.fusion_proj_encode(*a, "relu", codec=codec,
+                                          ef_state=e)
+
+        def plain(a, e):
+            return ref.fusion_proj_encode_ref(*a, "relu", codec=codec, e=e)
+
+    def unfused(a, e):
+        y = torch.relu_(torch.addmm(a[2], a[0], a[1]))
+        return (ops.wire_encode_ef(y, e, codec) if codec.has_state
+                else ops.wire_encode(y, codec))
+
+    es = es if codec.has_state else [None] * sets
+    times = [graph_time_ms([lambda a=a, e=e: f(a, e)
+                            for a, e in zip(ins, es)])
+             for f in (kern, plain, unfused)]
+    sch = ops.scheme_for(inner, N)
+    nbytes = ((M * K + K * N + N) * 4 + sch.payload_bytes(M)
+              + sch.table_bytes() + (2 * M * N * 4 if codec.has_state
+                                     else 0))
+    bound, by = fused_bound(nbytes, 2 * M * K * N, FP32_FLOPS)
+    kname = "fusion_proj_quant" if quant else "fusion_proj_encode"
+    print(f"[time] {kname} {name} ({M},{K},{N}) relu: kernel "
+          f"{times[0] * 1e3:.2f} us, plain {times[1] * 1e3:.2f} us, "
+          f"unfused addmm+relu+wire_encode {times[2] * 1e3:.2f} us, bound "
+          f"{bound * 1e3:.4f} us ({by}; {nbytes} bytes)", flush=True)
+    return dict(ms=times[0], plain_ms=times[1], unfused_ms=times[2],
+                bound_ms=bound, bound_by=by)
 
 
 # ------------------------------------------------------------- rmsnorm
@@ -1466,6 +1487,10 @@ def main() -> None:
     ap.add_argument("--profile", action="store_true",
                     help="profile one more warm serving run and one more "
                          "warm IFL round of each codec")
+    ap.add_argument("--kernel-times", action="store_true",
+                    help="build, then only time flash_decode and the fused "
+                         "encode at their timed shapes (no checks, no result "
+                         "line)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
@@ -1519,8 +1544,16 @@ def main() -> None:
               f"{min(regs, default=0)}..{max(regs, default=0)}, "
               f"{len(spills)} spilling: {spills}")
 
-    # -- 3. kernel vs plain on the card -----------------------------------
     gen = torch.Generator(device="cuda").manual_seed(0)
+    if args.kernel_times:
+        for B, L, KVH, G, hd, lengths, n_sets in DECODE_SHAPES:
+            decode_times(ops, ref, gen, B, L, KVH, G, hd, lengths, n_sets)
+            torch.cuda.empty_cache()
+        for M, K, name, quant, sets in ENCODE_TIMED.values():
+            encode_times(ops, ref, get_codec, M, K, name, quant, sets)
+        return
+
+    # -- 3. kernel vs plain on the card -----------------------------------
     B, L, KVH, G, hd = 4, 64, 16, 1, 64   # the slice: W = 4, cache 64
     slice_in = decode_inputs(gen, B, L, KVH, G, hd, torch.bfloat16,
                              [64, 40, 33, 17])
@@ -1730,15 +1763,16 @@ def main() -> None:
     front_door_phase(ops, round_bytes_match)
 
     # -- 5. times at the slice's shape ------------------------------------
-    # 64 independent input sets (~1 MB of K/V each) cycle through the
-    # 50 MB L2, as the cache of each layer arrives cold in a decode step.
-    dt = decode_times(ops, ref, gen, B, L, KVH, G, hd, [64, 40, 33, 17], 64)
+    decode_t = []
+    for Bt, Lt, KVHt, Gt, hdt, lengths, n_sets in DECODE_SHAPES:
+        S, chunk = ops.decode_splits(Bt, KVHt, Gt, Lt, hdt)
+        decode_t.append(decode_times(ops, ref, gen, Bt, Lt, KVHt, Gt, hdt,
+                                     lengths, n_sets,
+                                     note=f"(S {S} x {chunk} rows)"))
+        torch.cuda.empty_cache()
+    dt = decode_t[0]   # the path's shape: the JSON row; the rest are lines
     print(f"[time] flash_decode: {cfg.num_layers} launches per composed step",
           flush=True)
-    for shape in DECODE_TIMED:   # printed as [time] lines only
-        Bt, Lt, KVHt, Gt, hdt, n_sets = shape
-        decode_times(ops, ref, gen, Bt, Lt, KVHt, Gt, hdt, [Lt] * Bt, n_sets)
-        torch.cuda.empty_cache()
 
     wire_t = {}
     for rows in (32, 4096):

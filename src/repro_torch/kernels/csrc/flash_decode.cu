@@ -566,6 +566,7 @@ flash_decode_kernel(Args a) {
 template <typename T, int HD, int GMAX>
 int launch(const Args& a, int B, cudaStream_t stream) {
   using D = Decode<T, HD, GMAX>;
+  if (a.S > 1 && a.chunk % D::TL != 0) return -1;  // splits are whole tiles
   auto kernel = flash_decode_kernel<T, HD, GMAX>;
   if (D::smem > 48 * 1024 - 8 * 1024) {  // the static arrays count too
     const cudaError_t rc = cudaFuncSetAttribute(
@@ -600,7 +601,8 @@ int launch_hd(const Args& a, int B, int HD, cudaStream_t stream) {
 
 // Returns 0 on success, -1 for a shape or dtype this kernel does not
 // take, else the cudaError_t of the launch. dtype: 0 = float32,
-// 1 = bfloat16. S splits of `chunk` rows cover [0, L), none empty; with
+// 1 = bfloat16. S <= kMaxSplits splits of `chunk` rows cover [0, L),
+// none empty, `chunk` whole tiles of 4096 / HD rows where S > 1; with
 // S > 1, part_ml (B*KVH*S*G*2 floats), part_acc (B*KVH*S*G*HD floats)
 // and count (B*KVH ints, all 0; the kernel leaves them 0) are scratch.
 extern "C" int flash_decode(const void* q, const void* k, const void* v,

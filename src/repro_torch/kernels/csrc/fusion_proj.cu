@@ -87,12 +87,11 @@
 //
 // #3 (gemm_tile). Every tile has 256 threads in RL row lanes x 256 / RL
 // column lanes; a thread owns TM rows x TN adjacent columns (Cfg below).
-// k advances in steps of 16: each thread loads its share of the decoded-
-// row tile and the w tile into registers, the next step's loads in flight
-// while this step's products run, and stores them to shared memory as
-// fp32 (bf16 inputs are widened on the load). decode_proj decodes its BM
-// payload rows into a (d x BM) shared tile and multiplies it by w's
-// column tile. The TPU kernel's (8, 128) tiling, padded rows and the N %
+// decode_proj decodes its BM payload rows into a (d x BM) shared tile and
+// multiplies it by w's column tile. k advances in steps of 16: each
+// thread loads its share of the w tile into registers, the next step's
+// loads in flight while this step's products run, and stores it to shared
+// memory as fp32 (bf16 w is widened on the load). The TPU kernel's (8, 128) tiling, padded rows and the N %
 // bn rule are gone: partial tiles are masked, so any M, K and N work. At
 // M 32 it waits on memory latency (one k-step's loads in flight), far
 // from its bound: the next step for it is #4's ring.
@@ -167,31 +166,18 @@ __device__ __forceinline__ void read_vec(float (&v)[N], const float* p) {
   }
 }
 
-// One k-step's share of the x tile (rows [m0, m0 + BM) x k [k0, k0 + 16))
-// and the w tile (k x columns [n0, n0 + BN)) in registers: every load is
-// issued before any is stored, and the next step's loads are in flight
-// while this step's products run. Zero outside x and w.
+// One k-step's share of the w tile (k [k0, k0 + 16) x columns [n0,
+// n0 + BN)) in registers: every load is issued before any is stored, and
+// the next step's loads are in flight while this step's products run.
+// Zero outside w.
 template <class C>
 struct Stage {
-  static constexpr int kX = (C::BM * kBK + kThreads - 1) / kThreads;
   static constexpr int kW = kBK * C::BN / kThreads;
-  float xs[kX];
   float ws[kW];
 
   template <bool BF16>
-  __device__ void load(const void* x, const void* w, int M, int K, int N,
-                       int m0, int n0, int k0) {
+  __device__ void load(const void* w, int K, int N, int n0, int k0) {
     const int kn = min(kBK, K - k0);
-    if (x) {
-#pragma unroll
-      for (int t = 0; t < kX; ++t) {
-        const int idx = threadIdx.x + t * kThreads;
-        const int r = idx / kBK, kk = idx % kBK;
-        xs[t] = (idx < C::BM * kBK && m0 + r < M && kk < kn)
-            ? ld<BF16>(x, static_cast<size_t>(m0 + r) * K + k0 + kk)
-            : 0.f;
-      }
-    }
 #pragma unroll
     for (int t = 0; t < kW; ++t) {
       const int idx = threadIdx.x + t * kThreads;
@@ -201,14 +187,7 @@ struct Stage {
     }
   }
 
-  __device__ void store(bool with_x, float* As, float* Bs) const {
-    if (with_x) {
-#pragma unroll
-      for (int t = 0; t < kX; ++t) {
-        const int idx = threadIdx.x + t * kThreads;
-        if (idx < C::BM * kBK) As[(idx % kBK) * C::BM + idx / kBK] = xs[t];
-      }
-    }
+  __device__ void store(float* Bs) const {
 #pragma unroll
     for (int t = 0; t < kW; ++t) Bs[threadIdx.x + t * kThreads] = ws[t];
   }
@@ -232,34 +211,32 @@ __device__ __forceinline__ void fma_steps(float (&acc)[C::TM][C::TN],
   }
 }
 
-// One (BM x BN) tile of A @ w over the whole of K. A is x (M, K), staged
-// into As, or, with `zt`, a (K x BM) shared tile already in place.
+// One (BM x BN) tile of zt @ w over the whole of K, zt a (K x BM) shared
+// tile already in place.
 template <class C>
-__device__ void gemm_tile(float (&acc)[C::TM][C::TN], const void* x,
-                          const float* zt, const void* w, int dtype, int M,
-                          int K, int N, int m0, int n0, float* As,
+__device__ void gemm_tile(float (&acc)[C::TM][C::TN], const float* zt,
+                          const void* w, int dtype, int K, int N, int n0,
                           float* Bs) {
 #pragma unroll
   for (int i = 0; i < C::TM; ++i)
 #pragma unroll
     for (int j = 0; j < C::TN; ++j) acc[i][j] = 0.f;
   Stage<C> st;
-  const void* xs = zt ? nullptr : x;
   // One branch on the dtype per step, so each step's loads issue together.
   auto load = [&](int k0) {
     if (dtype == kBF16) {
-      st.template load<true>(xs, w, M, K, N, m0, n0, k0);
+      st.template load<true>(w, K, N, n0, k0);
     } else {
-      st.template load<false>(xs, w, M, K, N, m0, n0, k0);
+      st.template load<false>(w, K, N, n0, k0);
     }
   };
   load(0);
   for (int k0 = 0; k0 < K; k0 += kBK) {
     __syncthreads();  // the previous step's readers are done
-    st.store(xs != nullptr, As, Bs);
+    st.store(Bs);
     __syncthreads();
     if (k0 + kBK < K) load(k0 + kBK);
-    fma_steps<C>(acc, zt ? zt + static_cast<size_t>(k0) * C::BM : As, Bs,
+    fma_steps<C>(acc, zt + static_cast<size_t>(k0) * C::BM, Bs,
                  min(kBK, K - k0));
   }
 }
@@ -742,7 +719,7 @@ struct DecArgs {
 };
 
 template <class C, int S>
-__global__ void __launch_bounds__(kThreads) decode_proj_kernel(DecArgs a) {
+__global__ void __launch_bounds__(kThreads, 1) decode_proj_kernel(DecArgs a) {
   extern __shared__ float smem[];
   constexpr int BM = C::BM;
   const int d = a.p.d;
@@ -757,8 +734,7 @@ __global__ void __launch_bounds__(kThreads) decode_proj_kernel(DecArgs a) {
   for (int r = 0; r < rows; ++r)
     decode_row<S>(a.p, a.in0, a.in1, static_cast<size_t>(m0) + r, zt + r, BM);
   float acc[C::TM][C::TN];
-  gemm_tile<C>(acc, nullptr, zt, a.w, a.dtype, a.M, d, a.N, m0, n0, nullptr,
-               Bs);
+  gemm_tile<C>(acc, zt, a.w, a.dtype, d, a.N, n0, Bs);
   const int cl = threadIdx.x % C::CL, rl = threadIdx.x / C::CL;
 #pragma unroll
   for (int i = 0; i < C::TM; ++i) {

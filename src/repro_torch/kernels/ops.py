@@ -64,11 +64,11 @@ _MAX_GROUP = 16
 
 
 # The split of the cache across blocks (csrc/flash_decode.cu). A tile is
-# 4096 / hd cache rows (16 KB of K and V in bf16); a split is whole
-# tiles; the kernel merges at most MAX_DECODE_SPLITS partials.
-_SMS = 132  # H100 SXM
+# 4096 / hd cache rows (16 KB of K and V in bf16), the kernel's Decode::TL;
+# a split is whole tiles; the kernel merges at most kMaxSplits partials.
+# The C entry refuses a split of part tiles or more than kMaxSplits
+# splits, so these two cannot drift from it unseen.
 MAX_DECODE_SPLITS = 128
-DECODE_BLOCKS_PER_SM = 4
 
 
 def decode_tile_rows(hd: int) -> int:
@@ -79,14 +79,15 @@ def decode_tile_rows(hd: int) -> int:
 def decode_splits(B: int, KVH: int, G: int, L: int, hd: int) -> Tuple[int, int]:
     """(S, chunk): ``flash_decode`` splits each (row, KV head)'s L cache
     rows into S splits of ``chunk`` rows (the last may be shorter, none
-    is empty), whole tiles a split. Aims at DECODE_BLOCKS_PER_SM (4)
-    blocks an SM over the B * KVH * S blocks, one wave (an SM holds
-    more than 4): on an H100 it beat 2 and 8 at G 1 and tied 2 at G 16
+    is empty), whole tiles a split. Aims at 4 blocks an SM of the H100
+    SXM's 132 over the B * KVH * S blocks, one wave (an SM holds more
+    than 4): on that card 4 beat 2 and 8 at G 1 and tied 2 at G 16
     (``PERF.md``), so G, which each block serves whole, does not enter.
-    S = 1 where the cache is one tile, as at the serving path's L 64."""
+    On another card only the count of blocks is off. S = 1 where the
+    cache is one tile, as at the serving path's L 64."""
     tile = decode_tile_rows(hd)
     n_tiles = -(-L // tile)
-    want = max(1, round(DECODE_BLOCKS_PER_SM * _SMS / (B * KVH)))
+    want = max(1, round(4 * 132 / (B * KVH)))
     S = min(want, n_tiles, MAX_DECODE_SPLITS)
     per = -(-n_tiles // S)          # tiles a split
     return -(-n_tiles // per), per * tile
