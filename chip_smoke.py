@@ -43,9 +43,11 @@ same runs on the CPU, and times each kernel at the shapes its path gives
 it. ``--profile`` adds a torch.profiler breakdown of one more warm
 serving run, one more warm IFL round of each codec and one more warm
 LM IFL round (device busy share, top kernels and host ops); it is a diagnostic, not a check, and
-is off by default. ``--kernel-times`` only builds and times
-``flash_decode`` and the fused encode at their timed shapes, with no
-checks and no result line; a copy of this file at the root of another
+is off by default. ``--kernel-times`` only builds and times, with no
+checks and no result line: the launch floor, ``flash_decode``, the fused
+encode (#5/#6), ``decode_proj`` beside ``fusion_proj`` on the decoded
+input, and ``wire_encode`` / ``wire_encode_ef`` under every scheme at
+(32, 432) and (4096, 432); a copy of this file at the root of another
 checkout times that checkout's kernels the same way, so one card call
 can time a parent beside a change. Every phase checks its result and raises on failure;
 nothing is caught. It needs a card: without one (or without the
@@ -1083,13 +1085,14 @@ def fused_bound(nbytes, flops, rate):
 
 
 # The fused encode's timed calls: (M, K, codec, quant, input sets). #5
-# and #6 at client 2's fusion FC (32, 1568, 432), under int8_row and
-# ef(int4); #6 at fig2's (1024, 432, 432) and at (4096, 96, 432), where
-# #4's larger tiles fill the card.
+# and #6 at client 2's fusion FC (32, 1568, 432), under int8_row,
+# ef(int4) and top-k (its sort); #6 at fig2's (1024, 432, 432) and at
+# (4096, 96, 432), where #4's larger tiles fill the card.
 ENCODE_TIMED = {
     "fusion_proj_quant": (32, 1568, "int8_row", True, 32),
     "fusion_proj_encode": (32, 1568, "int8_row", False, 32),
     "fusion_proj_encode_ef": (32, 1568, "ef(int4)", False, 32),
+    "fusion_proj_encode_topk": (32, 1568, "topk", False, 32),
     "fusion_proj_encode_fig2": (1024, 432, "int8_row", False, 8),
     "fusion_proj_encode_fig2_ef": (1024, 432, "ef(int4)", False, 8),
     "fusion_proj_encode_4096": (4096, 96, "int8_row", False, 4),
@@ -1136,34 +1139,60 @@ def fused_times(ops, ref, get_codec):
     for key, (M, K, name, quant, sets) in ENCODE_TIMED.items():
         out[key] = encode_times(ops, ref, get_codec, M, K, name, quant, sets)
 
-    def time_decode(N, name="int8_row", M=32, sets=32):
-        codec, d = get_codec(name), D_FUSION
-        ins = []
-        for i in range(sets):
-            _, w, b = proj_inputs(1, d, N, seed=1100 + i)
-            ins.append((codec.encode(wire_inputs(M, d, seed=1200 + i)), w, b))
-        shape = (M, d)
-        times = [graph_time_ms([lambda a=a: f(*a) for a in ins]) for f in (
-            lambda p, w, b: ops.decode_proj(p, w, b, "relu", codec=codec,
-                                            shape=shape),
-            lambda p, w, b: ref.decode_proj_ref(p, w, b, "relu", codec=codec,
-                                                shape=shape),
-            lambda p, w, b: torch.relu_(torch.addmm(
-                b, codec.decode(p, shape=shape), w)))]
-        sch = ops.scheme_for(codec, d)
-        nbytes = (sch.payload_bytes(M) + (d * N + N + M * N) * 4
-                  + (4 * (2 * d + sch.n) if name.startswith("sketch") else 0))
-        bound, by = fused_bound(nbytes, 2 * M * d * N, FP32_FLOPS)
-        print(f"[time] decode_proj {name} ({M},{d})->{N} relu: kernel "
-              f"{times[0] * 1e3:.2f} us, plain {times[1] * 1e3:.2f} us, "
-              f"unfused decode+addmm+relu {times[2] * 1e3:.2f} us, bound "
-              f"{bound * 1e3:.4f} us ({by}; {nbytes} bytes)", flush=True)
-        return dict(ms=times[0], plain_ms=times[1], unfused_ms=times[2],
-                    bound_ms=bound, bound_by=by)
-
-    for n in (256, 128, 10):
-        out[("decode_proj", n)] = time_decode(n)
+    for M, N, sets in DECODE_TIMED:
+        out[("decode_proj", M, N)] = decode_proj_times(ops, ref, get_codec,
+                                                       M, N, sets=sets)
     return out
+
+
+# decode_proj's timed calls: (M, N, input sets) of an int8_row payload of
+# (M, 432) into a first modular FC of width N, relu. The boundary's three
+# widths, and fig2's (1024, 432, 432).
+DECODE_TIMED = [(32, 256, 32), (32, 128, 32), (32, 10, 32), (1024, 432, 8)]
+
+
+def decode_proj_times(ops, ref, get_codec, M, N, name="int8_row", sets=32):
+    """Device times of ``decode_proj`` at an (M, 432) payload -> N, its
+    plain version, the unfused decode + ``addmm`` + relu, and
+    ``fusion_proj`` on the decoded input (the identity's right side,
+    without the decode), with the bound. -> the JSON row's numbers."""
+    codec, d = get_codec(name), D_FUSION
+    ins = []
+    for i in range(sets):
+        _, w, b = proj_inputs(1, d, N, seed=1100 + i)
+        ins.append((codec.encode(wire_inputs(M, d, seed=1200 + i)), w, b))
+    shape = (M, d)
+    decoded = [(codec.decode(p, shape=shape), w, b) for p, w, b in ins]
+    times = [graph_time_ms([lambda a=a: f(*a) for a in ins]) for f in (
+        lambda p, w, b: ops.decode_proj(p, w, b, "relu", codec=codec,
+                                        shape=shape),
+        lambda p, w, b: ref.decode_proj_ref(p, w, b, "relu", codec=codec,
+                                            shape=shape),
+        lambda p, w, b: torch.relu_(torch.addmm(
+            b, codec.decode(p, shape=shape), w)))]
+    proj_ms = graph_time_ms([lambda a=a: ops.fusion_proj(*a, "relu")
+                             for a in decoded])
+    sch = ops.scheme_for(codec, d)
+    nbytes = (sch.payload_bytes(M) + (d * N + N + M * N) * 4
+              + (4 * (2 * d + sch.n) if name.startswith("sketch") else 0))
+    bound, by = fused_bound(nbytes, 2 * M * d * N, FP32_FLOPS)
+    print(f"[time] decode_proj {name} ({M},{d})->{N} relu: kernel "
+          f"{times[0] * 1e3:.2f} us, plain {times[1] * 1e3:.2f} us, "
+          f"unfused decode+addmm+relu {times[2] * 1e3:.2f} us, fusion_proj "
+          f"on the decoded input {proj_ms * 1e3:.2f} us, bound "
+          f"{bound * 1e3:.4f} us ({by}; {nbytes} bytes)", flush=True)
+    return dict(ms=times[0], plain_ms=times[1], unfused_ms=times[2],
+                bound_ms=bound, bound_by=by)
+
+
+def launch_floor_ms() -> float:
+    """The per-call time of a one-element ``add_`` in the graph harness:
+    the least a kernel launch costs there."""
+    t = torch.zeros(1, device="cuda")
+    ms = graph_time_ms([lambda: t.add_(1.0)] * 64)
+    print(f"[time] launch floor (one-element add_, 64 in a CUDA graph): "
+          f"{ms * 1e3:.2f} us", flush=True)
+    return ms
 
 
 def encode_times(ops, ref, get_codec, M, K, name, quant=False, sets=32):
@@ -1488,9 +1517,10 @@ def main() -> None:
                     help="profile one more warm serving run and one more "
                          "warm IFL round of each codec")
     ap.add_argument("--kernel-times", action="store_true",
-                    help="build, then only time flash_decode and the fused "
-                         "encode at their timed shapes (no checks, no result "
-                         "line)")
+                    help="build, then only time the launch floor, "
+                         "flash_decode, the fused encode, decode_proj and "
+                         "the wire encodes at their timed shapes (no checks, "
+                         "no result line)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
@@ -1546,11 +1576,16 @@ def main() -> None:
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     if args.kernel_times:
+        launch_floor_ms()
         for B, L, KVH, G, hd, lengths, n_sets in DECODE_SHAPES:
             decode_times(ops, ref, gen, B, L, KVH, G, hd, lengths, n_sets)
             torch.cuda.empty_cache()
         for M, K, name, quant, sets in ENCODE_TIMED.values():
             encode_times(ops, ref, get_codec, M, K, name, quant, sets)
+        for M, N, sets in DECODE_TIMED:
+            decode_proj_times(ops, ref, get_codec, M, N, sets=sets)
+        for rows in (32, 4096):
+            wire_times(ops, ref, get_codec, rows)
         return
 
     # -- 3. kernel vs plain on the card -----------------------------------
@@ -1774,6 +1809,7 @@ def main() -> None:
     print(f"[time] flash_decode: {cfg.num_layers} launches per composed step",
           flush=True)
 
+    launch_floor_ms()
     wire_t = {}
     for rows in (32, 4096):
         wire_t[rows] = wire_times(ops, ref, get_codec, rows)
@@ -1844,7 +1880,7 @@ def main() -> None:
              "src/repro/kernels/fusion_proj.py:144"),
             ("fusion_proj_encode", "fusion_proj_encode",
              "src/repro/kernels/fusion_proj.py:262"),
-            ("decode_proj", ("decode_proj", 256),
+            ("decode_proj", ("decode_proj", 32, 256),
              "src/repro/kernels/wire_fused.py:445")):
         t = ft[key]
         row = {

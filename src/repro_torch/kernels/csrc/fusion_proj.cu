@@ -19,7 +19,7 @@
 // one fmaf chain over k = 0 .. K-1 in ascending order, starting from
 // +0.0, whatever the tile; the bias and activation come after it, in
 // one function (bias_act); the encode is wire_row.cuh's encode_row, the
-// code wire_encode.cu runs; the decode is its decode_row, with the
+// code wire_encode.cu runs; the decode is its decode_at, with the
 // codec's roundings. So on the card:
 //   fusion_proj_encode(x, w, b, act) == wire_encode(fusion_proj(x, w, b, act))
 //   fusion_proj_quant(x, w, b, act)  == the int8_row payload of the same
@@ -28,9 +28,10 @@
 // version, which runs cuBLAS, the floats agree within rounding and an
 // integer code may flip by one step where y sits on a rounding edge.
 //
-// The projection (#4) has its own main loop, which the fused encode
-// (#5, #6) runs too; #3 keeps gemm_tile. Both loops keep the chain rule
-// in fp32, so the identities hold.
+// One fp32 main loop (f32_tile) serves all three SIMT paths: #4, the
+// fused encode (#5, #6) and the decode projection (#3). It keeps the chain
+// rule, so the identities hold; what differs is where A comes from (a
+// source: x by cp.async, or the decoded payload rows).
 //
 // #4, what bounds it and what the design does, by regime:
 //  * fp32 at small M (the Table-II boundary: M 32, K 64..1568, N 10..
@@ -85,16 +86,27 @@
 // threads in encode_row's sums, so the payload and e' are its bits. Any
 // M, N <= 8192.
 //
-// #3 (gemm_tile). Every tile has 256 threads in RL row lanes x 256 / RL
-// column lanes; a thread owns TM rows x TN adjacent columns (Cfg below).
-// decode_proj decodes its BM payload rows into a (d x BM) shared tile and
-// multiplies it by w's column tile. k advances in steps of 16: each
-// thread loads its share of the w tile into registers, the next step's
-// loads in flight while this step's products run, and stores it to shared
-// memory as fp32 (bf16 w is widened on the load). The TPU kernel's (8, 128) tiling, padded rows and the N %
-// bn rule are gone: partial tiles are masked, so any M, K and N work. At
-// M 32 it waits on memory latency (one k-step's loads in flight), far
-// from its bound: the next step for it is #4's ring.
+// #3 (the decode projection). At the Table-II boundary (a payload of
+// (32, 432) into a first modular FC of N 10..256) the bytes are few (w:
+// 0.44 MB at N 256); what bounds it, as #4 at M 32, is the chain of d
+// dependent FMAs an output fed from shared memory, after the decode. So it
+// runs #4's main loop and tiles with the decoded rows as A: a block
+// decodes its BM payload rows once, with all of its threads over the rows
+// together, into a resident tile laid out as the loop reads a stage (rows
+// of d padded to 16 bytes plus 4 floats on 8 x 16 tiles; k rows of BM + 4
+// on the larger ones), while the first ST - 1 stages of w land; only w
+// streams through the cp.async ring, and stage t reads A at k offset
+// t BK. A top-k row is zeroed, then scattered (a barrier between). The
+// tile is #4's rule with one more condition: the first of its tiles that
+// fills the card and whose decoded rows fit in shared memory beside the
+// ring; else the 8 x 16 tile, its rows resident where they fit, else
+// (d beyond 6,588) decoded a stage's k slice at a time into the A slot
+// of the ring, a top-k row scattered a slice at a time from its pairs.
+// Under 16 columns (the boundary's N 10) a 16 x 8 tile of the same loop
+// takes its place where its rows fit (d up to 3,420).
+// bf16 w stays bf16 in the ring and is widened on the shared-memory read,
+// so its products keep the fp32 chain too. Partial tiles are masked: any
+// M, d <= 8192 and N.
 
 #include <cuda_bf16.h>
 
@@ -106,23 +118,10 @@ namespace {
 using namespace sm90;
 using namespace wire;
 
-constexpr int kBK = 16;  // k per staged step
 constexpr int kSmemLimit = 227 * 1024 - 1024;
 constexpr int kSMs = 132;  // H100 SXM: a grid this large fills the card once
 enum Act { kNone = 0, kRelu = 1, kSilu = 2 };
 enum DType { kF32 = 0, kBF16 = 1 };
-
-// A tile's thread layout: RL row lanes x (256 / RL) column lanes, each
-// thread TM rows x TN adjacent columns; a tile is BM x BN. A warp shares
-// its row lane, so the rows' values are one broadcast read.
-template <int RL_, int TM_, int TN_>
-struct Cfg {
-  static constexpr int RL = RL_, TM = TM_, TN = TN_;
-  static constexpr int CL = kThreads / RL;
-  static constexpr int BM = RL * TM, BN = CL * TN;
-};
-using Mid = Cfg<4, 4, 4>;     // 16 x 256
-using Small = Cfg<1, 4, 1>;   // 4 x 256: M 32 and the like
 
 // The epilogue every kernel here shares: bias, then the activation.
 __device__ __forceinline__ float bias_act(float acc, const float* b, int n,
@@ -134,15 +133,6 @@ __device__ __forceinline__ float bias_act(float acc, const float* b, int n,
     y = __fdiv_rn(y, __fadd_rn(1.f, expf(-y)));
   }
   return y;
-}
-
-template <bool BF16>
-__device__ __forceinline__ float ld(const void* p, size_t i) {
-  if constexpr (BF16) {
-    return __bfloat162float(static_cast<const __nv_bfloat16*>(p)[i]);
-  } else {
-    return static_cast<const float*>(p)[i];
-  }
 }
 
 template <int N>
@@ -166,78 +156,16 @@ __device__ __forceinline__ void read_vec(float (&v)[N], const float* p) {
   }
 }
 
-// One k-step's share of the w tile (k [k0, k0 + 16) x columns [n0,
-// n0 + BN)) in registers: every load is issued before any is stored, and
-// the next step's loads are in flight while this step's products run.
-// Zero outside w.
-template <class C>
-struct Stage {
-  static constexpr int kW = kBK * C::BN / kThreads;
-  float ws[kW];
-
-  template <bool BF16>
-  __device__ void load(const void* w, int K, int N, int n0, int k0) {
-    const int kn = min(kBK, K - k0);
+// bf16 values widened to fp32 (exactly), two at a time.
+template <int N>
+__device__ __forceinline__ void read_vec(float (&v)[N], const __nv_bfloat16* p) {
+  static_assert(N % 2 == 0, "a thread's runs of columns are even");
 #pragma unroll
-    for (int t = 0; t < kW; ++t) {
-      const int idx = threadIdx.x + t * kThreads;
-      const int kk = idx / C::BN, n = n0 + idx % C::BN;
-      ws[t] = (kk < kn && n < N)
-          ? ld<BF16>(w, static_cast<size_t>(k0 + kk) * N + n) : 0.f;
-    }
-  }
-
-  __device__ void store(float* Bs) const {
-#pragma unroll
-    for (int t = 0; t < kW; ++t) Bs[threadIdx.x + t * kThreads] = ws[t];
-  }
-};
-
-// acc[i][j] = fmaf(A[kk][rl TM + i], B[kk][cl TN + j], acc[i][j]) for
-// kk = 0 .. kn-1, in order.
-template <class C>
-__device__ __forceinline__ void fma_steps(float (&acc)[C::TM][C::TN],
-                                          const float* As, const float* Bs,
-                                          int kn) {
-  const int cl = threadIdx.x % C::CL, rl = threadIdx.x / C::CL;
-  for (int kk = 0; kk < kn; ++kk) {
-    float a[C::TM], b[C::TN];
-    read_vec(a, As + kk * C::BM + rl * C::TM);
-    read_vec(b, Bs + kk * C::BN + cl * C::TN);
-#pragma unroll
-    for (int i = 0; i < C::TM; ++i)
-#pragma unroll
-      for (int j = 0; j < C::TN; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-  }
-}
-
-// One (BM x BN) tile of zt @ w over the whole of K, zt a (K x BM) shared
-// tile already in place.
-template <class C>
-__device__ void gemm_tile(float (&acc)[C::TM][C::TN], const float* zt,
-                          const void* w, int dtype, int K, int N, int n0,
-                          float* Bs) {
-#pragma unroll
-  for (int i = 0; i < C::TM; ++i)
-#pragma unroll
-    for (int j = 0; j < C::TN; ++j) acc[i][j] = 0.f;
-  Stage<C> st;
-  // One branch on the dtype per step, so each step's loads issue together.
-  auto load = [&](int k0) {
-    if (dtype == kBF16) {
-      st.template load<true>(w, K, N, n0, k0);
-    } else {
-      st.template load<false>(w, K, N, n0, k0);
-    }
-  };
-  load(0);
-  for (int k0 = 0; k0 < K; k0 += kBK) {
-    __syncthreads();  // the previous step's readers are done
-    st.store(Bs);
-    __syncthreads();
-    if (k0 + kBK < K) load(k0 + kBK);
-    fma_steps<C>(acc, zt + static_cast<size_t>(k0) * C::BM, Bs,
-                 min(kBK, K - k0));
+  for (int q = 0; q < N / 2; ++q) {
+    const float2 t =
+        __bfloat1622float2(reinterpret_cast<const __nv_bfloat162*>(p)[q]);
+    v[2 * q] = t.x;
+    v[2 * q + 1] = t.y;
   }
 }
 
@@ -292,22 +220,32 @@ using F32Mid = F32Tile<64, 64, 4, 4, 16, 4, 1, false>;    // 256
 // read; a warp 4 rows x 16 columns, so a k row of w is 8 distinct float2.
 // 64 k a stage: the fewer barriers and stage switches, the faster.
 using F32Row = F32Tile<8, 16, 1, 2, 64, 4, 1, true>;  // 64
+// #3 under 16 columns (the boundary's N 10): half the w copies of
+// F32Row's 16-wide tile (measured on the H100: 7.37 us against 8.19 at
+// (32, 432) -> 10; 8 x 8 took 8.93, 32 x 8 7.45).
+using F32Narrow = F32Tile<16, 8, 1, 2, 64, 4, 1, true>;  // 64
 // The fused encode at large M: 16-row groups, so the last block's eight
 // warps encode two rows each; a thread 2 x 2 outputs, 2 stages of 64 k.
 using F32Enc = F32Tile<16, 64, 2, 2, 64, 2, 1, false>;  // 256
 
-// Stage t of the fp32 tile into ring slot t % ST: x[m0 + m][k0 + kk] at
-// As[kk][m] (or As[m][kk] with KX), w[k0 + kk][n0 + n] at Bs[kk][n], zeros
-// outside x and w. VEC: 16-byte copies where rows run along the copy.
+// The w ring of an fp32 tile T with w of type WT as it lies (fp32, or
+// bf16 for #3, widened on the read): k rows of BN padded by 16 bytes.
+template <class T, class WT>
+struct WRing {
+  static constexpr int LD = T::BN + 16 / static_cast<int>(sizeof(WT));
+  static constexpr int kSlot = T::BK * LD;  // elements a stage
+  static constexpr size_t bytes = sizeof(WT) * T::ST * kSlot;
+};
+
+// x's part of stage t into ring slot t % ST: x[m0 + m][k0 + kk] at
+// As[kk][m] (or As[m][kk] with KX), zeros outside x. VEC: 16-byte copies
+// where rows run along the copy.
 template <class T, bool VEC>
-__device__ __forceinline__ void stage_f32(float* As, float* Bs,
-                                          const ProjArgs& a, int m0, int n0,
-                                          int t) {
+__device__ __forceinline__ void stage_x(float* As, const ProjArgs& a, int m0,
+                                        int t) {
   const int k0 = t * T::BK;
   As += (t % T::ST) * T::kA;
-  Bs += (t % T::ST) * T::kB;
   const float* x = static_cast<const float*>(a.x);
-  const float* w = static_cast<const float*>(a.w);
   if constexpr (T::KX && VEC) {
 #pragma unroll
     for (int i = 0; i < T::BM * T::BK / (4 * T::kThreads); ++i) {
@@ -328,45 +266,66 @@ __device__ __forceinline__ void stage_f32(float* As, float* Bs,
                  ok ? x + static_cast<size_t>(m0 + m) * a.K + k0 + kk : x, ok);
     }
   }
+}
+
+// w's part of stage t into ring slot t % ST: w[k0 + kk][n0 + n] at
+// Bs[kk][n], zeros outside w. VEC: 16-byte copies (rows of N on 16
+// bytes); else 4-byte copies (fp32) or element loads (bf16).
+template <class T, bool VEC, class WT>
+__device__ __forceinline__ void stage_w(WT* Bs, const void* wp, int K, int N,
+                                        int n0, int t) {
+  using R = WRing<T, WT>;
+  constexpr int E = 16 / sizeof(WT);  // elements a 16-byte copy
+  const int k0 = t * T::BK;
+  Bs += (t % T::ST) * R::kSlot;
+  const WT* w = static_cast<const WT*>(wp);
   if constexpr (VEC) {
+    constexpr int kCopies = T::BK * T::BN / E;
 #pragma unroll
-    for (int i = 0; i < T::BK * T::BN / (4 * T::kThreads); ++i) {
+    for (int i = 0; i < (kCopies + T::kThreads - 1) / T::kThreads; ++i) {
       const int idx = threadIdx.x + i * T::kThreads;
-      const int kk = idx / (T::BN / 4), n = idx % (T::BN / 4) * 4;
-      const bool ok = k0 + kk < a.K && n0 + n < a.N;
-      cp_async_16(Bs + kk * T::LDB + n,
-                  ok ? w + static_cast<size_t>(k0 + kk) * a.N + n0 + n : w,
-                  ok);
+      if (kCopies % T::kThreads != 0 && idx >= kCopies) break;
+      const int kk = idx / (T::BN / E), n = idx % (T::BN / E) * E;
+      const bool ok = k0 + kk < K && n0 + n < N;
+      cp_async_16(Bs + kk * R::LD + n,
+                  ok ? w + static_cast<size_t>(k0 + kk) * N + n0 + n : w, ok);
     }
   } else {
 #pragma unroll
     for (int i = 0; i < T::BK * T::BN / T::kThreads; ++i) {
       const int idx = threadIdx.x + i * T::kThreads;
       const int kk = idx / T::BN, n = idx % T::BN;
-      const bool ok = k0 + kk < a.K && n0 + n < a.N;
-      cp_async_4(Bs + kk * T::LDB + n,
-                 ok ? w + static_cast<size_t>(k0 + kk) * a.N + n0 + n : w,
-                 ok);
+      const bool ok = k0 + kk < K && n0 + n < N;
+      if constexpr (sizeof(WT) == 4) {
+        cp_async_4(Bs + kk * R::LD + n,
+                   ok ? w + static_cast<size_t>(k0 + kk) * N + n0 + n : w, ok);
+      } else {
+        Bs[kk * R::LD + n] = ok ? w[static_cast<size_t>(k0 + kk) * N + n0 + n]
+                                : __float2bfloat16_rn(0.f);
+      }
     }
   }
 }
 
-// acc[i][j] = fmaf(x[row i][k], w[k][col j], acc[i][j]) for the stage's k
+// acc[i][j] = fmaf(A[row i][k], w[k][col j], acc[i][j]) for the stage's k
 // in ascending order; a partial last stage stops at kn, adding no term.
-template <class T>
+// A lies as T::KX says, its rows (KX) or k rows (else) lda apart; B is the
+// stage's slot of the w ring.
+template <class T, class WT>
 __device__ __forceinline__ void steps_f32(float (&acc)[T::TM][T::TN],
-                                          const float* As, const float* Bs,
-                                          int kn) {
+                                          const float* As, int lda,
+                                          const WT* Bs, int kn) {
+  constexpr int LDB = WRing<T, WT>::LD;
   constexpr int RG = T::TM / T::RV, CG = T::TN / T::CV;  // runs a thread
   const int tx = threadIdx.x % T::CT, ty = threadIdx.x / T::CT;
   auto row = [&](int i) { return (i / T::RV * T::RT + ty) * T::RV + i % T::RV; };
-  const float* bc = Bs + tx * T::CV;  // this thread's first column
+  const WT* bc = Bs + tx * T::CV;  // this thread's first column
   // av[g][r] is row g RT RV + ty RV + r at k row kk.
   auto fma_k = [&](const float (&av)[RG][T::RV], int kk) {
     float bv[CG][T::CV];
 #pragma unroll
     for (int h = 0; h < CG; ++h)
-      read_vec(bv[h], bc + kk * T::LDB + h * T::CT * T::CV);
+      read_vec(bv[h], bc + kk * LDB + h * T::CT * T::CV);
 #pragma unroll
     for (int i = 0; i < T::TM; ++i)
 #pragma unroll
@@ -379,7 +338,7 @@ __device__ __forceinline__ void steps_f32(float (&acc)[T::TM][T::TN],
 #pragma unroll
     for (int i = 0; i < T::TM; ++i)
       av[i / T::RV][i % T::RV] =
-          T::KX ? As[row(i) * T::LDA + kk] : As[kk * T::LDA + row(i)];
+          T::KX ? As[row(i) * lda + kk] : As[kk * lda + row(i)];
     fma_k(av, kk);
   };
   if (kn != T::BK) {
@@ -390,7 +349,7 @@ __device__ __forceinline__ void steps_f32(float (&acc)[T::TM][T::TN],
     for (int k4 = 0; k4 < T::BK; k4 += 4) {
       float a4[T::TM][4];
 #pragma unroll
-      for (int i = 0; i < T::TM; ++i) read_vec(a4[i], As + row(i) * T::LDA + k4);
+      for (int i = 0; i < T::TM; ++i) read_vec(a4[i], As + row(i) * lda + k4);
 #pragma unroll
       for (int q = 0; q < 4; ++q) {
         float av[RG][T::RV];
@@ -406,27 +365,33 @@ __device__ __forceinline__ void steps_f32(float (&acc)[T::TM][T::TN],
       float av[RG][T::RV];
 #pragma unroll
       for (int g = 0; g < RG; ++g)
-        read_vec(av[g], ar + kk * T::LDA + g * T::RT * T::RV);
+        read_vec(av[g], ar + kk * lda + g * T::RT * T::RV);
       fma_k(av, kk);
     }
   }
 }
 
-// One fp32 tile, (blockIdx.x, blockIdx.y), of y = act(x @ w + b) into
-// a.y (fp32). With IDLE the block has more threads than the tile (the
-// fused encode's 256): those keep the barriers and nothing else.
-template <class T, bool VEC, bool IDLE>
-__device__ __forceinline__ void proj_f32_tile(const ProjArgs& a, float* smem) {
+// The fp32 main loop and epilogue: one tile, (blockIdx.x, blockIdx.y), of
+// y = act(A @ w + b) into a.y (fp32), over K = a.K. `src` says where
+// stage t's tiles come from: src.stage(t) fills ring slot t % ST (cp.async
+// copies, which land by the barrier of step t); src.prologue() runs once
+// the first ST - 1 stages are in flight; src.a_at(t), src.lda() and
+// src.b_at(t) give stage t's A, its stride and its w slot. With IDLE the
+// block has more threads than the tile (the fused encode's 256): those
+// keep the barriers and nothing else. vec_y: float4 stores (N % 4 == 0, y
+// on 16 bytes).
+template <class T, bool IDLE, class Src>
+__device__ __forceinline__ void f32_tile(const ProjArgs& a, const Src& src,
+                                         bool vec_y) {
   const bool work = !IDLE || threadIdx.x < T::kThreads;
-  float* As = smem;                   // ST x kA
-  float* Bs = smem + T::ST * T::kA;   // ST x kB
   const int m0 = blockIdx.x * T::BM, n0 = blockIdx.y * T::BN;
   const int nk = (a.K + T::BK - 1) / T::BK;
 #pragma unroll
   for (int t = 0; t < T::ST - 1; ++t) {
-    if (work && t < nk) stage_f32<T, VEC>(As, Bs, a, m0, n0, t);
+    if (work && t < nk) src.stage(t);
     cp_async_commit();
   }
+  src.prologue();
   float acc[T::TM][T::TN];
 #pragma unroll
   for (int i = 0; i < T::TM; ++i)
@@ -435,12 +400,10 @@ __device__ __forceinline__ void proj_f32_tile(const ProjArgs& a, float* smem) {
   for (int t = 0; t < nk; ++t) {
     cp_async_wait<T::ST - 2>();  // stage t has landed (this thread's copies)
     __syncthreads();             // ... everyone's; slot (t - 1) % ST is free
-    if (work && t + T::ST - 1 < nk)
-      stage_f32<T, VEC>(As, Bs, a, m0, n0, t + T::ST - 1);
+    if (work && t + T::ST - 1 < nk) src.stage(t + T::ST - 1);
     cp_async_commit();
-    const int slot = t % T::ST;
     if (work)
-      steps_f32<T>(acc, As + slot * T::kA, Bs + slot * T::kB,
+      steps_f32<T>(acc, src.a_at(t), src.lda(), src.b_at(t),
                    min(T::BK, a.K - t * T::BK));
   }
   if (!work) return;
@@ -459,16 +422,44 @@ __device__ __forceinline__ void proj_f32_tile(const ProjArgs& a, float* smem) {
         v[j] = n + j < a.N ? bias_act(acc[i][h * T::CV + j], a.b, n + j, a.act)
                            : 0.f;
       float* o = y + static_cast<size_t>(m) * a.N + n;
-      if constexpr (VEC && T::CV == 4) {  // N % 4 == 0: all four or none
-        if (n < a.N)
-          *reinterpret_cast<float4*>(o) = make_float4(v[0], v[1], v[2], v[3]);
-      } else {
-#pragma unroll
-        for (int j = 0; j < T::CV; ++j)
-          if (n + j < a.N) o[j] = v[j];
+      if constexpr (T::CV == 4) {
+        if (vec_y) {  // N % 4 == 0: all four or none
+          if (n < a.N)
+            *reinterpret_cast<float4*>(o) = make_float4(v[0], v[1], v[2], v[3]);
+          continue;
+        }
       }
+#pragma unroll
+      for (int j = 0; j < T::CV; ++j)
+        if (n + j < a.N) o[j] = v[j];
     }
   }
+}
+
+// #4's source: x and w both through the ring.
+template <class T, bool VEC>
+struct XRing {
+  const ProjArgs& a;
+  float* As;  // ST x kA
+  float* Bs;  // ST x kB
+  int m0, n0;
+  __device__ void stage(int t) const {
+    stage_x<T, VEC>(As, a, m0, t);
+    stage_w<T, VEC>(Bs, a.w, a.K, a.N, n0, t);
+  }
+  __device__ void prologue() const {}
+  __device__ const float* a_at(int t) const { return As + t % T::ST * T::kA; }
+  __device__ int lda() const { return T::LDA; }
+  __device__ const float* b_at(int t) const { return Bs + t % T::ST * T::kB; }
+};
+
+// One fp32 tile of y = act(x @ w + b) from the ring; IDLE as in f32_tile.
+template <class T, bool VEC, bool IDLE>
+__device__ __forceinline__ void proj_f32_tile(const ProjArgs& a, float* smem) {
+  const XRing<T, VEC> src{a, smem, smem + T::ST * T::kA,
+                          static_cast<int>(blockIdx.x) * T::BM,
+                          static_cast<int>(blockIdx.y) * T::BN};
+  f32_tile<T, IDLE>(a, src, VEC);
 }
 
 template <class T, bool VEC>
@@ -698,15 +689,19 @@ __global__ void __launch_bounds__(kThreads, 1) proj_encode_kernel(EncArgs a) {
   if (warp >= a.teams) return;
   const int m0 = blockIdx.x * T::BM;
   const int rows = min(T::BM, a.M - m0);
-  float* c = smem + warp * (N + scratch_floats(S, N, a.p.n));
+  float* c = smem + warp * team_floats(S, N, a.p.n);
   for (int r = warp; r < rows; r += a.teams) {
     const size_t row = static_cast<size_t>(m0) + r;
     encode_row<S, EF, 32>(a.p, a.y + row * N, EF ? a.e + row * N : nullptr,
-                          c, c + N, nullptr, row);
+                          c, c + pad4(N), nullptr, row);
   }
 }
 
 // ---------------------------------------------------------------- #3
+//
+// #4's main loop with the block's decoded payload rows as A: resident
+// (RES: decoded once, in the prologue) or, where they do not fit, a
+// stage's k slice decoded into the A slot of the ring.
 
 struct DecArgs {
   const void* in0;
@@ -714,39 +709,191 @@ struct DecArgs {
   const void* w;
   const float* b;
   float* y;
-  int M, N, dtype, act;
-  Params p;  // p.d is the payload's fusion dim, the K of the product
+  int M, N, act;
+  bool vec_w;  // 16-byte w copies: N a multiple of 16 bytes' elements, w on 16
+  bool vec_y;  // float4 y stores: N % 4 == 0, y on 16 bytes
+  Params p;    // p.d is the payload's fusion dim, the K of the product
 };
 
-template <class C, int S>
-__global__ void __launch_bounds__(kThreads, 1) decode_proj_kernel(DecArgs a) {
-  extern __shared__ float smem[];
-  constexpr int BM = C::BM;
-  const int d = a.p.d;
-  float* zt = smem;                                  // d x BM, k-major
-  float* Bs = smem + static_cast<size_t>(d) * BM;
-  const int m0 = blockIdx.x * BM, n0 = blockIdx.y * C::BN;
-  const int rows = min(BM, a.M - m0);
-  if (S == kTopK || rows < BM) {  // scatter targets and missing rows: zero
-    for (int i = threadIdx.x; i < d * BM; i += kThreads) zt[i] = 0.f;
+// The stride of a resident row on a KX tile: d padded to 16 bytes, plus
+// the 4 floats that pad a stage's rows.
+__host__ __device__ inline int dec_ld(int d) { return static_cast<int>(pad4(d)) + 4; }
+
+// A's shared floats: the resident rows (BM rows of dec_ld on KX tiles, d
+// k rows of LDA on the others) or the A ring.
+template <class T, bool RES>
+__host__ __device__ inline size_t dec_a_floats(int d) {
+  if (!RES) return static_cast<size_t>(T::ST) * T::kA;
+  return T::KX ? static_cast<size_t>(T::BM) * dec_ld(d)
+               : static_cast<size_t>(d) * T::LDA;
+}
+
+template <class T, class WT, bool RES>
+size_t dec_smem(int d) {
+  return sizeof(float) * dec_a_floats<T, RES>(d) + WRing<T, WT>::bytes;
+}
+
+// Where element (m, k) of a block's A lies: rows of ld (KX) or k rows of
+// T::LDA.
+template <class T>
+__device__ __forceinline__ int a_pos(int m, int k, int ld) {
+  return T::KX ? m * ld + k : k * T::LDA + m;
+}
+
+// The block's rows m0 .. m0 + BM - 1 of the payload, decoded into the
+// resident A (rows past M zero), all threads over the rows together. A
+// top-k row is zeroed, then scattered from its pairs; int8_row and int4
+// rows whose bytes split into 8-byte words are read a word a thread, 8
+// words in flight.
+template <class T, int S>
+__device__ void decode_rows(const DecArgs& a, float* As, int ld, int m0) {
+  const int d = a.p.d, rows = min(T::BM, a.M - m0);
+  const int t = threadIdx.x;
+  constexpr int NT = T::kThreads;
+  // Item j of a rows x n walk: along the rows' n (KX: a warp's stores go
+  // along a row) or down the rows (else: along a k row of A), so the
+  // stores to shared memory are conflict-free either way.
+  auto row_of = [&](int j, int n) { return T::KX ? j / n : j % rows; };
+  auto col_of = [&](int j, int n) { return T::KX ? j % n : j / rows; };
+  if (S == kTopK || rows < T::BM) {
+    float4* a4 = reinterpret_cast<float4*>(As);
+    const int n4 = static_cast<int>(dec_a_floats<T, true>(d) / 4);
+    for (int i = t; i < n4; i += NT) a4[i] = make_float4(0.f, 0.f, 0.f, 0.f);
     __syncthreads();
   }
-  for (int r = 0; r < rows; ++r)
-    decode_row<S>(a.p, a.in0, a.in1, static_cast<size_t>(m0) + r, zt + r, BM);
-  float acc[C::TM][C::TN];
-  gemm_tile<C>(acc, zt, a.w, a.dtype, d, a.N, n0, Bs);
-  const int cl = threadIdx.x % C::CL, rl = threadIdx.x / C::CL;
+  if constexpr (S == kTopK) {
+    const int k = a.p.n;
+    const float* vals = static_cast<const float*>(a.in0) + static_cast<size_t>(m0) * k;
+    const int* idx = static_cast<const int*>(a.in1) + static_cast<size_t>(m0) * k;
+#pragma unroll 4
+    for (int j = t; j < rows * k; j += NT) {
+      const int i = __ldg(idx + j);
+      if (i >= 0 && i < d) As[a_pos<T>(j / k, i, ld)] = __ldg(vals + j);
+    }
+    return;
+  } else {
+    constexpr bool kCodes = S == kInt8Row || S == kInt4;
+    const int bytes = S == kInt4 ? (d + 1) / 2 : d;  // a code row's
+    if (kCodes && bytes % 8 == 0 &&
+        (reinterpret_cast<uintptr_t>(a.in0) & 7) == 0) {
+      const int per = bytes / 8;  // words a row
+      const uint2* q = reinterpret_cast<const uint2*>(
+          static_cast<const uint8_t*>(a.in0) + static_cast<size_t>(m0) * bytes);
+      const float* sc = static_cast<const float*>(a.in1) + m0;
+      constexpr int U = 8;
+      for (int j0 = t; j0 < rows * per; j0 += U * NT) {
+        uint2 u[U];
+        float s[U];
 #pragma unroll
-  for (int i = 0; i < C::TM; ++i) {
-    const int m = m0 + rl * C::TM + i;
-    if (m >= a.M) continue;
+        for (int v = 0; v < U; ++v) {
+          const int j = j0 + v * NT, r = row_of(j, per), c = col_of(j, per);
+          if (j < rows * per) {
+            u[v] = __ldg(q + static_cast<size_t>(r) * per + c);
+            s[v] = __ldg(sc + r);
+          }
+        }
 #pragma unroll
-    for (int j = 0; j < C::TN; ++j) {
-      const int n = n0 + cl * C::TN + j;
-      if (n < a.N)
-        a.y[static_cast<size_t>(m) * a.N + n] = bias_act(acc[i][j], a.b, n, a.act);
+        for (int v = 0; v < U; ++v) {
+          const int j = j0 + v * NT;
+          if (j >= rows * per) break;
+          const int r = row_of(j, per), c = col_of(j, per);
+#pragma unroll
+          for (int e = 0; e < 8; ++e) {
+            const unsigned byte = ((e < 4 ? u[v].x : u[v].y) >> (8 * (e & 3))) & 0xFFu;
+            if constexpr (S == kInt8Row) {
+              As[a_pos<T>(r, 8 * c + e, ld)] =
+                  dequant(static_cast<int8_t>(byte), s[v]);
+            } else {
+              const int i = 16 * c + 2 * e;  // the low nibble's column
+              As[a_pos<T>(r, i, ld)] = dequant(static_cast<int>(byte & 0xF) - 8, s[v]);
+              if (i + 1 < d)  // an odd d's pad nibble is dropped
+                As[a_pos<T>(r, i + 1, ld)] = dequant(static_cast<int>(byte >> 4) - 8, s[v]);
+            }
+          }
+        }
+      }
+    } else {
+#pragma unroll 4
+      for (int j = t; j < rows * d; j += NT) {
+        const int r = row_of(j, d), i = col_of(j, d);
+        As[a_pos<T>(r, i, ld)] =
+            decode_at<S>(a.p, a.in0, a.in1, static_cast<size_t>(m0) + r, i);
+      }
     }
   }
+}
+
+// Stage t's k slice of the block's rows, decoded into A ring slot t % ST
+// (zero outside the payload). A top-k slice is zeroed, then the rows'
+// pairs whose index falls in it are scattered (a barrier between).
+template <class T, int S>
+__device__ void decode_slice(const DecArgs& a, float* As, int m0, int t) {
+  const int d = a.p.d, k0 = t * T::BK, rows = min(T::BM, a.M - m0);
+  As += (t % T::ST) * T::kA;
+  if constexpr (S == kTopK) {
+    for (int j = threadIdx.x; j < T::BM * T::BK; j += T::kThreads)
+      As[a_pos<T>(j / T::BK, j % T::BK, T::LDA)] = 0.f;
+    __syncthreads();
+    const int k = a.p.n;
+    const float* vals = static_cast<const float*>(a.in0) + static_cast<size_t>(m0) * k;
+    const int* idx = static_cast<const int*>(a.in1) + static_cast<size_t>(m0) * k;
+#pragma unroll 4
+    for (int j = threadIdx.x; j < rows * k; j += T::kThreads) {
+      const int i = __ldg(idx + j);
+      if (i >= k0 && i < k0 + T::BK && i < d)
+        As[a_pos<T>(j / k, i - k0, T::LDA)] = __ldg(vals + j);
+    }
+  } else {
+#pragma unroll 4
+    for (int j = threadIdx.x; j < T::BM * T::BK; j += T::kThreads) {
+      const int m = j / T::BK, kk = j % T::BK;
+      As[a_pos<T>(m, kk, T::LDA)] =
+          m < rows && k0 + kk < d
+              ? decode_at<S>(a.p, a.in0, a.in1, static_cast<size_t>(m0) + m, k0 + kk)
+              : 0.f;
+    }
+  }
+}
+
+// #3's source: A the decoded rows, w (fp32 or bf16) through the ring.
+template <class T, int S, class WT, bool RES>
+struct DecSrc {
+  const DecArgs& a;
+  float* As;
+  WT* Bs;
+  int m0, n0, ld;
+  __device__ void stage(int t) const {
+    if (a.vec_w) {
+      stage_w<T, true>(Bs, a.w, a.p.d, a.N, n0, t);
+    } else {
+      stage_w<T, false>(Bs, a.w, a.p.d, a.N, n0, t);
+    }
+    if constexpr (!RES) decode_slice<T, S>(a, As, m0, t);
+  }
+  __device__ void prologue() const {
+    if constexpr (RES) decode_rows<T, S>(a, As, ld, m0);
+  }
+  __device__ const float* a_at(int t) const {
+    if constexpr (!RES) return As + t % T::ST * T::kA;
+    return As + (T::KX ? t * T::BK : t * T::BK * T::LDA);
+  }
+  __device__ int lda() const { return RES && T::KX ? ld : T::LDA; }
+  __device__ const WT* b_at(int t) const {
+    return Bs + t % T::ST * WRing<T, WT>::kSlot;
+  }
+};
+
+template <class T, int S, class WT, bool RES>
+__global__ void __launch_bounds__(T::kThreads, T::MINB)
+    decode_proj_kernel(DecArgs a) {
+  extern __shared__ float smem[];
+  const int d = a.p.d;
+  const DecSrc<T, S, WT, RES> src{
+      a, smem, reinterpret_cast<WT*>(smem + dec_a_floats<T, RES>(d)),
+      static_cast<int>(blockIdx.x) * T::BM, static_cast<int>(blockIdx.y) * T::BN,
+      dec_ld(d)};
+  const ProjArgs pa{nullptr, a.w, a.b, a.y, a.M, d, a.N, kF32, a.act};
+  f32_tile<T, false>(pa, src, a.vec_y);
 }
 
 // ------------------------------------------------------------- launch
@@ -812,7 +959,7 @@ int launch_proj_fill(const ProjArgs& a, bool vec, cudaStream_t s) {
 // else as many as fit (at least one).
 template <class T, int S, bool EF>
 int launch_encode_tile(EncArgs a, bool vec, cudaStream_t s) {
-  const size_t team = sizeof(float) * (a.p.d + scratch_floats(S, a.p.d, a.p.n));
+  const size_t team = sizeof(float) * team_floats(S, a.p.d, a.p.n);
   const size_t room = T::smem > 48 * 1024 ? T::smem : 48 * 1024;
   const size_t fit = room / team;
   a.teams = static_cast<int>(fit < 1 ? 1 : fit > kThreads / 32 ? kThreads / 32 : fit);
@@ -851,15 +998,48 @@ int launch_encode_scheme(int scheme, const EncArgs& a, cudaStream_t s) {
   }
 }
 
-template <int S>
+template <class T, int S, class WT, bool RES>
+int launch_dec(const DecArgs& a, cudaStream_t s) {
+  return launch(decode_proj_kernel<T, S, WT, RES>, grid_of<T>(a.M, a.N),
+                dec_smem<T, WT, RES>(a.p.d), a, s, T::kThreads);
+}
+
+// #3 on #4's tiles (largest first): the first whose grid reaches its
+// kWave blocks and whose decoded rows fit beside its ring; else the last,
+// its rows resident where they fit, else decoded a stage at a time.
+template <int S, class WT, class T, class... Rest>
 int launch_decode(const DecArgs& a, cudaStream_t s) {
-  const size_t d = a.p.d;
-  const size_t mid = sizeof(float) * (d * Mid::BM + kBK * Mid::BN);
-  if (fills_card<Mid>(a.M, a.N) && mid <= static_cast<size_t>(kSmemLimit))
-    return launch(decode_proj_kernel<Mid, S>, grid_of<Mid>(a.M, a.N), mid, a,
-                  s);
-  return launch(decode_proj_kernel<Small, S>, grid_of<Small>(a.M, a.N),
-                sizeof(float) * (d * Small::BM + kBK * Small::BN), a, s);
+  const bool fits = dec_smem<T, WT, true>(a.p.d) <= static_cast<size_t>(kSmemLimit);
+  if constexpr (sizeof...(Rest) == 0) {
+    return fits ? launch_dec<T, S, WT, true>(a, s)
+                : launch_dec<T, S, WT, false>(a, s);
+  } else {
+    const dim3 g = grid_of<T>(a.M, a.N);
+    if (fits && static_cast<long>(g.x) * g.y >= T::kWave)
+      return launch_dec<T, S, WT, true>(a, s);
+    return launch_decode<S, WT, Rest...>(a, s);
+  }
+}
+
+// #3 on its tiles: under 16 columns F32Narrow where its rows fit (else
+// the list's last tile), otherwise #4's list.
+template <int S, class WT>
+int launch_decode_tiles(const DecArgs& a, cudaStream_t s) {
+  if (a.N < F32Row::BN &&
+      dec_smem<F32Narrow, WT, true>(a.p.d) <= static_cast<size_t>(kSmemLimit))
+    return launch_dec<F32Narrow, S, WT, true>(a, s);
+  return launch_decode<S, WT, F32Big, F32Mid, F32Row>(a, s);
+}
+
+template <class WT>
+int launch_decode_scheme(int scheme, const DecArgs& a, cudaStream_t s) {
+  switch (scheme) {
+    case kInt8Row: return launch_decode_tiles<kInt8Row, WT>(a, s);
+    case kInt4: return launch_decode_tiles<kInt4, WT>(a, s);
+    case kTopK: return launch_decode_tiles<kTopK, WT>(a, s);
+    case kSketch: return launch_decode_tiles<kSketch, WT>(a, s);
+    default: return -1;
+  }
 }
 
 bool bad_common(int M, int K, int N, int dtype, int act) {
@@ -957,18 +1137,18 @@ extern "C" int decode_proj(int scheme, const void* in0, const void* in1,
   if (bad_common(M, d, N, dtype, act) || d > kMaxD) return -1;
   if ((scheme == kTopK || scheme == kSketch) && (n < 1 || n > d)) return -1;
   if (scheme == kSketch && (!sign || !inv_counts || !hash)) return -1;
-  const DecArgs a{in0, in1, w, b, y, M, N, dtype, act,
+  auto on16 = [](const void* p) {
+    return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+  };
+  const DecArgs a{in0, in1, w, b, y, M, N, act,
+                  N % (dtype == kBF16 ? 8 : 4) == 0 && on16(w),
+                  N % 4 == 0 && on16(y),
                   {d, n, 0.f, 0.f, 0, 0.f, sign, inv_counts, hash, nullptr,
                    nullptr, nullptr, nullptr, nullptr}};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  int rc;
-  switch (scheme) {
-    case kInt8Row: rc = launch_decode<kInt8Row>(a, s); break;
-    case kInt4: rc = launch_decode<kInt4>(a, s); break;
-    case kTopK: rc = launch_decode<kTopK>(a, s); break;
-    case kSketch: rc = launch_decode<kSketch>(a, s); break;
-    default: return -1;
-  }
+  const int rc = dtype == kBF16
+                     ? launch_decode_scheme<__nv_bfloat16>(scheme, a, s)
+                     : launch_decode_scheme<float>(scheme, a, s);
   if (rc != 0) return rc;
   return static_cast<int>(cudaGetLastError());
 }

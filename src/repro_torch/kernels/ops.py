@@ -299,6 +299,29 @@ def scheme_for(codec, d: int) -> Optional[WireScheme]:
     return None
 
 
+# The teams of csrc/wire_encode.cu: a warp a row, ENCODE_WARPS rows a
+# block, or a block of 256 threads a row. A warp runs a row's passes one
+# element after another, so it wins only where many rows hide that (on
+# the H100 at 432 wide: 32 rows take 1.97 us on the block team and 4.0 on
+# warps; 4096 rows 9.4 and 6.9; top-k, whose sort a block spreads over
+# 256 threads, from about 1024 rows) and rows are short (from 768 wide
+# the block is as fast or faster); a warp's top-k keys stay in registers
+# up to 512 wide (PERF.md).
+ENCODE_WARP_ROWS = 4096
+ENCODE_WARP_ROWS_TOPK = 1024
+ENCODE_WARP_MAX_D = 512
+ENCODE_WARPS = 4
+
+
+def encode_warps(rows: int, d: int, kind: str) -> int:
+    """The team ``wire_encode`` runs at (rows, d) under scheme ``kind``:
+    ENCODE_WARPS rows a block, a warp each, from ENCODE_WARP_ROWS rows
+    (top-k: ENCODE_WARP_ROWS_TOPK) up to ENCODE_WARP_MAX_D wide, else 0,
+    a block a row."""
+    least = ENCODE_WARP_ROWS_TOPK if kind == "topk" else ENCODE_WARP_ROWS
+    return ENCODE_WARPS if rows >= least and d <= ENCODE_WARP_MAX_D else 0
+
+
 def wire_bytes_moved(scheme: WireScheme, rows: int, ef: bool) -> int:
     """The bytes one encode must move: z (and e) read once, the payload
     (and e') written once, the sketch tables read once."""
@@ -362,14 +385,15 @@ def _launch_wire(scheme: WireScheme, z: torch.Tensor,
     bufs = list(outs.values()) + [None] * (2 - len(outs))
     e_out = torch.empty_like(z) if e is not None else None
     fn = _c_fn("wire_encode", "wire_encode",
-               [_I, _I, _P, _P, _I, _I, _I, _F, _F, _I, _F] + [_P] * 9)
+               [_I, _I, _P, _P, _I, _I, _I, _F, _F, _I, _F] + [_P] * 8
+               + [_I, _P])
     with torch.cuda.device(dev):
         rc = fn(_SCHEME_CODE[scheme.kind], int(e is not None), z.data_ptr(),
                 _nullable(e), rows, d, scheme.n, *_qparams(scheme),
                 *_clip(max_ratio),
                 *(_nullable(t) for t in scheme.tables(dev)),
                 _nullable(bufs[0]), _nullable(bufs[1]), _nullable(e_out),
-                _stream(dev))
+                encode_warps(rows, d, scheme.kind), _stream(dev))
     if rc != 0:
         raise RuntimeError(f"wire_encode launch failed (code {rc})")
     payload = {name: o.reshape(*lead, *o.shape[1:])

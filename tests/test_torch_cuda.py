@@ -132,7 +132,8 @@ def _wire_z(rows, d, seed, scale=2.0):
     z = (rng.standard_normal((rows, d)) * scale).astype(np.float32)
     z[min(3, rows - 1)] = 0.0                 # an all-zero row
     z[0, : d // 3] = 0.0                      # dead-ReLU zeros
-    z[1 % rows, [5, 40, 77]] = [3.5, -3.5, 3.5]   # ties in |z|
+    ties = [i for i in (5, 40, 77) if i < d]
+    z[1 % rows, ties] = [3.5, -3.5, 3.5][:len(ties)]   # ties in |z|
     return torch.from_numpy(z).cuda()
 
 
@@ -444,7 +445,7 @@ def test_fusion_proj_quant_is_the_int8_row_payload(M, K, N, act):
 @pytest.mark.parametrize("name", SCHEMES + ["topk0.1"])
 @pytest.mark.parametrize("M,d,N", [(32, 432, 256), (32, 432, 10),
                                    (33, 433, 433), (1024, 432, 432),
-                                   (2, 8192, 5)])
+                                   (2, 8192, 5), (4096, 256, 1024)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_decode_proj_is_fusion_proj_of_the_decode(M, d, N, name, dtype):
     if not torch.cuda.is_available():
@@ -685,6 +686,165 @@ def test_fusion_proj_bf16_fragments_are_exact_on_structured_inputs(M, K, N):
     w = (torch.arange(K * N, device="cuda") % 256).float().reshape(K, N)
     got = ops.fusion_proj(x.bfloat16(), w.bfloat16())
     assert torch.equal(got.float(), w[torch.arange(M) % K])
+
+
+# decode_proj on fusion_proj's main loop: rows around its 8-, 16- and
+# 64-row tiles, N around its 16-column tiles (under 16 the 16 x 8 tile),
+# d off 16 bytes (433), past the last d whose rows the 16 x 8 tile keeps
+# resident (3421), the last the 8 x 16 tile keeps beside its fp32 ring
+# (6588) and past it (6589, 8192: decoded a stage at a time).
+DEC_EDGE_M = [1, 7, 8, 9, 33, 65]
+DEC_EDGE_N = [1, 15, 16, 17]
+DEC_EDGE_D = [433, 3421, 6588, 6589, 8192]
+
+
+def _graph_replay(fn):
+    """fn() captured in a CUDA graph and replayed once -> its output."""
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N", DEC_EDGE_N)
+@pytest.mark.parametrize("M", DEC_EDGE_M)
+def test_decode_proj_tile_edges_keep_the_identity_in_a_graph(M, N):
+    """Every scheme, fp32 and bf16 w: one launch a call; replayed from a
+    CUDA graph it gives the eager call's bits; with fp32 w it is
+    fusion_proj of the codec's decode, bitwise; both within 1e-5 of the
+    plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    for d in DEC_EDGE_D:
+        for name in SCHEMES:
+            codec = get_codec(name)
+            payload = codec.encode(_wire_z(M, d, seed=M * d + N))
+            for dtype in (torch.float32, torch.bfloat16):
+                label = (M, N, d, name, dtype)
+                _, w, b = _proj_inputs(1, d, N, seed=d + N, dtype=dtype)
+
+                def call():
+                    return ops.decode_proj(payload, w, b, "relu", codec=codec,
+                                           shape=(M, d))
+                before = ops.decode_proj.launches
+                got = call()
+                torch.cuda.synchronize()
+                assert ops.decode_proj.launches == before + 1, label
+                assert torch.equal(_graph_replay(call), got), label
+                if dtype == torch.float32:
+                    z_hat = codec.decode(payload, shape=(M, d))
+                    assert torch.equal(got, ops.fusion_proj(z_hat, w, b,
+                                                            "relu")), label
+                budget.floats_close(got, ref.decode_proj_ref(
+                    payload, w, b, "relu", codec=codec, shape=(M, d)), 1e-5,
+                    str(label))
+
+
+def _team_takeover_d(kind):
+    """The largest d at which wire_encode runs a warp a row for ``kind``
+    at 4096 rows; d + 1 takes the block team."""
+    return max(d for d in range(1, 4097) if ops.encode_warps(4096, d, kind))
+
+
+def _check_wire(rows, d, name):
+    """wire_encode and 2 chained wire_encode_ef steps of ``name`` at (rows,
+    d) against the plain version: codes bitwise, floats within 1e-6."""
+    codec, ef = get_codec(name), get_codec(f"ef({name})")
+    z = _wire_z(rows, d, seed=rows + d)
+    _assert_payload(ops.wire_encode(z, codec), ref.wire_encode_ref(z, codec))
+    e = torch.zeros((rows, d), device="cuda")
+    for t in range(2):
+        z = _wire_z(rows, d, seed=10 * t + d, scale=1.0 + t)
+        got, e_got = ops.wire_encode_ef(z, e, ef)
+        want, e_want = ref.wire_encode_ef_ref(z, e, ef)
+        _assert_payload(got, want)
+        torch.testing.assert_close(e_got, e_want, rtol=1e-6, atol=1e-6)
+        e = e_want
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [1, 31, 32, 33, 432, 8192])
+@pytest.mark.parametrize("rows", [1, 7, 8, 9, 4096])
+def test_wire_encode_team_edges_match_plain_on_card(rows, d):
+    """Rows around a block's warps and d around a warp's 32 lanes, a
+    path-width row and the widest; every scheme, with and without EF."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    for name in SCHEMES:
+        _check_wire(rows, d, name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", SCHEMES)
+@pytest.mark.parametrize("rows", [9, 4096])
+def test_wire_encode_where_the_block_team_takes_over(rows, kind):
+    """The last d of a warp a row and the first of the block team."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    d = _team_takeover_d(kind)
+    assert ops.encode_warps(4096, d + 1, kind) == 0
+    for dd in (d, d + 1):
+        _check_wire(rows, dd, kind)
+
+
+def _tie_z(case, rows, d, seed):
+    """Rows full of top-k ties: every |z| equal ("equal"), zeros of both
+    signs among a few equal magnitudes ("signed_zeros"), or values from a
+    small set with each repeated sign-flipped ("flipped")."""
+    rng = np.random.default_rng(seed)
+    sign = np.where(rng.random((rows, d)) < 0.5, -1.0, 1.0)
+    if case == "equal":
+        z = 0.75 * sign
+    elif case == "signed_zeros":
+        z = 0.0 * sign                            # -0.0 and +0.0
+        hot = rng.random((rows, d)) < 0.1
+        z[hot] = 1.5 * sign[hot]
+    else:
+        half = rng.choice([0.5, 1.0, 2.0], size=(rows, (d + 1) // 2))
+        z = np.concatenate([half, -half], axis=1)[:, :d]
+    return torch.from_numpy(z.astype(np.float32)).cuda()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ratio", ["0.0001", "", "1.0"])   # k = 1, d / 4, d
+@pytest.mark.parametrize("case", ["equal", "signed_zeros", "flipped"])
+@pytest.mark.parametrize("rows,d", [(9, 433), (32, 432), (4096, 432),
+                                    (5, 8192)])
+def test_wire_encode_topk_ties_are_exact(rows, d, case, ratio):
+    """The sort's order is lax.top_k's on ties, +-0 and sign flips, at k =
+    1, d / 4 and d: values and indices bitwise equal to the plain
+    version's, with and without EF (e' within 1e-6, its clip norms summed
+    as a tree); at up to 32 rows the fused encode of the same rows gives
+    the same payload and e', bitwise."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    codec, ef = get_codec(f"topk{ratio}"), get_codec(f"ef(topk{ratio})")
+    z = _tie_z(case, rows, d, seed=rows * d)
+    got = ops.wire_encode(z, codec)
+    want = ref.wire_encode_ref(z, codec)
+    for k in want:
+        assert torch.equal(got[k], want[k]), k
+    e = torch.zeros((rows, d), device="cuda")
+    for t in range(2):
+        got, e_got = ops.wire_encode_ef(z, e, ef)
+        want, e_want = ref.wire_encode_ef_ref(z, e, ef)
+        for k in want:
+            assert torch.equal(got[k], want[k]), (t, k)
+        torch.testing.assert_close(e_got, e_want, rtol=1e-6, atol=1e-6)
+        if rows <= 32:
+            # The identity rows times z: y is z (a -0 becomes +0).
+            x = torch.eye(rows, device="cuda")
+            fused, e_fused = ops.fusion_proj_encode(x, z, None, "none",
+                                                    codec=ef, ef_state=e)
+            unfused, e_unfused = ops.wire_encode_ef(
+                ops.fusion_proj(x, z, None, "none"), e, ef)
+            for k in unfused:
+                assert torch.equal(fused[k], unfused[k]), (t, k)
+            assert torch.equal(e_fused, e_unfused), t
+        e = e_got
 
 
 # ---------------------------------------------------------------- rmsnorm
