@@ -36,13 +36,20 @@ port's main paths through the entry points a user calls:
     width, ef(int4), k2, max_staleness 2) under the delta broadcast,
     4 rounds with evaluations, against the same spec under the full
     broadcast, and a run saved by ``save_trainer`` after 2 rounds and
-    resumed by ``load_trainer`` in a fresh trainer.
+    resumed by ``load_trainer`` in a fresh trainer;
+  * the paper's baselines: ``run_experiment`` of FL-1, FL-2 and FSL at
+    Table-II width (B 32, tau 10, lr 0.01, 3 rounds, 4000/1000 images)
+    under ``full`` and ``k2``, which launch no kernel of the port, with
+    a save/resume, the same runs card against CPU, and the Fig. 2 twin
+    (``repro_torch.benchmarks.fig2_comm_efficiency``) over all four
+    schemes at 20 rounds on the spec's default 20000/4000 images.
 
 It checks each path's results, compares short runs on the card with the
 same runs on the CPU, and times each kernel at the shapes its path gives
 it. ``--profile`` adds a torch.profiler breakdown of one more warm
-serving run, one more warm IFL round of each codec and one more warm
-LM IFL round (device busy share, top kernels and host ops); it is a diagnostic, not a check, and
+serving run, one more warm IFL round of each codec, one more warm
+LM IFL round and one more warm round of each baseline (device busy
+share, top kernels and host ops); it is a diagnostic, not a check, and
 is off by default. ``--kernel-times`` only builds and times, with no
 checks and no result line: the launch floor, ``flash_decode``, the fused
 encode (#5/#6), ``decode_proj`` beside ``fusion_proj`` on the decoded
@@ -1362,26 +1369,37 @@ FRONT_DOOR = dict(scheme="ifl", rounds=4, tau=10, lr=0.01, batch_size=32,
 
 
 class round_walls:
-    """Host wall of every ``IFLTrainer.run_round`` inside the block,
-    ending in a device sync, as the quickstart's run would see it."""
+    """Host wall of every ``run_round`` of the trainer classes (default
+    ``IFLTrainer``) inside the block, ending in a device sync, as the
+    quickstart's run would see it: the block yields the list of walls;
+    ``by_trainer`` holds them per trainer, in the order the trainers ran."""
+
+    def __init__(self, *classes):
+        self.classes, self.walls, self.by_trainer = classes, [], {}
 
     def __enter__(self):
-        from repro_torch.core.ifl import IFLTrainer
+        if not self.classes:
+            from repro_torch.core.ifl import IFLTrainer
 
-        self.cls, self.orig, self.walls = IFLTrainer, IFLTrainer.run_round, []
+            self.classes = (IFLTrainer,)
+        self.orig = {cls: cls.run_round for cls in self.classes}
 
         def timed(trainer):
             t0 = time.perf_counter()
-            rep = self.orig(trainer)
+            rep = self.orig[type(trainer)](trainer)
             torch.cuda.synchronize()
-            self.walls.append(time.perf_counter() - t0)
+            wall = time.perf_counter() - t0
+            self.walls.append(wall)
+            self.by_trainer.setdefault(trainer, []).append(wall)
             return rep
 
-        IFLTrainer.run_round = timed
+        for cls in self.classes:
+            cls.run_round = timed
         return self.walls
 
     def __exit__(self, *exc):
-        self.cls.run_round = self.orig
+        for cls, orig in self.orig.items():
+            cls.run_round = orig
 
 
 def same_reports(a, b, keys=("participants", "cache_size", "uplink_mb")):
@@ -1511,11 +1529,212 @@ def front_door_card_vs_cpu():
           f"(tolerance {IFL_LOSS_TOL})", flush=True)
 
 
+# ------------------------------------- the baselines and the paper's figures
+
+# The paper's baselines at Table-II width, as the IFL phases run it: FL-1,
+# FL-2 (the fleet cloned from client 1's or client 2's model) and FSL
+# (client 1's modular block as the shared server block).
+BASELINE_RUN = dict(rounds=3, tau=10, lr=0.01, batch_size=32, d_fusion=432,
+                    eval_every=0, seed=0)
+BASELINES = ("fl1", "fl2", "fsl")
+
+
+def baseline_round_bytes(trainer, scheme, rounds):
+    """The analytic bytes of each round of ``rounds`` (reports)."""
+    from repro_torch.core.comm import fl_round_bytes, fsl_round_bytes
+    from repro_torch.models.small import model_bytes
+
+    n = len(trainer.clients)
+    if scheme == "fsl":
+        return [fsl_round_bytes(n, 32, 432,
+                                participating=len(r["participants"]))
+                for r in rounds]
+    mb = model_bytes(trainer.global_params)
+    return [fl_round_bytes(n, mb, participating=len(r["participants"]))
+            for r in rounds]
+
+
+def baselines_phase(ops, profile):
+    """``run_experiment`` of each baseline on the card under ``full`` and
+    ``k2`` (counts set to 0 just before, read just after: the baselines
+    launch no kernel of the port), the ledger against the analytic bytes
+    every round, and a trainer saved after 2 rounds and resumed by
+    ``load_trainer`` in a fresh trainer: its third round equals the
+    saved trainer's own third round in participants and bytes, and in
+    loss within IFL_CARD_TOL. (Against the run_experiment run, which
+    started from the same init, the loss is not held: two FL-1 runs on
+    the card part by 1.2e-4 in 3 rounds, cuDNN's nondeterministic
+    convolution backward compounded by the trajectory; PERF.md.)
+    ``profile`` adds a breakdown of one more warm round under ``full``."""
+    import tempfile
+
+    from repro_torch.api import (DataSpec, ExperimentSpec, build_trainer,
+                                 load_trainer, run_experiment, save_trainer)
+    from repro_torch.core import FLTrainer, FSLTrainer
+
+    for scheme in BASELINES:
+        for part in ("full", "k2"):
+            spec = ExperimentSpec(scheme=scheme, participation=part,
+                                  **BASELINE_RUN,
+                                  data=DataSpec(n_train=4000, n_test=1000))
+            torch.cuda.synchronize()
+            reset_counts(ops)
+            rw = round_walls(FLTrainer, FSLTrainer)
+            with rw, tempfile.TemporaryDirectory() as tmp:
+                res = run_experiment(spec, device="cuda", keep_trainer=True)
+                first = build_trainer(spec, device="cuda")
+                for _ in range(2):
+                    first.run_round()
+                path = str(Path(tmp) / "trainer")
+                save_trainer(path, first)
+                resumed = load_trainer(path, build_trainer(spec,
+                                                           device="cuda"))
+                want = first.run_round().to_dict()
+                tail = resumed.run_round().to_dict()
+            got = launch_counts(ops)
+            check(all(v == 0 for v in got.values()),
+                  f"{scheme} {part}: kernels launched {got}")
+            tr = res.trainer
+            check(tr.ledger.per_round == baseline_round_bytes(
+                tr, scheme, res.reports),
+                f"{scheme} {part}: ledger {tr.ledger.per_round} != analytic")
+            check(all(np.isfinite(r["loss"]) for r in res.reports),
+                  f"{scheme} {part}: loss {res.reports}")
+            check(same_reports([tail], [want], ("round", "participants",
+                                                 "uplink_mb", "downlink_mb"))
+                  and same_reports([tail], res.reports[2:],
+                                   ("round", "participants"))
+                  and resumed.ledger.per_round == tr.ledger.per_round[2:],
+                  f"{scheme} {part}: resumed round differs in participants "
+                  f"or bytes")
+            resume_err = max_metric_diff([tail], [want], ("loss",))
+            drift = max_metric_diff(res.reports, [
+                r.to_dict() for r in first.engine.history], ("loss",))
+            check(resume_err <= IFL_CARD_TOL,
+                  f"{scheme} {part}: resumed loss differs by {resume_err}")
+            run_walls = rw.by_trainer[tr]
+            print(f"[baselines] run_experiment({scheme}, {part}, 4 clients, "
+                  f"B 32, tau 10, lr 0.01, 3 rounds; 4000/1000 images) on "
+                  f"the card: every kernel count 0; ledger == "
+                  f"{'fsl' if scheme == 'fsl' else 'fl'}_round_bytes every "
+                  f"round {[r['up'] for r in tr.ledger.per_round]} up; "
+                  f"losses {[round(r['loss'], 5) for r in res.reports]}; "
+                  f"resumed round 3 == the saved trainer's own round 3 in "
+                  f"participants and bytes, loss |diff| {resume_err:.2e} "
+                  f"(tolerance {IFL_CARD_TOL}); a second run from the same "
+                  f"init: losses max|diff| {drift:.2e}; round walls (ms) "
+                  f"{[round(w * 1e3, 1) for w in run_walls]}; accuracy "
+                  f"{res.final['acc_mean']:.3f}", flush=True)
+            if profile and part == "full":
+                profile_run(f"{scheme} full", tr.run_round)
+
+
+def baselines_card_vs_cpu():
+    """Each baseline for 2 rounds at tau 2 under k2 on the CPU and on the
+    card, in lockstep: before each round the card trainer loads the CPU
+    trainer's checkpoint, so both run the round from one state. The same
+    participants and bytes, losses within IFL_LOSS_TOL (the baselines'
+    trajectories are chaotic: one ReLU sign flip moves FL-1's loss by
+    2e-3 in 3 rounds on the CPU; tests/test_torch_baselines.py)."""
+    import tempfile
+
+    from repro_torch.api import (DataSpec, ExperimentSpec, build_trainer,
+                                 load_trainer, save_trainer)
+
+    for scheme in BASELINES:
+        spec = ExperimentSpec(scheme=scheme, participation="k2",
+                              **{**BASELINE_RUN, "rounds": 2, "tau": 2},
+                              data=DataSpec(n_train=4000, n_test=1000))
+        cpu = build_trainer(spec, device="cpu")
+        card = build_trainer(spec, device="cuda")
+        errs = []
+        with tempfile.TemporaryDirectory() as tmp:
+            for r in range(spec.rounds):
+                path = str(Path(tmp) / f"round{r}")
+                save_trainer(path, cpu)
+                load_trainer(path, card)
+                rc, rg = cpu.run_round(), card.run_round()
+                check(rg.participants == rc.participants
+                      and card.ledger.per_round == cpu.ledger.per_round,
+                      f"{scheme} card vs CPU: participants or bytes differ")
+                errs.append(abs(rg["loss"] - rc["loss"]))
+        err = max(errs)
+        check(err <= IFL_LOSS_TOL, f"{scheme} card vs CPU: losses differ by "
+              f"{err} > {IFL_LOSS_TOL}")
+        print(f"[baselines] card vs CPU, {scheme} (k2, 2 rounds, tau 2, "
+              f"each round from the CPU trainer's checkpoint): participants "
+              f"{[r.participants for r in card.engine.history]} and bytes "
+              f"{card.ledger.per_round} equal; losses max|card - cpu| "
+              f"{err:.2e} (tolerance {IFL_LOSS_TOL})", flush=True)
+
+
+FIG2_ROUNDS = 20
+
+
+def fig2_phase(ops):
+    """The Fig. 2 twin's ``run()`` on the card at the spec's default data
+    (20,000 / 4,000 images, tau 10, lr 0.05, full participation) into a
+    temporary cache: every scheme's cumulative uplink equals the analytic
+    sum, IFL's per-round uplink is below a tenth of FL-1's, and no kernel
+    of the port launches (the fp32 codec runs none)."""
+    import tempfile
+
+    from repro_torch.benchmarks import fig2_comm_efficiency as fig2
+    from repro_torch.core import (FLTrainer, FSLTrainer, IFLTrainer,
+                                  fl_round_bytes, fsl_round_bytes,
+                                  ifl_round_bytes)
+    from repro_torch.models.small import init_client_model, model_bytes
+
+    torch.cuda.synchronize()
+    reset_counts(ops)
+    rw = round_walls(IFLTrainer, FLTrainer, FSLTrainer)
+    t0 = time.perf_counter()
+    with rw, tempfile.TemporaryDirectory() as tmp:
+        rows = fig2.run(FIG2_ROUNDS, quiet=True, device="cuda",
+                        cache_dir=tmp)
+    phase_s = time.perf_counter() - t0
+    got = launch_counts(ops)
+    check(all(v == 0 for v in got.values()),
+          f"fig2: kernels launched {got}")
+    mb = {cid: model_bytes(init_client_model(
+        cid, generator=torch.Generator().manual_seed(0))) for cid in (1, 2)}
+    per_round = {"ifl": ifl_round_bytes(4, 32, 432)["up"],
+                 "fsl": fsl_round_bytes(4, 32, 432)["up"],
+                 "fl1": fl_round_bytes(4, mb[1])["up"],
+                 "fl2": fl_round_bytes(4, mb[2])["up"]}
+    uplink = {}
+    for scheme, r, uplink_mb, acc in rows:
+        check(uplink_mb == per_round[scheme] * (r + 1) / 1e6
+              and 0.0 <= acc <= 1.0,
+              f"fig2 {scheme} round {r}: uplink {uplink_mb} MB, acc {acc}")
+        uplink[scheme] = uplink_mb
+    check(sorted(uplink) == sorted(per_round)
+          and per_round["ifl"] < per_round["fl1"] / 10,
+          f"fig2: per-round uplink {per_round}")
+    budget, hl = fig2.headline(rows)
+    walls = dict(zip(("ifl", "fsl", "fl1", "fl2"), rw.by_trainer.values()))
+    warm = {s: round(statistics.median(w[1:]) * 1e3, 1)
+            for s, w in walls.items()}
+    print(f"[fig2] fig2_comm_efficiency.run({FIG2_ROUNDS} rounds, eval every "
+          f"round; 20000/4000 images, tau 10, lr 0.05, full) on the card in "
+          f"{phase_s:.1f}s: every kernel count 0; cumulative uplink == the "
+          f"analytic sum every round; per-round uplink (bytes) {per_round} "
+          f"(ifl < fl1 / 10)", flush=True)
+    print(f"[fig2] at IFL-90% uplink budget {budget:.2f} MB: "
+          f"{json.dumps({k: round(v, 4) for k, v in hl.items()})}; "
+          f"cumulative uplink MB after {FIG2_ROUNDS} rounds "
+          f"{json.dumps(uplink)}; final accuracy "
+          f"{json.dumps({s: round(a, 4) for s, _, _, a in rows})}; "
+          f"warm round wall (ms, median of rounds 2-{FIG2_ROUNDS}) "
+          f"{json.dumps(warm)}", flush=True)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", action="store_true",
-                    help="profile one more warm serving run and one more "
-                         "warm IFL round of each codec")
+                    help="profile one more warm serving run, one more warm "
+                         "IFL round of each codec and one more warm round "
+                         "of each baseline")
     ap.add_argument("--kernel-times", action="store_true",
                     help="build, then only time the launch floor, "
                          "flash_decode, the fused encode, decode_proj and "
@@ -1796,6 +2015,11 @@ def main() -> None:
 
     # -- 4i. the front door: run_experiment under delta, resume ----------
     front_door_phase(ops, round_bytes_match)
+
+    # -- 4j. baselines and the paper's figures ---------------------------
+    baselines_phase(ops, args.profile)
+    baselines_card_vs_cpu()
+    fig2_phase(ops)
 
     # -- 5. times at the slice's shape ------------------------------------
     decode_t = []

@@ -13,9 +13,10 @@ Pieces (each its own module, all re-exported here):
                                           ``spec_hash()`` as the JAX
                                           package's)
   register_scheme / get_scheme /          scheme registry: the reference's
-  available_schemes                       five names; only ``ifl`` is
-                                          ported, the others' builders
-                                          raise ``NotImplementedError``
+  available_schemes                       five names; ``ifl``, ``fsl``,
+                                          ``fl1`` and ``fl2`` are ported,
+                                          ``ifl_spmd``'s builder raises
+                                          ``NotImplementedError``
   Trainer / RoundReport / RunResult       the protocol and its outputs
   run_experiment / build_trainer          the runner (spec-hash caching,
                                           ``device=``, ``params=``)
@@ -37,7 +38,10 @@ from repro_torch.api import schemes  # noqa: F401  (registers the schemes)
 from repro_torch.api.schemes import (  # noqa: F401
     DataBundle,
     apply_fns,
+    build_fl1,
+    build_fl2,
     build_fleet,
+    build_fsl,
     build_ifl,
     load_data,
 )

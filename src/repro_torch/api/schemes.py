@@ -13,10 +13,11 @@ to start from the reference's own init; without it, client k draws the
 same distributions from ``torch.Generator().manual_seed(100 + k)`` on the
 CPU, so a run on the card and a run on the CPU start from equal weights.
 
-The registry holds the reference's five names. Not ported yet: the
-``fsl``/``fl1``/``fl2`` baselines (ROADMAP.md queue 1, item 3a),
-``ifl_spmd`` (item 4b), the token dataset (item 4b) and population fleets
-(item 3b); their builders raise ``NotImplementedError``.
+The registry holds the reference's five names: ``ifl``, the baselines
+``fsl``, ``fl1`` and ``fl2`` (with the reference's refusals of async
+modes and population fleets, as ``ValueError``), and ``ifl_spmd``. Not
+ported yet: ``ifl_spmd`` and the token dataset (ROADMAP.md queue 1, item
+4b) and population fleets (item 3b); they raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -30,6 +31,8 @@ import torch
 from repro_torch.api.registry import register_scheme
 from repro_torch.api.spec import ExperimentSpec
 from repro_torch.checkpoint import params_from_numpy
+from repro_torch.core.fl import FLTrainer
+from repro_torch.core.fsl import FSLTrainer
 from repro_torch.core.ifl import Client, IFLTrainer
 from repro_torch.data.dirichlet import dirichlet_partition
 from repro_torch.data.images import make_synth_kmnist
@@ -41,7 +44,7 @@ from repro_torch.models.small import (
 )
 
 __all__ = ["DataBundle", "load_data", "apply_fns", "build_fleet",
-           "build_ifl"]
+           "build_ifl", "build_fsl", "build_fl1", "build_fl2"]
 
 
 class DataBundle(NamedTuple):
@@ -76,11 +79,19 @@ def apply_fns(cid: int):
 
 
 def build_fleet(spec: ExperimentSpec, data: DataBundle, *,
+                heterogeneous: Optional[bool] = None,
+                arch: Optional[int] = None,
                 params: Optional[Sequence] = None, device=None):
     """Dirichlet-shard the data and build the Client list on ``device``
-    (the card unless ``'cpu'``). ``params[k]`` (numpy trees, optional) is
-    slot k's initial parameters; see the module docstring."""
+    (the card unless ``'cpu'``). Heterogeneous fleets cycle the four
+    Table-II architectures; homogeneous ones (the FL regime) clone
+    ``arch`` everywhere; both default to the spec's fleet. ``params[k]``
+    (numpy trees, optional) is slot k's initial parameters; see the
+    module docstring."""
     fleet = spec.fleet
+    if heterogeneous is None:
+        heterogeneous = fleet.heterogeneous
+    arch = fleet.arch if arch is None else arch
     if fleet.n_population:
         raise NotImplementedError(
             "population fleets are not ported yet (ROADMAP.md queue 1, "
@@ -91,7 +102,7 @@ def build_fleet(spec: ExperimentSpec, data: DataBundle, *,
                                  seed=spec.seed)
     clients = []
     for k in range(n):
-        cid = (k % 4 + 1) if fleet.heterogeneous else fleet.arch
+        cid = (k % 4 + 1) if heterogeneous else arch
         if params is not None:
             p = params_from_numpy(params[k], device=dev)
         else:
@@ -115,20 +126,74 @@ def build_ifl(spec: ExperimentSpec, data: DataBundle, *,
                       spec.run_config(), seed=spec.seed, device=dev)
 
 
-def _not_ported(name: str, item: str, summary: str) -> None:
-    """Register ``name`` with a builder that raises, naming its item."""
+def _require_sync(spec: ExperimentSpec, scheme: str) -> None:
+    # FedAvg and split learning aggregate a *shared* block, which is only
+    # well-defined at a round barrier: refuse at build time.
+    if spec.mode != "sync":
+        raise ValueError(
+            f"scheme {scheme!r} only supports mode='sync' — async "
+            "arrival-driven rounds need the IFL fusion cache "
+            "(use scheme='ifl' or 'ifl_spmd')"
+        )
 
-    @register_scheme(name, summary=summary)
-    def build(spec, data, **kw):
-        raise NotImplementedError(f"scheme {name!r} is not ported yet "
-                                  f"(ROADMAP.md queue 1, item {item})")
+
+def _require_no_population(spec: ExperimentSpec, scheme: str) -> None:
+    # Only the IFL fusion planes page per-slot state through a population
+    # store; FedAvg/FSL have no cohort-shaped path.
+    if spec.fleet.n_population or spec.fleet.cohort:
+        raise ValueError(
+            f"scheme {scheme!r} has no cohort-shaped path yet — "
+            "population fleets (n_population/cohort) need the IFL "
+            "fusion cache (use scheme='ifl' or 'ifl_spmd')"
+        )
 
 
-_not_ported("fsl", "3a", "federated split learning baseline "
-                         "(SplitFed-style shared server block)")
-_not_ported("fl1", "3a", "FedAvg, client 1's smallest arch cloned "
-                         "fleet-wide (paper FL-1)")
-_not_ported("fl2", "3a", "FedAvg, client 2's larger arch cloned "
-                         "fleet-wide (paper FL-2)")
-_not_ported("ifl_spmd", "4b", "IFL as one SPMD round step (LM-scale, "
-                              "stacked-client mesh)")
+@register_scheme("fsl", summary="federated split learning baseline "
+                                "(SplitFed-style shared server block)")
+def build_fsl(spec: ExperimentSpec, data: DataBundle, *,
+              params: Optional[Sequence] = None, device=None) -> FSLTrainer:
+    """Split learning over the heterogeneous fleet; the server block is
+    client 1's modular block, drawn from ``manual_seed(999)`` on the CPU
+    (the reference draws it from ``PRNGKey(999)``: to carry that init,
+    ``load_trainer`` a reference checkpoint or construct the
+    :class:`FSLTrainer` with ``params_from_numpy`` of its tree)."""
+    _require_sync(spec, "fsl")
+    _require_no_population(spec, "fsl")
+    dev = resolve_device(device)
+    clients = build_fleet(spec, data, params=params, device=dev)
+    gen = torch.Generator().manual_seed(999)
+    server = init_client_model(1, generator=gen, device=dev)["modular"]
+    _, server_apply = apply_fns(1)
+    return FSLTrainer(clients, spec.run_config(), server, server_apply,
+                      seed=spec.seed, device=dev)
+
+
+def _build_fl(spec: ExperimentSpec, data: DataBundle, arch: int, *,
+              params: Optional[Sequence], device) -> FLTrainer:
+    _require_sync(spec, f"fl{arch}")
+    _require_no_population(spec, f"fl{arch}")
+    dev = resolve_device(device)
+    clients = build_fleet(spec, data, heterogeneous=False, arch=arch,
+                          params=params, device=dev)
+    return FLTrainer(clients, spec.run_config(), seed=spec.seed, device=dev)
+
+
+@register_scheme("fl1", summary="FedAvg, client 1's smallest arch cloned "
+                                "fleet-wide (paper FL-1)")
+def build_fl1(spec: ExperimentSpec, data: DataBundle, *,
+              params: Optional[Sequence] = None, device=None) -> FLTrainer:
+    return _build_fl(spec, data, 1, params=params, device=device)
+
+
+@register_scheme("fl2", summary="FedAvg, client 2's larger arch cloned "
+                                "fleet-wide (paper FL-2)")
+def build_fl2(spec: ExperimentSpec, data: DataBundle, *,
+              params: Optional[Sequence] = None, device=None) -> FLTrainer:
+    return _build_fl(spec, data, 2, params=params, device=device)
+
+
+@register_scheme("ifl_spmd", summary="IFL as one SPMD round step (LM-scale, "
+                                     "stacked-client mesh)")
+def build_ifl_spmd(spec, data, **kw):
+    raise NotImplementedError("scheme 'ifl_spmd' is not ported yet "
+                              "(ROADMAP.md queue 1, item 4b)")

@@ -1,0 +1,85 @@
+"""The paper's benchmark suite on the port, the twin of
+``benchmarks/run.py``: Table I, then Figs. 2-4.
+
+    python -m repro_torch.benchmarks.run [--rounds N] [--skip-training]
+        [--device cpu]
+
+Every training run goes through ``repro_torch.api.run_experiment`` and
+is cached under ``results/torch/`` by its spec hash. The reference's
+kernel, roofline and collectives reports have no twin yet (ROADMAP.md
+queue 6); their sections say so.
+"""
+
+from __future__ import annotations
+
+import argparse
+import time
+
+from repro_torch.benchmarks import (
+    fig2_comm_efficiency,
+    fig3_heterogeneity,
+    fig4_matrix,
+    table1_comm_costs,
+)
+
+
+def _section(title):
+    print(f"\n### {title}")
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--rounds", type=int, default=40,
+                    help="communication rounds of the paper experiments "
+                         "(the paper runs 200)")
+    ap.add_argument("--skip-training", action="store_true",
+                    help="only the analytic Table I")
+    ap.add_argument("--codec", default="fp32",
+                    help="wire codec for a compressed-IFL Fig.-2 curve "
+                         "(fp32 = baseline only), e.g. ef(int4)")
+    ap.add_argument("--participation", default="full",
+                    help="client schedule of the paper experiments, e.g. k2")
+    ap.add_argument("--broadcast", default="full", choices=["full", "delta"],
+                    help="downlink policy of the IFL curves")
+    ap.add_argument("--device", default=None,
+                    help="where the runs train (default: the card)")
+    args = ap.parse_args(argv)
+    t0 = time.time()
+
+    _section("table1_comm_costs (paper Table I)")
+    table1_comm_costs.run(device=args.device)
+
+    if not args.skip_training:
+        _section(f"fig2_comm_efficiency (paper Fig. 2, rounds={args.rounds})")
+        rows = fig2_comm_efficiency.run(args.rounds, codec=args.codec,
+                                        participation=args.participation,
+                                        broadcast=args.broadcast,
+                                        device=args.device)
+        budget, hl = fig2_comm_efficiency.headline(rows)
+        print(f"# at IFL-90% uplink budget {budget:.2f} MB: "
+              + ", ".join(f"{k}={v:.3f}" for k, v in hl.items()))
+        if args.codec != "fp32":
+            last, ratio, dacc = fig2_comm_efficiency.codec_headline(
+                rows, args.codec)
+            print(f"# ifl+{args.codec} @ round {last}: {ratio:.2f}x lower "
+                  f"uplink, acc delta {dacc*100:+.2f} pts")
+
+        _section("fig3_heterogeneity (paper Fig. 3)")
+        r3 = fig3_heterogeneity.run(args.rounds,
+                                    participation=args.participation,
+                                    device=args.device)
+        print(f"# final SDs: {[f'{x:.2f}' for x in r3[-1][1:]]}")
+
+        _section("fig4_matrix (paper Fig. 4)")
+        fig4_matrix.run(args.rounds, participation=args.participation,
+                        device=args.device)
+
+    for name in ("kernel_bench", "roofline_report", "ifl_vs_dp_collectives"):
+        _section(name)
+        print(f"# {name}: no twin on the port yet (ROADMAP.md queue 6)")
+
+    print(f"\n# benchmarks done in {time.time() - t0:.0f}s")
+
+
+if __name__ == "__main__":
+    main()

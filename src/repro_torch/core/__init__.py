@@ -9,6 +9,8 @@ Submodules (each the twin of the JAX package's module of that name):
               FusionCache, ledger, full broadcast)
   rounds    — participation schedules and the sync RoundEngine
   ifl       — the two-stage IFL algorithm (eager, heterogeneous clients)
+  fl        — the FedAvg baseline (FL-1 / FL-2)
+  fsl       — the federated split learning baseline
 """
 
 from repro_torch.core.codec import (  # noqa: F401
@@ -25,6 +27,8 @@ from repro_torch.core.comm import (  # noqa: F401
     nbytes,
 )
 from repro_torch.core.exchange import ExchangePlane, FusionExchange  # noqa: F401
+from repro_torch.core.fl import FLTrainer  # noqa: F401
+from repro_torch.core.fsl import FSLTrainer  # noqa: F401
 from repro_torch.core.ifl import (  # noqa: F401
     Client,
     IFLTrainer,
@@ -33,10 +37,12 @@ from repro_torch.core.ifl import (  # noqa: F401
 from repro_torch.core.report import RoundReport  # noqa: F401
 from repro_torch.core.rounds import (  # noqa: F401
     BernoulliSchedule,
+    DiurnalSchedule,
     FullParticipation,
     ParticipationSchedule,
     RoundEngine,
     StragglerSchedule,
     UniformK,
+    ZipfSchedule,
     parse_participation,
 )

@@ -8,17 +8,19 @@ The port's copy of the synchronous half of ``repro.core.rounds``:
     - UniformK(k)               uniform K-of-N without replacement
     - BernoulliSchedule(p)      independent per-client availability
     - StragglerSchedule(f, m)   deterministic straggler trace
+    - ZipfSchedule(a)           popularity-skewed availability
+    - DiurnalSchedule(T, z)     deterministic time-zone waves
   RoundEngine             rng + schedule + round counter + history,
                           driving an exchange plane
                           (``repro_torch.core.exchange``)
 
 Schedules parse from strings: ``full`` | ``k2`` | ``bern0.5`` |
-``straggle(0.2,3)``. The engine makes the same ``np.random.default_rng
-(seed)`` draws in the same order as the reference — the schedule mask,
-then each participant's minibatch indices — so participants and
-minibatches match it bitwise. Not ported yet (ROADMAP.md queue 1, item 3b):
-``zipf(<a>)`` and ``diurnal(...)`` schedules, cohorts, arrival traces and
-the async engine; asking for them raises ``NotImplementedError``.
+``straggle(0.2,3)`` | ``zipf(1.1)`` | ``diurnal(24,4)``. The engine makes
+the same ``np.random.default_rng(seed)`` draws in the same order as the
+reference — the schedule mask, then each participant's minibatch
+indices — so participants and minibatches match it bitwise. Not ported
+yet (ROADMAP.md queue 1, item 3b): cohorts, arrival traces and the async
+engine.
 """
 
 from __future__ import annotations
@@ -39,11 +41,11 @@ __all__ = [
     "UniformK",
     "BernoulliSchedule",
     "StragglerSchedule",
+    "ZipfSchedule",
+    "DiurnalSchedule",
     "parse_participation",
     "RoundEngine",
 ]
-
-_SLICE_3B = "not ported yet (ROADMAP.md queue 1, item 3b)"
 
 
 class ParticipationSchedule:
@@ -58,6 +60,9 @@ class ParticipationSchedule:
              rng: np.random.Generator) -> np.ndarray:
         raise NotImplementedError
 
+    def expected_participants(self, n: int) -> float:
+        """E[K] per round for an n-client fleet."""
+        raise NotImplementedError
 
     def __repr__(self) -> str:
         return f"{type(self).__name__}({self.name!r})"
@@ -72,6 +77,8 @@ class FullParticipation(ParticipationSchedule):
     def mask(self, round_idx, n, rng):
         return np.ones(n, bool)
 
+    def expected_participants(self, n):
+        return float(n)
 
 
 @dataclass(frozen=True, repr=False)
@@ -92,6 +99,8 @@ class UniformK(ParticipationSchedule):
         m[rng.choice(n, size=min(self.k, n), replace=False)] = True
         return m
 
+    def expected_participants(self, n):
+        return float(min(self.k, n))
 
 
 @dataclass(frozen=True, repr=False)
@@ -111,6 +120,8 @@ class BernoulliSchedule(ParticipationSchedule):
     def mask(self, round_idx, n, rng):
         return rng.random(n) < self.p
 
+    def expected_participants(self, n):
+        return self.p * n
 
 
 @dataclass(frozen=True, repr=False)
@@ -139,20 +150,78 @@ class StragglerSchedule(ParticipationSchedule):
             m[i] = (round_idx % self.period) == (i % self.period)
         return m
 
+    def expected_participants(self, n):
+        n_strag = int(np.ceil(self.frac * n))
+        return (n - n_strag) + n_strag / self.period
+
+
+@dataclass(frozen=True, repr=False)
+class ZipfSchedule(ParticipationSchedule):
+    """Popularity-skewed availability: slot k is up independently with
+    probability ``(k+1)^-a``, one ``rng.random(n)`` draw a round. ``a=0``
+    is full participation; larger ``a`` thins the tail faster. Rounds
+    with no participant are legal."""
+
+    a: float = 1.0
+    name: str = ""
+
+    def __post_init__(self):
+        if not self.a >= 0.0:
+            raise ValueError(f"a must be >= 0, got {self.a}")
+        if not self.name:
+            object.__setattr__(self, "name", f"zipf({self.a:g})")
+
+    def mask(self, round_idx, n, rng):
+        p = (np.arange(n) + 1.0) ** (-self.a)
+        return rng.random(n) < p
+
+    def expected_participants(self, n):
+        return float(((np.arange(n) + 1.0) ** (-self.a)).sum())
+
+
+@dataclass(frozen=True, repr=False)
+class DiurnalSchedule(ParticipationSchedule):
+    """Deterministic time-zone waves (no rng draws): the fleet splits into
+    ``zones`` equal contiguous slices; zone z is awake for the first
+    ``ceil(period/2)`` rounds of every ``period``-round day, shifted by
+    ``z * period / zones`` rounds."""
+
+    period: int = 24
+    zones: int = 4
+    name: str = ""
+
+    def __post_init__(self):
+        if self.period < 2:
+            raise ValueError(f"period must be >= 2, got {self.period}")
+        if self.zones < 1:
+            raise ValueError(f"zones must be >= 1, got {self.zones}")
+        if not self.name:
+            object.__setattr__(
+                self, "name", f"diurnal({self.period},{self.zones})")
+
+    def mask(self, round_idx, n, rng):
+        zone = (np.arange(n) * self.zones) // max(n, 1)
+        phase = (round_idx - zone * self.period // self.zones) % self.period
+        return phase < (self.period + 1) // 2
+
+    def expected_participants(self, n):
+        return n * ((self.period + 1) // 2) / self.period
 
 
 _K_RE = re.compile(r"^k(\d+)$")
 _BERN_RE = re.compile(r"^bern(\d+(?:\.\d*)?(?:[eE][-+]?\d+)?)$")
 _STRAGGLE_RE = re.compile(r"^straggle\(\s*([^,\s]+)\s*,\s*(\d+)\s*\)$")
+_ZIPF_RE = re.compile(r"^zipf\(\s*([^,\s)]+)\s*\)$")
+_DIURNAL_RE = re.compile(r"^diurnal\(\s*(\d+)\s*(?:,\s*(\d+)\s*)?\)$")
 
 
 def parse_participation(
     spec: Union[str, ParticipationSchedule, None],
 ) -> ParticipationSchedule:
     """Resolve a schedule spec: ``full`` | ``k<K>`` | ``bern<p>`` |
-    ``straggle(<frac>,<period>)`` — or pass a schedule through. The same
-    strict patterns as the reference; ``zipf``/``diurnal`` raise
-    ``NotImplementedError``."""
+    ``straggle(<frac>,<period>)`` | ``zipf(<a>)`` |
+    ``diurnal(<period>[,<zones>])`` — or pass a schedule through. The
+    same strict patterns as the reference."""
     if spec is None:
         return FullParticipation()
     if isinstance(spec, ParticipationSchedule):
@@ -187,12 +256,19 @@ def parse_participation(
     m = _STRAGGLE_RE.match(spec)
     if m:
         return StragglerSchedule(float(m.group(1)), int(m.group(2)))
-    if spec.startswith(("zipf(", "diurnal(")):
-        raise NotImplementedError(f"participation {spec!r}: {_SLICE_3B}")
+    m = _ZIPF_RE.match(spec)
+    if m:
+        return ZipfSchedule(float(m.group(1)))
+    m = _DIURNAL_RE.match(spec)
+    if m:
+        return DiurnalSchedule(int(m.group(1)),
+                               int(m.group(2)) if m.group(2) else 4)
     raise ValueError(
         f"unknown participation spec {spec!r}; expected 'full', 'k<K>' "
-        "(e.g. k2), 'bern<p>' (e.g. bern0.5), or "
-        "'straggle(<frac>,<period>)' (e.g. straggle(0.2,3))")
+        "(e.g. k2), 'bern<p>' (e.g. bern0.5), "
+        "'straggle(<frac>,<period>)' (e.g. straggle(0.2,3)), "
+        "'zipf(<a>)' (e.g. zipf(1.1)), or "
+        "'diurnal(<period>[,<zones>])' (e.g. diurnal(24,4))")
 
 
 class RoundEngine:

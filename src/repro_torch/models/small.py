@@ -25,6 +25,8 @@ from typing import Any, Dict, List, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core.comm import nbytes
+
 D_FUSION = 432
 NUM_CLASSES = 10
 
@@ -125,3 +127,15 @@ def client_apply(params, client_id: int, x) -> torch.Tensor:
     return client_modular_apply(params, client_id,
                                 client_base_apply(params, client_id, x))
 
+
+
+def compose_apply(base_params, base_id: int, mod_params, mod_id: int, x):
+    """Cross-vendor composition, eq. (11): base of k + modular of i."""
+    z = client_base_apply(base_params, base_id, x)
+    return client_modular_apply(mod_params, mod_id, z)
+
+
+def model_bytes(params, block: str = None) -> int:
+    """Bytes of every parameter of ``params`` (or of one of its blocks),
+    as the JAX package's ``param_bytes`` counts them."""
+    return nbytes(params if block is None else params[block])

@@ -65,8 +65,7 @@ def test_registry_holds_the_reference_schemes():
         tapi.get_scheme("fedmd")
 
 
-@pytest.mark.parametrize("scheme,item", [("fsl", "3a"), ("fl1", "3a"),
-                                         ("fl2", "3a"), ("ifl_spmd", "4b")])
+@pytest.mark.parametrize("scheme,item", [("ifl_spmd", "4b")])
 def test_unported_schemes_raise_naming_their_item(scheme, item):
     spec = _smoke(scheme=scheme)
     with pytest.raises(NotImplementedError, match=f"item {item}"):

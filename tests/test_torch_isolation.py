@@ -32,6 +32,13 @@ def test_import_loads_no_jax_and_no_reference_module():
         "import repro_torch.models.small, repro_torch.launch.quickstart\n"
         "import repro_torch.core.ifl_spmd, repro_torch.optim\n"
         "import repro_torch.train.loop, repro_torch.launch.train\n"
+        "import repro_torch.core.fl, repro_torch.core.fsl\n"
+        "import repro_torch.benchmarks.paper_repro\n"
+        "import repro_torch.benchmarks.table1_comm_costs\n"
+        "import repro_torch.benchmarks.fig2_comm_efficiency\n"
+        "import repro_torch.benchmarks.fig3_heterogeneity\n"
+        "import repro_torch.benchmarks.fig4_matrix\n"
+        "import repro_torch.benchmarks.run\n"
         "assert 'jax' not in sys.modules, 'jax loaded'\n"
         "bad = [m for m in sys.modules if m == 'repro' "
         "or m.startswith('repro.')]\n"
