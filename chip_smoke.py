@@ -42,14 +42,25 @@ port's main paths through the entry points a user calls:
     under ``full`` and ``k2``, which launch no kernel of the port, with
     a save/resume, the same runs card against CPU, and the Fig. 2 twin
     (``repro_torch.benchmarks.fig2_comm_efficiency``) over all four
-    schemes at 20 rounds on the spec's default 20000/4000 images.
+    schemes at 20 rounds on the spec's default 20000/4000 images;
+  * async rounds and population fleets: ``run_experiment`` of the eager
+    IFL spec under ``mode='async'`` (pareto(1.2,0.5) arrivals, a server
+    tick a simulated second, ef(int4), delta, 12 ticks at Table-II
+    width, 6000/1500 images), where ``wire_encode_ef`` launches once an
+    upload, with a resume and the same ticks card against CPU; a fleet
+    of 10,000 Table-II clients with a cohort of 64 a round (ef(int4),
+    max_staleness 4, 3 rounds, 4096/256 images) through
+    ``build_trainer``, with a sparse resume; and the twins
+    ``async_vs_sync``, ``fleet_scale --nightly`` and the Fig. 2 twin
+    under ``--mode async``.
 
 It checks each path's results, compares short runs on the card with the
 same runs on the CPU, and times each kernel at the shapes its path gives
 it. ``--profile`` adds a torch.profiler breakdown of one more warm
 serving run, one more warm IFL round of each codec, one more warm
-LM IFL round and one more warm round of each baseline (device busy
-share, top kernels and host ops); it is a diagnostic, not a check, and
+LM IFL round, one more warm round of each baseline, one more async tick
+with uploads and one more cohort round (device busy share, top kernels
+and host ops); it is a diagnostic, not a check, and
 is off by default. ``--kernel-times`` only builds and times, with no
 checks and no result line: the launch floor, ``flash_decode``, the fused
 encode (#5/#6), ``decode_proj`` beside ``fusion_proj`` on the decoded
@@ -1729,12 +1740,391 @@ def fig2_phase(ops):
           f"{json.dumps(warm)}", flush=True)
 
 
+# ---------------------------------- async rounds and population fleets
+
+# The async IFL run: the async_vs_sync twin's trace, tick and data, at
+# Table-II width under ef(int4) and the delta broadcast.
+ASYNC_RUN = dict(scheme="ifl", mode="async", trace="pareto(1.2,0.5)",
+                 tick=1.0, codec="ef(int4)", broadcast="delta", rounds=12,
+                 tau=10, lr=0.01, batch_size=32, d_fusion=432, eval_every=4,
+                 seed=0)
+ASYNC_DATA = dict(n_train=6000, n_test=1500)
+# The population run: a fleet of 10,000 Table-II clients (cycled), a
+# cohort of 64 a round, at the fleet_scale twin's data. The eager modular
+# update is O(C^2) steps, so C is 64, not the reference's headline 256.
+POP_RUN = dict(scheme="ifl", codec="ef(int4)", max_staleness=4,
+               participation="full", rounds=3, tau=1, lr=0.05,
+               batch_size=32, d_fusion=432, eval_every=0, seed=0)
+POP_FLEET = dict(n_population=10000, cohort=64)
+POP_DATA = dict(n_train=4096, n_test=256)
+
+
+# A resumed async trainer runs its ticks bit for bit with the trainer it
+# was saved from once both run under cuDNN's deterministic algorithms
+# (the default convolution backward sums with atomics); the gate allows
+# one fp32 ulp of a unit loss.
+ASYNC_RESUME_TOL = 1.2e-7
+
+
+def async_ticks_match(a, b, keys=("round", "participants", "arrivals",
+                                  "sim_time", "cache_size",
+                                  "shipped_entries", "uplink_mb",
+                                  "downlink_mb")) -> bool:
+    return len(a) == len(b) and same_reports(a, b, keys)
+
+
+def tick_loss_diff(a, b) -> float:
+    """max |a - b| over the losses of the ticks that had participants
+    (an empty tick's losses are NaN on both sides)."""
+    return max((abs(x[k] - y[k]) for x, y in zip(a, b) if x["participants"]
+                for k in ("base_loss", "mod_loss")), default=0.0)
+
+
+def async_phase(ops, round_bytes_match, profile, device="cuda"):
+    """``run_experiment`` of an async IFL spec (counts set to 0 just
+    before, read just after): ``wire_encode_ef`` launches == the engine's
+    coalesced uploads, every tick's ledger == ``ifl_round_bytes(delta,
+    shipped)``, sim_time and uploads_per_sec in every report and record;
+    then a trainer saved after 6 ticks and resumed by ``load_trainer`` in
+    a fresh trainer: ticks 7-12 (both trainers under cuDNN's
+    deterministic algorithms) equal the saved trainer's own in
+    participants, arrivals and bytes, losses within ASYNC_RESUME_TOL."""
+    import tempfile
+
+    from repro_torch.api import (DataSpec, ExperimentSpec, build_trainer,
+                                 load_trainer, run_experiment, save_trainer)
+
+    spec = ExperimentSpec(**ASYNC_RUN, data=DataSpec(**ASYNC_DATA))
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+    reset_counts(ops)
+    with round_walls() as walls:
+        res = run_experiment(spec, device=device, keep_trainer=True)
+    got = launch_counts(ops)
+    tr = res.trainer
+    eng = tr.engine
+    n_up = sum(len(r["participants"]) for r in res.reports)
+    check(got["wire_encode_ef"] == eng.total_uploads == n_up > 0 and all(
+        v == 0 for k, v in got.items() if k != "wire_encode_ef"),
+        f"async: launches {got} != {eng.total_uploads} uploads")
+    check(round_bytes_match(tr, spec),
+          f"async: ledger {tr.ledger.per_round} != the delta formula")
+    check(all(r["sim_time"] == (i + 1) * spec.tick and "uploads_per_sec"
+              in r and "arrivals" in r for i, r in enumerate(res.reports))
+          and [r["round"] for r in res.records] == [0, 4, 8, 11]
+          and all("sim_time" in r and "uploads_per_sec" in r
+                  for r in res.records),
+          f"async: reports or records lack the event clock")
+    check(all(np.isfinite(r["base_loss"]) and np.isfinite(r["mod_loss"])
+              for r in res.reports if r["participants"]),
+          "async: a tick with uploads has a non-finite loss")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        first = build_trainer(spec, device=device)
+        for _ in range(6):
+            first.run_round()
+        path = str(Path(tmp) / "trainer")
+        save_trainer(path, first)
+        resumed = load_trainer(path, build_trainer(spec, device=device))
+        with torch.backends.cudnn.flags(
+                enabled=torch.backends.cudnn.enabled,
+                benchmark=torch.backends.cudnn.benchmark,
+                deterministic=True,
+                allow_tf32=torch.backends.cudnn.allow_tf32):
+            want = [first.run_round().to_dict() for _ in range(6)]
+            tail = [resumed.run_round().to_dict() for _ in range(6)]
+    check(async_ticks_match(tail, want)
+          and resumed.ledger.per_round == first.ledger.per_round[6:]
+          and async_ticks_match(tail, res.reports[6:],
+                                ("participants", "arrivals", "uplink_mb")),
+          "async: resumed ticks differ in participants, arrivals or bytes")
+    resume_err = tick_loss_diff(tail, want)
+    check(resume_err <= ASYNC_RESUME_TOL,
+          f"async: resumed losses differ by {resume_err}")
+    print(f"[async] run_experiment(ifl, mode async, trace "
+          f"{spec.trace}, tick {spec.tick}, 4 clients, d_fusion 432, B "
+          f"{spec.batch_size}, tau {spec.tau}, lr {spec.lr}, ef(int4), "
+          f"delta, {spec.rounds} ticks, eval every {spec.eval_every}; "
+          f"{ASYNC_DATA['n_train']}/{ASYNC_DATA['n_test']} images) on the "
+          f"card: wire_encode_ef launches {got['wire_encode_ef']} == "
+          f"{eng.total_uploads} coalesced uploads ({eng.total_arrivals} "
+          f"arrivals); ledger == ifl_round_bytes(delta, shipped_entries) "
+          f"every tick; participants "
+          f"{[r['participants'] for r in res.reports]}; sim_time "
+          f"{eng.sim_time} s, uploads/s "
+          f"{res.reports[-1]['uploads_per_sec']:.4f}; accuracy at the records "
+          f"{[round(r['acc_mean'], 4) for r in res.records]}; tick walls "
+          f"(ms) {[round(w * 1e3, 1) for w in walls]}", flush=True)
+    print(f"[async] save_trainer after 6 ticks, load_trainer into a fresh "
+          f"build_trainer, ticks 7-12 under cudnn.deterministic on both "
+          f"trainers: participants, arrivals, shipped "
+          f"entries and bytes == the saved trainer's own; losses max|diff| "
+          f"{resume_err:.2e} (tolerance {ASYNC_RESUME_TOL})", flush=True)
+    if profile:
+        while not len(tr.engine.participants()):
+            tr.run_round()
+        print(f"[profile async tick] participants "
+              f"{list(tr.engine.participants())}", flush=True)
+        reset_counts(ops)
+        profile_run("async tick", tr.run_round)
+        print(f"[profile async tick] launches {launch_counts(ops)}",
+              flush=True)
+
+
+def async_card_vs_cpu():
+    """The async run for 4 ticks at tau 2 on the CPU and on the card, in
+    lockstep: before each tick the card trainer loads the CPU trainer's
+    checkpoint (the trace cursor included). The same participants,
+    arrivals and bytes, losses within IFL_LOSS_TOL."""
+    import tempfile
+
+    from repro_torch.api import (DataSpec, ExperimentSpec, build_trainer,
+                                 load_trainer, save_trainer)
+
+    spec = ExperimentSpec(**{**ASYNC_RUN, "rounds": 4, "tau": 2,
+                             "eval_every": 0}, data=DataSpec(**ASYNC_DATA))
+    cpu = build_trainer(spec, device="cpu")
+    card = build_trainer(spec, device="cuda")
+    errs = []
+    with tempfile.TemporaryDirectory() as tmp:
+        for r in range(spec.rounds):
+            path = str(Path(tmp) / f"tick{r}")
+            save_trainer(path, cpu)
+            load_trainer(path, card)
+            rc, rg = cpu.run_round().to_dict(), card.run_round().to_dict()
+            check(async_ticks_match([rg], [rc])
+                  and card.ledger.per_round == cpu.ledger.per_round,
+                  "async card vs CPU: participants, arrivals or bytes differ")
+            errs.append(tick_loss_diff([rg], [rc]))
+    err = max(errs)
+    check(err <= IFL_LOSS_TOL, f"async card vs CPU: losses differ by {err} "
+          f"> {IFL_LOSS_TOL}")
+    print(f"[async] card vs CPU, {spec.rounds} ticks, tau {spec.tau}, each "
+          f"tick from the CPU "
+          f"trainer's checkpoint: participants "
+          f"{[r.participants for r in card.engine.history]}, arrivals and "
+          f"bytes equal; losses max|card - cpu| {err:.2e} (tolerance "
+          f"{IFL_LOSS_TOL})", flush=True)
+
+
+def population_phase(ops, profile, device="cuda"):
+    """``build_trainer`` of a population spec (N 10,000, C 64, ef(int4),
+    max_staleness 4, full) and 3 rounds, counts set to 0 just before each
+    round and read just after: K == 64 and ``wire_encode_ef`` launches
+    == 64 every round, ledger == analytic, at most 3 C clients built,
+    live server slots (the fleet_scale twin's definition) at most
+    C (max_staleness + 2), EF residuals held only for slots that
+    uploaded within max_staleness rounds; then a sparse save after 2
+    rounds, resumed in a fresh trainer: round 3 equal in participants
+    and bytes, loss within IFL_CARD_TOL."""
+    import tempfile
+
+    from repro_torch.api import (DataSpec, ExperimentSpec, FleetSpec,
+                                 build_trainer, load_trainer, save_trainer)
+    from repro_torch.benchmarks.fleet_scale import live_server_slots
+    from repro_torch.core import ifl_round_bytes
+
+    spec = ExperimentSpec(**POP_RUN, data=DataSpec(**POP_DATA),
+                          fleet=FleetSpec(**POP_FLEET))
+    n, c, bound = POP_FLEET["n_population"], POP_FLEET["cohort"], \
+        POP_RUN["max_staleness"]
+    cuda = torch.device(device).type == "cuda"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated() / 2**20 if cuda else 0.0
+    t0 = time.perf_counter()
+    tr = build_trainer(spec, device=device)
+    build_s = time.perf_counter() - t0
+    walls, launches, slots = [], [], []
+    with tempfile.TemporaryDirectory() as tmp:
+        path = str(Path(tmp) / "trainer")
+        for r in range(spec.rounds):
+            if r == 2:
+                t0 = time.perf_counter()
+                save_trainer(path, tr)
+                save_s = time.perf_counter() - t0
+            if cuda:
+                torch.cuda.synchronize()
+            reset_counts(ops)
+            t0 = time.perf_counter()
+            rep = tr.run_round()
+            if cuda:
+                torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            got = launch_counts(ops)
+            launches.append(got["wire_encode_ef"])
+            ex = tr.exchange
+            window = {int(k) for h in tr.engine.history[-(bound + 1):]
+                      for k in h.participants}
+            slots.append(live_server_slots(tr))
+            check(len(rep.participants) == c == got["wire_encode_ef"]
+                  and all(v == 0 for k, v in got.items()
+                          if k != "wire_encode_ef"),
+                  f"population round {r}: {len(rep.participants)} "
+                  f"participants, launches {got}")
+            check(tr.ledger.per_round[r] == ifl_round_bytes(
+                n, spec.batch_size, spec.d_fusion, codec=spec.codec,
+                participating=c, broadcast_entries=rep["cache_size"])
+                and rep["cache_size"] == c,
+                f"population round {r}: ledger {tr.ledger.per_round[r]}")
+            check(set(ex.ef_state) <= window
+                  and set(ex._last_upload) == set(ex.ef_state),
+                  f"population round {r}: EF residuals held for slots "
+                  f"outside the staleness window")
+            check(len(tr.clients.materialized) <= 3 * c
+                  and slots[-1] <= c * (bound + 2),
+                  f"population round {r}: {len(tr.clients.materialized)} "
+                  f"clients built, {slots[-1]} live server slots")
+            check(np.isfinite(rep["base_loss"]) and np.isfinite(
+                rep["mod_loss"]), f"population round {r}: loss {rep}")
+        resumed = load_trainer(path, build_trainer(spec, device=device))
+        ckpt_mb = Path(path + ".npz").stat().st_size / 1e6
+        tail = resumed.run_round().to_dict()
+    want = tr.engine.history[2].to_dict()
+    check(same_reports([tail], [want], ("round", "participants",
+                                        "cache_size", "uplink_mb",
+                                        "downlink_mb"))
+          and resumed.ledger.per_round == tr.ledger.per_round[2:],
+          "population: the resumed round differs in participants or bytes")
+    resume_err = max_metric_diff([tail], [want])
+    check(resume_err <= IFL_CARD_TOL,
+          f"population: the resumed loss differs by {resume_err}")
+    peak = torch.cuda.max_memory_allocated() / 2**20 if cuda else 0.0
+    print(f"[population] build_trainer(ifl, FleetSpec(n_population {n}, "
+          f"cohort {c}), ef(int4), max_staleness {bound}, full, tau "
+          f"{spec.tau}, B {spec.batch_size}, lr {spec.lr}; "
+          f"{POP_DATA['n_train']}/{POP_DATA['n_test']} images) on "
+          f"the card in {build_s:.2f}s: K == {c} and wire_encode_ef launches "
+          f"{launches} == {c} a round; ledger == ifl_round_bytes every "
+          f"round ({tr.ledger.per_round[0]} bytes); clients built "
+          f"{len(tr.clients.materialized)} (<= {3 * c}); live server slots "
+          f"{slots} (<= {c * (bound + 2)}); EF residuals held "
+          f"{len(tr.exchange.ef_state)}, all within the window; round walls "
+          f"(ms) {[round(w * 1e3, 1) for w in walls]}; peak memory "
+          f"{peak:.1f} MiB, {peak - held:.1f} MiB over the {held:.1f} MiB "
+          f"that earlier phases still held when it began", flush=True)
+    print(f"[population] sparse save_trainer after 2 rounds ({ckpt_mb:.1f} "
+          f"MB, {save_s:.2f}s), load_trainer into a fresh build_trainer, "
+          f"round 3: participants and bytes == the saved trainer's own; "
+          f"losses max|diff| {resume_err:.2e} (tolerance {IFL_CARD_TOL})",
+          flush=True)
+    if profile:
+        reset_counts(ops)
+        profile_run("cohort round", tr.run_round)
+        print(f"[profile cohort round] launches {launch_counts(ops)}",
+              flush=True)
+
+
+FIG2_ASYNC_ROUNDS = 20
+
+
+def twins_phase(device="cuda"):
+    """The async_vs_sync twin at its defaults (byte parity gated, the
+    accuracies and simulated walls printed), the fleet_scale twin at
+    --nightly (bytes flat in N, parity and bounded server slots gated,
+    the wall ratio printed), and the Fig. 2 twin under --mode async at
+    FIG2_ASYNC_ROUNDS rounds (every scheme's uplink == the analytic sum
+    of its rounds)."""
+    import tempfile
+
+    from repro_torch.api import RunResult
+    from repro_torch.benchmarks import async_vs_sync, fleet_scale
+    from repro_torch.benchmarks import fig2_comm_efficiency as fig2
+    from repro_torch.core import (fl_round_bytes, fsl_round_bytes,
+                                  ifl_round_bytes)
+    from repro_torch.models.small import init_client_model, model_bytes
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        avs = async_vs_sync.main(["--device", device, "--out",
+                                  str(Path(tmp) / "avs.json")])
+        avs_s = time.perf_counter() - t0
+        check(avs["parity_exact"] and avs["async"]["matched_uplink"],
+              f"async_vs_sync: parity {avs['parity_exact']}, matched "
+              f"{avs['async']['matched_uplink']}")
+        print(f"[twins] async_vs_sync at its defaults ({avs['rounds']} sync "
+              f"rounds, trace {avs['trace']}, codec {avs['codec']}, "
+              f"{avs['broadcast']}) in {avs_s:.1f}s: per-tick byte parity "
+              f"exact over {avs['async']['ticks']} ticks; at matched uplink "
+              f"({avs['sync']['uplink_mb']:.3f} / "
+              f"{avs['async']['uplink_mb']:.3f} MB) accuracy sync "
+              f"{avs['sync']['final_acc']:.4f}, async "
+              f"{avs['async']['final_acc']:.4f}; simulated wall sync "
+              f"{avs['sync']['wall_clock_s']:.1f}s, async "
+              f"{avs['async']['wall_clock_s']:.1f}s; uploads/s "
+              f"{avs['async']['uploads_per_sec']:.3f}", flush=True)
+
+        t0 = time.perf_counter()
+        fs = fleet_scale.main(["--nightly", "--device", device, "--out",
+                               str(Path(tmp) / "fleet.json")])
+        fs_s = time.perf_counter() - t0
+        arms, half = fs["arms"], fs["half_cohort_arm"]
+        bound = fs["cohort"] * (fs["max_staleness"] + 2)
+        check(all(a["parity_exact"] for a in arms + [half])
+              and len({(a["up_bytes_per_round"], a["down_bytes_per_round"])
+                       for a in arms}) == 1
+              and all(a["max_live_server_slots"] <= bound for a in arms)
+              and half["up_bytes_per_round"] * 2 == arms[-1][
+                  "up_bytes_per_round"],
+              "fleet_scale: " + json.dumps([
+                  {k: a[k] for k in ("n_population", "cohort",
+                                     "parity_exact", "up_bytes_per_round",
+                                     "down_bytes_per_round",
+                                     "max_live_server_slots")}
+                  for a in arms + [half]]))
+        ratio = arms[-1]["mean_round_s"] / arms[0]["mean_round_s"]
+        print(f"[twins] fleet_scale --nightly (N {fs['ns']}, C "
+              f"{fs['cohort']}, and C {half['cohort']} at N "
+              f"{half['n_population']}; {fs['rounds']} rounds, codec "
+              f"{fs['codec']}) in {fs_s:.1f}s: parity exact; bytes a round "
+              f"flat in N ({arms[0]['up_bytes_per_round']} up, "
+              f"{arms[0]['down_bytes_per_round']} down), half at C/2; live "
+              f"server slots {[a['max_live_server_slots'] for a in arms]} "
+              f"(<= {bound}); mean round wall (ms) "
+              f"{[round(a['mean_round_s'] * 1e3, 1) for a in arms + [half]]}"
+              f"; N {fs['ns'][-1]} over N {fs['ns'][0]}: {ratio:.3f}x",
+              flush=True)
+
+        t0 = time.perf_counter()
+        rows = fig2.run(FIG2_ASYNC_ROUNDS, quiet=True, mode="async",
+                        device=device, cache_dir=tmp)
+        f2_s = time.perf_counter() - t0
+        mb = {cid: model_bytes(init_client_model(
+            cid, generator=torch.Generator().manual_seed(0)))
+            for cid in (1, 2)}
+        per_round = {"fsl": fsl_round_bytes(4, 32, 432)["up"],
+                     "fl1": fl_round_bytes(4, mb[1])["up"],
+                     "fl2": fl_round_bytes(4, mb[2])["up"]}
+        (ifl_json,) = Path(tmp).glob("ifl_*.json")
+        ifl_res = RunResult.from_json(str(ifl_json))
+        ifl_up, cum = [], 0
+        for rep in ifl_res.reports:
+            cum += ifl_round_bytes(4, 32, 432, participating=len(
+                rep["participants"]))["up"]
+            ifl_up.append(cum / 1e6)
+        for scheme, r, uplink_mb, acc in rows:
+            want = (ifl_up[r] if scheme == "ifl"
+                    else per_round[scheme] * (r + 1) / 1e6)
+            check(uplink_mb == want and 0.0 <= acc <= 1.0,
+                  f"fig2 async {scheme} round {r}: uplink {uplink_mb} MB "
+                  f"(analytic {want}), acc {acc}")
+        budget, hl = fig2.headline(rows)
+        print(f"[twins] fig2_comm_efficiency.run({FIG2_ASYNC_ROUNDS} rounds, "
+              f"--mode async: IFL on pareto(1.2,0.5) ticks, the baselines "
+              f"barriered; 20000/4000 images) in {f2_s:.1f}s: cumulative "
+              f"uplink == the analytic sum every round; IFL uplink after "
+              f"{FIG2_ASYNC_ROUNDS} ticks {ifl_up[-1]:.5f} MB; at IFL-90% "
+              f"budget {budget:.2f} MB: "
+              f"{json.dumps({k: round(v, 4) for k, v in hl.items()})}",
+              flush=True)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", action="store_true",
                     help="profile one more warm serving run, one more warm "
-                         "IFL round of each codec and one more warm round "
-                         "of each baseline")
+                         "IFL round of each codec, one more warm round of "
+                         "each baseline, an async tick and a cohort round")
     ap.add_argument("--kernel-times", action="store_true",
                     help="build, then only time the launch floor, "
                          "flash_decode, the fused encode, decode_proj and "
@@ -2020,6 +2410,12 @@ def main() -> None:
     baselines_phase(ops, args.profile)
     baselines_card_vs_cpu()
     fig2_phase(ops)
+
+    # -- 4k. async rounds and population fleets ---------------------------
+    async_phase(ops, round_bytes_match, args.profile)
+    async_card_vs_cpu()
+    population_phase(ops, args.profile)
+    twins_phase()
 
     # -- 5. times at the slice's shape ------------------------------------
     decode_t = []

@@ -13,11 +13,16 @@ to start from the reference's own init; without it, client k draws the
 same distributions from ``torch.Generator().manual_seed(100 + k)`` on the
 CPU, so a run on the card and a run on the CPU start from equal weights.
 
+A population spec (``fleet.n_population`` set) gets a
+:class:`repro_torch.core.population.LazyFleet` of N clients, client k
+built on first touch from ``params[k]`` or its ``manual_seed(100 + k)``
+draw, both deterministic in k, so lazy == eager bitwise.
+
 The registry holds the reference's five names: ``ifl``, the baselines
 ``fsl``, ``fl1`` and ``fl2`` (with the reference's refusals of async
 modes and population fleets, as ``ValueError``), and ``ifl_spmd``. Not
 ported yet: ``ifl_spmd`` and the token dataset (ROADMAP.md queue 1, item
-4b) and population fleets (item 3b); they raise ``NotImplementedError``.
+4b); they raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -34,6 +39,7 @@ from repro_torch.checkpoint import params_from_numpy
 from repro_torch.core.fl import FLTrainer
 from repro_torch.core.fsl import FSLTrainer
 from repro_torch.core.ifl import Client, IFLTrainer
+from repro_torch.core.population import LazyFleet
 from repro_torch.data.dirichlet import dirichlet_partition
 from repro_torch.data.images import make_synth_kmnist
 from repro_torch.device import resolve_device
@@ -87,21 +93,17 @@ def build_fleet(spec: ExperimentSpec, data: DataBundle, *,
     Table-II architectures; homogeneous ones (the FL regime) clone
     ``arch`` everywhere; both default to the spec's fleet. ``params[k]``
     (numpy trees, optional) is slot k's initial parameters; see the
-    module docstring."""
+    module docstring. A population spec gets a ``LazyFleet``."""
     fleet = spec.fleet
     if heterogeneous is None:
         heterogeneous = fleet.heterogeneous
     arch = fleet.arch if arch is None else arch
-    if fleet.n_population:
-        raise NotImplementedError(
-            "population fleets are not ported yet (ROADMAP.md queue 1, "
-            "item 3b)")
     dev = resolve_device(device)
     n = fleet.population
     shards = dirichlet_partition(data.train_y, n, alpha=fleet.alpha,
                                  seed=spec.seed)
-    clients = []
-    for k in range(n):
+
+    def build_client(k: int) -> Client:
         cid = (k % 4 + 1) if heterogeneous else arch
         if params is not None:
             p = params_from_numpy(params[k], device=dev)
@@ -109,10 +111,13 @@ def build_fleet(spec: ExperimentSpec, data: DataBundle, *,
             gen = torch.Generator().manual_seed(100 + k)
             p = init_client_model(cid, generator=gen, device=dev)
         base_fn, mod_fn = apply_fns(cid)
-        clients.append(Client(
+        return Client(
             cid=cid, params=p, base_apply=base_fn, modular_apply=mod_fn,
-            data_x=data.train_x[shards[k]], data_y=data.train_y[shards[k]]))
-    return clients
+            data_x=data.train_x[shards[k]], data_y=data.train_y[shards[k]])
+
+    if fleet.n_population:
+        return LazyFleet(n, build_client)
+    return [build_client(k) for k in range(n)]
 
 
 @register_scheme("ifl", summary="Interoperable FL (the paper, Algorithm 1): "

@@ -12,7 +12,9 @@ builds satisfies one structural interface:
 ``save_trainer`` / ``load_trainer`` write and read the tree through
 ``repro_torch.checkpoint`` (the .npz of the JAX package's format, aux in
 the manifest's ``extra``), so a trainer resumes bit for bit mid-run, and
-a checkpoint the JAX package's ``save_trainer`` wrote resumes here.
+a checkpoint the JAX package's ``save_trainer`` wrote resumes here. An
+async trainer's event clock (the trace cursor and upload counters) rides
+in the aux under ``'async'``, so it resumes on the same arrivals.
 """
 
 from __future__ import annotations
@@ -51,8 +53,14 @@ def load_trainer(path: str, trainer: Trainer) -> Trainer:
     """Restore ``trainer`` (built from the same spec) in place and return
     it. The trainer's own ``snapshot()`` tree is the template the
     checkpoint is checked against, shape by shape, so restoring across
-    another fleet or codec fails instead of mixing states."""
+    another fleet or codec fails instead of mixing states. A trainer
+    whose snapshot's structure depends on its history (a population's
+    sparse one) gives ``snapshot_template(extra)``, read from the
+    manifest's aux first."""
     extra = load_extra(path)
-    template, _ = trainer.snapshot()
+    if hasattr(trainer, "snapshot_template"):
+        template = trainer.snapshot_template(extra)
+    else:
+        template, _ = trainer.snapshot()
     trainer.restore(load_checkpoint(path, template), extra)
     return trainer

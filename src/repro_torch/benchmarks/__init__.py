@@ -13,4 +13,6 @@ the JAX package's ``results/paper/``.
   fig3_heterogeneity   Fig. 3: SD of each base block over the modulars
   fig4_matrix          Fig. 4: the base x modular accuracy matrix
   run                  the Table I and Fig. 2-4 sections in one run
+  async_vs_sync        sync barrier against async ticks at matched uplink
+  fleet_scale          cohort rounds at N >> C: bytes and wall flat in N
 """

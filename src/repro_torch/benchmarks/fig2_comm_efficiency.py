@@ -4,6 +4,7 @@ curve; the twin of ``benchmarks/fig2_comm_efficiency.py``.
 
     python -m repro_torch.benchmarks.fig2_comm_efficiency [--rounds 60]
         [--codec int8] [--participation k2] [--broadcast delta]
+        [--mode async [--trace "pareto(1.2,0.5)"] [--tick 1]]
         [--smoke] [--out-json PATH] [--device cpu]
 
 The claim under test: IFL reaches ~90% at a few MB of uplink while FSL
@@ -11,8 +12,11 @@ is far lower at the same budget and the FL variants cost orders of
 magnitude more. ``--codec`` adds a compressed-IFL run next to the fp32
 one; ``--participation`` runs every scheme under a partial-participation
 schedule (``repro_torch.core.rounds``); ``--broadcast delta`` switches
-the IFL downlink to mirror-sync delta shipping. ``--mode async`` needs
-the async engine, which is not ported yet (ROADMAP.md queue 1, item 3b).
+the IFL downlink to mirror-sync delta shipping. ``--mode async`` puts
+the IFL curves on the event-driven engine
+(``repro_torch.core.rounds.AsyncRoundEngine``): vendors upload on
+``--trace`` clocks (pareto(1.2,0.5) by default) and the server fuses
+every ``--tick`` simulated seconds; FL and FSL keep the barrier.
 ``--smoke`` shrinks the data and rounds to a seconds-long check of the
 axis grid. Prints CSV: scheme,round,uplink_mb,accuracy.
 """
@@ -30,14 +34,13 @@ from repro_torch.api import (DataSpec, ExperimentSpec, PAPER_RESULTS,
 def run(rounds: int = 60, force: bool = False, quiet: bool = False,
         codec: str = "fp32", participation: str = "full",
         smoke: bool = False, broadcast: str = "full", mode: str = "sync",
-        *, device=None, cache_dir: str = PAPER_RESULTS):
+        trace: str = "", tick: float = 1.0, *, device=None,
+        cache_dir: str = PAPER_RESULTS):
     """Every scheme's eval records as (scheme, round, uplink_mb,
     acc_mean) rows, each run through ``run_experiment`` on ``device``
     (the card unless ``'cpu'``) and cached under ``cache_dir``."""
-    if mode != "sync":
-        raise NotImplementedError(
-            f"--mode {mode}: the async engine is not ported yet "
-            "(ROADMAP.md queue 1, item 3b)")
+    if mode == "async" and not trace:
+        trace = "pareto(1.2,0.5)"
     rows = []
     schemes = ["ifl", "fsl", "fl1", "fl2"]
     if codec != "fp32":
@@ -50,11 +53,17 @@ def run(rounds: int = 60, force: bool = False, quiet: bool = False,
     )
     for scheme in schemes:
         base, _, cdc = scheme.partition("+")
-        # The broadcast axis exists only for fusion downlinks; FL/FSL keep
-        # the default, and with it their spec hashes.
+        # The broadcast and clocking axes exist only for fusion downlinks
+        # and the fusion cache; FL/FSL keep the defaults, and with them
+        # their spec hashes. Async draws participants from the trace.
+        ifl = base.startswith("ifl")
+        asy = ifl and mode == "async"
         spec = base_spec.replace(
             scheme=base, codec=cdc or "fp32",
-            broadcast=broadcast if base.startswith("ifl") else "full")
+            broadcast=broadcast if ifl else "full",
+            mode=mode if ifl else "sync", trace=trace if asy else "",
+            tick=tick if asy else 1.0,
+            participation="full" if asy else participation)
         out = run_experiment(spec, cache_dir=cache_dir, force=force,
                              device=device)
         for rec in out.records:
@@ -104,8 +113,13 @@ def main(argv=None) -> None:
     ap.add_argument("--broadcast", default="full", choices=["full", "delta"],
                     help="downlink policy for the IFL curves")
     ap.add_argument("--mode", default="sync", choices=["sync", "async"],
-                    help="round clocking of the IFL curves (async: not "
-                         "ported yet)")
+                    help="round clocking of the IFL curves: sync barrier, "
+                         "or async arrival-driven server ticks")
+    ap.add_argument("--trace", default="",
+                    help="async arrival trace, e.g. pareto(1.2,0.5) (the "
+                         "default under --mode async)")
+    ap.add_argument("--tick", type=float, default=1.0,
+                    help="async server fuse period in simulated seconds")
     ap.add_argument("--smoke", action="store_true",
                     help="seconds-long check: tiny data, few rounds")
     ap.add_argument("--out-json", default="",
@@ -113,13 +127,18 @@ def main(argv=None) -> None:
     ap.add_argument("--force", action="store_true")
     ap.add_argument("--device", default=None,
                     help="where the runs train (default: the card)")
+    ap.add_argument("--cache-dir", default=PAPER_RESULTS,
+                    help="where the runs are cached (default: "
+                         "results/torch/)")
     args = ap.parse_args(argv)
     if args.smoke:
         args.rounds = min(args.rounds, 4)
         args.force = True  # never serve a smoke run from the full cache
     rows = run(args.rounds, args.force, codec=args.codec,
                participation=args.participation, smoke=args.smoke,
-               broadcast=args.broadcast, mode=args.mode, device=args.device)
+               broadcast=args.broadcast, mode=args.mode, trace=args.trace,
+               tick=args.tick, device=args.device,
+               cache_dir=args.cache_dir)
     budget, hl = headline(rows)
     print(f"# at IFL-90% uplink budget {budget:.2f} MB: {hl}")
     if args.codec != "fp32":
@@ -132,7 +151,8 @@ def main(argv=None) -> None:
         with open(args.out_json, "w") as f:
             json.dump({
                 "axes": {"codec": args.codec, "broadcast": args.broadcast,
-                         "mode": args.mode,
+                         "mode": args.mode, "trace": args.trace,
+                         "tick": args.tick,
                          "participation": args.participation,
                          "rounds": args.rounds, "smoke": args.smoke},
                 "rows": [list(r) for r in rows],

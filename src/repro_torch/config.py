@@ -245,10 +245,10 @@ class RunConfig:
     """Hyper-parameters of one collaborative-training run, field for
     field and default for default the JAX package's ``RunConfig``.
 
-    The port runs the eager IFL trainer (``repro_torch.core.ifl``) in
-    sync mode over a concrete fleet; ``mode='async'`` and the population
-    fields (``n_population``, ``cohort``) are carried so a spec lowers to
-    the same config, and the trainer raises for them (ROADMAP.md queue 1).
+    The eager IFL trainer (``repro_torch.core.ifl``) reads the clocking
+    and fleet fields too:
+    ``mode='async'`` with ``trace`` and ``tick`` drives it from an arrival
+    trace, and ``n_population`` with ``cohort`` runs a population fleet.
     """
 
     n_clients: int = 4  # paper: N = 4

@@ -6,8 +6,11 @@ Submodules (each the twin of the JAX package's module of that name):
   report    — RoundReport, the structured run_round() return type
   codec     — fusion-payload wire codecs + EF21 wrapping (ef(<codec>))
   exchange  — the eager fusion exchange plane (codec, EF residuals,
-              FusionCache, ledger, full broadcast)
-  rounds    — participation schedules and the sync RoundEngine
+              FusionCache, ledger, full and delta broadcast, the
+              population regime)
+  rounds    — participation schedules, arrival traces, the sync and
+              async round engines, cohorts
+  population — PopulationStore and LazyFleet
   ifl       — the two-stage IFL algorithm (eager, heterogeneous clients)
   fl        — the FedAvg baseline (FL-1 / FL-2)
   fsl       — the federated split learning baseline
@@ -26,7 +29,13 @@ from repro_torch.core.comm import (  # noqa: F401
     ifl_round_bytes,
     nbytes,
 )
-from repro_torch.core.exchange import ExchangePlane, FusionExchange  # noqa: F401
+from repro_torch.core.exchange import (  # noqa: F401
+    ExchangePlane,
+    FusionCache,
+    FusionExchange,
+    SPMDFusionExchange,
+    parse_broadcast,
+)
 from repro_torch.core.fl import FLTrainer  # noqa: F401
 from repro_torch.core.fsl import FSLTrainer  # noqa: F401
 from repro_torch.core.ifl import (  # noqa: F401
@@ -34,15 +43,29 @@ from repro_torch.core.ifl import (  # noqa: F401
     IFLTrainer,
     composition_accuracy,
 )
+from repro_torch.core.population import (  # noqa: F401
+    LazyFleet,
+    PopulationStore,
+)
 from repro_torch.core.report import RoundReport  # noqa: F401
 from repro_torch.core.rounds import (  # noqa: F401
+    ArrivalTrace,
+    AsyncRoundEngine,
     BernoulliSchedule,
     DiurnalSchedule,
     FullParticipation,
+    ParetoTrace,
     ParticipationSchedule,
+    PeriodicTrace,
+    PoissonTrace,
+    ReplayTrace,
     RoundEngine,
     StragglerSchedule,
     UniformK,
     ZipfSchedule,
+    expected_async_participants,
+    expected_cohort_participants,
     parse_participation,
+    parse_trace,
+    simulate_sync_wall_clock,
 )

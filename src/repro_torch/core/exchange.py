@@ -34,16 +34,28 @@ snapshot the cache (stacked over all N slots, so the tree's shape does
 not depend on the round) and the mirrors, so a resumed run replays its
 mid-staleness broadcasts bit for bit.
 
+Population regime (``population=True``, a C-of-N cohort a round): the
+broadcast serves the round's fresh cohort uploads only, so the downlink
+and the modular updates scale in C, never in N; EF residuals are built
+on a slot's first upload (``_LazySlotState``: zeros, so lazy == eager
+bitwise); and ``prune``, which the round engine calls every round, ages
+the EF residuals and delta mirrors of clients that have not uploaded
+within ``max_staleness`` rounds out of memory. A client that comes back
+restarts from a zero residual and an empty mirror (the normal delta
+catch-up), exactly the state of a client never seen. A population
+trainer snapshots the cache sparsely, slot by slot, never through
+``cache_tree``, which stacks all N slots.
+
 ``SPMDFusionExchange`` is the one-card counterpart of the reference's
 SPMD backend: the wire block of the LM round step
 (``repro_torch.core.ifl_spmd``) over a stacked client dim, at full
 participation. On one card the 'client'-axis all-gather is the stacking
 of the N payloads, and the receivers decode them.
 
-Not ported yet (ROADMAP.md queue 1): the population regime (item 3b),
-and the SPMD backend's partial participation (payload cache,
-``max_staleness``), delta broadcast and host-side ``account_round``
-(items 3b and 4b).
+Not ported yet (ROADMAP.md queue 1, item 4b): the SPMD backend's
+partial participation (payload cache, ``max_staleness``), delta
+broadcast and host-side ``account_round``, with ``expected_delta_entries``
+that replays through it.
 """
 
 from __future__ import annotations
@@ -105,6 +117,12 @@ class ExchangePlane:
 
     def restore_aux(self, aux: Dict[str, Any]) -> None:
         pass
+
+    def prune(self, round_idx: int) -> None:
+        """Age per-client carried state out of memory; the round engine
+        calls it every ``end_round``. A no-op but on a population-regime
+        fusion plane."""
+        return None
 
 
 @dataclass
@@ -198,32 +216,50 @@ class _DeltaMirrors:
                          for m in aux]
 
 
+class _LazySlotState(dict):
+    """slot -> state dict that builds an entry on first access.
+    ``init_fn`` must be deterministic in the slot (the EF init is zeros),
+    so lazy and eager are bitwise the same."""
+
+    def __init__(self, init_fn):
+        super().__init__()
+        self._init = init_fn
+
+    def __missing__(self, slot):
+        state = self._init(slot)
+        self[slot] = state
+        return state
+
+
 class FusionExchange(ExchangePlane):
     """Eager IFL wire pipeline: codec + EF residuals + cache + policy.
 
     ``z_shape`` is one client's fusion-output shape ``(batch_size,
     d_fusion)``; ``device`` is where the EF residuals and the snapshot's
-    empty cache slots live (the fusion outputs' device)."""
+    empty cache slots live (the fusion outputs' device);
+    ``population`` switches on the cohort regime (module docstring)."""
 
     def __init__(self, codec: Union[str, Codec, None], n_clients: int,
                  z_shape: Tuple[int, ...], *,
                  max_staleness: Optional[int] = None,
                  broadcast: str = "full",
+                 population: bool = False,
                  device=None):
         super().__init__()
         self.codec = get_codec(codec)
         self.n_clients = n_clients
         self.z_shape = tuple(z_shape)
         self.broadcast = parse_broadcast(broadcast)
+        self.population = bool(population)
         self.device = device
         self.cache = FusionCache(max_staleness)
         self.mirrors = _DeltaMirrors(n_clients)
+        self._last_upload: Dict[int, int] = {}
         # Per-client EF residual (an empty tuple for stateless codecs),
-        # keyed by client slot; client-private, never ledgered.
-        self.ef_state: Dict[int, Any] = {
-            k: self.codec.init_state(self.z_shape, device=device)
-            for k in range(n_clients)
-        }
+        # keyed by client slot, built on first use; client-private, never
+        # ledgered.
+        self.ef_state: Dict[int, Any] = _LazySlotState(
+            lambda slot: self.codec.init_state(self.z_shape, device=device))
 
     def encode_with_state(self, z: torch.Tensor, state):
         """EF-threaded encode: the wire kernel for a codec with a wire
@@ -246,14 +282,19 @@ class FusionExchange(ExchangePlane):
         self.cache.put(slot, payload=payload, z_hat=self.decode(payload),
                        y=y, round_idx=round_idx)
         self.mirrors.note_upload(slot, round_idx)
+        self._last_upload[slot] = int(round_idx)
 
     def broadcast_round(self, participants: Sequence[int], round_idx: int):
         """Serve the valid cache to the participants under the policy ->
         (Z, Y, entries, shipped): the decoded pairs the modular updates
         consume, in slot order (the same under both policies), the (slot,
         entry) list behind them, and the slots the delta policy shipped
-        (empty under ``full``)."""
+        (empty under ``full``). In the population regime the entries are
+        the round's fresh cohort uploads only."""
         entries = self.cache.valid_entries(round_idx)
+        if self.population:
+            entries = [(s, e) for s, e in entries
+                       if e.round_idx == round_idx]
         Z = [e.z_hat for _, e in entries]
         Y = [e.y for _, e in entries]
         shipped: List[int] = []
@@ -270,6 +311,21 @@ class FusionExchange(ExchangePlane):
                            [by_slot[s].y for s in shipped]))
                 self.down_bytes(len(shipped) * DELTA_SIDECAR_BYTES)
         return Z, Y, entries, shipped
+
+    def prune(self, round_idx: int) -> None:
+        """Population regime only: drop the EF residuals and delta mirrors
+        of clients whose last upload is more than ``max_staleness``
+        rounds old. Outside it every residual stays frozen across
+        absences, as the reference keeps it."""
+        if not self.population or self.cache.max_staleness is None:
+            return
+        bound = self.cache.max_staleness
+        stale = [s for s, r in self._last_upload.items()
+                 if round_idx - r > bound]
+        for s in stale:
+            del self._last_upload[s]
+            self.ef_state.pop(s, None)
+            self.mirrors.versions[s].clear()
 
     # ------------------------------------------------- snapshot / restore
 
@@ -319,8 +375,8 @@ class FusionExchange(ExchangePlane):
         self.mirrors.restore_aux(aux["mirrors"])
 
 
-_SPMD_TODO = ("ROADMAP.md queue 1, items 3b (partial participation, "
-              "staleness) and 4b (the SPMD trainer)")
+_SPMD_TODO = ("ROADMAP.md queue 1, item 4b: the SPMD trainer, with its "
+              "partial participation and staleness")
 
 
 class SPMDFusionExchange(ExchangePlane):

@@ -28,8 +28,16 @@ shipping (the same decoded training signal, each entry shipped once).
 plus JSON aux, in the reference's layout, so a checkpoint written by
 either package resumes in the other (``repro_torch.api.save_trainer``).
 
-Not ported yet (ROADMAP.md queue 1, item 3b): async rounds and
-population fleets; each raises ``NotImplementedError``.
+Clocking and fleets: ``cfg.mode='async'`` swaps in the
+``AsyncRoundEngine`` (participants come from an arrival trace coalesced
+per server tick; ``run_round`` is clock-agnostic). A population fleet
+(``cfg.cohort`` > 0, usually a ``LazyFleet`` of ``cfg.n_population``
+clients built on first touch) admits a cohort of at most C a round; the
+exchange plane serves the cohort's fresh uploads only and ages EF
+residuals and mirrors by ``max_staleness``, and the snapshot is sparse:
+touched clients, live residuals and cache entries, keyed by slot, so
+neither memory nor a checkpoint grows with N. A population trainer
+evaluates at most 16 touched clients and skips the N x N matrix.
 """
 
 from __future__ import annotations
@@ -42,9 +50,10 @@ import torch
 
 from repro_torch.config import RunConfig
 from repro_torch.core.comm import tree_leaves
-from repro_torch.core.exchange import FusionExchange
+from repro_torch.core.exchange import CacheEntry, FusionExchange
+from repro_torch.core.population import LazyFleet
 from repro_torch.core.report import RoundReport
-from repro_torch.core.rounds import RoundEngine
+from repro_torch.core.rounds import AsyncRoundEngine, RoundEngine
 from repro_torch.device import resolve_device
 
 
@@ -96,22 +105,25 @@ class IFLTrainer:
 
     def __init__(self, clients: Sequence[Client], cfg: RunConfig,
                  seed: int = 0, *, device=None):
-        if getattr(cfg, "mode", "sync") != "sync":
-            raise NotImplementedError(
-                "mode='async' is not ported yet (ROADMAP.md queue 1, item 3b)")
-        if getattr(cfg, "cohort", 0) or getattr(cfg, "n_population", 0):
-            raise NotImplementedError(
-                "population fleets are not ported yet (ROADMAP.md queue 1, "
-                "item 3b)")
         self.device = resolve_device(device)
-        self.clients = list(clients)
+        # A LazyFleet stays lazy: a population never pays N inits.
+        self.clients = (clients if isinstance(clients, LazyFleet)
+                        else list(clients))
         self.cfg = cfg
+        cohort = cfg.cohort or None
+        self._population = cohort is not None
         self.exchange = FusionExchange(
             cfg.codec, len(self.clients), (cfg.batch_size, cfg.d_fusion),
             max_staleness=cfg.max_staleness, broadcast=cfg.broadcast,
-            device=self.device)
-        self.engine = RoundEngine(len(self.clients), cfg.participation,
-                                  seed=seed, exchange=self.exchange)
+            population=self._population, device=self.device)
+        if cfg.mode == "async":
+            self.engine = AsyncRoundEngine(
+                len(self.clients), cfg.trace, tick=cfg.tick, seed=seed,
+                exchange=self.exchange, cohort=cohort)
+        else:
+            self.engine = RoundEngine(
+                len(self.clients), cfg.participation, seed=seed,
+                exchange=self.exchange, cohort=cohort)
         self.ledger = self.engine.ledger
         self.codec = self.exchange.codec
 
@@ -203,7 +215,11 @@ class IFLTrainer:
         client's params, the EF residuals in slot order and the fusion
         cache stacked over all slots (``FusionExchange.cache_tree``);
         the aux is the engine's (round, rng, ledger totals, cache entry
-        rounds, delta mirrors). The reference's tree, key for key."""
+        rounds, delta mirrors, and an async engine's cursor). The
+        reference's tree, key for key. A population trainer's snapshot
+        is sparse (``_snapshot_population``)."""
+        if self._population:
+            return self._snapshot_population()
         tree = {
             "clients": [c.params for c in self.clients],
             "ef": [self.exchange.ef_state[k]
@@ -212,7 +228,65 @@ class IFLTrainer:
         }
         return tree, self.engine.aux_state()
 
+    def _touched(self) -> List[int]:
+        return (self.clients.materialized
+                if isinstance(self.clients, LazyFleet)
+                else list(range(len(self.clients))))
+
+    def _snapshot_population(self):
+        """The working set only, keyed by slot (as strings): touched
+        clients' params, live EF residuals and the cache's entries; the
+        slot lists, entry rounds and last uploads ride in
+        ``aux['population']``."""
+        touched = self._touched()
+        ex = self.exchange
+        ef_slots = sorted(int(k) for k in ex.ef_state)
+        entries = ex.cache._entries
+        tree = {
+            "clients": {str(k): self.clients[k].params for k in touched},
+            "ef": {str(k): ex.ef_state[k] for k in ef_slots},
+            "cache": {str(s): {"payload": e.payload, "z_hat": e.z_hat,
+                               "y": e.y}
+                      for s, e in sorted(entries.items())},
+        }
+        aux = self.engine.aux_state()
+        aux["population"] = {
+            "clients": [int(k) for k in touched],
+            "ef": ef_slots,
+            "cache_rounds": {str(s): int(e.round_idx)
+                             for s, e in entries.items()},
+            "last_upload": {str(s): int(r)
+                            for s, r in ex._last_upload.items()},
+        }
+        return tree, aux
+
+    def snapshot_template(self, extra):
+        """The tree a saved checkpoint is read into (``load_trainer``'s
+        hook): a fresh population trainer has touched nothing, so build
+        exactly the saved slot lists (lazy init is deterministic, so the
+        shapes are the saved run's). Cache labels are int32, as this
+        package's cache holds them."""
+        if not self._population:
+            return self.snapshot()[0]
+        pop = extra.get("population", {})
+        ex = self.exchange
+        z0 = torch.zeros(ex.z_shape, dtype=torch.float32, device=self.device)
+        empty = self.codec.encode(z0)
+        y0 = torch.zeros((ex.z_shape[0],), dtype=torch.int32,
+                         device=self.device)
+        return {
+            "clients": {str(int(k)): self.clients[int(k)].params
+                        for k in pop.get("clients", [])},
+            "ef": {str(int(k)): ex.ef_state[int(k)]
+                   for k in pop.get("ef", [])},
+            "cache": {str(int(s)): {"payload": empty, "z_hat": z0, "y": y0}
+                      for s in pop.get("cache_rounds", {})},
+        }
+
     def restore(self, tree, aux) -> None:
+        if self._population:
+            self._restore_population(tree, aux)
+            return
         for k, (c, p, e) in enumerate(
                 zip(self.clients, tree["clients"], tree["ef"])):
             c.params = p
@@ -222,21 +296,56 @@ class IFLTrainer:
         self.exchange.restore_cache(tree["cache"],
                                     aux["exchange"]["cache_rounds"])
 
+    def _restore_population(self, tree, aux) -> None:
+        ex = self.exchange
+        for k, p in tree["clients"].items():
+            self.clients[int(k)].params = p
+        ex.ef_state.clear()
+        for k, e in tree.get("ef", {}).items():
+            ex.ef_state[int(k)] = e
+        self.engine.restore_aux(aux)  # clears the cache in place ...
+        pop = aux["population"]
+        rounds = pop.get("cache_rounds", {})
+        ex.cache._entries.update({
+            int(s): CacheEntry(payload=sub["payload"], z_hat=sub["z_hat"],
+                               y=sub["y"], round_idx=int(rounds[s]))
+            for s, sub in tree.get("cache", {}).items()})
+        ex._last_upload = {int(s): int(r)
+                           for s, r in pop.get("last_upload", {}).items()}
+
     # ------------------------------------------------------------ eval
 
+    def _eval_slots(self, cap: int = 16) -> List[int]:
+        """The clients to evaluate: all of a concrete fleet; of a
+        population, at most ``cap`` touched ones (evaluating 10^4 lazy
+        clients would build them all)."""
+        if not self._population:
+            return list(range(len(self.clients)))
+        return self._touched()[:cap] or list(range(min(cap,
+                                                       len(self.clients))))
+
+    @property
+    def eval_matrix(self) -> bool:
+        """Whether the N x N composition matrix is affordable: the runner
+        skips it for a population."""
+        return not self._population
+
     def evaluate(self, test_x, test_y, batch: int = 512) -> List[float]:
-        """Local end-to-end accuracy per client (eq. 10)."""
-        return [composition_accuracy(c, c, test_x, test_y, batch)
-                for c in self.clients]
+        """Local end-to-end accuracy per client (eq. 10), over
+        ``_eval_slots``."""
+        return [composition_accuracy(self.clients[k], self.clients[k],
+                                     test_x, test_y, batch)
+                for k in self._eval_slots()]
 
     def accuracy_matrix(self, test_x, test_y, batch: int = 512) -> np.ndarray:
-        """Fig. 4: entry [k, i] = acc of base_k composed with modular_i."""
-        n = len(self.clients)
-        out = np.zeros((n, n))
-        for a in range(n):
-            for b in range(n):
+        """Fig. 4: entry [a, b] = acc of base of slot a composed with the
+        modular block of slot b, over ``_eval_slots``."""
+        slots = self._eval_slots()
+        out = np.zeros((len(slots), len(slots)))
+        for a, ka in enumerate(slots):
+            for b, kb in enumerate(slots):
                 out[a, b] = composition_accuracy(
-                    self.clients[a], self.clients[b], test_x, test_y, batch)
+                    self.clients[ka], self.clients[kb], test_x, test_y, batch)
         return out
 
 

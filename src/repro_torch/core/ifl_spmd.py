@@ -119,7 +119,7 @@ def make_ifl_round_step(
     if partial_participation:
         raise NotImplementedError(
             "partial participation on the SPMD path (ROADMAP.md queue 1, "
-            "items 3b and 4b)")
+            "item 4b)")
     opt = make_optimizer(optimizer)
     exchange = SPMDFusionExchange(codec, n_clients=n_clients,
                                   max_staleness=max_staleness)

@@ -15,11 +15,25 @@ on_record=...)``:
 
 ``--broadcast delta`` has the vendors mirror the server cache, so each
 entry ships at most once a round: the same training, fewer downlink
-bytes. Every eval round (each 5th and the last) prints the losses, the
+bytes. ``--mode async`` retires the round barrier: vendors upload on
+``--trace`` clocks (periodic(<T>) | poisson(<rate>) |
+pareto(<alpha>,<scale>) | replay:<path>; pareto(1.2,0.5) by default) and
+the server fuses what arrived every ``--tick`` simulated seconds.
+``--n-population N --cohort C`` runs a fleet of N vendors (built on first
+touch) of which C train a round; bytes follow C, not N:
+
+  PYTHONPATH=src python -m repro_torch.launch.quickstart --device cpu \
+      --mode async --trace "pareto(1.2,0.5)" --codec "ef(int4)" \
+      --broadcast delta
+  PYTHONPATH=src python -m repro_torch.launch.quickstart --device cpu \
+      --n-population 1000 --cohort 8 --max-staleness 4 --codec "ef(int4)"
+
+Every eval round (each 5th and the last) prints the losses, the
 participants, the cumulative ledger MB and the accuracies; at the end it
 prints whether every round's measured bytes equal the analytic
-``ifl_round_bytes`` and the cross-vendor composition matrix. It runs on
-the card unless ``--device cpu``, and raises where there is no CUDA.
+``ifl_round_bytes``, an async run's uploads a simulated second, and the
+cross-vendor composition matrix (a population fleet skips it). It runs
+on the card unless ``--device cpu``, and raises where there is no CUDA.
 """
 
 from __future__ import annotations
@@ -30,7 +44,7 @@ import time
 import numpy as np
 import torch
 
-from repro_torch.api import DataSpec, ExperimentSpec, run_experiment
+from repro_torch.api import DataSpec, ExperimentSpec, FleetSpec, run_experiment
 from repro_torch.core.comm import ifl_round_bytes
 from repro_torch.device import resolve_device
 
@@ -66,6 +80,21 @@ def main(argv=None) -> None:
                     help="downlink policy: the full cache to every "
                          "participant, or delta mirror-sync (each entry "
                          "ships once a round)")
+    ap.add_argument("--mode", default="sync", choices=["sync", "async"],
+                    help="round clocking: sync barrier, or async "
+                         "arrival-driven server ticks")
+    ap.add_argument("--trace", default="",
+                    help="async arrival trace: periodic(<T>) | "
+                         "poisson(<rate>) | pareto(<alpha>,<scale>) | "
+                         "replay:<path> (default under --mode async: "
+                         "pareto(1.2,0.5))")
+    ap.add_argument("--tick", type=float, default=1.0,
+                    help="async server fuse period in simulated seconds")
+    ap.add_argument("--n-population", type=int, default=0,
+                    help="fleet size N of a population (needs --cohort; "
+                         "0 = the 4-vendor fleet)")
+    ap.add_argument("--cohort", type=int, default=0,
+                    help="cohort width C: at most C vendors a round")
     ap.add_argument("--rounds", type=int, default=20)
     ap.add_argument("--tau", type=int, default=10)
     ap.add_argument("--device", default=None,
@@ -73,22 +102,31 @@ def main(argv=None) -> None:
     args = ap.parse_args(argv)
 
     dev = resolve_device(args.device)
+    trace = args.trace or ("pareto(1.2,0.5)" if args.mode == "async" else "")
+    fleet = FleetSpec(n_population=args.n_population, cohort=args.cohort)
     # lr 0.05, B 32, seed 0, eval every 5th round, 6000/1500 samples: the
     # JAX package's quickstart spec.
     spec = ExperimentSpec(
         scheme="ifl", rounds=args.rounds, tau=args.tau, lr=0.05,
         batch_size=32, codec=args.codec, participation=args.participation,
         max_staleness=args.max_staleness, broadcast=args.broadcast,
+        mode=args.mode, trace=trace, tick=args.tick, fleet=fleet,
         eval_every=5, seed=0, data=DataSpec(n_train=6000, n_test=1500))
     name = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
-    print(f"== ifl quickstart: 4 vendors (Table II), synthetic KMNIST "
+    vendors = (f"{fleet.population} vendors, cohort {args.cohort}/round"
+               if args.cohort else "4 vendors")
+    clock = (f"async trace {trace} tick {args.tick}" if args.mode == "async"
+             else f"participation {args.participation}")
+    print(f"== ifl quickstart: {vendors} (Table II), synthetic KMNIST "
           f"{spec.data.n_train}/{spec.data.n_test}, codec {args.codec}, "
-          f"participation {args.participation}, broadcast {args.broadcast}, "
-          f"tau {args.tau}, on {name} ==")
+          f"{clock}, broadcast {args.broadcast}, tau {args.tau}, on "
+          f"{name} ==")
     print(f"   spec {spec.spec_hash()}")
 
     def progress(rec, report):
-        print(f"round {rec['round']:3d}: base_loss {report['base_loss']:.4f} "
+        clock = (f"t={rec['sim_time']:.1f}s, " if "sim_time" in rec else "")
+        print(f"round {rec['round']:3d}: {clock}base_loss "
+              f"{report['base_loss']:.4f} "
               f"mod_loss {report['mod_loss']:.4f} participants "
               f"{report.participants} (cache {report['cache_size']}), "
               f"cumulative uplink {rec['uplink_mb']:.4f} MB, total "
@@ -106,10 +144,22 @@ def main(argv=None) -> None:
           f"round: {ok}")
     print(f"ledger totals: uplink {trainer.ledger.uplink_mb:.3f} MB, "
           f"downlink {trainer.ledger.downlink_mb:.3f} MB")
+    if args.mode == "async":
+        eng = trainer.engine
+        print(f"async: {eng.total_uploads} uploads ({eng.total_arrivals} "
+              f"arrivals, coalesced per tick) over {eng.sim_time:.1f} "
+              f"simulated s = {eng.total_uploads / eng.sim_time:.2f} "
+              f"uploads/s")
+    if args.cohort:
+        print(f"population: {len(trainer.clients.materialized)} of "
+              f"{fleet.population} vendors built, EF residuals held for "
+              f"{len(trainer.exchange.ef_state)}")
     print(f"local accuracy per vendor (eq. 10): "
           f"{[round(a, 3) for a in result.final['accs']]}")
-    print("cross-vendor composition matrix (eq. 11), [base k, modular i]:")
-    print(np.round(np.asarray(result.final["matrix"]), 3))
+    if "matrix" in result.final:
+        print("cross-vendor composition matrix (eq. 11), [base k, "
+              "modular i]:")
+        print(np.round(np.asarray(result.final["matrix"]), 3))
 
 
 if __name__ == "__main__":

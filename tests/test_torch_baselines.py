@@ -10,6 +10,7 @@ bitwise. The JAX runs are shared through module-scoped fixtures.
 """
 
 import dataclasses
+import json
 import importlib.util
 from pathlib import Path
 
@@ -400,8 +401,26 @@ def test_fig2_twin_smoke_on_cpu(tmp_path):
     assert budget > 0 and set(hl) == {s for s, *_ in rows}
     last, ratio, _ = fig2_comm_efficiency.codec_headline(rows, "int8_row")
     assert last == 1 and ratio > 3.5
-    with pytest.raises(NotImplementedError, match="item 3b"):
-        fig2_comm_efficiency.main(["--mode", "async", "--device", "cpu"])
+    out = tmp_path / "fig2_async.json"
+    fig2_comm_efficiency.main(["--mode", "async", "--smoke", "--device",
+                               "cpu", "--cache-dir", str(tmp_path / "async"),
+                               "--out-json", str(out)])
+    res = json.loads(out.read_text())
+    assert res["axes"]["mode"] == "async"
+    arows = res["rows"]
+    assert {s for s, *_ in arows} == {"ifl", "fsl", "fl1", "fl2"}
+    assert [r for s, r, *_ in arows if s == "ifl"] == [0, 1, 2, 3]
+    for scheme, r, uplink_mb, acc in arows:
+        if scheme in per_round:  # the baselines keep the barrier
+            assert uplink_mb == per_round[scheme] * (r + 1) / 1e6
+        assert 0.0 <= acc <= 1.0
+    cached = [json.loads(p.read_text())
+              for p in (tmp_path / "async").glob("ifl_*_cpu.json")]
+    assert len(cached) == 1
+    spec = cached[0]["spec"]
+    assert (spec["mode"], spec["trace"]) == ("async", "pareto(1.2,0.5)")
+    up = [r["uplink_mb"] for r in cached[0]["reports"]]
+    assert [mb for s, _, mb, _ in arows if s == "ifl"] == up
 
 
 def test_fig3_fig4_and_paper_repro_twins_on_cpu(tmp_path):

@@ -177,18 +177,27 @@ def test_quickstart_on_cpu():
 
 
 def test_unported_parts_raise_not_implemented():
+    """ifl_spmd still raises; the async and population configs, which
+    raised before they were ported, build and run a round as the JAX
+    trainer does."""
     spec = tapi.ExperimentSpec(data=tapi.DataSpec(n_train=64, n_test=16))
     data = tapi.load_data(spec)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tapi.get_scheme("ifl_spmd").build(spec.replace(scheme="ifl_spmd"),
                                           data, device="cpu")
-    _, tc = _linear_fleets()
-    for cfg in (RunConfig(d_fusion=16, batch_size=4, mode="async",
-                          trace="poisson(0.5)"),
-                RunConfig(d_fusion=16, batch_size=4, cohort=2,
-                          n_population=4)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            IFLTrainer(tc, cfg, device="cpu")
+    for kw in (dict(mode="async", trace="poisson(0.5)"),
+               dict(cohort=2, n_population=4)):
+        jc, tc = _linear_fleets()
+        kw = dict(d_fusion=16, batch_size=4, tau=1, codec="ef(int4)", **kw)
+        jt = JIFLTrainer(jc, JRunConfig(**kw), seed=1)
+        tt = IFLTrainer(tc, RunConfig(**kw), seed=1, device="cpu")
+        rj, rt = jt.run_round(), tt.run_round()
+        assert type(tt.engine).__name__ == type(jt.engine).__name__
+        assert rt.participants == rj.participants and rt.participants
+        assert rt.metrics.keys() == rj.metrics.keys()
+        assert tt.ledger.per_round == jt.ledger.per_round
+        np.testing.assert_allclose(rt["mod_loss"], rj["mod_loss"],
+                                   rtol=1e-4, atol=1e-4)
 
 
 def test_entry_points_run_on_the_card_unless_asked():

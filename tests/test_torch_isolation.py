@@ -39,6 +39,9 @@ def test_import_loads_no_jax_and_no_reference_module():
         "import repro_torch.benchmarks.fig3_heterogeneity\n"
         "import repro_torch.benchmarks.fig4_matrix\n"
         "import repro_torch.benchmarks.run\n"
+        "import repro_torch.core.population\n"
+        "import repro_torch.benchmarks.async_vs_sync\n"
+        "import repro_torch.benchmarks.fleet_scale\n"
         "assert 'jax' not in sys.modules, 'jax loaded'\n"
         "bad = [m for m in sys.modules if m == 'repro' "
         "or m.startswith('repro.')]\n"
