@@ -52,7 +52,20 @@ port's main paths through the entry points a user calls:
     max_staleness 4, 3 rounds, 4096/256 images) through
     ``build_trainer``, with a sparse resume; and the twins
     ``async_vs_sync``, ``fleet_scale --nightly`` and the Fig. 2 twin
-    under ``--mode async``.
+    under ``--mode async``;
+  * the SPMD IFL trainer (phase 4l): its masked round step
+    (``make_ifl_round_step(partial_participation=True)`` with an
+    ``SPMDFusionExchange``: ef(int4), max_staleness 1, delta) on
+    full-width qwen1.5-0.5b at phase 4e's shapes, k2 masks from a
+    ``RoundEngine`` and the ledger from ``account_round``, 3 rounds, the
+    path of ``wire_encode_ef`` over all 4096 x 1024 fusion rows at once
+    and of the attention kernels; ``run_experiment(ifl_spmd)`` on the
+    reduced qwen1.5-0.5b (the smoke config's head dim, 24, is outside
+    the attention kernels' 64 and 128) card against CPU, with a
+    save/resume, async ticks, a population of 1,000 with a cohort of 8
+    and an int8_row run (``wire_encode``); the trained run exported by
+    ``CompositionStore.from_spmd_trainer`` and served (``flash_decode``);
+    and ``python -m repro_torch.examples.llm_ifl_train`` for 5 rounds.
 
 It checks each path's results, compares short runs on the card with the
 same runs on the CPU, and times each kernel at the shapes its path gives
@@ -340,14 +353,21 @@ def payload_err(got, want, label) -> float:
     return err
 
 
+# The wire kernels' shapes against plain: the eager IFL path's (32, 432),
+# an odd d, a (4096, 432) block (warp-a-row teams), the SPMD front door's
+# (256, 128) on the reduced config and the SPMD full-width path's
+# (4096, 1024), whose d picks the block-a-row team.
+WIRE_SHAPES = ((32, 432), (32, 433), (4096, 432), (256, 128), (4096, 1024))
+
+
 def wire_checks(ops, ref, get_codec):
     """Each wire kernel against its plain version on the card, for every
-    scheme at the path's (32, 432), an odd d and a (4096, 432) block,
-    with a zero row; EF over 4 chained steps, each fed the plain e."""
+    scheme at each of ``WIRE_SHAPES``, with a zero row; EF over 4 chained
+    steps, each fed the plain e."""
     errs = {"wire_encode": 0.0, "wire_encode_ef": 0.0}
     for scheme in WIRE_SCHEMES:
         codec, ef = get_codec(scheme), get_codec(f"ef({scheme})")
-        for rows, d in ((32, 432), (32, 433), (4096, 432)):
+        for rows, d in WIRE_SHAPES:
             z = wire_inputs(rows, d, seed=rows + d)
             got = ops.wire_encode(z, codec)
             want = ref.wire_encode_ref(z, codec)
@@ -370,11 +390,11 @@ def wire_checks(ops, ref, get_codec):
     return errs
 
 
-def wire_times(ops, ref, get_codec, rows, d=432):
+def wire_times(ops, ref, get_codec, rows, d=432, schemes=WIRE_SCHEMES):
     """Device times of each wire kernel and its plain version at (rows,
     d), per scheme, with the byte bound; 64 input sets per graph."""
     out = {}
-    for scheme in WIRE_SCHEMES:
+    for scheme in schemes:
         codec, ef = get_codec(scheme), get_codec(f"ef({scheme})")
         zs = [wire_inputs(rows, d, seed=1000 + i) for i in range(64)]
         es = [0.1 * wire_inputs(rows, d, seed=2000 + i) for i in range(64)]
@@ -2119,6 +2139,392 @@ def twins_phase(device="cuda"):
               flush=True)
 
 
+# ------------------------------------------------ 4l: the SPMD trainer
+
+# The slice's main path at full width: the SPMD trainer's masked round
+# step on full-width qwen1.5-0.5b at phase 4e's shapes, the masks from a
+# RoundEngine under k2, ef(int4), max_staleness 1, the delta broadcast,
+# the ledger from the plane's account_round (what SPMDIFLTrainer composes;
+# its front door reduces named configs, as the reference's does).
+SPMD_RUN = dict(arch="qwen1.5-0.5b", rounds=3, tau=2, n_clients=4, batch=2,
+                seq=512, codec="ef(int4)", participation="k2",
+                max_staleness=1, broadcast="delta", lr=3e-3)
+# The front door on the card. The smoke config's head dim (24) is outside
+# the attention kernels' {64, 128}, so on the card the spec names a model:
+# qwen1.5-0.5b, which the trainer reduces (2 layers, d 256, head dim 64,
+# vocab 512, fp32) and runs at the spec's d_fusion.
+SPMD_SPEC = dict(scheme="ifl_spmd", model="qwen1.5-0.5b", rounds=4, tau=1,
+                 lr=0.05, batch_size=2, d_fusion=128, codec="ef(int4)",
+                 participation="k2", max_staleness=2, broadcast="delta",
+                 eval_every=0, seed=0)
+SPMD_DATA = dict(dataset="synth_tokens", n_test=8)
+# A resumed LM trainer against the one it was saved from, both under
+# cuDNN's deterministic algorithms: two fp32 ulps of a loss near ln(512).
+SPMD_RESUME_TOL = 1e-6
+
+
+def spmd_attn_launches(cfg, tau, rounds, evals=0):
+    """Attention launches of masked rounds, from the engine's draws: a
+    round of K participants and V valid chunks runs K x tau full passes,
+    K x V modular passes and K fusion forwards; ``evals`` whole-model
+    forwards without autograd (``evaluate``) add one launch a layer."""
+    _, bp, bg, mp, mg = cfg._resolved_program()
+    fwd, bwd = expected_attn_launches(
+        cfg, steps_full=sum(k * tau for k, _ in rounds),
+        steps_mod=sum(k * v for k, v in rounds),
+        fwd_only=sum(k for k, _ in rounds))
+    return fwd + evals * (len(bp) * bg + len(mp) * mg), bwd
+
+
+def spmd_full_width_phase(ops, cfg, smi):
+    """Phase 4l (a): 3 masked rounds at full width, counts set to 0 just
+    before and read just after. Checks: one ``wire_encode_ef`` launch (over
+    all N x B x S rows) a round with a participant; attention launches ==
+    the count derived from the participants and valid chunks drawn;
+    cache_valid == account_round's valid entries; ledger ==
+    ``ifl_round_bytes(delta, shipped)``; finite losses; absent clients'
+    params, EF rows and cache slots bitwise as before their round; the
+    participants' new cache slots and EF rows against the plain
+    ``wire_encode_ef`` of the round's z (codes bitwise, floats within
+    ``WIRE_TOL``), whose max |err| the result carries as ``ef_err``."""
+    from repro_torch.core.comm import ifl_round_bytes, tree_leaves
+    from repro_torch.core.exchange import SPMDFusionExchange
+    from repro_torch.core.ifl_spmd import (init_ef_state, init_ifl_state,
+                                           init_payload_cache,
+                                           make_ifl_round_step)
+    from repro_torch.core.rounds import RoundEngine
+    from repro_torch.data.synthetic import SyntheticLM
+    from repro_torch.kernels import ref
+
+    r = SPMD_RUN
+    n, tau, b, s = r["n_clients"], r["tau"], r["batch"], r["seq"]
+    plane = SPMDFusionExchange(r["codec"], n_clients=n,
+                               max_staleness=r["max_staleness"],
+                               broadcast=r["broadcast"])
+    engine = RoundEngine(n, r["participation"], seed=0, exchange=plane)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params, opt_state = init_ifl_state(cfg, n_clients=n, generator=gen,
+                                       device="cuda")
+    step = make_ifl_round_step(cfg, n_clients=n, tau=tau, lr_base=r["lr"],
+                               lr_modular=r["lr"], partial_participation=True,
+                               debug_return_zhat=True, exchange=plane)
+    z_shape = (n, b, s, cfg.d_fusion)
+    cache = init_payload_cache(plane.codec, z_shape, (n, b, s), device="cuda")
+    ef = init_ef_state(plane.codec, z_shape, device="cuda")
+    entry = plane.codec.encoded_nbytes(z_shape[1:]) + b * s * 4
+    stream = SyntheticLM(cfg.vocab_size, seed=0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(ops)
+    walls, draws, drawn, ef_err = [], [], [], 0.0
+    for rnd in range(r["rounds"]):
+        parts = [int(k) for k in engine.participants()]
+        absent = [k for k in range(n) if k not in parts]
+        # Host copies of what an absent client owns, outside the wall.
+        kept = {k: ([a.cpu() for a in tree_leaves(params[k])], ef[k].cpu(),
+                    {name: v[k].cpu() for name, v in cache["payload"].items()})
+                for k in absent}
+        t0 = time.perf_counter()
+        toks = np.zeros((n, tau + 1, b, s), np.int32)
+        for k in parts:   # absent clients' rows are never read
+            toks[k] = np.stack([stream.sample(b, s, step=rnd * (tau + 1) + t,
+                                              client=k)
+                                for t in range(tau + 1)])
+        draws.append(time.perf_counter() - t0)
+        mask = torch.zeros(n, dtype=torch.bool)
+        mask[parts] = True
+        e_prev = ef   # the step builds a new residual; this one stays
+        params, opt_state, m, cache, ef = step(
+            params, opt_state, {"tokens": torch.from_numpy(toks).cuda()},
+            mask.cuda(), cache, ef)
+        losses = (float(m["base_loss"]), float(m["mod_loss"]))
+        valid = int(m["cache_valid"])
+        walls.append(time.perf_counter() - t0)
+        entries, shipped = plane.account_round(parts, rnd, entry)
+        engine.end_round({"base_loss": losses[0], "mod_loss": losses[1],
+                          "participants": parts, "cache_size": entries,
+                          "shipped_entries": shipped})
+        check(valid == entries, f"spmd full width round {rnd}: cache_valid "
+              f"{valid} != account_round's {entries}")
+        check(all(np.isfinite(losses)), f"spmd round {rnd}: losses {losses}")
+        want = ifl_round_bytes(n, b * s, cfg.d_fusion, codec=r["codec"],
+                               participating=len(parts),
+                               broadcast_entries=entries, broadcast="delta",
+                               delta_entries=shipped)
+        check(engine.ledger.per_round[-1] == want,
+              f"spmd round {rnd}: ledger {engine.ledger.per_round[-1]} != "
+              f"analytic {want}")
+        if parts:
+            # The round's one encode against its plain version on the
+            # same z (absent clients' rows are zeros), participants' rows.
+            want, e_want = ref.wire_encode_ef_ref(m["z"].float(), e_prev,
+                                                  plane.codec)
+            got = {name: v[parts] for name, v in cache["payload"].items()}
+            ef_err = max(ef_err, payload_err(
+                got, {name: v[parts] for name, v in want.items()},
+                f"spmd full width round {rnd} payload"))
+            torch.testing.assert_close(ef[parts], e_want[parts], **WIRE_TOL)
+            ef_err = max(ef_err,
+                         float((ef[parts] - e_want[parts]).abs().max()))
+            del want, e_want
+        del e_prev, m
+        for k, (ps, e, slot) in kept.items():
+            check(all(torch.equal(a, c.cpu()) for a, c in
+                      zip(ps, tree_leaves(params[k])))
+                  and torch.equal(e, ef[k].cpu())
+                  and all(torch.equal(v, cache["payload"][name][k].cpu())
+                          for name, v in slot.items()),
+                  f"spmd round {rnd}: absent client {k} moved")
+        drawn.append((parts, valid, losses, shipped, absent))
+    got = launch_counts(ops)
+    fwd, bwd = spmd_attn_launches(cfg, tau, [(len(p), v) for p, v, *_ in
+                                             drawn])
+    with_part = sum(1 for p, *_ in drawn if p)
+    check(got["wire_encode_ef"] == with_part and with_part > 0,
+          f"spmd full width: wire_encode_ef launches {got['wire_encode_ef']} "
+          f"!= {with_part} rounds with a participant")
+    check(got["flash_attention"] == fwd and got["flash_attention_bwd"] == bwd,
+          f"spmd full width: attention launches {got} != fwd {fwd}, bwd {bwd}")
+    check(all(got[k] == 0 for k in got if k not in (
+        "wire_encode_ef", "flash_attention", "flash_attention_bwd")),
+          f"spmd full width: other kernels launched {got}")
+    print(f"[spmd] full width {cfg.name} ({cfg.num_layers} layers, d "
+          f"{cfg.d_model}, vocab {cfg.vocab_size}, {cfg.compute_dtype}), N "
+          f"{n}, tau {tau}, B {b}, S {s}, {r['codec']} over "
+          f"{n * b * s} x {cfg.d_fusion} rows, {r['participation']} masks, "
+          f"max_staleness {r['max_staleness']}, delta, {r['rounds']} rounds: "
+          f"participants {[p for p, *_ in drawn]}, cache_valid "
+          f"{[v for _, v, *_ in drawn]} == account_round's valid entries, "
+          f"shipped {[d[3] for d in drawn]}; wire_encode_ef launches "
+          f"{got['wire_encode_ef']} == {with_part} rounds with a participant; "
+          f"attention launches fwd {fwd} bwd {bwd} == derived; ledger == "
+          f"analytic every round ({engine.ledger.per_round}); losses "
+          f"{[tuple(round(x, 4) for x in d[2]) for d in drawn]}; absent "
+          f"clients {[d[4] for d in drawn]} bitwise frozen (params, EF rows, "
+          f"cache slots); participants' payloads and EF rows vs the plain "
+          f"wire_encode_ef of the round's z: codes bitwise, max|err| "
+          f"{ef_err:.3e}; round walls (s) {[round(w, 3) for w in walls]}, "
+          f"host draw of the participants' tokens (s) "
+          f"{[round(d, 3) for d in draws]}; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; card {smi}",
+          flush=True)
+    del params, opt_state, cache, ef
+    torch.cuda.empty_cache()
+    out = {k: got[k] for k in ("wire_encode_ef", "flash_attention",
+                               "flash_attention_bwd")}
+    out["ef_err"] = ef_err
+    return out
+
+
+def spmd_front_door_phase(ops):
+    """Phase 4l (b) and (c): ``run_experiment(ifl_spmd)`` on the card and
+    on the CPU from the same slot inits; a save/resume on the card; async
+    ticks; a population of 1,000 with a cohort of 8; an int8_row run; the
+    trained card run exported by ``from_spmd_trainer`` and served."""
+    import tempfile
+
+    from repro_torch.api import (DataSpec, ExperimentSpec, FleetSpec,
+                                 build_trainer, load_trainer, run_experiment,
+                                 save_trainer)
+    from repro_torch.serve import CompositionStore, ServeEngine
+    from repro_torch.serve.types import Request
+
+    spec = ExperimentSpec(**SPMD_SPEC, data=DataSpec(**SPMD_DATA))
+    init = [tree_numpy(p) for p in build_trainer(spec, device="cpu").params]
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            reset_counts(ops)
+        runs[dev] = run_experiment(spec, device=dev, params=init,
+                                   keep_trainer=True)
+    got = launch_counts(ops)
+    card, cpu = runs["cuda"].trainer, runs["cpu"].trainer
+    hist = card.engine.history
+    cfg = card.model_cfg
+    fwd, bwd = spmd_attn_launches(
+        cfg, spec.tau, [(len(h.participants), h["cache_size"]) for h in hist],
+        evals=spec.fleet.n_clients)
+    with_part = sum(1 for h in hist if h.participants)
+    check(got["wire_encode_ef"] == with_part
+          and got["flash_attention"] == fwd
+          and got["flash_attention_bwd"] == bwd,
+          f"spmd front door: launches {got} != wire_encode_ef {with_part}, "
+          f"fwd {fwd}, bwd {bwd}")
+    check(same_reports(runs["cuda"].reports, runs["cpu"].reports,
+                       ("participants", "cache_size", "shipped_entries",
+                        "uplink_mb", "downlink_mb"))
+          and card.ledger.per_round == cpu.ledger.per_round,
+          "spmd front door: participants or bytes differ card vs CPU")
+    loss_err = max_metric_diff(runs["cuda"].reports, runs["cpu"].reports)
+    check(loss_err <= LM_LOSS_TOL,
+          f"spmd front door: card vs CPU losses differ by {loss_err}")
+    print(f"[spmd] run_experiment(ifl_spmd, model {spec.model} -> "
+          f"{cfg.name}: {cfg.num_layers} layers, d {cfg.d_model}, head dim "
+          f"{cfg.resolved_head_dim}, {cfg.compute_dtype}; d_fusion "
+          f"{spec.d_fusion}, B {spec.batch_size}, S {card.seq}, tau "
+          f"{spec.tau}, {spec.codec}, {spec.participation}, max_staleness "
+          f"{spec.max_staleness}, delta, {spec.rounds} rounds) card vs CPU "
+          f"from the same slot inits: participants "
+          f"{[h.participants for h in hist]} and bytes "
+          f"{card.ledger.per_round} equal; losses max|card - cpu| "
+          f"{loss_err:.2e} (tolerance {LM_LOSS_TOL}); launches on the card "
+          f"wire_encode_ef {with_part}, attention fwd {fwd} bwd {bwd} == "
+          f"derived (evaluation included); accuracies card "
+          f"{[round(a, 4) for a in runs['cuda'].final['accs']]} cpu "
+          f"{[round(a, 4) for a in runs['cpu'].final['accs']]}", flush=True)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        first = build_trainer(spec, device="cuda", params=init)
+        for _ in range(2):
+            first.run_round()
+        path = str(Path(tmp) / "trainer")
+        save_trainer(path, first)
+        resumed = load_trainer(path, build_trainer(spec, device="cuda"))
+        with torch.backends.cudnn.flags(
+                enabled=torch.backends.cudnn.enabled,
+                benchmark=torch.backends.cudnn.benchmark,
+                deterministic=True,
+                allow_tf32=torch.backends.cudnn.allow_tf32):
+            want = [first.run_round().to_dict() for _ in range(2)]
+            tail = [resumed.run_round().to_dict() for _ in range(2)]
+        check(same_reports(tail, want, ("participants", "cache_size",
+                                        "shipped_entries", "uplink_mb",
+                                        "downlink_mb"))
+              and same_reports(tail, runs["cuda"].reports[2:],
+                               ("participants", "uplink_mb", "downlink_mb")),
+              "spmd resume: participants or bytes differ")
+        resume_err = max_metric_diff(tail, want)
+        check(resume_err <= SPMD_RESUME_TOL,
+              f"spmd resume: losses differ by {resume_err}")
+
+        # (c) the trained card run, exported and served on the card.
+        store = CompositionStore.from_spmd_trainer(card)
+        art = str(Path(tmp) / "artifact.npz")
+        store.save(art)
+        reqs = [Request(rid=i, tenant=t, prompt=[1 + i, 2, 3, 4],
+                        max_new_tokens=8)
+                for i, t in enumerate(store.tenants())]
+        engine = ServeEngine(store, width=2, cache_len=32, horizon=4,
+                             device="cuda")
+        reset_counts(ops)
+        comps = engine.run(reqs)
+        torch.cuda.synchronize()
+        decode_launches = ops.flash_decode.launches
+        steps = sum(lane.composed_steps for lane in engine.lanes())
+        check(decode_launches == cfg.num_layers * steps and steps > 0,
+              f"spmd serve: flash_decode launches {decode_launches} != "
+              f"{cfg.num_layers} layers x {steps} composed steps")
+        served = [c.tokens for c in comps]
+        check(served == [engine.oracle(q).tokens for q in reqs],
+              "spmd serve: engine != oracle")
+        cpu_eng = ServeEngine(CompositionStore.load(art, device="cpu"),
+                              width=2, cache_len=32, horizon=4, device="cpu")
+        check(served == [c.tokens for c in cpu_eng.run(reqs)],
+              "spmd serve: card tokens != the plain version's on the CPU")
+    fusion = sum(store.entry(t).fusion is not None for t in store.tenants())
+    print(f"[spmd] save_trainer after 2 rounds, load_trainer into a fresh "
+          f"trainer, rounds 3-4 under cudnn.deterministic: participants and "
+          f"bytes == the saved trainer's; losses max|diff| {resume_err:.2e} "
+          f"(tolerance {SPMD_RESUME_TOL})", flush=True)
+    print(f"[spmd serve] from_spmd_trainer of the trained card run: "
+          f"{len(store)} tenants ({fusion} with the valid cache slot's "
+          f"decoded fusion state), saved and served: {len(reqs)} requests x 8 "
+          f"tokens, {steps} composed steps, flash_decode launches "
+          f"{decode_launches} == {cfg.num_layers} layers x {steps}; engine == "
+          f"oracle == the plain version on the CPU (artifact reloaded there); "
+          f"tokens {served}", flush=True)
+
+    # Async ticks: one wire_encode_ef launch a tick with an upload.
+    aspec = spec.replace(mode="async", trace="pareto(1.2,0.5)",
+                         participation="full", rounds=6)
+    reset_counts(ops)
+    tr = build_trainer(aspec, device="cuda", params=init)
+    ticks = [tr.run_round() for _ in range(aspec.rounds)]
+    uploads = sum(1 for t in ticks if t.participants)
+    check(ops.wire_encode_ef.launches == uploads,
+          f"spmd async: wire_encode_ef launches {ops.wire_encode_ef.launches}"
+          f" != {uploads} ticks with an upload")
+    print(f"[spmd async] {aspec.rounds} ticks of {aspec.trace}: participants "
+          f"{[t.participants for t in ticks]}, arrivals "
+          f"{[t['arrivals'] for t in ticks]}; wire_encode_ef launches "
+          f"{uploads} == ticks with an upload", flush=True)
+
+    # A population of 1,000 slots, a cohort of 8 a round.
+    pspec = spec.replace(participation="full", rounds=3, max_staleness=1,
+                         fleet=FleetSpec(n_population=1000, cohort=8))
+    reset_counts(ops)
+    tr = build_trainer(pspec, device="cuda")
+    walls = []
+    for _ in range(pspec.rounds):
+        t0 = time.perf_counter()
+        rep = tr.run_round()
+        walls.append(time.perf_counter() - t0)
+        live = sum(r is not None for r in tr.exchange._last_upload)
+        check(len(rep.participants) == 8
+              and live <= 8 * (pspec.max_staleness + 1)
+              and len(tr.ef_store) <= 8 * (pspec.max_staleness + 1),
+              f"spmd cohort round {rep.round}: K {len(rep.participants)}, "
+              f"live slots {live}, EF residuals {len(tr.ef_store)}")
+        check(tr.ledger.per_round[-1]["up"] == 8 * tr._entry_bytes,
+              f"spmd cohort: uplink {tr.ledger.per_round[-1]}")
+    check(ops.wire_encode_ef.launches == pspec.rounds,
+          f"spmd cohort: wire_encode_ef launches {ops.wire_encode_ef.launches}")
+    print(f"[spmd cohort] N 1000, C 8, {pspec.codec}, max_staleness "
+          f"{pspec.max_staleness}, {pspec.rounds} rounds: K == 8 every round, "
+          f"live server slots {live} <= {8 * (pspec.max_staleness + 1)}, EF "
+          f"residuals {len(tr.ef_store)}, slots materialized {len(tr.store)}; "
+          f"wire_encode_ef launches {pspec.rounds}; ledger {tr.ledger.per_round};"
+          f" round walls (ms) {[round(w * 1e3, 1) for w in walls]}",
+          flush=True)
+
+    # int8_row once: wire_encode, one launch a round with a participant.
+    ispec = spec.replace(codec="int8_row", rounds=2)
+    reset_counts(ops)
+    tr = build_trainer(ispec, device="cuda", params=init)
+    reps = [tr.run_round() for _ in range(ispec.rounds)]
+    with_part = sum(1 for r in reps if r.participants)
+    check(ops.wire_encode.launches == with_part
+          and ops.wire_encode_ef.launches == 0,
+          f"spmd int8_row: wire_encode launches {ops.wire_encode.launches} != "
+          f"{with_part}")
+    print(f"[spmd int8_row] {ispec.rounds} rounds: wire_encode launches "
+          f"{with_part} == rounds with a participant", flush=True)
+    return {"wire_encode": with_part, "flash_decode": decode_launches}
+
+
+def llm_twin_phase(ops):
+    """The twin of examples/llm_ifl_train.py for 5 rounds on the card
+    (olmo-100m, fp32): finite losses, attention launches == derived."""
+    from repro_torch.examples import llm_ifl_train
+
+    reset_counts(ops)
+    t0 = time.perf_counter()
+    out = llm_ifl_train.main(["--rounds", "5"])
+    wall = time.perf_counter() - t0
+    cfg, h = llm_ifl_train.olmo_100m(), out["history"]
+    fwd, bwd = expected_attn_launches(cfg, steps_full=5 * 4 * 4,
+                                      steps_mod=5 * 4 * 4, fwd_only=5 * 4)
+    got = launch_counts(ops)
+    check(all(np.isfinite(x["base_loss"]) and np.isfinite(x["mod_loss"])
+              for x in h), f"llm twin: losses {h}")
+    check(got["flash_attention"] == fwd and got["flash_attention_bwd"] == bwd,
+          f"llm twin: attention launches {got} != fwd {fwd}, bwd {bwd}")
+    print(f"[llm twin] python -m repro_torch.examples.llm_ifl_train --rounds "
+          f"5 ({out['n_params'] / 1e6:.1f}M params): base loss "
+          f"{h[0]['base_loss']:.3f} -> {h[-1]['base_loss']:.3f}, modular "
+          f"{h[0]['mod_loss']:.3f} -> {h[-1]['mod_loss']:.3f}; attention "
+          f"launches fwd {fwd} bwd {bwd} == derived; {wall:.1f} s, round walls "
+          f"(s) {[round(w, 3) for w in out['walls']]}", flush=True)
+
+
+def tree_numpy(tree):
+    """A tree of tensors -> the same tree of numpy arrays."""
+    if isinstance(tree, dict):
+        return {k: tree_numpy(v) for k, v in tree.items()}
+    return tree.detach().cpu().numpy()
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", action="store_true",
@@ -2224,7 +2630,7 @@ def main() -> None:
           f"{split_err:.3e}", flush=True)
     wire_err = wire_checks(ops, ref, get_codec)
     print(f"[kernel] wire_encode / wire_encode_ef vs plain, schemes "
-          f"{WIRE_SCHEMES} at (32,432), (32,433), (4096,432) with a zero "
+          f"{WIRE_SCHEMES} at {WIRE_SHAPES} with a zero "
           f"row, EF over 4 chained steps: codes, nibbles and indices "
           f"bitwise; float leaves and e' max|err| "
           f"{wire_err['wire_encode']:.3e} / {wire_err['wire_encode_ef']:.3e}",
@@ -2417,6 +2823,16 @@ def main() -> None:
     population_phase(ops, args.profile)
     twins_phase()
 
+    # -- 4l. the SPMD IFL trainer, its front door and its export -----------
+    t0 = time.perf_counter()
+    spmd = spmd_full_width_phase(ops, cfg, smi)
+    spmd.update(spmd_front_door_phase(ops))
+    # #2's row holds the full-width path's own payloads too.
+    wire_err["wire_encode_ef"] = max(wire_err["wire_encode_ef"],
+                                     spmd.pop("ef_err"))
+    llm_twin_phase(ops)
+    print(f"[spmd] phase 4l took {time.perf_counter() - t0:.1f}s", flush=True)
+
     # -- 5. times at the slice's shape ------------------------------------
     decode_t = []
     for Bt, Lt, KVHt, Gt, hdt, lengths, n_sets in DECODE_SHAPES:
@@ -2433,6 +2849,10 @@ def main() -> None:
     wire_t = {}
     for rows in (32, 4096):
         wire_t[rows] = wire_times(ops, ref, get_codec, rows)
+    # The SPMD path's encode: all N x B x S = 4096 rows of full-width
+    # qwen1.5-0.5b's fusion output (1024) in one launch.
+    spmd_t = wire_times(ops, ref, get_codec, 4096, d=1024,
+                        schemes=("int4",))[("wire_encode_ef", "int4")]
 
     kernels = [{
         "name": "flash_decode",
@@ -2440,6 +2860,7 @@ def main() -> None:
         "source": "src/repro_torch/kernels/csrc/flash_decode.cu",
         "replaces": "src/repro/kernels/flash_attention.py:121",
         "launches": launches,
+        "spmd_launches": spmd["flash_decode"],
         "max_abs_err": err_bf16,
         "ms": dt["ms"],
         "plain_ms": dt["plain_ms"],
@@ -2452,7 +2873,7 @@ def main() -> None:
     for kname, scheme in (("wire_encode", "int8_row"),
                           ("wire_encode_ef", "int4")):
         t = wire_t[32][(kname, scheme)]
-        kernels.append({
+        row = {
             "name": kname,
             "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/wire_encode.cu",
@@ -2460,13 +2881,18 @@ def main() -> None:
                          if kname == "wire_encode"
                          else "src/repro/kernels/wire_fused.py:389"),
             "launches": ifl_launches[kname],
+            "spmd_launches": spmd[kname],
             "max_abs_err": wire_err[kname],
             "ms": t["ms"],
             "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"],
             "library_ms": None,
-        })
+        }
+        if kname == "wire_encode_ef":   # the SPMD path's (4096, 1024)
+            row.update(spmd_ms=spmd_t["ms"], spmd_plain_ms=spmd_t["plain_ms"],
+                       spmd_bound_ms=spmd_t["bound_ms"])
+        kernels.append(row)
     at = attn_times(ops, ref, ATTN_TIMED[0])
     for shape in ATTN_TIMED[1:]:   # printed as [time] lines only
         attn_times(ops, ref, shape)
@@ -2482,6 +2908,7 @@ def main() -> None:
             "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
             "replaces": replaces,
             "launches": lm["launches"][kname],
+            "spmd_launches": spmd[kname],
             "max_abs_err": err,
             "ms": at[key],
             "plain_ms": at[key + "_plain"],

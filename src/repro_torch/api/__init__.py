@@ -13,10 +13,11 @@ Pieces (each its own module, all re-exported here):
                                           ``spec_hash()`` as the JAX
                                           package's)
   register_scheme / get_scheme /          scheme registry: the reference's
-  available_schemes                       five names; ``ifl``, ``fsl``,
-                                          ``fl1`` and ``fl2`` are ported,
-                                          ``ifl_spmd``'s builder raises
-                                          ``NotImplementedError``
+  available_schemes                       five names, all ported (``ifl``,
+                                          ``fsl``, ``fl1``, ``fl2``,
+                                          ``ifl_spmd``)
+  SPMDIFLTrainer / smoke_model_config     the LM trainer behind
+                                          ``ifl_spmd``
   Trainer / RoundReport / RunResult       the protocol and its outputs
   run_experiment / build_trainer          the runner (spec-hash caching,
                                           ``device=``, ``params=``)
@@ -43,8 +44,10 @@ from repro_torch.api.schemes import (  # noqa: F401
     build_fleet,
     build_fsl,
     build_ifl,
+    build_ifl_spmd,
     load_data,
 )
+from repro_torch.api.spmd import SPMDIFLTrainer, smoke_model_config  # noqa: F401
 from repro_torch.api.runner import (  # noqa: F401
     PAPER_RESULTS,
     build_trainer,

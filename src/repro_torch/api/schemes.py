@@ -20,9 +20,10 @@ draw, both deterministic in k, so lazy == eager bitwise.
 
 The registry holds the reference's five names: ``ifl``, the baselines
 ``fsl``, ``fl1`` and ``fl2`` (with the reference's refusals of async
-modes and population fleets, as ``ValueError``), and ``ifl_spmd``. Not
-ported yet: ``ifl_spmd`` and the token dataset (ROADMAP.md queue 1, item
-4b); they raise ``NotImplementedError``.
+modes and population fleets, as ``ValueError``), and ``ifl_spmd``, the
+LM trainer of ``repro_torch.api.spmd`` on the ``synth_tokens`` dataset
+(which loads to an empty bundle: the trainer streams ``SyntheticLM``
+itself). ``build_ifl_spmd``'s ``params[k]`` is slot k's LM init.
 """
 
 from __future__ import annotations
@@ -35,6 +36,7 @@ import torch
 
 from repro_torch.api.registry import register_scheme
 from repro_torch.api.spec import ExperimentSpec
+from repro_torch.api.spmd import SPMDIFLTrainer
 from repro_torch.checkpoint import params_from_numpy
 from repro_torch.core.fl import FLTrainer
 from repro_torch.core.fsl import FSLTrainer
@@ -50,7 +52,8 @@ from repro_torch.models.small import (
 )
 
 __all__ = ["DataBundle", "load_data", "apply_fns", "build_fleet",
-           "build_ifl", "build_fsl", "build_fl1", "build_fl2"]
+           "build_ifl", "build_fsl", "build_fl1", "build_fl2",
+           "build_ifl_spmd"]
 
 
 class DataBundle(NamedTuple):
@@ -67,11 +70,10 @@ def load_data(spec: ExperimentSpec) -> DataBundle:
         return DataBundle(*make_synth_kmnist(spec.data.n_train,
                                              spec.data.n_test))
     if spec.data.dataset == "synth_tokens":
-        raise NotImplementedError(
-            "dataset 'synth_tokens' serves the SPMD scheme, not ported yet "
-            "(ROADMAP.md queue 1, item 4b)")
+        # The SPMD trainer streams its tokens from SyntheticLM itself.
+        return DataBundle(None, None, None, None)
     raise ValueError(f"unknown dataset {spec.data.dataset!r}; available: "
-                     "synth_kmnist")
+                     "synth_kmnist, synth_tokens")
 
 
 def apply_fns(cid: int):
@@ -199,6 +201,14 @@ def build_fl2(spec: ExperimentSpec, data: DataBundle, *,
 
 @register_scheme("ifl_spmd", summary="IFL as one SPMD round step (LM-scale, "
                                      "stacked-client mesh)")
-def build_ifl_spmd(spec, data, **kw):
-    raise NotImplementedError("scheme 'ifl_spmd' is not ported yet "
-                              "(ROADMAP.md queue 1, item 4b)")
+def build_ifl_spmd(spec: ExperimentSpec, data: DataBundle, *,
+                   params: Optional[Sequence] = None, device=None,
+                   **kw) -> SPMDIFLTrainer:
+    """IFL on an LM over stacked clients (``repro_torch.api.spmd``); the
+    data bundle is unused (the trainer streams ``SyntheticLM`` tokens).
+    ``params[k]`` (numpy trees, optional) is slot k's initial
+    ``{"base", "modular"}``; ``kw`` goes to the trainer (``seq``,
+    ``init_params``)."""
+    if params is not None:
+        kw["init_params"] = params.__getitem__
+    return SPMDIFLTrainer(spec, device=device, **kw)

@@ -5,13 +5,16 @@ Submodules (each the twin of the JAX package's module of that name):
   comm      — communication ledger + analytic per-round byte formulas
   report    — RoundReport, the structured run_round() return type
   codec     — fusion-payload wire codecs + EF21 wrapping (ef(<codec>))
-  exchange  — the eager fusion exchange plane (codec, EF residuals,
-              FusionCache, ledger, full and delta broadcast, the
-              population regime)
+  exchange  — the fusion exchange planes: the eager one (codec, EF
+              residuals, FusionCache, ledger, full and delta broadcast,
+              the population regime) and the SPMD one of the LM round
+              step (masked wire, payload cache, account_round), with
+              init_payload_cache and expected_delta_entries
   rounds    — participation schedules, arrival traces, the sync and
               async round engines, cohorts
   population — PopulationStore and LazyFleet
   ifl       — the two-stage IFL algorithm (eager, heterogeneous clients)
+  ifl_spmd  — IFL on a language model, one round step over N clients
   fl        — the FedAvg baseline (FL-1 / FL-2)
   fsl       — the federated split learning baseline
 """
@@ -34,6 +37,9 @@ from repro_torch.core.exchange import (  # noqa: F401
     FusionCache,
     FusionExchange,
     SPMDFusionExchange,
+    expected_delta_entries,
+    init_ef_state,
+    init_payload_cache,
     parse_broadcast,
 )
 from repro_torch.core.fl import FLTrainer  # noqa: F401

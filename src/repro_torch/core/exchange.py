@@ -48,14 +48,13 @@ trainer snapshots the cache sparsely, slot by slot, never through
 
 ``SPMDFusionExchange`` is the one-card counterpart of the reference's
 SPMD backend: the wire block of the LM round step
-(``repro_torch.core.ifl_spmd``) over a stacked client dim, at full
-participation. On one card the 'client'-axis all-gather is the stacking
+(``repro_torch.core.ifl_spmd``) over a stacked client dim, with partial
+participation (the carried payload cache, ``max_staleness``), the full
+or delta broadcast, the population regime and the host-side
+``account_round``; ``expected_delta_entries`` replays a schedule
+through it, and ``init_ef_state`` / ``init_payload_cache`` build its
+carried state. On one card the 'client'-axis all-gather is the stacking
 of the N payloads, and the receivers decode them.
-
-Not ported yet (ROADMAP.md queue 1, item 4b): the SPMD backend's
-partial participation (payload cache, ``max_staleness``), delta
-broadcast and host-side ``account_round``, with ``expected_delta_entries``
-that replays through it.
 """
 
 from __future__ import annotations
@@ -63,6 +62,7 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 
+import numpy as np
 import torch
 
 from repro_torch.core.codec import Codec, get_codec
@@ -76,7 +76,9 @@ __all__ = [
     "FusionCache",
     "FusionExchange",
     "SPMDFusionExchange",
+    "expected_delta_entries",
     "init_ef_state",
+    "init_payload_cache",
 ]
 
 
@@ -106,6 +108,9 @@ class ExchangePlane:
     def down(self, tree) -> None:
         """Server -> client: ledger the measured bytes of ``tree``."""
         self.ledger.send_down(tree)
+
+    def up_bytes(self, b: int) -> None:
+        self.ledger.send_up_bytes(b)
 
     def down_bytes(self, b: int) -> None:
         self.ledger.send_down_bytes(b)
@@ -375,74 +380,249 @@ class FusionExchange(ExchangePlane):
         self.mirrors.restore_aux(aux["mirrors"])
 
 
-_SPMD_TODO = ("ROADMAP.md queue 1, item 4b: the SPMD trainer, with its "
-              "partial participation and staleness")
+
+
+# ------------------------------------------------------------ SPMD backend
+
+
+_NEVER = 2 ** 30  # age of a never-filled cache slot (always invalid)
+
+
+def _tree_where(mask: torch.Tensor, new, old):
+    """Per-client select over trees whose leaves lead with (N,): client k
+    takes ``new`` where ``mask[k]``, else ``old`` (the reference's
+    ``_tree_where``)."""
+    if isinstance(new, dict):
+        return {k: _tree_where(mask, new[k], old[k]) for k in new}
+    m = mask.reshape(mask.shape + (1,) * (new.dim() - 1))
+    return torch.where(m, new, old)
 
 
 class SPMDFusionExchange(ExchangePlane):
     """The fusion wire block of the LM round step over a stacked client
-    dim, on one card, at full participation.
+    dim, on one card: the port of the reference's SPMD backend.
 
-    ``wire(z, tokens, mask, cache, ef_state)`` takes the N clients'
-    fusion outputs stacked as z (N, Bc, S, d_fusion) and their tokens
-    (N, Bc, S). A codec with a wire scheme encodes all N clients' rows
-    in one ``wire_encode`` / ``wire_encode_ef`` call (the rows of a
-    row-wise scheme are independent, so this is the per-client encode;
-    the reference's fused path flattens the same axes), with z in fp32,
-    the kernel's input type (every scheme's plain encode upcasts to fp32
-    first). Every other codec encodes each client's z as it is. The
-    payloads, "gathered" (stacked), are decoded to z's dtype.
+    ``wire(z, tokens, mask, cache, ef_state)`` is the in-step half. It
+    takes the N clients' fusion outputs stacked as z (N, Bc, S, d_fusion)
+    and their tokens (N, Bc, S). A codec with a wire scheme encodes all N
+    clients' rows in one ``wire_encode`` / ``wire_encode_ef`` call (the
+    rows of a row-wise scheme are independent, so this is the
+    per-client encode; the reference's fused path flattens the same
+    axes), with z in fp32, the kernel's input type (every scheme's plain
+    encode upcasts to fp32 first). Every other codec encodes each
+    client's z as it is. On one card the reference's 'client'-axis
+    all-gather is the stacked payload itself, and its sharding
+    constraints (``_gather_payload``, ``_ef_constrain``,
+    ``_cache_constrain``) have no counterpart: there is no mesh and no
+    ``torch.distributed`` here.
+
+    Under partial participation (``mask`` not None) the carried payload
+    cache (``init_payload_cache``) is refreshed for the participants
+    only: the one encode is selected by the mask (``_tree_where``), so
+    absent clients keep their EF residual and their cache slot bitwise,
+    ``age`` is 0 for a participant and ``min(age, _NEVER - 1) + 1`` for
+    everyone else, and ``valid = age <= age_bound`` weights the cached
+    chunks of the modular update (the eager cache's eviction, at fixed
+    shapes). A round without a participant encodes nothing.
+
+    The host half: ``account_round`` replays the mask stream against a
+    host replica of the cache ages (``_last_upload``, equal to the
+    in-step ``age`` vector: both are functions of the mask history) and
+    ledgers the codec's analytic ``encoded_nbytes`` per boundary
+    crossing under the full or delta policy, with the eager plane's
+    ``_DeltaMirrors``. ``population=True`` (the cohort regime) accounts
+    the round's fresh cohort only and lets ``prune`` age mirrors out.
+    ``expected_delta_entries`` replays a schedule through it.
     """
 
     def __init__(self, codec: Union[str, Codec, None], *, n_clients: int,
                  max_staleness: Optional[int] = None,
-                 broadcast: str = "full"):
-        if max_staleness is not None or broadcast != "full":
-            raise NotImplementedError(
-                f"max_staleness={max_staleness!r}, broadcast={broadcast!r}: "
-                f"only full participation with a full broadcast is ported "
-                f"({_SPMD_TODO})")
+                 broadcast: str = "full", population: bool = False):
         super().__init__()
         self.codec = get_codec(codec)
         self.n_clients = n_clients
+        self.max_staleness = max_staleness
+        self.broadcast = parse_broadcast(broadcast)
+        self.population = bool(population)
+        self.age_bound = (_NEVER - 1 if max_staleness is None
+                          else int(max_staleness))
+        self.mirrors = _DeltaMirrors(n_clients)
+        # Host replica of each slot's last upload round (None = never).
+        self._last_upload: List[Optional[int]] = [None] * n_clients
 
-    def _encode_rows(self, z, ef_state):
-        """The fused encode of all rows -> (payload, ef') or None."""
+    # ------------------------------------------------ in-step wire
+
+    def _encode(self, z, ef_state):
+        """All N clients' payloads, stacked leaf by leaf, and the EF
+        residual threaded through -> (payload, ef')."""
         zf = z.float()
         if self.codec.has_state:
-            return self.codec.fused_encode_with_state(zf, ef_state)
-        payload = self.codec.fused_encode(zf)
-        return None if payload is None else (payload, ef_state)
-
-    def wire(self, z, tokens, mask, cache, ef_state):
-        """-> (zg, yg, valid, new_cache, ef_state'): the gathered decoded
-        fusion outputs (N, Bc, S, d_fusion) in z's dtype and their tokens,
-        ``valid`` and ``new_cache`` None (full participation), and the
-        EF residual (N, Bc, S, d_fusion) threaded through (``()`` for a
-        stateless codec)."""
-        if mask is not None or cache is not None:
-            raise NotImplementedError(
-                f"partial participation on the SPMD path ({_SPMD_TODO})")
-        shape = tuple(z.shape[1:])
-        out = self._encode_rows(z, ef_state)
+            out = self.codec.fused_encode_with_state(zf, ef_state)
+        else:
+            payload = self.codec.fused_encode(zf)
+            out = None if payload is None else (payload, ef_state)
         if out is not None:
-            payload, ef_state = out
-            zg = self.codec.decode(payload, shape=tuple(z.shape),
-                                   dtype=z.dtype)
-            return zg, tokens, None, None, ef_state
-        payloads, efs = [], []
+            return out
+        pays, efs = [], []
         for k in range(z.shape[0]):
             if self.codec.has_state:
                 p, e = self.codec.encode_with_state(z[k], ef_state[k])
                 efs.append(e)
             else:
                 p = self.codec.encode(z[k])
-            payloads.append(p)
-        if self.codec.has_state:
-            ef_state = torch.stack(efs)
-        zg = torch.stack([self.codec.decode(p, shape=shape, dtype=z.dtype)
-                          for p in payloads])
-        return zg, tokens, None, None, ef_state
+            pays.append(p)
+        payload = {name: torch.stack([p[name] for p in pays])
+                   for name in pays[0]}
+        return payload, (torch.stack(efs) if efs else ef_state)
+
+    def _decode(self, payload, shape, dtype, keep=None) -> torch.Tensor:
+        """The stacked payload decoded -> (N, *shape) in ``dtype``. A
+        row-wise wire scheme's payload decodes in one call over all N
+        clients' rows; any other codec decodes client by client, and
+        only the clients in ``keep`` (None: all), zeros elsewhere."""
+        lead = next(iter(payload.values()))
+        n = lead.shape[0]
+        if self._rowwise(shape[-1]):
+            return self.codec.decode(payload, shape=(n,) + tuple(shape),
+                                     dtype=dtype)
+        zero = torch.zeros(tuple(shape), dtype=dtype, device=lead.device)
+        return torch.stack([
+            self.codec.decode({name: v[k] for name, v in payload.items()},
+                              shape=tuple(shape), dtype=dtype)
+            if keep is None or k in keep else zero for k in range(n)])
+
+    def _rowwise(self, d: int) -> bool:
+        """True when the codec (or the one ``ef(...)`` wraps) has a wire
+        scheme at fusion dim ``d``: its payload leaves keep z's leading
+        dims, so the stacked payload is one payload of (N, *shape)."""
+        from repro_torch.kernels import ops
+
+        return ops.scheme_for(getattr(self.codec, "inner", self.codec),
+                              d) is not None
+
+    def wire(self, z, tokens, mask, cache, ef_state):
+        """-> (zg, yg, valid, new_cache, ef_state'): the decoded fusion
+        outputs (N, Bc, S, d_fusion) in z's dtype and their tokens,
+        ``valid`` the (N,) 0/1 fp32 staleness weights and ``new_cache``
+        the refreshed cache (both None at full participation), and the
+        EF residual (``()`` for a stateless codec). ``mask`` is an (N,)
+        bool tensor; absent clients' rows of z are never read."""
+        shape = tuple(z.shape[1:])
+        if mask is None:
+            payload, ef_state = self._encode(z, ef_state)
+            return (self._decode(payload, shape, z.dtype), tokens, None,
+                    None, ef_state)
+        mask = mask.to(device=z.device, dtype=torch.bool)
+        payload, toks = cache["payload"], cache["tokens"]
+        if bool(mask.any()):
+            enc, ef_new = self._encode(z, ef_state)
+            if self.codec.has_state:
+                ef_state = _tree_where(mask, ef_new, ef_state)
+            payload = _tree_where(mask, enc, payload)
+            toks = _tree_where(mask, tokens.to(toks.dtype), toks)
+        age = torch.where(mask, torch.zeros_like(cache["age"]),
+                          torch.clamp_max(cache["age"], _NEVER - 1) + 1)
+        new_cache = {"payload": payload, "tokens": toks, "age": age}
+        valid = (age <= self.age_bound).float()
+        keep = set(torch.nonzero(valid.cpu()).flatten().tolist())
+        return (self._decode(payload, shape, z.dtype, keep), toks, valid,
+                new_cache, ef_state)
+
+    # ------------------------------------------------ host accounting
+
+    def account_round(self, participants: Sequence[int], round_idx: int,
+                      entry_bytes: int) -> Tuple[int, int]:
+        """Ledger one round's boundary bytes analytically.
+
+        ``entry_bytes`` is one client's (encoded payload + labels) size.
+        Uplink: K fresh entries. Downlink under ``full``: the M valid
+        cache entries to each of the K participants; under ``delta``: the
+        mirror-sync union once, each entry plus the slot-index sidecar.
+        -> ``(valid_entries, shipped_entries)``; ``valid_entries`` equals
+        the in-step ``cache_valid`` metric (both replay the mask
+        stream)."""
+        parts = [int(k) for k in participants]
+        for k in parts:
+            self._last_upload[k] = int(round_idx)
+            # The uploader made this payload: its own mirror entry is
+            # current without any downlink (K = 1 rounds ship nothing
+            # back to the sole producer).
+            self.mirrors.note_upload(k, round_idx)
+        bound = 0 if self.population else self.age_bound
+        valid = [(s, r) for s, r in enumerate(self._last_upload)
+                 if r is not None and round_idx - r <= bound]
+        self.up_bytes(len(parts) * entry_bytes)
+        shipped: List[int] = []
+        if self.broadcast == "full":
+            self.down_bytes(len(parts) * len(valid) * entry_bytes)
+        else:
+            shipped = self.mirrors.sync(parts, valid)
+            self.down_bytes(len(shipped) * (entry_bytes + DELTA_SIDECAR_BYTES))
+        return len(valid), len(shipped)
+
+    def prune(self, round_idx: int) -> None:
+        """Population regime only: forget the mirrors (and upload stamps)
+        of clients whose last upload is more than ``max_staleness``
+        rounds old; a client that rejoins catches up as a new one."""
+        if not self.population or self.max_staleness is None:
+            return
+        for s, r in enumerate(self._last_upload):
+            if r is not None and round_idx - r > self.max_staleness:
+                self._last_upload[s] = None
+                self.mirrors.versions[s].clear()
+
+    # ------------------------------------------------- snapshot / restore
+
+    def cache_tree(self, cache: Dict[str, Any],
+                   z_shape: Tuple[int, ...]) -> Dict[str, Any]:
+        """The carried payload cache as the serving plane's fusion state:
+        ``{payload, z_hat, y, age}``, every slot's payload decoded to fp32
+        z_hat (``z_shape`` is one client's fusion-output shape); the
+        ``age`` vector marks the real slots (age <= ``age_bound``)."""
+        return {"payload": cache["payload"],
+                "z_hat": self._decode(cache["payload"], z_shape,
+                                      torch.float32),
+                "y": cache["tokens"],
+                "age": cache["age"]}
+
+    def aux_state(self) -> Dict[str, Any]:
+        return {"last_upload": list(self._last_upload),
+                "mirrors": self.mirrors.aux_state()}
+
+    def restore_aux(self, aux: Dict[str, Any]) -> None:
+        self._last_upload = [None if r is None else int(r)
+                             for r in aux["last_upload"]]
+        self.mirrors.restore_aux(aux["mirrors"])
+
+
+# ------------------------------------------------------ analytic helpers
+
+
+def expected_delta_entries(schedule, n_clients: int, *,
+                           max_staleness: Optional[int] = None,
+                           cohort: Optional[int] = None,
+                           rounds: int = 256, seed: int = 0) -> float:
+    """Mean entries shipped a delta-broadcast round under ``schedule``:
+    the schedule's mask stream (and, with ``cohort=C``, the engine's
+    uniform C-of-available draw) replayed through a real
+    ``SPMDFusionExchange.account_round`` (population regime under a
+    cohort), so the price cannot drift from the trainers' ledger."""
+    rng = np.random.default_rng(seed)
+    plane = SPMDFusionExchange(None, n_clients=n_clients,
+                               max_staleness=max_staleness,
+                               broadcast="delta",
+                               population=cohort is not None)
+    total = 0
+    for t in range(rounds):
+        parts = np.flatnonzero(schedule.mask(t, n_clients, rng))
+        if cohort is not None and len(parts) > cohort:
+            parts = np.sort(rng.choice(parts, size=cohort, replace=False))
+        total += plane.account_round(parts, t, entry_bytes=0)[1]
+        plane.prune(t)
+    return total / max(rounds, 1)
+
+
+# ------------------------------------------------------ carried-state init
 
 
 def init_ef_state(codec, z_shape: Tuple[int, ...], *, device=None):
@@ -450,3 +630,23 @@ def init_ef_state(codec, z_shape: Tuple[int, ...], *, device=None):
     the stacked fusion-output shape (N, Bc, S, d_fusion) for an
     ``ef(...)`` codec, ``()`` for a stateless one."""
     return get_codec(codec).init_state(tuple(z_shape), device=device)
+
+
+def init_payload_cache(codec, z_shape: Tuple[int, ...],
+                       token_shape: Tuple[int, ...], *,
+                       dtype=torch.float32, device=None) -> Dict[str, Any]:
+    """Initial carried payload cache of a partial-participation step:
+    ``z_shape`` (N, Bc, S, d_fusion), ``token_shape`` (N, Bc, S). The
+    payload is the codec's encode of a zero z, stacked N times (the
+    reference's leaf names, dtypes and shapes); tokens are int32 zeros
+    and every age is ``_NEVER``: a slot is invalid until its client
+    first uploads, whatever the staleness bound."""
+    n = z_shape[0]
+    one = get_codec(codec).encode(
+        torch.zeros(tuple(z_shape[1:]), dtype=dtype, device=device))
+    return {"payload": {k: v.unsqueeze(0).repeat((n,) + (1,) * v.dim())
+                        for k, v in one.items()},
+            "tokens": torch.zeros(tuple(token_shape), dtype=torch.int32,
+                                  device=device),
+            "age": torch.full((n,), _NEVER, dtype=torch.int32,
+                              device=device)}

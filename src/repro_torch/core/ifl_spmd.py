@@ -19,29 +19,44 @@ phases and their order are the reference's (Algorithm 1, lines 5-31):
 Each client's step builds and frees its own graph, so no more than one
 client's activations are alive at a time. Params and optimizer state are
 updated in place (``repro_torch.optim``). Losses are the reference's
-means: ``base_loss`` over tau steps and N clients, ``mod_loss`` over N
-chunks and N clients; they are read from the card once per round.
+means: ``base_loss`` over tau steps and the participating clients,
+``mod_loss`` over the valid chunks and the participating clients; they
+are read from the card once per round.
 
-``make_dp_train_step`` is the FL-equivalent dense baseline.
-Partial participation (the reference's ``partial_participation=True``,
-its payload cache and ``max_staleness``) raises NotImplementedError.
+Partial participation (``partial_participation=True``) threads an (N,)
+bool mask and the carried payload cache (``init_payload_cache``)
+through the step, with the reference's semantics; where the reference
+computes absent clients' steps and discards them, the port skips them
+(and the chunks that are not valid), which gives the same results.
+``init_ifl_slot_state`` is one population slot's init, a function of
+(seed, slot) alone. ``make_dp_train_step`` is the FL-equivalent dense
+baseline; ``make_prefill_step`` / ``make_serve_step`` cover the
+inference shapes.
 """
 
 from __future__ import annotations
 
 from typing import Callable, List, Optional
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
 from repro_torch.config import ModelConfig
+from repro_torch.core.codec import get_codec
 from repro_torch.core.comm import tree_leaves
-from repro_torch.core.exchange import SPMDFusionExchange, init_ef_state  # noqa: F401
+from repro_torch.core.exchange import (  # noqa: F401  (re-exported)
+    SPMDFusionExchange,
+    init_ef_state,
+    init_payload_cache,
+)
 from repro_torch.models import modules as nn
 from repro_torch.models.transformer import (
     base_forward,
     chunked_ce,
+    composed_decode_step,
     init_lm,
+    lm_apply,
     lm_loss,
     modular_forward,
     modular_trunk,
@@ -99,6 +114,7 @@ def make_ifl_round_step(
     debug_return_zhat: bool = False,
     partial_participation: bool = False,
     max_staleness: Optional[int] = None,
+    exchange: Optional[SPMDFusionExchange] = None,
 ) -> Callable:
     """Build the one-round IFL step over N per-client trees.
 
@@ -112,25 +128,64 @@ def make_ifl_round_step(
     Stateful  codecs:  step(params, opt_state, batch, ef_state)
                          -> (params, opt_state, metrics, ef_state')
     with ``ef_state`` from ``init_ef_state`` (N, Bc, S, d_fusion).
+
+    ``partial_participation=True`` inserts an (N,) bool ``mask`` and a
+    ``cache`` (from ``init_payload_cache``) after ``batch``:
+
+    Stateless: step(params, opt_state, batch, mask, cache)
+                 -> (params, opt_state, metrics, cache')
+    Stateful : step(params, opt_state, batch, mask, cache, ef_state)
+                 -> (params, opt_state, metrics, cache', ef_state')
+
+    Absent clients (mask False) do no work: no base step, no fusion
+    forward, no modular step, so their params, optimizer state and EF
+    residual stay bitwise as they were, and their batch rows are never
+    read. A chunk whose cache slot is not valid (older than
+    ``max_staleness`` or never filled) is skipped, a true no-op for the
+    params and the optimizer state alike. Losses are means over the
+    participants (and the valid chunks); a round with no participant or
+    no valid chunk reports NaN; metrics carry ``participating`` and
+    ``cache_valid``.
+
+    The wire is the exchange plane's: pass an ``exchange`` (as
+    ``repro_torch.api.spmd`` does, so its ``account_round`` shares the
+    codec and staleness with this step) or let one be built from
+    ``codec`` / ``max_staleness``; a ``codec`` or ``max_staleness`` that
+    conflicts with the given plane raises ``ValueError``.
+
     Params and state are updated in place and returned.
-    ``debug_return_zhat`` adds the pre-encode ``z`` and the decoded
-    ``z_hat`` (stacked) to metrics.
+    ``debug_return_zhat`` adds the pre-encode ``z`` (zeros in absent
+    clients' rows) and the decoded ``z_hat`` (stacked) to metrics.
     """
-    if partial_participation:
-        raise NotImplementedError(
-            "partial participation on the SPMD path (ROADMAP.md queue 1, "
-            "item 4b)")
     opt = make_optimizer(optimizer)
-    exchange = SPMDFusionExchange(codec, n_clients=n_clients,
-                                  max_staleness=max_staleness)
+    if exchange is None:
+        exchange = SPMDFusionExchange(codec, n_clients=n_clients,
+                                      max_staleness=max_staleness)
+    else:
+        if codec is not None and get_codec(codec).name != exchange.codec.name:
+            raise ValueError(
+                f"make_ifl_round_step: codec={codec!r} conflicts with the "
+                f"exchange plane's {exchange.codec.name!r}; configure the "
+                "codec on the plane")
+        if (max_staleness is not None
+                and max_staleness != exchange.max_staleness):
+            raise ValueError(
+                f"make_ifl_round_step: max_staleness={max_staleness!r} "
+                f"conflicts with the exchange plane's "
+                f"{exchange.max_staleness!r}; configure it on the plane")
     stateful = exchange.codec.has_state
 
-    def round_step(params: List, opt_state: List, batch, ef_state=()):
+    def _round_impl(params: List, opt_state: List, batch, ef_state, mask,
+                    cache):
         tokens = batch["tokens"]
+        if mask is None:
+            active = list(range(n_clients))
+        else:
+            active = [int(k) for k in torch.nonzero(mask.cpu()).flatten()]
         # Phase 1: tau local base-block updates (eq. 7).
         base_losses = []
         for t in range(tau):
-            for k in range(n_clients):
+            for k in active:
                 mb = {"tokens": tokens[k, t]}
                 loss, g = value_and_grad(_full_loss_wrt_base,
                                          params[k]["base"],
@@ -142,30 +197,61 @@ def make_ifl_round_step(
         # Phase 2: fusion forward and the wire (lines 13-21).
         fusion_tokens = tokens[:, tau]
         with torch.no_grad():
-            z = torch.stack([
-                base_forward(params[k]["base"], cfg,
-                             {"tokens": fusion_tokens[k]})
-                for k in range(n_clients)])
-        zg, yg, _, _, ef_state = exchange.wire(z, fusion_tokens, None, None,
-                                               ef_state)
-        # Phase 3: modular updates, chunk by chunk (lines 22-31).
+            zs = {k: base_forward(params[k]["base"], cfg,
+                                  {"tokens": fusion_tokens[k]})
+                  for k in active}
+            shape = (fusion_tokens.shape[1], fusion_tokens.shape[2],
+                     cfg.d_fusion)
+            z0 = torch.zeros(shape, dtype=nn.dtype_of(cfg.compute_dtype),
+                             device=tokens.device)
+            z = torch.stack([zs.get(k, z0) for k in range(n_clients)])
+        zg, yg, valid, new_cache, ef_state = exchange.wire(
+            z, fusion_tokens, mask, cache, ef_state)
+        # Phase 3: modular updates, chunk by chunk (lines 22-31), on the
+        # valid chunks only.
+        chunks = (range(n_clients) if valid is None else
+                  [int(i) for i in torch.nonzero(valid.cpu()).flatten()])
         mod_losses = []
-        for i in range(n_clients):
-            for k in range(n_clients):
+        for i in chunks:
+            for k in active:
                 loss, g = value_and_grad(_modular_loss, params[k]["modular"],
                                          cfg, zg[i], yg[i])
                 opt.update(params[k]["modular"], g, opt_state[k]["modular"],
                            lr_modular)
                 mod_losses.append(loss)
                 del g
-        metrics = {"base_loss": torch.stack(base_losses).mean(),
-                   "mod_loss": torch.stack(mod_losses).mean()}
+        nan = torch.tensor(float("nan"), device=tokens.device)
+        metrics = {
+            "base_loss": (torch.stack(base_losses).mean() if base_losses
+                          else nan),
+            "mod_loss": (torch.stack(mod_losses).mean() if mod_losses
+                         else nan),
+        }
+        if mask is not None:
+            metrics["participating"] = mask.float().sum()
+            metrics["cache_valid"] = valid.sum()
         if debug_return_zhat:
             metrics["z"] = z
             metrics["z_hat"] = zg
-        if stateful:
-            return params, opt_state, metrics, ef_state
-        return params, opt_state, metrics
+        return params, opt_state, metrics, new_cache, ef_state
+
+    if partial_participation and stateful:
+        def round_step(params, opt_state, batch, mask, cache, ef_state):
+            return _round_impl(params, opt_state, batch, ef_state, mask,
+                               cache)
+    elif partial_participation:
+        def round_step(params, opt_state, batch, mask, cache):
+            return _round_impl(params, opt_state, batch, (), mask,
+                               cache)[:4]
+    elif stateful:
+        def round_step(params, opt_state, batch, ef_state):
+            p, o, m, _, e = _round_impl(params, opt_state, batch, ef_state,
+                                        None, None)
+            return p, o, m, e
+    else:
+        def round_step(params, opt_state, batch):
+            return _round_impl(params, opt_state, batch, (), None,
+                               None)[:3]
 
     return round_step
 
@@ -190,6 +276,25 @@ def init_ifl_state(cfg: ModelConfig, *, n_clients: int,
     return params, states
 
 
+def init_ifl_slot_state(cfg: ModelConfig, *, seed: int, slot: int,
+                        optimizer: str = "sgd", device=None):
+    """ONE population slot's params (``init_lm`` in ``cfg.param_dtype``)
+    and optimizer state, the trees a ``PopulationStore`` pages cohorts
+    from. The draw comes from a CPU ``torch.Generator`` seeded from
+    (seed, slot) alone and is then moved to ``device``, so it does not
+    depend on the fleet size, on any other slot or on the device. (The
+    reference folds the slot into a JAX key, a stream torch cannot
+    reproduce; parity tests carry its slots across as numpy.)"""
+    # The CPU generator keeps 32 bits of its seed: hash (seed, slot) into
+    # them rather than pack the pair.
+    mixed = np.random.SeedSequence([int(seed), int(slot)]).generate_state(1)
+    gen = torch.Generator().manual_seed(int(mixed[0]))
+    params, states = init_ifl_state(cfg, n_clients=1, generator=gen,
+                                    device="cpu", optimizer=optimizer)
+    return (nn.tree_map(lambda a: a.to(device), params[0]),
+            nn.tree_map(lambda a: a.to(device), states[0]))
+
+
 # ------------------------------------------------------------------ dense
 
 
@@ -206,3 +311,28 @@ def make_dp_train_step(cfg: ModelConfig, *, lr: float = 1e-3,
         return params, opt_state, {"loss": loss}
 
     return train_step
+
+
+def make_prefill_step(cfg: ModelConfig) -> Callable:
+    """prefill_step(params, batch) -> logits (B, S, V) fp32."""
+
+    def prefill_step(params, batch):
+        return lm_apply(params, cfg, batch)
+
+    return prefill_step
+
+
+def make_serve_step(cfg: ModelConfig) -> Callable:
+    """serve_step(params, cache, token, pos) -> (logits (B, 1, V),
+    cache): one decode step of the model over a cache from
+    ``transformer.init_composed_cache(cfg, cfg, ...)``; ``pos`` is this
+    token's index, a scalar or one per row. The cache is updated in
+    place."""
+
+    def serve_step(params, cache, token, pos):
+        pos = torch.as_tensor(pos, device=token.device).expand(
+            token.shape[0])
+        return composed_decode_step(params["base"], cfg, params["modular"],
+                                    cfg, cache, token, pos)
+
+    return serve_step

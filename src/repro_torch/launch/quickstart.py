@@ -28,10 +28,23 @@ touch) of which C train a round; bytes follow C, not N:
   PYTHONPATH=src python -m repro_torch.launch.quickstart --device cpu \
       --n-population 1000 --cohort 8 --max-staleness 4 --codec "ef(int4)"
 
+``--scheme`` swaps the whole algorithm (ifl | fsl | fl1 | fl2 |
+ifl_spmd): the baselines are a flag, not a fork. ``ifl_spmd`` trains the
+smoke LM (``repro_torch.api.spmd``) on synthetic tokens, with d_fusion
+32, as the JAX package's quickstart does; ``--model <arch>`` trains that
+arch's reduced config instead. The card's attention kernels take a head
+dim of 64 or 128, and the smoke config's is 24, so on the card pass a
+model, e.g. ``--model qwen1.5-0.5b``:
+
+  PYTHONPATH=src python -m repro_torch.launch.quickstart --device cpu \
+      --scheme ifl_spmd --codec "ef(int4)" --participation k2
+  PYTHONPATH=src python -m repro_torch.launch.quickstart \
+      --scheme ifl_spmd --model qwen1.5-0.5b --codec "ef(int4)"
+
 Every eval round (each 5th and the last) prints the losses, the
 participants, the cumulative ledger MB and the accuracies; at the end it
-prints whether every round's measured bytes equal the analytic
-``ifl_round_bytes``, an async run's uploads a simulated second, and the
+prints, for the IFL schemes, whether every round's measured bytes equal
+the analytic ``ifl_round_bytes``, an async run's uploads a simulated second, and the
 cross-vendor composition matrix (a population fleet skips it). It runs
 on the card unless ``--device cpu``, and raises where there is no CUDA.
 """
@@ -51,9 +64,11 @@ from repro_torch.device import resolve_device
 
 def round_bytes_match(trainer, spec: ExperimentSpec) -> bool:
     """Every closed round's ledger bytes == the analytic formula at that
-    round's participants, cache size and (under delta) shipped entries."""
+    round's participants, cache size and (under delta) shipped entries.
+    An LM trainer's entry is a client's Bc x S fusion rows."""
+    rows = spec.batch_size * getattr(trainer, "seq", 1)
     for rep, got in zip(trainer.engine.history, trainer.ledger.per_round):
-        exp = ifl_round_bytes(spec.fleet.population, spec.batch_size,
+        exp = ifl_round_bytes(spec.fleet.population, rows,
                               spec.d_fusion, codec=spec.codec,
                               participating=len(rep.participants),
                               broadcast_entries=rep["cache_size"],
@@ -67,6 +82,12 @@ def round_bytes_match(trainer, spec: ExperimentSpec) -> bool:
 
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--scheme", default="ifl",
+                    choices=["ifl", "fsl", "fl1", "fl2", "ifl_spmd"],
+                    help="the algorithm: IFL, a baseline, or IFL on an LM")
+    ap.add_argument("--model", default="",
+                    help="ifl_spmd's LM: a named arch, run reduced() "
+                         "(default: the smoke config)")
     ap.add_argument("--codec", default="fp32",
                     help="fusion-payload wire codec: fp32 | bf16 | fp16 | "
                          "int8 | int8_channel | int8_row | int4 | topk<r> | "
@@ -101,47 +122,60 @@ def main(argv=None) -> None:
                     help="torch device (default: cuda; 'cpu' to run there)")
     args = ap.parse_args(argv)
 
+    if args.model and args.scheme != "ifl_spmd":
+        ap.error("--model picks the LM of --scheme ifl_spmd")
     dev = resolve_device(args.device)
     trace = args.trace or ("pareto(1.2,0.5)" if args.mode == "async" else "")
     fleet = FleetSpec(n_population=args.n_population, cohort=args.cohort)
-    # lr 0.05, B 32, seed 0, eval every 5th round, 6000/1500 samples: the
-    # JAX package's quickstart spec.
+    # lr 0.05, B 32, seed 0, eval every 5th round, 6000/1500 samples (the
+    # LM: d_fusion 32, 32 held-out sequences): the JAX package's
+    # quickstart spec.
+    spmd = args.scheme == "ifl_spmd"
     spec = ExperimentSpec(
-        scheme="ifl", rounds=args.rounds, tau=args.tau, lr=0.05,
+        scheme=args.scheme, rounds=args.rounds, tau=args.tau, lr=0.05,
         batch_size=32, codec=args.codec, participation=args.participation,
         max_staleness=args.max_staleness, broadcast=args.broadcast,
         mode=args.mode, trace=trace, tick=args.tick, fleet=fleet,
-        eval_every=5, seed=0, data=DataSpec(n_train=6000, n_test=1500))
+        eval_every=5, seed=0, model=args.model,
+        d_fusion=32 if spmd else 432,
+        data=(DataSpec(dataset="synth_tokens", n_test=32) if spmd
+              else DataSpec(n_train=6000, n_test=1500)))
     name = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
     vendors = (f"{fleet.population} vendors, cohort {args.cohort}/round"
                if args.cohort else "4 vendors")
     clock = (f"async trace {trace} tick {args.tick}" if args.mode == "async"
              else f"participation {args.participation}")
-    print(f"== ifl quickstart: {vendors} (Table II), synthetic KMNIST "
-          f"{spec.data.n_train}/{spec.data.n_test}, codec {args.codec}, "
-          f"{clock}, broadcast {args.broadcast}, tau {args.tau}, on "
-          f"{name} ==")
+    data_name = (f", the {args.model or 'smoke'} LM on synthetic tokens"
+                 if spmd else
+                 f"(Table II), synthetic KMNIST {spec.data.n_train}/"
+                 f"{spec.data.n_test}")
+    print(f"== {args.scheme} quickstart: {vendors} {data_name}, codec "
+          f"{args.codec}, {clock}, broadcast {args.broadcast}, tau "
+          f"{args.tau}, on {name} ==")
     print(f"   spec {spec.spec_hash()}")
 
     def progress(rec, report):
         clock = (f"t={rec['sim_time']:.1f}s, " if "sim_time" in rec else "")
-        print(f"round {rec['round']:3d}: {clock}base_loss "
-              f"{report['base_loss']:.4f} "
-              f"mod_loss {report['mod_loss']:.4f} participants "
-              f"{report.participants} (cache {report['cache_size']}), "
-              f"cumulative uplink {rec['uplink_mb']:.4f} MB, total "
-              f"{rec['total_mb']:.4f} MB, accs "
-              f"{[round(a, 3) for a in rec['accs']]}")
+        losses = " ".join(f"{k} {report[k]:.4f}" for k in
+                          ("base_loss", "mod_loss", "loss")
+                          if k in report.metrics)
+        cache = (f" (cache {report['cache_size']})"
+                 if "cache_size" in report.metrics else "")
+        accs = [round(a, 3) for a in rec.get("accs", [rec["acc_mean"]])]
+        print(f"round {rec['round']:3d}: {clock}{losses} participants "
+              f"{report.participants}{cache}, cumulative uplink "
+              f"{rec['uplink_mb']:.4f} MB, total {rec['total_mb']:.4f} MB, "
+              f"accs {accs}")
 
     t0 = time.perf_counter()
     result = run_experiment(spec, keep_trainer=True, on_record=progress,
                             device=dev)
     wall = time.perf_counter() - t0
     trainer = result.trainer
-    ok = round_bytes_match(trainer, spec)
     print(f"\n{args.rounds} rounds in {wall:.2f} s (evaluations included)")
-    print(f"per-round bytes measured == analytic ifl_round_bytes, every "
-          f"round: {ok}")
+    if args.scheme in ("ifl", "ifl_spmd"):
+        print(f"per-round bytes measured == analytic ifl_round_bytes, "
+              f"every round: {round_bytes_match(trainer, spec)}")
     print(f"ledger totals: uplink {trainer.ledger.uplink_mb:.3f} MB, "
           f"downlink {trainer.ledger.downlink_mb:.3f} MB")
     if args.mode == "async":
@@ -150,12 +184,17 @@ def main(argv=None) -> None:
               f"arrivals, coalesced per tick) over {eng.sim_time:.1f} "
               f"simulated s = {eng.total_uploads / eng.sim_time:.2f} "
               f"uploads/s")
-    if args.cohort:
+    if args.cohort and spmd:
+        print(f"population: {len(trainer.store)} of {fleet.population} "
+              f"vendors materialized, EF residuals held for "
+              f"{len(trainer.ef_store) if trainer.ef_store else 0}")
+    elif args.cohort:
         print(f"population: {len(trainer.clients.materialized)} of "
               f"{fleet.population} vendors built, EF residuals held for "
               f"{len(trainer.exchange.ef_state)}")
+    accs = result.final.get("accs", [result.final["acc_mean"]])
     print(f"local accuracy per vendor (eq. 10): "
-          f"{[round(a, 3) for a in result.final['accs']]}")
+          f"{[round(a, 3) for a in accs]}")
     if "matrix" in result.final:
         print("cross-vendor composition matrix (eq. 11), [base k, "
               "modular i]:")

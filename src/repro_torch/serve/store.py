@@ -8,8 +8,9 @@ provenance, so ``load`` rebuilds the tree from the '/'-joined keys
 alone. An artifact saved by the JAX package's ``CompositionStore``
 loads here, and one saved here loads there.
 
-``from_spmd_trainer`` (export of a trained SPMD run) waits for the SPMD
-slice of the port.
+``from_spmd_trainer`` exports a trained ``SPMDIFLTrainer`` run (of
+either regime) as such an artifact; the ``spmd-smoke`` arch resolves to
+``repro_torch.api.spmd.smoke_model_config``.
 """
 
 from __future__ import annotations
@@ -26,6 +27,7 @@ from repro_torch.checkpoint import (
 )
 from repro_torch.config import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.models import modules as nn
 
 __all__ = ["TenantEntry", "CompositionStore"]
 
@@ -36,14 +38,15 @@ def _resolve_cfg(arch: str, *, reduced: bool,
                  d_fusion: Optional[int]) -> ModelConfig:
     """Arch name -> ModelConfig, by the rules the JAX package uses."""
     if arch == "spmd-smoke":
-        raise NotImplementedError(
-            "the 'spmd-smoke' arch belongs to the SPMD trainer, not ported "
-            "to repro_torch yet (ROADMAP.md queue 1, item 4b)")
-    from repro_torch.configs import get_config
+        from repro_torch.api.spmd import smoke_model_config
 
-    cfg = get_config(arch)
-    if reduced:
-        cfg = cfg.reduced()
+        cfg = smoke_model_config()
+    else:
+        from repro_torch.configs import get_config
+
+        cfg = get_config(arch)
+        if reduced:
+            cfg = cfg.reduced()
     if d_fusion is not None and cfg.d_fusion != int(d_fusion):
         cfg = cfg.replace(d_fusion=int(d_fusion)).validate()
     return cfg
@@ -83,9 +86,11 @@ class CompositionStore:
     def add_arch(self, arch, *, reduced: bool,
                  d_fusion: Optional[int] = None) -> str:
         """Register an architecture by name (resolvable on load) or by
-        explicit ``ModelConfig`` (in-memory only: ``save`` refuses)."""
+        explicit ``ModelConfig`` (in-memory only: ``save`` refuses, but
+        for the ``spmd-smoke`` config, which resolves by name)."""
         if isinstance(arch, ModelConfig):
-            cfg, name, custom = arch, arch.name, True
+            cfg, name = arch, arch.name
+            custom = name != "spmd-smoke"
         else:
             name, custom = str(arch), False
             cfg = _resolve_cfg(name, reduced=reduced, d_fusion=d_fusion)
@@ -199,4 +204,64 @@ class CompositionStore:
             store.add_tenant(tenant, m["arch"], sub["base"],
                              modular_arch=m["modular_arch"],
                              fusion=sub.get("fusion"))
+        return store
+
+    # -------------------------------------------------- trainer export
+
+    @classmethod
+    def from_spmd_trainer(cls, trainer, *, tenants=None,
+                          modular_slot: int = 0) -> "CompositionStore":
+        """Export a trained ``SPMDIFLTrainer`` run as a serving artifact,
+        on the trainer's device (copies: the trainer trains on).
+
+        One tenant per client slot (ids ``client<k>`` by default); the
+        shared modular block is ``modular_slot``'s trained modular half.
+        In the legacy regime each slot whose carried cache entry is
+        valid rides along as decoded ``{z_hat, y}`` fusion state; a
+        population run exports its materialized working set (the slots
+        the cohorts trained, paged through its ``PopulationStore``),
+        whose cache is rebuilt every round and so is not exported."""
+        cfg = trainer.model_cfg
+        # The spec's resolvable arch id ('' is the smoke config): the
+        # trainer's cfg.name carries reduced()'s suffix.
+        arch_name = trainer.spec.model or cfg.name
+        store = cls()
+        store.add_arch(arch_name, reduced=bool(trainer.spec.model),
+                       d_fusion=cfg.d_fusion)
+        dev = trainer.device
+        if trainer._population:
+            slots = trainer.store.slots()
+            if not slots:
+                raise ValueError("population run has no materialized slots "
+                                 "to export; train a round first")
+
+            def get_params(k):
+                return trainer.store.get(k)["params"]
+        else:
+            slots = list(range(trainer.n_clients))
+
+            def get_params(k):
+                return trainer.params[k]
+        if tenants is None:
+            tenants = [f"client{k}" for k in slots]
+        if len(tenants) != len(slots):
+            raise ValueError(f"{len(tenants)} tenant ids for {len(slots)} "
+                             "exported slots")
+
+        def copy(tree):
+            return nn.tree_map(lambda a: a.to(dev, copy=True), tree)
+
+        mslot = modular_slot if modular_slot in slots else slots[0]
+        store.set_modular(arch_name, copy(get_params(mslot)["modular"]))
+        fusion = {}
+        if not trainer._population and trainer.cache is not None:
+            z_shape = (trainer.spec.batch_size, trainer.seq, cfg.d_fusion)
+            ctree = trainer.exchange.cache_tree(trainer.cache, z_shape)
+            ages = ctree["age"].tolist()
+            fusion = {k: {"z_hat": ctree["z_hat"][k].clone(),
+                          "y": ctree["y"][k].clone()}
+                      for k in slots if ages[k] <= trainer.exchange.age_bound}
+        for tid, k in zip(tenants, slots):
+            store.add_tenant(tid, arch_name, copy(get_params(k)["base"]),
+                             fusion=fusion.get(k))
         return store

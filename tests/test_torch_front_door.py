@@ -65,15 +65,6 @@ def test_registry_holds_the_reference_schemes():
         tapi.get_scheme("fedmd")
 
 
-@pytest.mark.parametrize("scheme,item", [("ifl_spmd", "4b")])
-def test_unported_schemes_raise_naming_their_item(scheme, item):
-    spec = _smoke(scheme=scheme)
-    with pytest.raises(NotImplementedError, match=f"item {item}"):
-        tapi.build_trainer(spec, device="cpu")
-    with pytest.raises(NotImplementedError, match=f"item {item}"):
-        tapi.run_experiment(spec, device="cpu")
-
-
 def test_register_scheme_is_open():
     built = []
 

@@ -177,14 +177,8 @@ def test_quickstart_on_cpu():
 
 
 def test_unported_parts_raise_not_implemented():
-    """ifl_spmd still raises; the async and population configs, which
-    raised before they were ported, build and run a round as the JAX
-    trainer does."""
-    spec = tapi.ExperimentSpec(data=tapi.DataSpec(n_train=64, n_test=16))
-    data = tapi.load_data(spec)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tapi.get_scheme("ifl_spmd").build(spec.replace(scheme="ifl_spmd"),
-                                          data, device="cpu")
+    """The async and population configs, which raised before they were
+    ported, build and run a round as the JAX trainer does."""
     for kw in (dict(mode="async", trace="poisson(0.5)"),
                dict(cohort=2, n_population=4)):
         jc, tc = _linear_fleets()

@@ -300,8 +300,3 @@ def test_unsupported_families_and_partial_participation_raise(cfg):
     with pytest.raises(NotImplementedError, match="4a"):
         tloop.train_dp_lm(get_config("deepseek-v3-671b").reduced(), steps=1,
                           device="cpu")
-    with pytest.raises(NotImplementedError, match="4b"):
-        tspmd.make_ifl_round_step(cfg, n_clients=2, tau=1,
-                                  partial_participation=True)
-    with pytest.raises(NotImplementedError, match="4b"):
-        tspmd.make_ifl_round_step(cfg, n_clients=2, tau=1, max_staleness=2)
