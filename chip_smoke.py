@@ -59,17 +59,44 @@ port's main paths through the entry points a user calls:
     full-width qwen1.5-0.5b at phase 4e's shapes, k2 masks from a
     ``RoundEngine`` and the ledger from ``account_round``, 3 rounds, the
     path of ``wire_encode_ef`` over all 4096 x 1024 fusion rows at once
-    and of the attention kernels; ``run_experiment(ifl_spmd)`` on the
-    reduced qwen1.5-0.5b (the smoke config's head dim, 24, is outside
-    the attention kernels' 64 and 128) card against CPU, with a
-    save/resume, async ticks, a population of 1,000 with a cohort of 8
+    and of the attention kernels; ``run_experiment(ifl_spmd)`` card
+    against CPU on the smoke config (head dim 24, which the attention
+    kernels run zero-padded to 32; under int8_row, then ef(int4) round by
+    round in lockstep, flipped codes counted) and on the reduced
+    qwen1.5-0.5b, with
+    a save/resume, async ticks, a population of 1,000 with a cohort of 8
     and an int8_row run (``wire_encode``); the trained run exported by
     ``CompositionStore.from_spmd_trainer`` and served (``flash_decode``);
-    and ``python -m repro_torch.examples.llm_ifl_train`` for 5 rounds.
+    and ``python -m repro_torch.examples.llm_ifl_train`` for 5 rounds;
+  * the recurrent mixers and cross-family composition (phase 4m):
+    full-width xlstm-350m (24 layers of mLSTM and sLSTM, d 1024, vocab
+    50,304, bf16) served to 4 tenants at W 4 (prompt 32, gen 32; no
+    kernel of the port runs there: the mixers are plain PyTorch, as
+    they are plain jnp in the JAX package); two cross-family lanes,
+    olmo-1b base -> xlstm-350m modular and xlstm-350m base -> olmo-1b
+    modular (olmo-1b at its published widths but d_fusion 1024, the
+    two vendors' common fusion dim), 2 tenants and 6 requests a lane,
+    the path of ``flash_decode`` (olmo-1b's 8 layers in either half);
+    ``python -m repro_torch.launch.train --arch xlstm-350m`` at B 2 and
+    its lr 3e-3 (3 DP steps at S 512, 2 IFL rounds of N 4, tau 2 at S
+    128) and the full-width gradient held to the first-order drop of
+    its loss, fp32 and bf16; the reduced
+    xlstm-350m, a small Mamba hybrid and the composition twin's four
+    dense <-> xLSTM pairs card against CPU in fp32; and ``python -m
+    repro_torch.examples.compose_inference --device cuda``.
 
 It checks each path's results, compares short runs on the card with the
 same runs on the CPU, and times each kernel at the shapes its path gives
-it. ``--profile`` adds a torch.profiler breakdown of one more warm
+it. The attention kernels also run at head dims other than 64 and 128
+(every multiple of 8 up to 128, zero-padded to the instance's 32, 64 or
+128), and at 64 and 128 their outputs are held bitwise to those of the
+kernels before that change (sha256 digests in
+``tests/data/attn_fingerprints_hd64_128.json``, computed by
+``tests/_attn_fingerprints.py``). Each attention kernel also runs between
+NaN guard bands at every checked shape (``guard_checks``), the stand-in
+for compute-sanitizer, which does not run on the card's machine.
+
+``--profile`` adds a torch.profiler breakdown of one more warm
 serving run, one more warm IFL round of each codec, one more warm
 LM IFL round, one more warm round of each baseline, one more async tick
 with uploads and one more cohort round (device busy share, top kernels
@@ -228,6 +255,20 @@ DECODE_SPLIT_CASES = [
     (4, 4097, 8, 16, 128, torch.bfloat16, [4097, 300, 2000, 0]),
     (4, 4097, 8, 16, 128, torch.float32, [4097, 300, 2000, 0]),
     (2, 300, 2, 4, 128, torch.float32, [300, 0]),
+    # Head dims run zero-padded to the instance's HD: hd 24 on HD 32's
+    # 128-row tiles (S 4 at L 4097), hd 48 and 96 with GQA on the bf16
+    # tensor cores (HD 64, 128), hd 8, and hd 32's own instance with G 8
+    # (bf16 on the SIMT path there).
+    (4, 4097, 4, 1, 24, torch.bfloat16, [4097, 1000, 5, 0]),
+    (4, 4097, 4, 1, 24, torch.float32, [4097, 130, 5, 0]),
+    (2, 300, 2, 4, 48, torch.bfloat16, [300, 7]),
+    (2, 300, 2, 4, 48, torch.float32, [300, 0]),
+    (4, 257, 2, 16, 96, torch.bfloat16, [257, 100, 1, 0]),
+    (3, 65, 2, 1, 8, torch.float32, [65, 3, 0]),
+    (3, 129, 2, 8, 32, torch.bfloat16, [129, 64, 0]),
+    (3, 129, 2, 8, 32, torch.float32, [129, 64, 0]),
+    # olmo-1b's half of the cross-family lanes (phase 4m): G 1 at hd 128.
+    (4, 64, 16, 1, 128, torch.bfloat16, [64, 40, 33, 17]),
 ]
 # flash_decode's timed shapes, (B, L, KVH, G, hd, live lengths, input
 # sets): the serving path's (W 4, cache 64; 64 sets of ~1 MB of K/V
@@ -289,9 +330,12 @@ def decode_split_checks(ops, ref, gen):
 def decode_times(ops, ref, gen, B, L, KVH, G, hd, lengths, n_sets, note=""):
     """flash_decode's device time at one bf16 shape over ``n_sets`` input
     sets, with its plain version, SDPA and the bound; ``note`` goes into
-    the printed line. -> the JSON row's numbers."""
+    the printed line. The kernel is first held to its plain version on
+    the first set (the bf16 defaults). -> the JSON row's numbers."""
     sets = [decode_inputs(gen, B, L, KVH, G, hd, torch.bfloat16, lengths)
             for _ in range(n_sets)]
+    torch.testing.assert_close(ops.cached_attn_decode(*sets[0]),
+                               ref.cached_attn_decode_ref(*sets[0]))
     kernel_ms = graph_time_ms(
         [lambda s=s: ops.cached_attn_decode(*s) for s in sets])
     plain_ms = graph_time_ms(
@@ -436,10 +480,20 @@ ATTN_CASES = [(2, 512, 16, 16, 64, -1), (2, 256, 8, 4, 128, -1),
               (2, 63, 16, 16, 64, -1), (2, 64, 16, 16, 64, -1),
               (2, 65, 16, 16, 64, -1), (2, 129, 16, 16, 64, -1),
               (2, 512, 16, 16, 64, 1), (2, 512, 16, 16, 64, 65),
-              (2, 512, 16, 2, 128, -1), (2, 512, 16, 16, 128, -1)]
+              (2, 512, 16, 2, 128, -1), (2, 512, 16, 16, 128, -1),
+              # Head dims run zero-padded to the instance's 32, 64 or 128:
+              # the smoke LM's 24 and the composition twin's 48 (GQA,
+              # windows), 8 and 96 at tile edges, 32's own instance.
+              (2, 200, 4, 2, 24, -1), (2, 129, 4, 4, 24, 48),
+              (2, 512, 4, 4, 48, -1), (2, 65, 8, 2, 48, 65),
+              (2, 64, 4, 1, 8, -1), (2, 200, 8, 4, 96, 1),
+              (2, 256, 8, 2, 32, -1)]
 # Timed shapes (bf16, causal): the LM path's (qwen1.5-0.5b), and hd 128
 # as olmo-1b's attention has it.
 ATTN_TIMED = [ATTN_CASES[0], (2, 512, 16, 16, 128, -1)]
+# The padded head dims at the LM path's B, S and heads: the smoke LM's 24
+# and the composition twin's 48 (the kernels line's hd24_* / hd48_*).
+ATTN_HD_TIMED = {24: (2, 512, 16, 16, 24, -1), 48: (2, 512, 16, 16, 48, -1)}
 # Tolerance, as max |kernel - plain| over max(1, max |plain|): fp32 sums
 # in another order; in bf16 the kernel rounds the unnormalized p of its
 # online softmax to bf16 where the plain version rounds the normalized
@@ -512,6 +566,148 @@ def attn_checks(ops, ref):
                     "bwd": max(float((a.float() - b.float()).abs().max())
                                for a, b in zip(grads, g_ref))}
     return errs
+
+
+def fingerprint_check(ops) -> int:
+    """The kernels' outputs at hd 64 and 128 are bitwise those of the
+    kernels before the padded head dims (``_attn_fingerprints``) -> cases."""
+    import _attn_fingerprints as fp
+
+    want = json.loads(fp.FINGERPRINTS.read_text())
+    got = fp.attn_fingerprints(ops)
+    check(set(got) == set(want), "fingerprint cases differ from the file")
+    diff = sorted(k for k in got if got[k] != want[k])
+    check(not diff, f"hd 64/128 outputs not bitwise the parent's: {diff}")
+    return len(got)
+
+
+# Out-of-bounds and race probes of the attention kernels, the stand-in for
+# compute-sanitizer (which does not run on the card's machine). Every
+# input of a raw kernel call lies between two guard bands of NaN (mask
+# bytes: True), every output and scratch buffer between two bands of NaN
+# and the arrival counters between bands of -7; each band is at least the
+# tensor's own size. A read of a band that reaches a result turns it NaN
+# or other bits, a write into a band changes the band. Each case runs
+# three times and must give the wrapper's bits every time (a
+# shared-memory race, as a rule, would not).
+GUARD_REPS = 3
+
+
+def _banded(t, fill):
+    """t's values between two guard bands of ``fill`` -> (view, buffer,
+    band). Bands are whole 16-byte chunks, so the view keeps the
+    kernels' alignment."""
+    n = t.numel()
+    band = max(4096, -(-n // 64) * 64)
+    buf = torch.full((2 * band + n,), fill, dtype=t.dtype, device=t.device)
+    view = buf[band:band + n].view(t.shape)
+    view.copy_(t)
+    return view, buf, band
+
+
+def _bands_hold(banded) -> bool:
+    view, buf, band = banded
+    outer = torch.cat([buf[:band], buf[band + view.numel():]])
+    if outer.dtype.is_floating_point:
+        return bool(torch.isnan(outer).all())
+    return bool((outer == buf[0]).all())
+
+
+def guarded_decode(ops, q, k, v, valid) -> None:
+    """flash_decode's C entry on banded copies of one case (q (B, 1, KVH,
+    G, hd)): the wrapper's output bits, every band intact and the
+    counters back at 0 after each of GUARD_REPS launches."""
+    B, _, KVH, G, hd = q.shape
+    L = k.shape[1]
+    nan = float("nan")
+    want = ops.cached_attn_decode(q, k, v, valid)[:, 0]
+    S, chunk = ops.decode_splits(B, KVH, G, L, hd)
+    ins = [_banded(q[:, 0].contiguous(), nan), _banded(k, nan),
+           _banded(v, nan), _banded(valid, True)]
+    out = _banded(torch.empty_like(want), nan)
+    bufs = [*ins, out]
+    scratch = [None, None, None]
+    if S > 1:
+        scratch = [_banded(torch.empty((B * KVH, S, G, 2), device="cuda"),
+                           nan),
+                   _banded(torch.empty((B * KVH, S, G,
+                                        ops.kernel_head_dim(hd)),
+                                       device="cuda"), nan),
+                   _banded(torch.zeros(B * KVH, dtype=torch.int32,
+                                       device="cuda"), -7)]
+        bufs += scratch
+    fn = ops._c_fn("flash_decode", "flash_decode",
+                   [ops._P] * 8 + [ops._I] * 8 + [ops._F, ops._P])
+    label = f"guarded flash_decode {(B, L, KVH, G, hd, str(q.dtype)[6:])}"
+    for _ in range(GUARD_REPS):
+        rc = fn(*[b[0].data_ptr() for b in ins], out[0].data_ptr(),
+                *[None if b is None else b[0].data_ptr() for b in scratch],
+                B, L, KVH, G, hd, S, chunk, ops._DTYPE_CODE[q.dtype],
+                1.0 / math.sqrt(hd), ops._stream(q.device))
+        torch.cuda.synchronize()
+        check(rc == 0, f"{label}: launch code {rc}")
+        check(torch.equal(out[0], want), f"{label}: output not the "
+              f"wrapper's bits")
+        check(all(_bands_hold(b) for b in bufs), f"{label}: a guard band "
+              f"changed")
+        check(scratch[2] is None or bool((scratch[2][0] == 0).all()),
+              f"{label}: arrival counters not back at 0")
+
+
+def guarded_attention(ops, B, S, H, KVH, hd, window, dtype) -> None:
+    """flash_attention_fwd and _bwd's C entries on banded copies of one
+    case: the wrappers' bits (o, lse, dq, dk, dv), every band intact,
+    after each of GUARD_REPS launches."""
+    nan = float("nan")
+    q, k, v, do = attn_inputs(B, S, H, KVH, hd, dtype, seed=S + hd + 1)
+    o, lse = ops.flash_attention_fwd(q, k, v, window=window)
+    grads = ops.flash_attention_bwd(q, k, v, o, lse, do, window=window)
+    ins = {n: _banded(t, nan) for n, t in
+           (("q", q), ("k", k), ("v", v), ("o", o), ("do", do),
+            ("lse", lse))}
+    outs = {n: _banded(torch.empty_like(t), nan) for n, t in
+            (("o", o), ("lse", lse), ("dsum", lse), ("dq", q), ("dk", k),
+             ("dv", v))}
+    want = {"o": o, "lse": lse, "dq": grads[0], "dk": grads[1],
+            "dv": grads[2]}
+    p = {n: b[0].data_ptr() for n, b in ins.items()}
+    w = {n: b[0].data_ptr() for n, b in outs.items()}
+    dims = (B, S, H, KVH, hd, int(window), ops._DTYPE_CODE[dtype],
+            1.0 / math.sqrt(hd), torch.cuda.current_stream().cuda_stream)
+    label = (f"guarded attention B {B} S {S} H {H} KVH {KVH} hd {hd} "
+             f"window {window} {str(dtype)[6:]}")
+    for _ in range(GUARD_REPS):
+        ops._attn_call("flash_attention_fwd", p["q"], p["k"], p["v"],
+                       w["o"], w["lse"], *dims)
+        ops._attn_call("flash_attention_bwd", p["q"], p["k"], p["v"],
+                       p["o"], p["do"], p["lse"], w["dsum"], w["dq"],
+                       w["dk"], w["dv"], *dims)
+        torch.cuda.synchronize()
+        bad = [n for n, t in want.items() if not torch.equal(outs[n][0], t)]
+        check(not bad, f"{label}: {bad} not the wrappers' bits")
+        check(all(_bands_hold(b) for b in [*ins.values(), *outs.values()]),
+              f"{label}: a guard band changed")
+
+
+def guard_checks(ops, gen) -> int:
+    """The guard-band probes at every DECODE_SPLIT_CASES case, the decode
+    shapes of the serving lanes (W 4, cache 64, hd 24/48/64/128) and
+    every ATTN_CASES case in fp32 and bf16 -> cases run."""
+    n = 0
+    decode = [(B, L, KVH, G, hd, dtype, lengths)
+              for B, L, KVH, G, hd, dtype, lengths in DECODE_SPLIT_CASES]
+    decode += [(4, 64, 16, 1, hd, torch.bfloat16, [64, 40, 33, 17])
+               for hd in (24, 48, 64, 128)]
+    for B, L, KVH, G, hd, dtype, lengths in decode:
+        guarded_decode(ops, *decode_inputs(gen, B, L, KVH, G, hd, dtype,
+                                           lengths))
+        n += 1
+    for case in ATTN_CASES:
+        for dtype in (torch.float32, torch.bfloat16):
+            guarded_attention(ops, *case, dtype)
+            n += 1
+    torch.cuda.empty_cache()
+    return n
 
 
 def event_time_ms(fn, reps: int = 20) -> float:
@@ -2316,20 +2512,13 @@ def spmd_full_width_phase(ops, cfg, smi):
     return out
 
 
-def spmd_front_door_phase(ops):
-    """Phase 4l (b) and (c): ``run_experiment(ifl_spmd)`` on the card and
-    on the CPU from the same slot inits; a save/resume on the card; async
-    ticks; a population of 1,000 with a cohort of 8; an int8_row run; the
-    trained card run exported by ``from_spmd_trainer`` and served."""
-    import tempfile
+def spmd_card_vs_cpu(ops, spec):
+    """``run_experiment(spec)`` (scheme ifl_spmd) on the card and on the
+    CPU from the same slot inits: participants and bytes equal, losses
+    within LM_LOSS_TOL, launches on the card == derived.
+    -> (runs by device, the slot inits)."""
+    from repro_torch.api import build_trainer, run_experiment
 
-    from repro_torch.api import (DataSpec, ExperimentSpec, FleetSpec,
-                                 build_trainer, load_trainer, run_experiment,
-                                 save_trainer)
-    from repro_torch.serve import CompositionStore, ServeEngine
-    from repro_torch.serve.types import Request
-
-    spec = ExperimentSpec(**SPMD_SPEC, data=DataSpec(**SPMD_DATA))
     init = [tree_numpy(p) for p in build_trainer(spec, device="cpu").params]
     runs = {}
     for dev in ("cpu", "cuda"):
@@ -2346,10 +2535,11 @@ def spmd_front_door_phase(ops):
         cfg, spec.tau, [(len(h.participants), h["cache_size"]) for h in hist],
         evals=spec.fleet.n_clients)
     with_part = sum(1 for h in hist if h.participants)
-    check(got["wire_encode_ef"] == with_part
+    wire = "wire_encode_ef" if spec.codec.startswith("ef(") else "wire_encode"
+    check(got[wire] == with_part
           and got["flash_attention"] == fwd
           and got["flash_attention_bwd"] == bwd,
-          f"spmd front door: launches {got} != wire_encode_ef {with_part}, "
+          f"spmd front door: launches {got} != {wire} {with_part}, "
           f"fwd {fwd}, bwd {bwd}")
     check(same_reports(runs["cuda"].reports, runs["cpu"].reports,
                        ("participants", "cache_size", "shipped_entries",
@@ -2369,10 +2559,109 @@ def spmd_front_door_phase(ops):
           f"{[h.participants for h in hist]} and bytes "
           f"{card.ledger.per_round} equal; losses max|card - cpu| "
           f"{loss_err:.2e} (tolerance {LM_LOSS_TOL}); launches on the card "
-          f"wire_encode_ef {with_part}, attention fwd {fwd} bwd {bwd} == "
+          f"{wire} {with_part}, attention fwd {fwd} bwd {bwd} == "
           f"derived (evaluation included); accuracies card "
           f"{[round(a, 4) for a in runs['cuda'].final['accs']]} cpu "
           f"{[round(a, 4) for a in runs['cpu'].final['accs']]}", flush=True)
+    return runs, init, got
+
+
+def spmd_lockstep(ops, spec):
+    """``spec`` (scheme ifl_spmd, an int4 or int8_row codec, EF or not)
+    on the card and on the CPU in lockstep: before each round the card
+    trainer takes the CPU trainer's state (its snapshot, moved to the
+    card), so each round compares one round's arithmetic. Per round:
+    participants and bytes equal, one encode launch a round with a
+    participant, the payload codes of the cache within the codec's flip
+    budget (``_wire_budget``: each side encodes a z whose sums ran in
+    another order, so fewer than 2% of the codes may differ, each by one
+    step), and the losses within LM_LOSS_TOL where both sides decode the
+    same codes (below); the differing codes are counted. -> (max gated
+    |loss diff|, differing codes per round, codes a round, per-round
+    (|base_loss diff|, |mod_loss diff|))."""
+    import _wire_budget as budget
+    from repro_torch.api import build_trainer
+    from repro_torch.models.modules import tree_map
+
+    cpu = build_trainer(spec, device="cpu")
+    card = build_trainer(spec, device="cuda",
+                         params=[tree_numpy(p) for p in cpu.params])
+    kind = "int8_row" if "int8_row" in spec.codec else "int4"
+    wire = "wire_encode_ef" if spec.codec.startswith("ef(") else "wire_encode"
+    diffs, flips, n_codes = [], [], 0
+    for r in range(spec.rounds):
+        tree, aux = cpu.snapshot()
+        card.restore(tree_map(lambda t: t.to("cuda"), tree),
+                     json.loads(json.dumps(aux)))
+        reset_counts(ops)
+        got = card.run_round().to_dict()
+        want = cpu.run_round().to_dict()
+        torch.cuda.synchronize()
+        label = f"spmd lockstep {spec.codec} round {r}"
+        check(getattr(ops, wire).launches == (1 if got["participants"]
+                                              else 0),
+              f"{label}: {wire} launches {getattr(ops, wire).launches}")
+        check(same_reports([got], [want], ("participants", "cache_size",
+                                           "shipped_entries", "uplink_mb",
+                                           "downlink_mb")),
+              f"{label}: participants or bytes differ")
+        a = budget.codes(kind, card.cache["payload"], spec.d_fusion)
+        b = budget.codes(kind, cpu.cache["payload"], spec.d_fusion)
+        flips.append(int(budget.codes_close(a, b, label).sum()))
+        n_codes = a.size
+        diffs.append((abs(got["base_loss"] - want["base_loss"]),
+                      abs(got["mod_loss"] - want["mod_loss"])))
+    # The base loss of every round, and the modular loss of every round in
+    # which both sides decode the same codes, within LM_LOSS_TOL; in a
+    # round with a flipped code the modular block trains on a z element
+    # one code step apart, and the codes are held to the budget instead.
+    err = max(max(d[0] for d in diffs),
+              max((d[1] for d, f in zip(diffs, flips) if not f), default=0))
+    check(err <= LM_LOSS_TOL, f"spmd lockstep {spec.codec}: losses differ "
+          f"by {err}")
+    return err, flips, n_codes, diffs
+
+
+def spmd_front_door_phase(ops):
+    """Phase 4l (b) and (c): ``run_experiment(ifl_spmd)`` on the card and
+    on the CPU from the same slot inits, on the reduced qwen1.5-0.5b and
+    on the smoke config (head dim 24, on the padded attention kernels); a
+    save/resume on the card; async ticks; a population of 1,000 with a
+    cohort of 8; an int8_row run; the trained card run exported by
+    ``from_spmd_trainer`` and served."""
+    import tempfile
+
+    from repro_torch.api import (DataSpec, ExperimentSpec, FleetSpec,
+                                 build_trainer, load_trainer, save_trainer)
+    from repro_torch.serve import CompositionStore, ServeEngine
+    from repro_torch.serve.types import Request
+
+    # The smoke config (head dim 24) end to end under int8_row, then under
+    # ef(int4), the codec of the rest of this phase, in lockstep: at its
+    # d_fusion 32 a last-bit change of z can flip an int4 code (a step of
+    # 1/7 of a row's max), and in a free run the flipped code moves every
+    # later round, so each round starts on both sides from the CPU's state
+    # and the flipped codes are counted against the codec's budget.
+    smoke = ExperimentSpec(**{**SPMD_SPEC, "model": "", "d_fusion": 32,
+                              "codec": "int8_row"},
+                           data=DataSpec(**SPMD_DATA))
+    _, _, smoke_got = spmd_card_vs_cpu(ops, smoke)
+    ef_smoke = smoke.replace(codec="ef(int4)")
+    lock_err, lock_flips, lock_codes, lock_diffs = spmd_lockstep(ops,
+                                                                 ef_smoke)
+    print(f"[spmd] smoke config (head dim 24), ef(int4), {ef_smoke.rounds} "
+          f"rounds card vs CPU in lockstep (each round from the CPU's "
+          f"state): participants and bytes equal, one wire_encode_ef launch "
+          f"a round with a participant; int4 codes that differ per round "
+          f"{lock_flips} of {lock_codes} (budget: < 2%, one step each); "
+          f"|base_loss|, |mod_loss| card - cpu per round "
+          f"{[(float(f'{a:.3g}'), float(f'{b:.3g}')) for a, b in lock_diffs]}"
+          f": base every round and mod in rounds with no differing code "
+          f"within {LM_LOSS_TOL} (max {lock_err:.2e})", flush=True)
+    spec = ExperimentSpec(**SPMD_SPEC, data=DataSpec(**SPMD_DATA))
+    runs, init, _ = spmd_card_vs_cpu(ops, spec)
+    card = runs["cuda"].trainer
+    cfg = card.model_cfg
 
     with tempfile.TemporaryDirectory() as tmp:
         first = build_trainer(spec, device="cuda", params=init)
@@ -2490,7 +2779,9 @@ def spmd_front_door_phase(ops):
           f"{with_part}")
     print(f"[spmd int8_row] {ispec.rounds} rounds: wire_encode launches "
           f"{with_part} == rounds with a participant", flush=True)
-    return {"wire_encode": with_part, "flash_decode": decode_launches}
+    return {"wire_encode": with_part, "flash_decode": decode_launches,
+            "smoke_attention": smoke_got["flash_attention"],
+            "smoke_attention_bwd": smoke_got["flash_attention_bwd"]}
 
 
 def llm_twin_phase(ops):
@@ -2516,6 +2807,458 @@ def llm_twin_phase(ops):
           f"{h[0]['mod_loss']:.3f} -> {h[-1]['mod_loss']:.3f}; attention "
           f"launches fwd {fwd} bwd {bwd} == derived; {wall:.1f} s, round walls "
           f"(s) {[round(w, 3) for w in out['walls']]}", flush=True)
+
+
+# Phase 4m: the recurrent mixers and cross-family composition. olmo-1b
+# runs at its published widths but for d_fusion: the two vendors share
+# xlstm-350m's 1024 as their common fusion dim (olmo-1b's own is 2048).
+CROSS_D_FUSION = 1024
+# The IFL run's sequence is cut to 128: sLSTM is an eager loop over time
+# (plain PyTorch, ~20 launches a step a layer, three passes under remat),
+# so a full-width DP step at S 512 takes ~10 s on the card and an IFL
+# round (N 4, tau 2: 8 full and 16 modular passes) would take ~300 s.
+# Both runs use the CLI's lr 3e-3. At init xlstm-350m's gradient is large
+# (|g| ~1e2, printed by the gradient check), so one SGD step at 3e-3 is
+# far past the first-order regime and a batch's loss after three steps may
+# sit above or below where it started; that the gradient is right at full
+# width is checked directly, by the first-order drop of the loss along it
+# (``full_width_grad_check``).
+RECUR_RUN = dict(arch="xlstm-350m", tau=2, n_clients=4, batch=2, seq=512,
+                 ifl_seq=128, dp_steps=3, ifl_rounds=2, lr=3e-3)
+# The gradient check's step: eps = GRAD_DROP / |g|^2 along -g lowers the
+# loss by GRAD_DROP to first order (~1e3 times the fp32 loss's rounding,
+# and ~1e-3 of the 3e-3 step); the measured drop must be within
+# GRAD_TOL of the prediction. The bf16 forward at init within BF16_LOSS_TOL
+# of the fp32 one (relative).
+GRAD_DROP = 0.01
+GRAD_TOL = 0.1
+BF16_LOSS_TOL = 1e-3
+
+
+def full_width_grad_check(cfg, batch, seq):
+    """xlstm-350m's gradient at full width, held to its own loss on the
+    card. From the DP run's init (seed 0) and first batch: g32, the fp32
+    gradient, and g16, the bf16 one (the config's compute dtype). A step
+    of eps = GRAD_DROP / |g|^2 along -g must lower the fp32 loss by
+    eps * (g32 . g) within GRAD_TOL of it, for g = g32 (the exact first
+    order) and g = g16 (the bf16 gradient as a descent direction of the
+    fp32 loss); the bf16 loss within BF16_LOSS_TOL of the fp32 one.
+    -> the numbers printed."""
+    from repro_torch.core.ifl_spmd import value_and_grad
+    from repro_torch.data.synthetic import SyntheticLM
+    from repro_torch.models import modules as nn
+    from repro_torch.models.transformer import init_lm, lm_loss
+
+    c32 = cfg.replace(compute_dtype="float32")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = nn.tree_map(lambda a: a.to(nn.dtype_of(cfg.param_dtype)),
+                         init_lm(cfg, generator=gen, device="cuda"))
+    b = {"tokens": torch.from_numpy(SyntheticLM(cfg.vocab_size, seed=0)
+                                    .sample(batch, seq, step=0)).cuda()}
+    l32, g32 = value_and_grad(lm_loss, params, c32, b)
+    l16, g16 = value_and_grad(lm_loss, params, cfg, b)
+    l32, l16 = float(l32), float(l16)
+
+    def leaves(t):
+        return ([x for v in t.values() for x in leaves(v)]
+                if isinstance(t, dict) else [t])
+
+    def dot(a, c):
+        return float(sum((x.double() * y.double()).sum()
+                         for x, y in zip(leaves(a), leaves(c))))
+
+    def stepped(t, g, eps):
+        if isinstance(t, dict):
+            return {k: stepped(t[k], g[k], eps) for k in t}
+        return t - eps * g.to(t.dtype)
+
+    n32, n16, cross = dot(g32, g32), dot(g16, g16), dot(g32, g16)
+    out = {"loss32": l32, "loss16": l16, "grad_norm": n32 ** 0.5,
+           "cos": cross / (n32 * n16) ** 0.5}
+
+    def named(t, pre=""):
+        if isinstance(t, dict):
+            return {k2: v2 for k, v in t.items()
+                    for k2, v2 in named(v, f"{pre}/{k}" if pre else k).items()}
+        return {pre: t}
+
+    # The three largest leaves of g32, each with its share of |g32|^2 and
+    # the cosine of the bf16 gradient's leaf to it.
+    f32, f16 = named(g32), named(g16)
+    sq = {k: float((v.double() ** 2).sum()) for k, v in f32.items()}
+    out["leaves"] = [
+        (k, sq[k] / n32, float((f32[k].double() * f16[k].double()).sum())
+         / (sq[k] * float((f16[k].double() ** 2).sum())) ** 0.5)
+        for k in sorted(sq, key=sq.get, reverse=True)[:3]]
+    for name, g, n in (("g32", g32, n32), ("g16", g16, n16)):
+        eps = GRAD_DROP / n
+        with torch.no_grad():
+            drop = l32 - float(lm_loss(stepped(params, g, eps), c32, b))
+        want = eps * cross if name == "g16" else GRAD_DROP
+        out[name] = (drop, want)
+        check(want > 0 and abs(drop - want) <= GRAD_TOL * want,
+              f"xlstm gradient check {name}: the fp32 loss fell {drop:.5f} "
+              f"along -g, first order says {want:.5f}")
+    check(abs(l16 - l32) <= BF16_LOSS_TOL * l32,
+          f"xlstm bf16 loss {l16} vs fp32 {l32}")
+    del params, g32, g16
+    torch.cuda.empty_cache()
+    return out
+
+
+def zero_launches(ops, what):
+    got = launch_counts(ops)
+    check(all(v == 0 for v in got.values()), f"{what}: kernels launched {got}")
+
+
+def recurrent_serve_phase(ops):
+    """xlstm-350m at full width through the serving engine, as ``python
+    -m repro_torch.launch.serve --arch xlstm-350m --no-reduced`` builds
+    it (4 tenants, W 4, prompt 32, gen 32): no kernel of the port runs
+    on this path (the recurrent mixers are plain PyTorch, as in the JAX
+    package); engine == oracle bitwise."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import build_demo_store, demo_requests
+    from repro_torch.serve import ServeEngine
+
+    cfg = get_config("xlstm-350m")
+    store = build_demo_store(cfg, "xlstm-350m", 4, seed=0, reduced=False,
+                             device="cuda")
+    engine = ServeEngine(store, width=4, cache_len=64, horizon=8,
+                         device="cuda")
+    reqs = demo_requests(cfg, 4, prompt_len=32, gen=32, stagger=2, seed=0)
+    torch.cuda.synchronize()
+    reset_counts(ops)
+    t0 = time.perf_counter()
+    comps = engine.run(reqs)
+    torch.cuda.synchronize()
+    cold_s = time.perf_counter() - t0
+    zero_launches(ops, "xlstm serve")
+    steps = sum(lane.composed_steps for lane in engine.lanes())
+    check(len(comps) == 4 and all(len(c.tokens) == 32 for c in comps)
+          and all(0 <= t < cfg.vocab_size for c in comps for t in c.tokens),
+          "xlstm serve: a request did not complete in vocab")
+    for r, c in zip(reqs, comps):
+        check(engine.oracle(r).tokens == c.tokens,
+              f"xlstm serve: request {r.rid} != oracle")
+    warm = engine.fresh_clone()
+    t0 = time.perf_counter()
+    warm_comps = warm.run(reqs)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    check([c.tokens for c in warm_comps] == [c.tokens for c in comps],
+          "xlstm serve: warm run differs")
+    n_tok = sum(len(c.tokens) for c in comps)
+    print(f"[recurrent serve] {cfg.name} full width ({cfg.num_layers} "
+          f"layers: mLSTM x {3 * cfg.num_layers // 4}, sLSTM x "
+          f"{cfg.num_layers // 4}; d {cfg.d_model}, vocab {cfg.vocab_size}, "
+          f"{cfg.compute_dtype}), 4 tenants, W 4, 4 requests x 32 tokens: "
+          f"engine == oracle bitwise; no kernel launched; {steps} composed "
+          f"steps; first run {cold_s:.2f}s, warm {warm_s:.3f}s = "
+          f"{n_tok / warm_s:.1f} tok/s ({warm_s / steps * 1e3:.2f} ms a "
+          f"composed step); peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+    return {"warm_s": warm_s, "steps": steps}
+
+
+def attn_layers(cfg, half) -> int:
+    """Layers with attention in the base or the modular half of cfg."""
+    pre, bp, bg, mp, mg = cfg._resolved_program()
+    specs = pre + bp * bg if half == "base" else mp * mg
+    return sum(s.mixer == "attn" for s in specs)
+
+
+def cross_family_store(device="cuda"):
+    """olmo-1b (d_fusion 1024) and xlstm-350m, each with one shared
+    modular block (its tenant 0's) and two tenants whose base routes to
+    the OTHER family's modular block."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import tenant_generator
+    from repro_torch.models.transformer import init_lm
+    from repro_torch.serve import CompositionStore
+
+    store = CompositionStore()
+    names = {"olmo-1b": store.add_arch("olmo-1b", reduced=False,
+                                       d_fusion=CROSS_D_FUSION),
+             "xlstm-350m": store.add_arch("xlstm-350m", reduced=False)}
+    bases = {}
+    for i, arch in enumerate(names):
+        cfg = store.cfg(arch)
+        for k in range(2):
+            p = init_lm(cfg, generator=tenant_generator(i, k, device),
+                        device=device)
+            if k == 0:
+                store.set_modular(arch, p["modular"])
+            bases[(arch, k)] = p["base"]
+            del p
+    other = {"olmo-1b": "xlstm-350m", "xlstm-350m": "olmo-1b"}
+    for (arch, k), base in bases.items():
+        store.add_tenant(f"{arch}-t{k}", arch, base, modular_arch=other[arch])
+    return store
+
+
+def cross_family_phase(ops, profile):
+    """Two lanes: olmo-1b base -> xlstm-350m modular and xlstm-350m base ->
+    olmo-1b modular, 2 tenants each, W 4, 6 requests a lane (so evicted
+    slots are admitted again): engine == oracle bitwise; flash_decode
+    launches == 8 (olmo-1b's layers in either half) x composed steps."""
+    from repro_torch.data.synthetic import SyntheticLM
+    from repro_torch.serve import ServeEngine
+    from repro_torch.serve.types import Request
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    store = cross_family_store()
+    build_s = time.perf_counter() - t0
+    vocab = store.cfg("olmo-1b").vocab_size   # xlstm-350m's too
+    prompts = SyntheticLM(vocab, seed=3).sample(12, 32, step=0)
+    reqs = []
+    for i in range(12):
+        tenant = store.tenants()[i % 4]
+        n = 8 + 8 * (i % 3)   # prompt lengths 8, 16, 24: two buckets
+        reqs.append(Request(rid=i, tenant=tenant,
+                            prompt=[int(t) for t in prompts[i][:n]],
+                            max_new_tokens=12, arrival=i // 4))
+    engine = ServeEngine(store, width=4, cache_len=64, horizon=4,
+                         device="cuda")
+    torch.cuda.synchronize()
+    reset_counts(ops)
+    t0 = time.perf_counter()
+    comps = engine.run(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = launch_counts(ops)
+    lanes = {(l.base_cfg.name, l.mod_cfg.name): l for l in engine.lanes()}
+    steps = {k: l.composed_steps for k, l in lanes.items()}
+    check(set(steps) == {("olmo-1b", "xlstm-350m"), ("xlstm-350m", "olmo-1b")},
+          f"cross lanes: {sorted(steps)}")
+    # A composed step launches flash_decode once a layer with attention:
+    # olmo-1b's 8 in either half.
+    per_step = {k: attn_layers(l.base_cfg, "base") + attn_layers(l.mod_cfg,
+                                                                 "modular")
+                for k, l in lanes.items()}
+    want = sum(per_step[k] * steps[k] for k in steps)
+    check(got["flash_decode"] == want and all(
+        v == 0 for k, v in got.items() if k != "flash_decode"),
+        f"cross lanes: launches {got}, flash_decode != {per_step} x {steps}")
+    check(all(len(c.tokens) == 12 for c in comps), "cross lanes: lengths")
+    for r, c in zip(reqs, comps):
+        check(engine.oracle(r).tokens == c.tokens,
+              f"cross lanes: request {r.rid} ({r.tenant}) != oracle")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"[cross lanes] olmo-1b (16 layers, d 2048, 16 heads of 128, vocab "
+          f"50304; d_fusion {CROSS_D_FUSION}) <-> xlstm-350m: lanes "
+          f"{sorted(steps)}, 2 tenants each, W 4, 6 requests a lane (prompts "
+          f"8/16/24, 12 tokens; 6 requests through 4 slots, so evicted slots "
+          f"are admitted again): engine == oracle bitwise; composed steps "
+          f"{steps}; flash_decode launches {got['flash_decode']} == "
+          f"{per_step} attention layers x steps; store built in "
+          f"{build_s:.1f}s; served in "
+          f"{wall:.2f}s ({12 * 12 / wall:.1f} tok/s, a first run); peak "
+          f"memory {peak:.2f} GiB", flush=True)
+    if profile:
+        clone = engine.fresh_clone()
+        profile_run("cross lanes", lambda: clone.run(reqs))
+    del engine, store
+    torch.cuda.empty_cache()
+    return {"flash_decode": got["flash_decode"], "steps": steps,
+            "peak_gib": peak}
+
+
+def recurrent_train_phase(train_cli, ops):
+    """xlstm-350m through the training CLI at B 2 and its lr 3e-3: 3 DP
+    steps at S 512 and 2 IFL rounds (N 4, tau 2) at S 128, the counts set
+    to 0 before each run; then the full-width gradient check. No
+    attention kernel, and no wire kernel: the LM IFL CLI ships z in fp32
+    (phase 4e counts none either). Losses finite."""
+    import tempfile
+
+    from repro_torch.configs import get_config
+
+    r = RECUR_RUN
+    cfg = get_config(r["arch"])
+    walls = {}
+    with tempfile.TemporaryDirectory() as out_dir:
+        common = ["--arch", r["arch"], "--batch", str(r["batch"]), "--lr",
+                  str(r["lr"]), "--out", out_dir]
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts(ops)
+        dp = train_cli.main(common + ["--mode", "dp", "--rounds",
+                                      str(r["dp_steps"]), "--seq",
+                                      str(r["seq"])])
+        torch.cuda.synchronize()
+        zero_launches(ops, "xlstm dp")
+        losses = [h["loss"] for h in dp["history"]]
+        check(all(np.isfinite(losses)), f"xlstm dp: losses {losses}")
+        dp_peak = torch.cuda.max_memory_allocated() / 2**30
+        walls["dp"] = dp["walls"]
+        del dp
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts(ops)
+        ifl = train_cli.main(common + [
+            "--mode", "ifl", "--rounds", str(r["ifl_rounds"]), "--tau",
+            str(r["tau"]), "--n-clients", str(r["n_clients"]), "--seq",
+            str(r["ifl_seq"])])
+        torch.cuda.synchronize()
+        zero_launches(ops, "xlstm ifl")
+        h = ifl["history"]
+        check(all(np.isfinite(x["base_loss"]) and np.isfinite(x["mod_loss"])
+                  for x in h), f"xlstm ifl: losses {h}")
+        walls["ifl"] = ifl["walls"]
+        ifl_peak = torch.cuda.max_memory_allocated() / 2**30
+        del ifl
+        torch.cuda.empty_cache()
+    print(f"[recurrent train] launch.train --arch {cfg.name} "
+          f"({cfg.num_layers} layers, d {cfg.d_model}, {cfg.compute_dtype}), "
+          f"B {r['batch']}, lr {r['lr']}: --mode dp at S {r['seq']}, "
+          f"{r['dp_steps']} steps, losses {[round(x, 4) for x in losses]} "
+          f"(finite), step walls (s) {[round(w, 3) for w in walls['dp']]}, "
+          f"peak {dp_peak:.2f} GiB; --mode ifl at S {r['ifl_seq']}, "
+          f"{r['ifl_rounds']} rounds (N {r['n_clients']}, tau {r['tau']}): "
+          f"losses "
+          f"{[(round(x['base_loss'], 4), round(x['mod_loss'], 4)) for x in h]}"
+          f", round walls (s) {[round(w, 3) for w in walls['ifl']]}, peak "
+          f"{ifl_peak:.2f} GiB; no kernel launched (no attention layer; the "
+          f"LM IFL CLI ships z in fp32)", flush=True)
+    t0 = time.perf_counter()
+    g = full_width_grad_check(cfg, r["batch"], r["seq"])
+    print(f"[recurrent grad] {cfg.name} at full width, the DP run's init and "
+          f"first batch (B {r['batch']}, S {r['seq']}): loss fp32 "
+          f"{g['loss32']:.5f}, bf16 {g['loss16']:.5f} (within "
+          f"{BF16_LOSS_TOL} relative); |g32| {g['grad_norm']:.2f}, cos(g32, "
+          f"g16) {g['cos']:.5f}; along -g32 the fp32 loss fell "
+          f"{g['g32'][0]:.5f} (first order {g['g32'][1]:.5f}), along -g16 "
+          f"{g['g16'][0]:.5f} (first order {g['g16'][1]:.5f}), each within "
+          f"{GRAD_TOL:.0%}; largest leaves (share of |g32|^2, cos to g16) "
+          f"{[(k, round(a, 4), round(c, 4)) for k, a, c in g['leaves']]}; "
+          f"an lr {r['lr']} step along -g32 lowers it by "
+          f"{r['lr'] * g['grad_norm'] ** 2:.1f} to first order; "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return walls
+
+
+def hybrid_config():
+    """A small Mamba hybrid: Jamba's layer pattern cut to one period of 4
+    (mamba, mamba, mamba, attn) with dense FFNs (MoE is not ported yet),
+    at jamba-1.5-large-398b's reduced widths with d_model 128
+    (``tests/test_torch_mamba.py``'s config)."""
+    from repro_torch.config import LayerSpec
+    from repro_torch.configs import get_config
+
+    pat = tuple(LayerSpec(mixer="attn" if i == 3 else "mamba", ffn="dense",
+                          use_rope=False) for i in range(4))
+    return get_config("jamba-1.5-large-398b").reduced().replace(
+        name="jamba-hybrid-smoke", num_layers=8, num_experts=0,
+        num_experts_per_tok=0, base_pattern=pat, mod_pattern=pat,
+        d_model=128).validate()
+
+
+def greedy_tokens(base, bcfg, mod, mcfg, prompts, n, device):
+    """Greedy continuation of (B, P) prompts, n tokens, by the composed
+    prefill and decode steps."""
+    from repro_torch.models.transformer import (composed_decode_step,
+                                                composed_prefill_ragged,
+                                                init_composed_cache)
+
+    B, P = prompts.shape
+    cache = init_composed_cache(bcfg, mcfg, B, P + n, device=device)
+    toks = torch.from_numpy(prompts).to(device)
+    last, cache = composed_prefill_ragged(
+        base, bcfg, mod, mcfg, cache, toks,
+        torch.full((B,), P, device=device))
+    out = [last.argmax(-1)]
+    for t in range(n - 1):
+        logits, cache = composed_decode_step(
+            base, bcfg, mod, mcfg, cache, out[-1][:, None],
+            torch.full((B,), P + t, device=device))
+        out.append(logits[:, -1].argmax(-1))
+    return torch.stack(out, 1).cpu().tolist()
+
+
+def recurrent_card_vs_cpu():
+    """fp32, the same params (drawn on the CPU) and tokens on the card
+    and the CPU: lm_loss, logits and 8 greedy tokens of the reduced
+    xlstm-350m and the Mamba hybrid, and logits of the composition
+    twin's four dense <-> xLSTM pairs (the dense half's head dim 48 on
+    the padded attention kernels)."""
+    from repro_torch.configs import get_config
+    from repro_torch.examples import compose_inference as twin
+    from repro_torch.models.modules import tree_map
+    from repro_torch.models.transformer import (base_forward, init_lm,
+                                                lm_apply, lm_loss,
+                                                modular_forward)
+
+    rng = np.random.default_rng(7)
+    report = {}
+    with torch.no_grad():
+        for cfg in (get_config("xlstm-350m").reduced(), hybrid_config()):
+            params = init_lm(cfg, generator=torch.Generator().manual_seed(0),
+                             device="cpu")
+            toks = rng.integers(0, cfg.vocab_size, (2, 64))
+            res = {}
+            for dev in ("cpu", "cuda"):
+                p = tree_map(lambda a: a.to(dev), params)
+                batch = {"tokens": torch.from_numpy(toks).to(dev)}
+                res[dev] = (float(lm_loss(p, cfg, batch)),
+                            lm_apply(p, cfg, batch).cpu(),
+                            greedy_tokens(p["base"], cfg, p["modular"], cfg,
+                                          toks[:, :16], 8, dev))
+            (lc, gc, tc), (lg, gg, tg) = res["cpu"], res["cuda"]
+            lerr = abs(lg - lc)
+            gerr = float((gg - gc).abs().max() / max(1.0, gc.abs().max()))
+            check(lerr <= LM_LOSS_TOL and gerr <= LM_LOSS_TOL and tg == tc
+                  and bool(torch.isfinite(gg).all()),
+                  f"{cfg.name} card vs CPU: loss {lerr}, logits {gerr}, "
+                  f"tokens {tg} vs {tc}")
+            report[cfg.name] = (lerr, gerr)
+        dense, recur = twin.llm_configs()
+        vendors = [(n, c, init_lm(c, generator=torch.Generator().manual_seed(
+            s), device="cpu")) for s, (n, c) in enumerate(
+                (("dense", dense), ("xlstm", recur)))]
+        toks = rng.integers(0, 512, (2, 32))
+        perr = 0.0
+        for bname, bcfg, bp in vendors:
+            out = {}
+            for dev in ("cpu", "cuda"):
+                batch = {"tokens": torch.from_numpy(toks).to(dev)}
+                z = base_forward(tree_map(lambda a: a.to(dev), bp["base"]),
+                                 bcfg, batch)
+                out[dev] = [modular_forward(
+                    tree_map(lambda a: a.to(dev), mp["modular"]), mcfg,
+                    z).cpu() for _, mcfg, mp in vendors]
+            for a, b in zip(out["cuda"], out["cpu"]):
+                perr = max(perr, float((a - b).abs().max()
+                                       / max(1.0, b.abs().max())))
+        check(perr <= LM_LOSS_TOL, f"twin pairs card vs CPU: {perr}")
+    print(f"[recurrent card vs cpu] fp32, same params and tokens: "
+          + "; ".join(f"{n}: loss |diff| {a:.2e}, logits {b:.2e} of max "
+                      f"|logit|, 8 greedy tokens equal"
+                      for n, (a, b) in report.items())
+          + f"; the twin's four dense <-> xLSTM pairs (d 192, head dim 48 "
+          f"on the padded attention kernels): logits {perr:.2e} (tolerance "
+          f"{LM_LOSS_TOL})", flush=True)
+
+
+def compose_twin_phase():
+    """``python -m repro_torch.examples.compose_inference --device cuda``:
+    the Table-II composition matrix after 10 IFL rounds and the four
+    cross-family LLM pairs."""
+    from repro_torch.examples import compose_inference as twin
+
+    t0 = time.perf_counter()
+    out = twin.main(["--device", "cuda"])
+    wall = time.perf_counter() - t0
+    mat = np.asarray(out["matrix"], float)
+    check(mat.shape == (4, 4) and np.all((mat >= 0) & (mat <= 1)),
+          f"compose twin: matrix {mat}")
+    check(len(out["llm"]) == 4 and all(
+        tuple(v.shape) == (2, 32, 512) and bool(torch.isfinite(v).all())
+        for v in out["llm"].values()), "compose twin: LLM pairs")
+    print(f"[compose twin] python -m repro_torch.examples.compose_inference "
+          f"--device cuda in {wall:.1f}s: 4 x 4 composition matrix (diagonal "
+          f"{[round(float(mat[i, i]), 3) for i in range(4)]}), 4 LLM pairs "
+          f"finite", flush=True)
 
 
 def tree_numpy(tree):
@@ -2624,7 +3367,8 @@ def main() -> None:
           f"L=40, masked row) max|err| {err_fp32:.3e}", flush=True)
     split_err = decode_split_checks(ops, ref, gen)
     print(f"[kernel] flash_decode split-L at {len(DECODE_SPLIT_CASES)} cases "
-          f"(L 1, 65, 4097; G 1, 4, 16; hd 64, 128; wholly masked splits, "
+          f"(L 1, 64, 65, 129, 257, 300, 4097; G 1, 4, 8, 16; hd 8, 24, 32, "
+          f"48, 64, 96, 128; wholly masked splits, "
           f"fully masked rows zero; one launch a call) and a split call "
           f"twice in one CUDA graph, replayed 3 times: fp32 max|err| "
           f"{split_err:.3e}", flush=True)
@@ -2637,6 +3381,16 @@ def main() -> None:
           flush=True)
 
     attn_err = attn_checks(ops, ref)
+    n_fp = fingerprint_check(ops)
+    n_guard = guard_checks(ops, gen)
+    print(f"[kernel] flash_decode / flash_attention / flash_attention_bwd "
+          f"between NaN guard bands at {n_guard} cases (every split-L and "
+          f"attention case, the lanes' decode shapes), {GUARD_REPS} launches "
+          f"each: the wrappers' bits every time, no band read into a result "
+          f"or written, arrival counters back at 0", flush=True)
+    print(f"[kernel] attention at hd 64 and 128: {n_fp} outputs (fwd o, lse; "
+          f"bwd dq, dk, dv; decode) bitwise those of the kernels before the "
+          f"padded head dims (attn_fingerprints_hd64_128.json)", flush=True)
     print(f"[kernel] flash_attention / flash_attention_bwd vs plain at "
           f"{len(ATTN_CASES)} cases x fp32, bf16: relative max|err| fwd "
           f"{attn_err['all']['fwd']:.3e}, bwd {attn_err['all']['bwd']:.3e}; "
@@ -2833,6 +3587,16 @@ def main() -> None:
     llm_twin_phase(ops)
     print(f"[spmd] phase 4l took {time.perf_counter() - t0:.1f}s", flush=True)
 
+    # -- 4m. the recurrent mixers and cross-family composition -----------
+    t0 = time.perf_counter()
+    recurrent_serve_phase(ops)
+    cross = cross_family_phase(ops, args.profile)
+    recurrent_train_phase(train_cli, ops)
+    recurrent_card_vs_cpu()
+    compose_twin_phase()
+    print(f"[recurrent] phase 4m took {time.perf_counter() - t0:.1f}s",
+          flush=True)
+
     # -- 5. times at the slice's shape ------------------------------------
     decode_t = []
     for Bt, Lt, KVHt, Gt, hdt, lengths, n_sets in DECODE_SHAPES:
@@ -2844,6 +3608,12 @@ def main() -> None:
     dt = decode_t[0]   # the path's shape: the JSON row; the rest are lines
     print(f"[time] flash_decode: {cfg.num_layers} launches per composed step",
           flush=True)
+    # The cross-family lanes' decode (olmo-1b: KVH 16, hd 128) and the
+    # padded head dims at the serving path's W 4, cache 64.
+    decode_hd = {hdt: decode_times(ops, ref, gen, 4, 64, 16, 1, hdt,
+                                   [64, 40, 33, 17], 64,
+                                   note=f"(hd {hdt})")
+                 for hdt in (128, 24, 48)}
 
     launch_floor_ms()
     wire_t = {}
@@ -2867,6 +3637,9 @@ def main() -> None:
         "bound_ms": dt["bound_ms"],
         "bound_by": dt["bound_by"],
         "library_ms": dt["library_ms"],
+        "cross_launches": cross["flash_decode"],
+        **{f"hd{h}_{k}": decode_hd[h][k] for h in (128, 24, 48)
+           for k in ("ms", "plain_ms", "bound_ms", "library_ms")},
     }]
     # The IFL path's codecs at its shape (32, 432): int8_row through
     # wire_encode, ef(int4) through wire_encode_ef.
@@ -2896,6 +3669,8 @@ def main() -> None:
     at = attn_times(ops, ref, ATTN_TIMED[0])
     for shape in ATTN_TIMED[1:]:   # printed as [time] lines only
         attn_times(ops, ref, shape)
+    at_hd = {h: attn_times(ops, ref, shape)
+             for h, shape in ATTN_HD_TIMED.items()}
     for kname, key, err, replaces in (
             ("flash_attention", "fwd", attn_err["path"]["fwd"],
              "src/repro/kernels/flash_attention.py:167"),
@@ -2909,12 +3684,17 @@ def main() -> None:
             "replaces": replaces,
             "launches": lm["launches"][kname],
             "spmd_launches": spmd[kname],
+            "smoke_launches": spmd["smoke_" + kname[6:]],
             "max_abs_err": err,
             "ms": at[key],
             "plain_ms": at[key + "_plain"],
             "bound_ms": at[key + "_bound"],
             "bound_by": at[key + "_bound_by"],
             "library_ms": at[key + "_sdpa"],
+            **{f"hd{h}_{k}": at_hd[h][key + suffix] for h in at_hd
+               for k, suffix in (("ms", ""), ("plain_ms", "_plain"),
+                                 ("bound_ms", "_bound"),
+                                 ("library_ms", "_sdpa"))},
         })
     # The fused wire path at its shapes: fusion_proj at client 4's first
     # FC (32, 784, 1024), #5 and #6 at client 2's fusion FC (32, 1568,

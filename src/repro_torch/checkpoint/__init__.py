@@ -1,4 +1,5 @@
 from repro_torch.checkpoint.ckpt import (
+    cache_from_numpy,
     load_checkpoint,
     load_extra,
     load_flat,
@@ -11,6 +12,7 @@ from repro_torch.checkpoint.ckpt import (
 )
 
 __all__ = [
+    "cache_from_numpy",
     "load_checkpoint",
     "load_extra",
     "load_flat",

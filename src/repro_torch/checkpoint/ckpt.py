@@ -8,8 +8,9 @@ written by either package loads in the other.
 
 ``params_from_numpy`` carries a parameter tree across: it turns the JAX
 package's tree (as numpy arrays) into the port's, leaf for leaf and with
-the same keys. The port's parameter trees are plain nested dicts of
-tensors with the JAX layout (stacked groups lead with ``(num_groups,)``).
+the same keys; ``cache_from_numpy`` does the same for a decode cache.
+The port's parameter trees are plain nested dicts of tensors with the
+JAX layout (stacked groups lead with ``(num_groups,)``).
 """
 
 from __future__ import annotations
@@ -95,6 +96,23 @@ def params_from_numpy(tree, *, device, dtype: Optional[torch.dtype] = None):
         return type(tree)(params_from_numpy(v, device=device, dtype=dtype)
                           for v in tree)
     return _to_tensor(tree, device, dtype)
+
+
+def cache_from_numpy(tree, *, device):
+    """A decode cache of the JAX package (as numpy arrays) -> the port's,
+    leaf for leaf: recurrent states carry across as they are, -inf
+    stabilizers included. The one layout that differs is an attention
+    cache's ``slot_pos``, which the port keeps per row ((..., B, L)
+    beside k's (..., B, L, KVH, hd)) where the reference keeps one
+    (..., L) for its batch."""
+    if isinstance(tree, dict):
+        out = {k: cache_from_numpy(v, device=device) for k, v in tree.items()}
+        if "slot_pos" in out and "k" in out:
+            k, sp = out["k"], out["slot_pos"]
+            out["slot_pos"] = sp.unsqueeze(-2).expand(
+                *k.shape[:-2]).long().contiguous()
+        return out
+    return _to_tensor(tree, device, None)
 
 
 def unstack_clients(tree, *, device, dtype: Optional[torch.dtype] = None):

@@ -125,6 +125,14 @@ class ModelConfig:
     def resolved_head_dim(self) -> int:
         return self.head_dim or self.d_model // self.num_heads
 
+    @property
+    def resolved_dt_rank(self) -> int:
+        return self.ssm_dt_rank or -(-self.d_model // 16)
+
+    @property
+    def ssm_d_inner(self) -> int:
+        return self.ssm_expand * self.d_model
+
     def _resolved_program(self):
         """(prefix, base_pattern, base_groups, mod_pattern, mod_groups)."""
         if not self.base_pattern and not self.mod_pattern:

@@ -64,6 +64,18 @@
 // fp32 path is held to, and the reduced LM config's card-vs-CPU check
 // (1e-4) runs it.
 //
+// Head dims: any hd with hd % 8 == 0 and 8 <= hd <= 128 runs on the
+// instance of the next HD in {32, 64, 128}: a bf16 row is then a whole
+// number of 16-byte chunks. Every kernel reads and writes global memory
+// at the true hd (rows of hd elements, never a column past hd); the
+// columns hd .. HD - 1 of q, k, v, o and dO are zero-filled in shared
+// memory or registers, so they add exactly 0 to every product over the
+// head dim (q.k, dO.v, rowsum(dO * O)), and the padded columns of o, dq,
+// dk and dv are not written. The scale (1 / sqrt(hd)) comes from the
+// wrapper. At hd == HD nothing is padded; chip_smoke.py holds hd 64 and
+// 128 bitwise to the kernels before the padding
+// (tests/data/attn_fingerprints_hd64_128.json).
+//
 // Built by nvcc into a shared library with a plain C interface and
 // called through ctypes (src/repro_torch/kernels/ops.py).
 
@@ -120,30 +132,33 @@ __device__ __forceinline__ bool visible(int i, int j, int S, int window) {
   return i < S && j < S && j <= i && (window <= 0 || j > i - window);
 }
 
-// Stage rows r0 .. r0 + kTile of a (B, S, NH, HD) fp32 tensor's head
-// `head` of batch row b into shared memory, zeros past S.
+// Stage rows r0 .. r0 + kTile of head `head` of batch row b of a
+// (B, S, NH, hd) fp32 tensor into shared memory as HD columns, zeros past
+// S and past hd.
 template <int HD>
 __device__ __forceinline__ void load_tile(float* dst, const float* src, int b,
-                                          int r0, int S, int NH, int head) {
+                                          int r0, int S, int NH, int head,
+                                          int hd) {
   constexpr int HDP = HD + 8;
   for (int idx = threadIdx.x; idx < kTile * HD; idx += kThreads) {
     const int r = idx / HD;
     const int c = idx - r * HD;
     const int row = r0 + r;
-    dst[r * HDP + c] =
-        row < S ? src[(((size_t)b * S + row) * NH + head) * HD + c] : 0.f;
+    dst[r * HDP + c] = row < S && c < hd
+                           ? src[(((size_t)b * S + row) * NH + head) * hd + c]
+                           : 0.f;
   }
 }
 
 template <int HD>
 __device__ __forceinline__ void load_row(float (&dst)[HD / kGroup],
                                          const float* src, int b, int i, int S,
-                                         int NH, int head, int t) {
+                                         int NH, int head, int t, int hd) {
 #pragma unroll
   for (int e = 0; e < HD / kGroup; ++e)
-    dst[e] = i < S ? src[(((size_t)b * S + i) * NH + head) * HD + t +
-                         kGroup * e]
-                   : 0.f;
+    dst[e] = i < S && t + kGroup * e < hd
+                 ? src[(((size_t)b * S + i) * NH + head) * hd + t + kGroup * e]
+                 : 0.f;
 }
 
 // ----------------------------------------------------------------- forward
@@ -154,7 +169,7 @@ __global__ void __launch_bounds__(kThreads)
 attn_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                 const float* __restrict__ v, float* __restrict__ o,
                 float* __restrict__ lse, int S, int H, int KVH, int window,
-                float scale) {
+                float scale, int hd) {
   constexpr int EPL = HD / kGroup;  // dims per lane
   constexpr int R = 32 / EPL;       // query rows per warp
   constexpr int BQ = kWarps * R;    // query rows per block
@@ -175,7 +190,7 @@ attn_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   float qr[R][EPL], acc[R][EPL], m[R], l[R];
 #pragma unroll
   for (int r = 0; r < R; ++r) {
-    load_row<HD>(qr[r], q, b, row0 + r, S, H, h, t);
+    load_row<HD>(qr[r], q, b, row0 + r, S, H, h, t, hd);
     m[r] = kNeg;
     l[r] = 0.f;
 #pragma unroll
@@ -186,8 +201,8 @@ attn_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int kv_lo = window > 0 ? max(0, q0 - window + 1) : 0;
   for (int j0 = (kv_lo / kTile) * kTile; j0 < kv_hi; j0 += kTile) {
     __syncthreads();  // the previous tile is consumed
-    load_tile<HD>(sk, k, b, j0, S, KVH, kvh);
-    load_tile<HD>(sv, v, b, j0, S, KVH, kvh);
+    load_tile<HD>(sk, k, b, j0, S, KVH, kvh, hd);
+    load_tile<HD>(sv, v, b, j0, S, KVH, kvh, hd);
     __syncthreads();
     for (int jj = g; jj < kTile; jj += kGroups) {
       const int j = j0 + jj;
@@ -226,8 +241,8 @@ attn_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
     for (int e = 0; e < EPL; ++e) {
       const float a = groups_sum(acc[r][e] * c);
-      if (g == 0 && i < S)
-        o[(((size_t)b * S + i) * H + h) * HD + t + kGroup * e] = a * inv;
+      if (g == 0 && i < S && t + kGroup * e < hd)
+        o[(((size_t)b * S + i) * H + h) * hd + t + kGroup * e] = a * inv;
     }
     if (lane == 0 && i < S)
       lse[((size_t)b * H + h) * S + i] = lt > 0.f ? mt + logf(lt) : kNeg;
@@ -243,7 +258,7 @@ attn_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
                    const float* __restrict__ v, const float* __restrict__ o,
                    const float* __restrict__ dout, const float* __restrict__ lse,
                    float* __restrict__ dsum, float* __restrict__ dq, int S, int H,
-                   int KVH, int window, float scale) {
+                   int KVH, int window, float scale, int hd) {
   constexpr int EPL = HD / kGroup;
   constexpr int R = 32 / EPL;
   constexpr int BQ = kWarps * R;
@@ -266,9 +281,9 @@ attn_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
   for (int r = 0; r < R; ++r) {
     const int i = row0 + r;
     float orow[EPL];
-    load_row<HD>(qr[r], q, b, i, S, H, h, t);
-    load_row<HD>(dor[r], dout, b, i, S, H, h, t);
-    load_row<HD>(orow, o, b, i, S, H, h, t);
+    load_row<HD>(qr[r], q, b, i, S, H, h, t, hd);
+    load_row<HD>(dor[r], dout, b, i, S, H, h, t, hd);
+    load_row<HD>(orow, o, b, i, S, H, h, t, hd);
     float d = 0.f;
 #pragma unroll
     for (int e = 0; e < EPL; ++e) {
@@ -284,8 +299,8 @@ attn_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int kv_lo = window > 0 ? max(0, q0 - window + 1) : 0;
   for (int j0 = (kv_lo / kTile) * kTile; j0 < kv_hi; j0 += kTile) {
     __syncthreads();
-    load_tile<HD>(sk, k, b, j0, S, KVH, kvh);
-    load_tile<HD>(sv, v, b, j0, S, KVH, kvh);
+    load_tile<HD>(sk, k, b, j0, S, KVH, kvh, hd);
+    load_tile<HD>(sv, v, b, j0, S, KVH, kvh, hd);
     __syncthreads();
     for (int jj = g; jj < kTile; jj += kGroups) {
       const int j = j0 + jj;
@@ -320,8 +335,8 @@ attn_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
     for (int e = 0; e < EPL; ++e) {
       const float a = groups_sum(dqa[r][e]) * scale;
-      if (g == 0 && i < S)
-        dq[(((size_t)b * S + i) * H + h) * HD + t + kGroup * e] = a;
+      if (g == 0 && i < S && t + kGroup * e < hd)
+        dq[(((size_t)b * S + i) * H + h) * hd + t + kGroup * e] = a;
     }
   }
 }
@@ -337,7 +352,7 @@ attn_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ lse,
                      const float* __restrict__ dsum, float* __restrict__ dk,
                      float* __restrict__ dv, int S, int H, int KVH, int window,
-                     float scale) {
+                     float scale, int hd) {
   constexpr int EPL = HD / kGroup;
   constexpr int RK = 16 / EPL;       // key rows per warp: 2 or 1
   constexpr int BK = kWarps * RK;    // key rows per block
@@ -360,8 +375,8 @@ attn_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
   float kr[RK][EPL], vr[RK][EPL], dka[RK][EPL], dva[RK][EPL];
 #pragma unroll
   for (int r = 0; r < RK; ++r) {
-    load_row<HD>(kr[r], k, b, krow0 + r, S, KVH, kvh, t);
-    load_row<HD>(vr[r], v, b, krow0 + r, S, KVH, kvh, t);
+    load_row<HD>(kr[r], k, b, krow0 + r, S, KVH, kvh, t, hd);
+    load_row<HD>(vr[r], v, b, krow0 + r, S, KVH, kvh, t, hd);
 #pragma unroll
     for (int e = 0; e < EPL; ++e) {
       dka[r][e] = 0.f;
@@ -376,8 +391,8 @@ attn_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const int h = kvh * G + hh;
     for (int i0 = (k0 / kTile) * kTile; i0 < i_hi; i0 += kTile) {
       __syncthreads();
-      load_tile<HD>(sq, q, b, i0, S, H, h);
-      load_tile<HD>(sdo, dout, b, i0, S, H, h);
+      load_tile<HD>(sq, q, b, i0, S, H, h, hd);
+      load_tile<HD>(sdo, dout, b, i0, S, H, h, hd);
       for (int r = threadIdx.x; r < kTile; r += kThreads) {
         const int i = i0 + r;
         slse[r] = i < S ? lse[((size_t)b * H + h) * S + i] : 0.f;
@@ -424,8 +439,8 @@ attn_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
     for (int e = 0; e < EPL; ++e) {
       const float a = groups_sum(dka[r][e]) * scale;
       const float c = groups_sum(dva[r][e]);
-      if (g == 0 && j < S) {
-        const size_t off = (((size_t)b * S + j) * KVH + kvh) * HD + t + kGroup * e;
+      if (g == 0 && j < S && t + kGroup * e < hd) {
+        const size_t off = (((size_t)b * S + j) * KVH + kvh) * hd + t + kGroup * e;
         dk[off] = a;
         dv[off] = c;
       }
@@ -473,18 +488,20 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-// Stage rows r0 .. r0 + R of head `head` of a (B, S, NH, HD) bf16 tensor
-// into shared memory (row stride HD + kPad), zeros past S.
+// Stage rows r0 .. r0 + R of head `head` of a (B, S, NH, hd) bf16
+// tensor into shared memory as HD columns (row stride HD + kPad), zeros
+// past S and past hd.
 template <int R, int HD>
 __device__ __forceinline__ void stage_rows(bf16* dst, const bf16* src, int b,
-                                           int r0, int S, int NH, int head) {
+                                           int r0, int S, int NH, int head,
+                                           int hd) {
   constexpr int kChunks = HD / 8;  // 16-byte chunks a row
   for (int idx = threadIdx.x; idx < R * kChunks; idx += kTcThreads) {
     const int r = idx / kChunks;
     const int c = idx - r * kChunks;
-    const bool ok = r0 + r < S;
-    const bf16* g =
-        src + (((size_t)b * S + (ok ? r0 + r : 0)) * NH + head) * HD + c * 8;
+    const bool ok = r0 + r < S && c * 8 < hd;
+    const bf16* g = src + (((size_t)b * S + (ok ? r0 + r : 0)) * NH + head) * hd +
+                    (ok ? c * 8 : 0);
     cp_async_16(dst + r * (HD + kPad) + c * 8, g, ok);
   }
 }
@@ -614,7 +631,7 @@ constexpr size_t dq_smem() {
 }
 template <int HD>
 __host__ __device__ constexpr int dkdv_rows() {
-  return HD == 64 ? 64 : 32;  // query rows per inner tile: registers at hd 128
+  return HD <= 64 ? 64 : 32;  // query rows per inner tile: registers at hd 128
 }
 template <int HD>
 constexpr size_t dkdv_smem() {
@@ -631,7 +648,7 @@ __global__ void __launch_bounds__(kTcThreads)
 attn_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                    const bf16* __restrict__ v, bf16* __restrict__ o,
                    float* __restrict__ lse, int S, int H, int KVH, int window,
-                   float scale) {
+                   float scale, int hd) {
   constexpr int kStage = kKeys * (HD + kPad);
   extern __shared__ __align__(16) unsigned char smem[];
   bf16* sq = reinterpret_cast<bf16*>(smem);
@@ -653,9 +670,9 @@ attn_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int t_lo = kv_lo / kKeys;
   const int t_hi = (kv_hi + kKeys - 1) / kKeys;
 
-  stage_rows<kBlk, HD>(sq, q, b, q0, S, H, h);
-  stage_rows<kKeys, HD>(sk, k, b, t_lo * kKeys, S, KVH, kvh);
-  stage_rows<kKeys, HD>(sv, v, b, t_lo * kKeys, S, KVH, kvh);
+  stage_rows<kBlk, HD>(sq, q, b, q0, S, H, h, hd);
+  stage_rows<kKeys, HD>(sk, k, b, t_lo * kKeys, S, KVH, kvh, hd);
+  stage_rows<kKeys, HD>(sv, v, b, t_lo * kKeys, S, KVH, kvh, hd);
   cp_async_commit();
 
   const float c = scale * kLog2e;  // scores in log2 units
@@ -667,9 +684,9 @@ attn_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const int st = (it - t_lo) & 1;
     if (it + 1 < t_hi) {
       stage_rows<kKeys, HD>(sk + (st ^ 1) * kStage, k, b, (it + 1) * kKeys, S,
-                            KVH, kvh);
+                            KVH, kvh, hd);
       stage_rows<kKeys, HD>(sv + (st ^ 1) * kStage, v, b, (it + 1) * kKeys, S,
-                            KVH, kvh);
+                            KVH, kvh, hd);
       cp_async_commit();
       cp_async_wait<1>();
     } else {
@@ -739,11 +756,12 @@ attn_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const float lt = quad_sum(l[r]);
     const float inv = 1.f / fmaxf(lt, 1e-30f);
     if (i >= S) continue;
-    bf16* orow = o + (((size_t)b * S + i) * H + h) * HD + 2 * t;
+    bf16* orow = o + (((size_t)b * S + i) * H + h) * hd + 2 * t;
 #pragma unroll
     for (int nb = 0; nb < HD / 8; ++nb)
-      *reinterpret_cast<uint32_t*>(orow + nb * 8) =
-          pack_bf16(acc[nb][2 * r] * inv, acc[nb][2 * r + 1] * inv);
+      if (nb * 8 < hd)
+        *reinterpret_cast<uint32_t*>(orow + nb * 8) =
+            pack_bf16(acc[nb][2 * r] * inv, acc[nb][2 * r + 1] * inv);
     if (t == 0)
       lse[((size_t)b * H + h) * S + i] = lt > 0.f ? m[r] * kLn2 + logf(lt) : kNeg;
   }
@@ -760,7 +778,7 @@ attn_bwd_dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                       const bf16* __restrict__ dout,
                       const float* __restrict__ lse, float* __restrict__ dsum,
                       bf16* __restrict__ dq, int S, int H, int KVH, int window,
-                      float scale) {
+                      float scale, int hd) {
   constexpr int kStage = kKeys * (HD + kPad);
   extern __shared__ __align__(16) unsigned char smem[];
   bf16* sq = reinterpret_cast<bf16*>(smem);
@@ -786,10 +804,10 @@ attn_bwd_dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int t_lo = kv_lo / kKeys;
   const int t_hi = (kv_hi + kKeys - 1) / kKeys;
 
-  stage_rows<kBlk, HD>(sq, q, b, q0, S, H, h);
-  stage_rows<kBlk, HD>(sdo, dout, b, q0, S, H, h);
-  stage_rows<kKeys, HD>(sk, k, b, t_lo * kKeys, S, KVH, kvh);
-  stage_rows<kKeys, HD>(sv, v, b, t_lo * kKeys, S, KVH, kvh);
+  stage_rows<kBlk, HD>(sq, q, b, q0, S, H, h, hd);
+  stage_rows<kBlk, HD>(sdo, dout, b, q0, S, H, h, hd);
+  stage_rows<kKeys, HD>(sk, k, b, t_lo * kKeys, S, KVH, kvh, hd);
+  stage_rows<kKeys, HD>(sv, v, b, t_lo * kKeys, S, KVH, kvh, hd);
   cp_async_commit();
 
   // D and lse of the block's rows: two threads a row, half a row each.
@@ -799,9 +817,10 @@ attn_bwd_dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const int i = q0 + r;
     float d = 0.f;
     if (i < S) {
-      const size_t off = (((size_t)b * S + i) * H + h) * HD + half * (HD / 2);
+      const size_t off = (((size_t)b * S + i) * H + h) * hd + half * (HD / 2);
 #pragma unroll
       for (int e = 0; e < HD / 2; e += 8) {
+        if (half * (HD / 2) + e >= hd) break;  // the padded columns add 0
         const uint4 xo = *reinterpret_cast<const uint4*>(o + off + e);
         const uint4 xd = *reinterpret_cast<const uint4*>(dout + off + e);
         const bf16* po = reinterpret_cast<const bf16*>(&xo);
@@ -833,9 +852,9 @@ attn_bwd_dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const int st = (it - t_lo) & 1;
     if (it + 1 < t_hi) {
       stage_rows<kKeys, HD>(sk + (st ^ 1) * kStage, k, b, (it + 1) * kKeys, S,
-                            KVH, kvh);
+                            KVH, kvh, hd);
       stage_rows<kKeys, HD>(sv + (st ^ 1) * kStage, v, b, (it + 1) * kKeys, S,
-                            KVH, kvh);
+                            KVH, kvh, hd);
       cp_async_commit();
       cp_async_wait<1>();
     } else {
@@ -871,11 +890,12 @@ attn_bwd_dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   for (int r = 0; r < 2; ++r) {
     const int i = w0 + g + 8 * r;
     if (i >= S) continue;
-    bf16* row = dq + (((size_t)b * S + i) * H + h) * HD + 2 * t;
+    bf16* row = dq + (((size_t)b * S + i) * H + h) * hd + 2 * t;
 #pragma unroll
     for (int nb = 0; nb < HD / 8; ++nb)
-      *reinterpret_cast<uint32_t*>(row + nb * 8) =
-          pack_bf16(acc[nb][2 * r] * scale, acc[nb][2 * r + 1] * scale);
+      if (nb * 8 < hd)
+        *reinterpret_cast<uint32_t*>(row + nb * 8) =
+            pack_bf16(acc[nb][2 * r] * scale, acc[nb][2 * r + 1] * scale);
   }
 }
 
@@ -892,7 +912,7 @@ attn_bwd_dkdv_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                         const float* __restrict__ lse,
                         const float* __restrict__ dsum, bf16* __restrict__ dk,
                         bf16* __restrict__ dv, int S, int H, int KVH,
-                        int window, float scale) {
+                        int window, float scale, int hd) {
   constexpr int N = dkdv_rows<HD>();
   constexpr int kStage = N * (HD + kPad);
   extern __shared__ __align__(16) unsigned char smem[];
@@ -924,14 +944,14 @@ attn_bwd_dkdv_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const int h = kvh * G + n / nt;
     const int i0 = (t_lo + n % nt) * N;
     const size_t bh = (size_t)b * H + h;
-    stage_rows<N, HD>(sq + st * kStage, q, b, i0, S, H, h);
-    stage_rows<N, HD>(sdo + st * kStage, dout, b, i0, S, H, h);
+    stage_rows<N, HD>(sq + st * kStage, q, b, i0, S, H, h, hd);
+    stage_rows<N, HD>(sdo + st * kStage, dout, b, i0, S, H, h, hd);
     stage_vec<N>(sl + st * N, lse + bh * S, i0, S);
     stage_vec<N>(sd + st * N, dsum + bh * S, i0, S);
   };
 
-  stage_rows<kBlk, HD>(sk, k, b, k0, S, KVH, kvh);
-  stage_rows<kBlk, HD>(sv, v, b, k0, S, KVH, kvh);
+  stage_rows<kBlk, HD>(sk, k, b, k0, S, KVH, kvh, hd);
+  stage_rows<kBlk, HD>(sv, v, b, k0, S, KVH, kvh, hd);
   stage(0, 0);
   cp_async_commit();
 
@@ -985,9 +1005,10 @@ attn_bwd_dkdv_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   for (int r = 0; r < 2; ++r) {
     const int j = w0 + g + 8 * r;
     if (j >= S) continue;
-    const size_t off = (((size_t)b * S + j) * KVH + kvh) * HD + 2 * t;
+    const size_t off = (((size_t)b * S + j) * KVH + kvh) * hd + 2 * t;
 #pragma unroll
     for (int nb = 0; nb < HD / 8; ++nb) {
+      if (nb * 8 >= hd) break;
       *reinterpret_cast<uint32_t*>(dk + off + nb * 8) =
           pack_bf16(dka[nb][2 * r] * scale, dka[nb][2 * r + 1] * scale);
       *reinterpret_cast<uint32_t*>(dv + off + nb * 8) =
@@ -1002,6 +1023,7 @@ struct Args {
   const void *q, *k, *v, *o, *dout, *lse;
   void *out, *lse_out, *dsum, *dq, *dk, *dv;
   int B, S, H, KVH, window;
+  int hd;  // the true head dim, <= the instance's HD
   float scale;
   cudaStream_t stream;
 };
@@ -1013,7 +1035,8 @@ void launch_fwd_simt(const Args& a) {
   attn_fwd_kernel<HD><<<grid, kThreads, 0, a.stream>>>(
       static_cast<const float*>(a.q), static_cast<const float*>(a.k),
       static_cast<const float*>(a.v), static_cast<float*>(a.out),
-      static_cast<float*>(a.lse_out), a.S, a.H, a.KVH, a.window, a.scale);
+      static_cast<float*>(a.lse_out), a.S, a.H, a.KVH, a.window, a.scale,
+      a.hd);
 }
 
 template <int HD>
@@ -1026,7 +1049,7 @@ int launch_bwd_simt(const Args& a) {
       static_cast<const float*>(a.v), static_cast<const float*>(a.o),
       static_cast<const float*>(a.dout), static_cast<const float*>(a.lse),
       static_cast<float*>(a.dsum), static_cast<float*>(a.dq), a.S, a.H,
-      a.KVH, a.window, a.scale);
+      a.KVH, a.window, a.scale, a.hd);
   const int rc = static_cast<int>(cudaGetLastError());
   if (rc != 0) return rc;
   dim3 grid_k((a.S + BK - 1) / BK, a.B * a.KVH);
@@ -1035,7 +1058,7 @@ int launch_bwd_simt(const Args& a) {
       static_cast<const float*>(a.v), static_cast<const float*>(a.dout),
       static_cast<const float*>(a.lse), static_cast<const float*>(a.dsum),
       static_cast<float*>(a.dk), static_cast<float*>(a.dv), a.S, a.H, a.KVH,
-      a.window, a.scale);
+      a.window, a.scale, a.hd);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1066,7 +1089,8 @@ int launch_fwd_tc(const Args& a) {
   attn_fwd_tc_kernel<HD><<<grid, kTcThreads, smem, a.stream>>>(
       static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
       static_cast<const bf16*>(a.v), static_cast<bf16*>(a.out),
-      static_cast<float*>(a.lse_out), a.S, a.H, a.KVH, a.window, a.scale);
+      static_cast<float*>(a.lse_out), a.S, a.H, a.KVH, a.window, a.scale,
+      a.hd);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1086,7 +1110,7 @@ int launch_bwd_tc(const Args& a) {
       static_cast<const bf16*>(a.v), static_cast<const bf16*>(a.o),
       static_cast<const bf16*>(a.dout), static_cast<const float*>(a.lse),
       static_cast<float*>(a.dsum), static_cast<bf16*>(a.dq), a.S, a.H, a.KVH,
-      a.window, a.scale);
+      a.window, a.scale, a.hd);
   const int rc = static_cast<int>(cudaGetLastError());
   if (rc != 0) return rc;
   dim3 grid_k((a.S + kBlk - 1) / kBlk, a.B * a.KVH);
@@ -1096,7 +1120,7 @@ int launch_bwd_tc(const Args& a) {
           static_cast<const bf16*>(a.v), static_cast<const bf16*>(a.dout),
           static_cast<const float*>(a.lse), static_cast<const float*>(a.dsum),
           static_cast<bf16*>(a.dk), static_cast<bf16*>(a.dv), a.S, a.H,
-          a.KVH, a.window, a.scale);
+          a.KVH, a.window, a.scale, a.hd);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1112,15 +1136,15 @@ int dispatch(const Args& a, int dtype, bool bwd) {
   return -1;
 }
 
-int run(const Args& a, int HD, int dtype, bool bwd) {
+// The instance of a head dim: the next of 32, 64 and 128 at or above it.
+int run(const Args& a, int dtype, bool bwd) {
   if (a.B < 1 || a.S < 1 || a.H < 1 || a.KVH < 1 || a.H % a.KVH != 0)
     return -1;
   if (a.B * a.H > 65535) return -1;  // grid y of the forward and of dQ
-  switch (HD) {
-    case 64: return dispatch<64>(a, dtype, bwd);
-    case 128: return dispatch<128>(a, dtype, bwd);
-    default: return -1;
-  }
+  if (a.hd < 8 || a.hd > 128 || a.hd % 8 != 0) return -1;
+  if (a.hd <= 32) return dispatch<32>(a, dtype, bwd);
+  if (a.hd <= 64) return dispatch<64>(a, dtype, bwd);
+  return dispatch<128>(a, dtype, bwd);
 }
 
 }  // namespace
@@ -1130,17 +1154,18 @@ int run(const Args& a, int HD, int dtype, bool bwd) {
 // cudaError_t of a launch. dtype: 0 = float32, 1 = bfloat16. window <= 0
 // means global causal attention.
 
-// q: (B, S, H, HD); k, v: (B, S, KVH, HD) -> o (B, S, H, HD),
-// lse (B, H, S) fp32.
+// q: (B, S, H, hd); k, v: (B, S, KVH, hd) -> o (B, S, H, hd),
+// lse (B, H, S) fp32; hd a multiple of 8 in [8, 128].
 extern "C" int flash_attention_fwd(const void* q, const void* k,
                                    const void* v, void* o, void* lse, int B,
-                                   int S, int H, int KVH, int HD, int window,
+                                   int S, int H, int KVH, int hd, int window,
                                    int dtype, float scale, void* stream) {
   Args a{};
   a.q = q; a.k = k; a.v = v; a.out = o; a.lse_out = lse;
   a.B = B; a.S = S; a.H = H; a.KVH = KVH; a.window = window; a.scale = scale;
+  a.hd = hd;
   a.stream = static_cast<cudaStream_t>(stream);
-  return run(a, HD, dtype, false);
+  return run(a, dtype, false);
 }
 
 // The forward's q, k, v, o, lse and dO (the shape of o) -> dq, dk, dv
@@ -1149,13 +1174,14 @@ extern "C" int flash_attention_bwd(const void* q, const void* k,
                                    const void* v, const void* o,
                                    const void* dout, const void* lse,
                                    void* dsum, void* dq, void* dk, void* dv,
-                                   int B, int S, int H, int KVH, int HD,
+                                   int B, int S, int H, int KVH, int hd,
                                    int window, int dtype, float scale,
                                    void* stream) {
   Args a{};
   a.q = q; a.k = k; a.v = v; a.o = o; a.dout = dout; a.lse = lse;
   a.dsum = dsum; a.dq = dq; a.dk = dk; a.dv = dv;
   a.B = B; a.S = S; a.H = H; a.KVH = KVH; a.window = window; a.scale = scale;
+  a.hd = hd;
   a.stream = static_cast<cudaStream_t>(stream);
-  return run(a, HD, dtype, true);
+  return run(a, dtype, true);
 }

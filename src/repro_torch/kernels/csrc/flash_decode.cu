@@ -44,6 +44,15 @@
 //    split) and their mask bytes are issued together; a ring of kStages
 //    tiles keeps the next tiles' copies in flight under this tile's math.
 //
+// Head dims: any hd with hd % 8 == 0 and 8 <= hd <= 128 runs on the
+// instance of the next HD in {32, 64, 128}. Global memory is read and
+// written at the true hd (row strides of hd elements, never a column
+// past hd); the columns hd .. HD - 1 are zero-filled in shared memory
+// and registers, add exactly 0 to q.k, and are dropped from the output.
+// The scale (1 / sqrt(hd)) comes from the wrapper. At hd == HD nothing
+// is padded; chip_smoke.py holds hd 64 and 128 bitwise to the kernel
+// before the padding (tests/data/attn_fingerprints_hd64_128.json).
+//
 // Built by nvcc into a shared library with a plain C interface and
 // called through ctypes (src/repro_torch/kernels/ops.py).
 
@@ -143,13 +152,16 @@ __device__ __forceinline__ void row_sum(float (&v)[N], int lane) {
   }
 }
 
-// HD: head dim (64 or 128). GMAX: the largest G this instance takes
-// (query heads per KV head), 1 or 16; G <= GMAX at run time. kTC: bf16
-// with GMAX 16 runs q.k and p.v on the tensor cores (mma.sync m16n8k16,
-// the G query heads as the 16 rows of A); the others on fp32 FMAs.
+// HD: the instance's head dim (32, 64 or 128; the true hd <= HD runs
+// zero-padded). GMAX: the largest G this instance takes (query heads per
+// KV head), 1 or 16; G <= GMAX at run time. kTC: bf16 with GMAX 16 and
+// HD a multiple of 64 runs q.k and p.v on the tensor cores (mma.sync
+// m16n8k16, the G query heads as the 16 rows of A); the others, HD 32
+// among them (its 128-row tile is more score rows than 4 warps of 16
+// take), on fp32 FMAs.
 template <typename T, int HD, int GMAX>
 struct Decode {
-  static constexpr bool kTC = sizeof(T) == 2 && GMAX == 16;
+  static constexpr bool kTC = sizeof(T) == 2 && GMAX == 16 && HD % 64 == 0;
   static constexpr int TL = 4096 / HD;                   // rows a tile (ops.decode_tile_rows)
   static constexpr int KE = GMAX == 1 ? 16 / sizeof(T) : 4;  // k elements a lane
   static constexpr int LPR = HD / KE;                    // lanes a row, scores
@@ -181,6 +193,7 @@ struct Args {
   float* part_acc;  // (B*KVH, S, G, HD) acc of each split (S > 1)
   int* count;       // (B*KVH,) arrivals, 0 between calls (S > 1)
   int L, KVH, G, S, chunk;
+  int hd;           // the true head dim, <= HD: the row length in memory
   float scale;
 };
 
@@ -210,16 +223,18 @@ flash_decode_kernel(Args a) {
   const int r0 = split * a.chunk;
   const int r1 = min(a.L, r0 + a.chunk);
   const int ntiles = (r1 - r0 + TL - 1) / TL;
-  const size_t row_stride = (size_t)a.KVH * HD;  // elements between cache rows
-  const size_t head_off = ((size_t)b * a.L * a.KVH + h) * HD;
+  const int hd = a.hd;
+  const size_t row_stride = (size_t)a.KVH * hd;  // elements between cache rows
+  const size_t head_off = ((size_t)b * a.L * a.KVH + h) * hd;
   const T* kb = static_cast<const T*>(a.k) + head_off;
   const T* vb = static_cast<const T*>(a.v) + head_off;
-  const T* qb = static_cast<const T*>(a.q) + (size_t)bh * G * HD;
+  const T* qb = static_cast<const T*>(a.q) + (size_t)bh * G * hd;
   const uint8_t* vmask = a.valid + (size_t)b * a.L;
   T* ring_t = reinterpret_cast<T*>(ring);
 
-  // Tile t of this split into ring slot t % kStages (zeros past r1); its
-  // mask bytes come back in a register, stored by store_mask.
+  // Tile t of this split into ring slot t % kStages (zeros past r1 and
+  // in the columns past hd); its mask bytes come back in a register,
+  // stored by store_mask.
   auto issue = [&](int t) -> uint8_t {
     const int row0 = r0 + t * TL;
     T* sk = ring_t + (t % kStages) * 2 * D::kTile;
@@ -228,7 +243,7 @@ flash_decode_kernel(Args a) {
     for (int i = 0; i < CPT; ++i) {
       const int idx = tid + i * kThreads;
       const int r = idx / (HD / CH), c = idx % (HD / CH) * CH;
-      const bool ok = row0 + r < r1;
+      const bool ok = row0 + r < r1 && c < hd;
       const size_t off = ok ? (size_t)(row0 + r) * row_stride + c : 0;
       cp_async_16(sk + r * HD + c, kb + off, ok);
       cp_async_16(sv + r * HD + c, vb + off, ok);
@@ -246,21 +261,23 @@ flash_decode_kernel(Args a) {
     cp_async_commit();
   }
   // q: on the SIMT path this lane's slice of every query head in
-  // registers (zeros past G); on the tensor cores 16 rows in shared memory
-  // (zeros past G), and p of the heads past G stays 0.
+  // registers (zeros past G and past hd); on the tensor cores 16 rows in
+  // shared memory (zeros past G and hd), and p of the heads past G
+  // stays 0.
   const int lr = lane % LPR;
   float qr[D::kTC ? 1 : GMAX][KE];
   if constexpr (D::kTC) {
     for (int i = tid; i < 16 * HD; i += kThreads) {
       const int g = i / HD, d = i - g * HD;
-      sq[g * D::QLD + d] = g < G ? qb[(size_t)g * HD + d] : from_float<T>(0.f);
+      sq[g * D::QLD + d] =
+          g < G && d < hd ? qb[(size_t)g * hd + d] : from_float<T>(0.f);
     }
     for (int i = tid; i < TL * GP; i += kThreads) sp[i] = 0.f;
   } else {
 #pragma unroll
     for (int g = 0; g < GMAX; ++g) {
-      if (g < G) {
-        load_vec<T, KE>(qr[g], qb + (size_t)g * HD + lr * KE);
+      if (g < G && lr * KE < hd) {
+        load_vec<T, KE>(qr[g], qb + (size_t)g * hd + lr * KE);
       } else {
 #pragma unroll
         for (int i = 0; i < KE; ++i) qr[g][i] = 0.f;
@@ -509,8 +526,9 @@ flash_decode_kernel(Args a) {
 #pragma unroll
     for (int s = 0; s < NSL; ++s) o += red[(s * GMAX + g) * HD + d];
     if (a.S == 1) {
-      static_cast<T*>(a.out)[((size_t)bh * G + g) * HD + d] =
-          from_float<T>(o / fmaxf(s_l[g], 1e-30f));
+      if (d < hd)
+        static_cast<T*>(a.out)[((size_t)bh * G + g) * hd + d] =
+            from_float<T>(o / fmaxf(s_l[g], 1e-30f));
     } else {
       a.part_acc[(pbase * G + g) * HD + d] = o;
     }
@@ -554,11 +572,12 @@ flash_decode_kernel(Args a) {
   __syncthreads();
   for (int i = tid; i < G * HD; i += kThreads) {
     const int g = i / HD, d = i - g * HD;
+    if (d >= hd) continue;
     float o = 0.f;
 #pragma unroll 4
     for (int s = 0; s < a.S; ++s)
       o = fmaf(wgt[s * GMAX + g], __ldcg(pacc + ((size_t)s * G + g) * HD + d), o);
-    static_cast<T*>(a.out)[((size_t)bh * G + g) * HD + d] =
+    static_cast<T*>(a.out)[((size_t)bh * G + g) * hd + d] =
         from_float<T>(o / fmaxf(den[g], 1e-30f));
   }
 }
@@ -588,38 +607,41 @@ int launch_g(const Args& a, int B, cudaStream_t stream) {
   return -1;
 }
 
+// The instance of a head dim: the next of 32, 64 and 128 at or above it
+// (ops.decode_head_dim).
 template <typename T>
-int launch_hd(const Args& a, int B, int HD, cudaStream_t stream) {
-  switch (HD) {
-    case 64: return launch_g<T, 64>(a, B, stream);
-    case 128: return launch_g<T, 128>(a, B, stream);
-    default: return -1;
-  }
+int launch_hd(const Args& a, int B, cudaStream_t stream) {
+  if (a.hd < 8 || a.hd > 128 || a.hd % 8 != 0) return -1;
+  if (a.hd <= 32) return launch_g<T, 32>(a, B, stream);
+  if (a.hd <= 64) return launch_g<T, 64>(a, B, stream);
+  return launch_g<T, 128>(a, B, stream);
 }
 
 }  // namespace
 
 // Returns 0 on success, -1 for a shape or dtype this kernel does not
 // take, else the cudaError_t of the launch. dtype: 0 = float32,
-// 1 = bfloat16. S <= kMaxSplits splits of `chunk` rows cover [0, L),
-// none empty, `chunk` whole tiles of 4096 / HD rows where S > 1; with
-// S > 1, part_ml (B*KVH*S*G*2 floats), part_acc (B*KVH*S*G*HD floats)
-// and count (B*KVH ints, all 0; the kernel leaves them 0) are scratch.
+// 1 = bfloat16. hd: the head dim, a multiple of 8 in [8, 128], run on
+// the instance HD of the next of 32, 64 and 128. S <= kMaxSplits splits
+// of `chunk` rows cover [0, L), none empty, `chunk` whole tiles of
+// 4096 / HD rows where S > 1; with S > 1, part_ml (B*KVH*S*G*2 floats),
+// part_acc (B*KVH*S*G*HD floats, HD the instance's) and count (B*KVH
+// ints, all 0; the kernel leaves them 0) are scratch.
 extern "C" int flash_decode(const void* q, const void* k, const void* v,
                             const void* valid, void* out, float* part_ml,
                             float* part_acc, int* count, int B, int L,
-                            int KVH, int G, int HD, int S, int chunk,
+                            int KVH, int G, int hd, int S, int chunk,
                             int dtype, float scale, void* stream) {
   if (B < 1 || L < 1 || KVH < 1 || G < 1 || S < 1 || S > kMaxSplits ||
       chunk < 1 || (long)(S - 1) * chunk >= L || (long)S * chunk < L)
     return -1;
   if (S > 1 && (!part_ml || !part_acc || !count)) return -1;
   const Args a{q, k, v, static_cast<const uint8_t*>(valid), out, part_ml,
-               part_acc, count, L, KVH, G, S, chunk, scale};
+               part_acc, count, L, KVH, G, S, chunk, hd, scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   int rc;
-  if (dtype == 0) rc = launch_hd<float>(a, B, HD, s);
-  else if (dtype == 1) rc = launch_hd<__nv_bfloat16>(a, B, HD, s);
+  if (dtype == 0) rc = launch_hd<float>(a, B, s);
+  else if (dtype == 1) rc = launch_hd<__nv_bfloat16>(a, B, s);
   else rc = -1;
   if (rc != 0) return rc;
   return static_cast<int>(cudaGetLastError());

@@ -59,12 +59,25 @@ from repro_torch.core import codec as codec_mod
 from repro_torch.kernels import build, ref
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-_HEAD_DIMS = (64, 128)  # every dense config the port builds
 _MAX_GROUP = 16
 
 
+def head_dim_ok(hd: int) -> bool:
+    """The attention kernels take any head dim that is a multiple of 8
+    (a bf16 row is whole 16-byte chunks) from 8 to 128."""
+    return hd % 8 == 0 and 8 <= hd <= 128
+
+
+def kernel_head_dim(hd: int) -> int:
+    """The head dim of the kernel instance that runs ``hd``: the next of
+    32, 64 and 128 at or above it; columns hd .. HD - 1 run as zeros
+    (``csrc/flash_attention.cu``, ``csrc/flash_decode.cu``)."""
+    return 32 if hd <= 32 else 64 if hd <= 64 else 128
+
+
 # The split of the cache across blocks (csrc/flash_decode.cu). A tile is
-# 4096 / hd cache rows (16 KB of K and V in bf16), the kernel's Decode::TL;
+# 4096 / HD cache rows (16 KB of K and V in bf16 at hd == HD), the
+# kernel's Decode::TL, HD the instance's head dim (``kernel_head_dim``);
 # a split is whole tiles; the kernel merges at most kMaxSplits partials.
 # The C entry refuses a split of part tiles or more than kMaxSplits
 # splits, so these two cannot drift from it unseen.
@@ -72,8 +85,10 @@ MAX_DECODE_SPLITS = 128
 
 
 def decode_tile_rows(hd: int) -> int:
-    """Cache rows a ``flash_decode`` block stages at once."""
-    return 4096 // hd
+    """Cache rows a ``flash_decode`` block stages at once: 4096 / HD, a
+    whole number at every head dim the kernel takes (hd 24 runs the HD
+    32 instance's 128-row tiles, hd 48 the HD 64 one's 64)."""
+    return 4096 // kernel_head_dim(hd)
 
 
 def decode_splits(B: int, KVH: int, G: int, L: int, hd: int) -> Tuple[int, int]:
@@ -121,9 +136,9 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     q: (B, KVH, G, hd); k, v: (B, L, KVH, hd), the cache in the model's
     layout; valid: (B, L) bool. All contiguous, on one CUDA device, q/k/v
-    of one dtype (float32 or bfloat16) on 16 bytes, hd in {64, 128},
-    G <= 16. Returns (B, KVH, G, hd) in q's dtype. Raises on anything
-    else.
+    of one dtype (float32 or bfloat16) on 16 bytes, hd a multiple of 8
+    from 8 to 128 (``head_dim_ok``), G <= 16. Returns (B, KVH, G, hd) in
+    q's dtype. Raises on anything else.
     """
     B, KVH, G, hd = q.shape
     L = k.shape[1]
@@ -142,9 +157,9 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"flash_decode: shapes q {tuple(q.shape)} k "
                          f"{tuple(k.shape)} v {tuple(v.shape)} valid "
                          f"{tuple(valid.shape)}")
-    if hd not in _HEAD_DIMS or G > _MAX_GROUP or L < 1:
-        raise ValueError(f"flash_decode: hd {hd} not in {_HEAD_DIMS}, or "
-                         f"G {G} > {_MAX_GROUP}, or empty cache")
+    if not head_dim_ok(hd) or G > _MAX_GROUP or L < 1:
+        raise ValueError(f"flash_decode: hd {hd} not a multiple of 8 in "
+                         f"[8, 128], or G {G} > {_MAX_GROUP}, or empty cache")
     if not all(t.is_contiguous() for t in (q, k, v, valid)):
         raise ValueError("flash_decode: tensors must be contiguous")
     if q.data_ptr() % 16 or k.data_ptr() % 16 or v.data_ptr() % 16:
@@ -156,8 +171,8 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if S > 1:
         part_ml = torch.empty((B * KVH, S, G, 2), dtype=torch.float32,
                               device=dev)
-        part_acc = torch.empty((B * KVH, S, G, hd), dtype=torch.float32,
-                               device=dev)
+        part_acc = torch.empty((B * KVH, S, G, kernel_head_dim(hd)),
+                               dtype=torch.float32, device=dev)
         count = _arrival_counters(dev, B * KVH)
     fn = _c_fn("flash_decode", "flash_decode", [_P] * 8 + [_I] * 8 + [_F, _P])
     with torch.cuda.device(dev):
@@ -732,11 +747,11 @@ def _check_attn(name: str, q: torch.Tensor, k: torch.Tensor,
     B, S, H, hd = q.shape
     KVH = k.shape[2]
     if (k.shape[0] != B or k.shape[1] != S or k.shape[3] != hd
-            or H % KVH or hd not in _HEAD_DIMS or S < 1):
+            or H % KVH or not head_dim_ok(hd) or S < 1):
         raise ValueError(f"{name}: q {tuple(q.shape)} and k "
                          f"{tuple(k.shape)} are not (B, S, H, hd) / "
-                         f"(B, S, KVH, hd) with H % KVH == 0, hd in "
-                         f"{_HEAD_DIMS}, S >= 1")
+                         f"(B, S, KVH, hd) with H % KVH == 0, hd a "
+                         "multiple of 8 in [8, 128], S >= 1")
     if not all(t.is_contiguous() for t in (q, k, v)):
         raise ValueError(f"{name}: tensors must be contiguous")
     if any(t.data_ptr() % 16 for t in (q, k, v)):
@@ -839,7 +854,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     read directly (no repeated K/V). Returns (B, S, H, hd). CPU tensors
     run ``ref.flash_attention_ref``; CUDA tensors run the kernels through
     a ``torch.autograd.Function`` (contiguous and starting on 16 bytes,
-    float32 or bfloat16, hd in {64, 128}) or raise: bf16 on the
+    float32 or bfloat16, hd a multiple of 8 in [8, 128]) or raise: bf16 on the
     tensor-core kernels, float32 on the SIMT ones (tensor cores would
     take it only as TF32).
     """

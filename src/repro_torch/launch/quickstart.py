@@ -32,9 +32,8 @@ touch) of which C train a round; bytes follow C, not N:
 ifl_spmd): the baselines are a flag, not a fork. ``ifl_spmd`` trains the
 smoke LM (``repro_torch.api.spmd``) on synthetic tokens, with d_fusion
 32, as the JAX package's quickstart does; ``--model <arch>`` trains that
-arch's reduced config instead. The card's attention kernels take a head
-dim of 64 or 128, and the smoke config's is 24, so on the card pass a
-model, e.g. ``--model qwen1.5-0.5b``:
+arch's reduced config instead (the smoke config's head dim is 24, which
+the card's attention kernels run zero-padded to 32):
 
   PYTHONPATH=src python -m repro_torch.launch.quickstart --device cpu \
       --scheme ifl_spmd --codec "ef(int4)" --participation k2

@@ -11,6 +11,8 @@ call (``torch.bmm``), where the JAX package ``vmap``s a B=1 step.
 from __future__ import annotations
 
 import math
+from typing import Optional
+
 import torch
 import torch.nn.functional as F
 
@@ -38,7 +40,7 @@ def init_linear(generator, d_in: int, d_out: int, *, bias: bool = False,
     return p
 
 
-def _row(t: torch.Tensor, per_row_ndim: int) -> torch.Tensor:
+def row(t: torch.Tensor, per_row_ndim: int) -> torch.Tensor:
     """Insert the sequence dim into a per-row parameter so it broadcasts
     against activations of shape (B, S, ...)."""
     return t.unsqueeze(1) if t.dim() == per_row_ndim else t
@@ -55,7 +57,7 @@ def linear(p, x: torch.Tensor) -> torch.Tensor:
     w = p["w"].to(x.dtype)
     y = torch.bmm(x, w) if w.dim() == 3 else x @ w
     if "b" in p:
-        y = y + _row(p["b"].to(y.dtype), 2)
+        y = y + row(p["b"].to(y.dtype), 2)
     return y
 
 
@@ -97,13 +99,13 @@ def apply_norm(p, x: torch.Tensor, kind: str, *, eps: float = 1e-6):
     xf = x.float()
     if kind == "rmsnorm":
         y = xf * torch.rsqrt(torch.mean(xf * xf, dim=-1, keepdim=True) + eps)
-        y = y * _row(p["scale"].float(), 2)
+        y = y * row(p["scale"].float(), 2)
     else:
         mu = torch.mean(xf, dim=-1, keepdim=True)
         var = torch.var(xf, dim=-1, keepdim=True, unbiased=False)
         y = (xf - mu) * torch.rsqrt(var + eps)
         if kind == "layernorm":
-            y = y * _row(p["scale"].float(), 2) + _row(p["bias"].float(), 2)
+            y = y * row(p["scale"].float(), 2) + row(p["bias"].float(), 2)
     return y.to(x.dtype)
 
 
@@ -117,6 +119,39 @@ def activation(name: str):
         "gelu": lambda x: F.gelu(x, approximate="tanh"),
         "relu": F.relu,
     }[name]
+
+
+# ------------------------------------------------------ recurrent mixers
+
+
+def update_state(cache: dict, new: dict, live: Optional[torch.Tensor]):
+    """Write ``new`` into ``cache`` in place, leaf by leaf; rows where
+    ``live`` (B,) is False keep their old value."""
+    for name, t in new.items():
+        old = cache[name]
+        if live is not None:
+            t = torch.where(live.view(-1, *([1] * (old.dim() - 1))), t, old)
+        old.copy_(t)
+
+
+def conv_taps(window: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """The decode step's causal conv: sum_k window[:, k] * w[k]. window:
+    (B, K, di); w: (K, di) shared or (B, K, di) per row."""
+    w = w.to(window.dtype)
+    return torch.sum(window * (w if w.dim() == 3 else w[None]), dim=1,
+                     keepdim=True)
+
+
+def causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor):
+    """Depthwise causal conv over a full sequence. x: (B, S, di); w:
+    (K, di); b: (di,)."""
+    K, S = w.shape[0], x.shape[1]
+    xp = F.pad(x, (0, 0, K - 1, 0))
+    w = w.to(x.dtype)
+    out = 0
+    for k in range(K):
+        out = out + xp[:, k:k + S, :] * w[k]
+    return out + b.to(x.dtype)
 
 
 # ----------------------------------------------------------------- trees
@@ -133,14 +168,23 @@ def tree_index(tree, i: int):
     return tree_map(lambda a: a[i], tree)
 
 
+# Leaves that the layers cast to the activation dtype at use, and only
+# there: linear weights and biases, embedding tables, and the recurrent
+# mixers' conv taps and biases, skip gains and sLSTM weights (``wx``,
+# ``wr``; sLSTM's gate bias is also called ``b``, and the reference casts
+# it at use too, so casting it once gives the same values). ``a_log``
+# is not among them: Mamba exponentiates it in fp32 before the cast.
+CAST_AT_USE = frozenset(("w", "b", "table", "wx", "wr", "conv_w", "conv_b",
+                         "skip", "d_skip"))
+
+
 def cast_for_compute(tree, dtype: torch.dtype):
-    """Cast the leaves that ``linear`` and ``embedding`` cast at use
-    (``w``, ``b``, ``table``) to the compute dtype, once. Norm scales
-    stay as stored: ``apply_norm`` upcasts them to fp32, and a bf16
-    round trip would change their values."""
+    """Cast the leaves in ``CAST_AT_USE`` to the compute dtype, once.
+    Norm scales stay as stored: ``apply_norm`` upcasts them to fp32, and
+    a bf16 round trip would change their values."""
     def walk(t):
         return {k: walk(v) if isinstance(v, dict)
-                else (v.to(dtype) if k in ("w", "b", "table") else v)
+                else (v.to(dtype) if k in CAST_AT_USE else v)
                 for k, v in t.items()}
 
     return walk(tree)

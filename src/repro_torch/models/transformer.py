@@ -19,18 +19,19 @@ The full-sequence forward checkpoints as the reference's
 forward inside the backward, 'layer' each layer's, 'none' keeps every
 activation), with ``torch.utils.checkpoint`` in its non-reentrant form.
 
-This slice covers dense GQA decoders (the layer program with 'attn'
-mixers and dense or no FFN, RoPE or NoPE, sliding windows, rmsnorm /
-layernorm / nonparam_ln). Every other family raises NotImplementedError
-naming the ROADMAP item that ports it. Those families are also the only
-ones with an auxiliary loss (MoE routing) or extra inputs (images,
-encoder frames, MTP), so the port's forward functions return just their
-tensors where the reference returns ``(..., aux)`` with aux == 0 here.
+The layer program's mixers are GQA attention ('attn', RoPE or NoPE,
+sliding windows), mLSTM and sLSTM (``xlstm.py``) and Mamba (``ssm.py``),
+with dense or no FFN and rmsnorm / layernorm / nonparam_ln. Every other
+family raises NotImplementedError naming the ROADMAP item that ports it.
+Those families are also the only ones with an auxiliary loss (MoE
+routing) or extra inputs (images, encoder frames, MTP), so the port's
+forward functions return just their tensors where the reference returns
+``(..., aux)`` with aux == 0 here.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -45,36 +46,73 @@ from repro_torch.models.attention import (
     init_attn_cache,
 )
 from repro_torch.models.mlp import init_mlp, mlp_forward
+from repro_torch.models.ssm import (
+    init_mamba,
+    init_mamba_cache,
+    mamba_decode,
+    mamba_forward,
+)
+from repro_torch.models.xlstm import (
+    init_mlstm,
+    init_mlstm_cache,
+    init_slstm,
+    init_slstm_cache,
+    mlstm_decode,
+    mlstm_forward,
+    slstm_decode,
+    slstm_forward,
+)
 
 Params = Dict[str, Any]
 
-_LM_FAMILIES = "ROADMAP.md queue 1, item 4a (LM model families)"
+_MOE_MLA_MTP = "ROADMAP.md queue 1, item 4a-ii (MoE, MLA, MTP)"
+_ATTN_VARIANTS = ("ROADMAP.md queue 1, item 4a-iii (qk-norm, softcap, "
+                  "M-RoPE and images, cross-attention and the encoder)")
+class _Mixer(NamedTuple):
+    init: Callable
+    forward: Callable
+    decode: Callable
+    init_cache: Callable
+
+
+# The recurrent mixers by their name in the layer program, which is also
+# their key in a layer's params.
+_RECURRENT = {
+    "mamba": _Mixer(init_mamba, mamba_forward, mamba_decode,
+                    init_mamba_cache),
+    "mlstm": _Mixer(init_mlstm, mlstm_forward, mlstm_decode,
+                    init_mlstm_cache),
+    "slstm": _Mixer(init_slstm, slstm_forward, slstm_decode,
+                    init_slstm_cache),
+}
 
 
 def check_supported(cfg: ModelConfig) -> ModelConfig:
-    """Raise NotImplementedError for what this slice does not port."""
-    missing = []
+    """Raise NotImplementedError for what the port does not run yet,
+    naming the ROADMAP item that ports it."""
+    missing = {}
     for s in cfg.layer_specs():
-        if s.mixer != "attn":
-            missing.append(f"{s.mixer} mixer")
+        if s.mixer != "attn" and s.mixer not in _RECURRENT:
+            raise ValueError(f"{cfg.name}: unknown mixer {s.mixer!r}")
         if s.ffn == "moe":
-            missing.append("MoE FFN")
+            missing["MoE FFN"] = _MOE_MLA_MTP
         if s.cross_attn:
-            missing.append("cross-attention")
+            missing["cross-attention"] = _ATTN_VARIANTS
     flags = {
-        "encoder-decoder": cfg.is_encdec,
-        "MLA": cfg.use_mla,
-        "M-RoPE": cfg.rope_type == "mrope",
-        "qk-norm": cfg.use_qk_norm,
-        "logit softcap": cfg.logit_softcap > 0,
-        "image-token frontend": cfg.num_image_tokens > 0,
-        "MTP head": cfg.use_mtp,
+        "MLA": (cfg.use_mla, _MOE_MLA_MTP),
+        "MTP head": (cfg.use_mtp, _MOE_MLA_MTP),
+        "encoder-decoder": (cfg.is_encdec, _ATTN_VARIANTS),
+        "M-RoPE": (cfg.rope_type == "mrope", _ATTN_VARIANTS),
+        "qk-norm": (cfg.use_qk_norm, _ATTN_VARIANTS),
+        "logit softcap": (cfg.logit_softcap > 0, _ATTN_VARIANTS),
+        "image-token frontend": (cfg.num_image_tokens > 0, _ATTN_VARIANTS),
     }
-    missing += [name for name, on in flags.items() if on]
+    missing.update({name: item for name, (on, item) in flags.items() if on})
     if missing:
+        items = sorted(set(missing.values()))
         raise NotImplementedError(
-            f"{cfg.name}: {', '.join(sorted(set(missing)))} not ported to "
-            f"repro_torch yet ({_LM_FAMILIES})")
+            f"{cfg.name}: {', '.join(sorted(missing))} not ported to "
+            f"repro_torch yet ({'; '.join(items)})")
     return cfg
 
 
@@ -90,20 +128,26 @@ def init_layer(generator, cfg: ModelConfig, spec: LayerSpec, *, device=None,
             lambda a: a.expand(*lead, *a.shape).clone(),
             nn.init_norm(cfg.d_model, cfg.norm, device=device))
 
-    p: Params = {"norm1": norm(),
-                 "attn": init_attn(generator, cfg, spec, device=device,
-                                   lead=lead)}
+    kw = dict(device=device, lead=lead)
+    p: Params = {"norm1": norm()}
+    if spec.mixer == "attn":
+        p["attn"] = init_attn(generator, cfg, spec, **kw)
+    else:
+        p[spec.mixer] = _RECURRENT[spec.mixer].init(generator, cfg, **kw)
     if spec.ffn == "dense":
         p["norm2"] = norm()
-        p["ffn"] = init_mlp(generator, cfg.d_model, cfg.d_ff, device=device,
-                            lead=lead)
+        p["ffn"] = init_mlp(generator, cfg.d_model, cfg.d_ff, **kw)
     return p
 
 
 def apply_layer(p, cfg: ModelConfig, spec: LayerSpec, x, positions):
     """One layer over a full sequence. x: (B, S, d); positions: (B, S)."""
     h = nn.apply_norm(p["norm1"], x, cfg.norm)
-    x = x + attn_forward(p["attn"], cfg, spec, h, positions)
+    if spec.mixer == "attn":
+        y = attn_forward(p["attn"], cfg, spec, h, positions)
+    else:  # sLSTM's block holds its own gated FFN
+        y = _RECURRENT[spec.mixer].forward(p[spec.mixer], cfg, h)
+    x = x + y
     if spec.ffn == "dense":
         x = x + mlp_forward(p["ffn"], nn.apply_norm(p["norm2"], x, cfg.norm),
                             cfg.act)
@@ -112,8 +156,15 @@ def apply_layer(p, cfg: ModelConfig, spec: LayerSpec, x, positions):
 
 def decode_layer(p, cfg: ModelConfig, spec: LayerSpec, x, lcache, pos,
                  live=None):
+    """One token per row through one layer; the layer's cache is updated
+    in place, and rows where ``live`` is False keep theirs."""
     h = nn.apply_norm(p["norm1"], x, cfg.norm)
-    x = x + attn_decode(p["attn"], cfg, spec, h, lcache["mix"], pos, live)
+    if spec.mixer == "attn":
+        y = attn_decode(p["attn"], cfg, spec, h, lcache["mix"], pos, live)
+    else:
+        y = _RECURRENT[spec.mixer].decode(p[spec.mixer], cfg, h,
+                                          lcache["mix"], live)
+    x = x + y
     if spec.ffn == "dense":
         x = x + mlp_forward(p["ffn"], nn.apply_norm(p["norm2"], x, cfg.norm),
                             cfg.act)
@@ -122,8 +173,12 @@ def decode_layer(p, cfg: ModelConfig, spec: LayerSpec, x, lcache, pos,
 
 def init_layer_cache(cfg: ModelConfig, spec: LayerSpec, batch: int,
                      cache_len: int, dtype, *, device=None, lead=()) -> Params:
-    return {"mix": init_attn_cache(cfg, spec, batch, cache_len, dtype,
-                                   device=device, lead=lead)}
+    kw = dict(device=device, lead=lead)
+    if spec.mixer == "attn":
+        mix = init_attn_cache(cfg, spec, batch, cache_len, dtype, **kw)
+    else:
+        mix = _RECURRENT[spec.mixer].init_cache(cfg, batch, dtype, **kw)
+    return {"mix": mix}
 
 
 def apply_group(p, cfg: ModelConfig, pattern, x, positions):
@@ -435,9 +490,11 @@ def composed_prefill_ragged(base: Params, base_cfg: ModelConfig,
     write the cache (the write is masked), and its logits are dropped,
     so each row's cache and last logits are what an unpadded prefill of
     its first ``lengths[b]`` tokens gives. (JAX computes the step and
-    discards it with a whole-tree ``where``; masking the write gives the
-    same result and is cheaper eagerly.) A row with length 0 is not
-    touched at all.
+    discards it with a whole-tree ``where``; masking the attention
+    cache's write gives the same result and is cheaper eagerly. A
+    recurrent state, conv windows included, is replaced by
+    ``where(live, new, old)`` leaf by leaf, the reference's own rule.)
+    A row with length 0 is not touched at all.
 
     tokens: (B, P) int; lengths: (B,) int. The rows being filled must
     hold a fresh cache. Returns (last real position's logits (B, V)

@@ -101,7 +101,7 @@ def _zero_stack(template, width: int, dtype: torch.dtype, device,
             continue
         shape = ((v.shape[0], width, *v.shape[1:]) if grouped
                  else (width, *v.shape))
-        dt = dtype if k in ("w", "b", "table") else v.dtype
+        dt = dtype if k in nn.CAST_AT_USE else v.dtype
         out[k] = torch.zeros(shape, dtype=dt, device=device)
     return out
 
@@ -118,14 +118,24 @@ def _copy_into_slot(stack, base, slot: int, grouped: bool = False) -> None:
             (stack[k][:, slot] if grouped else stack[k][slot]).copy_(v)
 
 
-def _reset_cache_rows(cache, rows: torch.Tensor) -> None:
-    """Give slot rows ``rows`` a fresh cache: zero K/V, slot_pos -1.
-    Prefix caches lead with the slot dim, group caches with the group
-    dim."""
+def _cache_fills(cache) -> Dict[str, Any]:
+    """{part: {layer: {leaf: value}}}: the one value each leaf of a fresh
+    cache holds (0 for K/V and recurrent states, -1 for slot_pos, -inf
+    for the mLSTM/sLSTM stabilizers)."""
+    return {part: {name: {key: t.reshape(-1)[0].item()
+                          for key, t in layer["mix"].items()}
+                   for name, layer in sub.items()}
+            for part, sub in cache.items()}
+
+
+def _reset_cache_rows(cache, fills, rows: torch.Tensor) -> None:
+    """Give slot rows ``rows`` a fresh cache: each leaf takes its value
+    in ``fills`` (``_cache_fills``). Prefix caches lead with the slot
+    dim, group caches with the group dim."""
     for part, sub in cache.items():
-        for layer in sub.values():
-            for name, t in layer["mix"].items():
-                fill = -1 if name == "slot_pos" else 0
+        for name, layer in sub.items():
+            for key, t in layer["mix"].items():
+                fill = fills[part][name][key]
                 if part == "prefix":
                     t[rows] = fill
                 else:
@@ -181,6 +191,10 @@ class Lane:
             nn.tree_map(lambda a: a.to(self.device), modular_params),
             nn.dtype_of(mod_cfg.compute_dtype))
         self._base_template = base_template
+        # What an admitted slot's cache rows reset to: each leaf's value
+        # in a fresh cache, read once from a one-row, one-position cache.
+        self._fills = _cache_fills(init_composed_cache(
+            base_cfg, mod_cfg, 1, 1, device="cpu"))
         # Decode steps (ticks and prefill positions) this lane has run:
         # each is one composed step over all W rows.
         self.composed_steps = 0
@@ -210,7 +224,7 @@ class Lane:
         cast modular block: the oracle's fixed-batch twin."""
         clone = object.__new__(Lane)
         for name in ("base_cfg", "mod_cfg", "width", "cache_len", "device",
-                     "modular", "_base_template"):
+                     "modular", "_base_template", "_fills"):
             setattr(clone, name, getattr(self, name))
         clone.bucket_edges = list(self.bucket_edges)
         clone.composed_steps = 0
@@ -276,7 +290,8 @@ class Lane:
                     admitted_tick=tick,
                 )
                 self.slots[slot] = SlotState(req, comp)
-            _reset_cache_rows(self.cache, self._tensor(np.array(slots)))
+            _reset_cache_rows(self.cache, self._fills,
+                              self._tensor(np.array(slots)))
             lens_t = self._tensor(lens)
             last, self.cache = composed_prefill_ragged(
                 self.base_stack, self.base_cfg, self.modular, self.mod_cfg,

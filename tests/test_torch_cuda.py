@@ -40,7 +40,12 @@ def _inputs(seed, B, L, KVH, G, hd):
                                     (16, 128, 33), (3, 128, 70),
                                     (1, 128, 200), (1, 64, 1), (1, 64, 65),
                                     (1, 64, 4097), (16, 128, 4097),
-                                    (16, 64, 1000), (4, 128, 31)])
+                                    (16, 64, 1000), (4, 128, 31),
+                                    # head dims run zero-padded to the
+                                    # instance's 32, 64 or 128
+                                    (1, 24, 64), (4, 24, 300), (2, 48, 64),
+                                    (16, 48, 1000), (1, 8, 65), (8, 32, 129),
+                                    (4, 96, 200), (16, 96, 33)])
 def test_flash_decode_kernel_matches_plain_on_card(dtype, G, hd, L):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
@@ -61,7 +66,9 @@ def test_flash_decode_kernel_matches_plain_on_card(dtype, G, hd, L):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("G,hd,L", [(1, 64, 65), (1, 64, 4097),
-                                    (16, 128, 4097), (4, 64, 1000)])
+                                    (16, 128, 4097), (4, 64, 1000),
+                                    (1, 24, 4097), (4, 48, 1000),
+                                    (16, 96, 4097), (8, 32, 1000)])
 def test_flash_decode_splits_and_merges_on_card(G, hd, L):
     """S > 1 splits of the cache, one launch: row 0 lives only in the
     first split (the others wholly masked), row 3 is fully masked and
@@ -238,7 +245,13 @@ ATTN = [(2, 512, 16, 16, 64, -1), (2, 256, 8, 4, 128, -1),
         (2, 63, 4, 2, 64, -1), (1, 64, 4, 4, 64, -1),
         (2, 65, 4, 1, 128, -1), (1, 129, 4, 4, 64, -1),
         (1, 200, 4, 2, 64, 1), (1, 200, 4, 2, 64, 65),
-        (1, 129, 16, 2, 128, -1), (1, 512, 4, 4, 128, -1)]
+        (1, 129, 16, 2, 128, -1), (1, 512, 4, 4, 128, -1),
+        # Head dims run zero-padded to the instance's 32, 64 or 128: 8,
+        # the smoke LM's 24, 32, the composition twin's 48, 96; GQA,
+        # windows, partial tiles.
+        (2, 77, 4, 2, 8, -1), (2, 200, 4, 2, 24, -1), (1, 129, 4, 4, 24, 48),
+        (2, 65, 8, 2, 32, 16), (2, 512, 4, 4, 48, -1), (1, 130, 8, 2, 48, 65),
+        (2, 200, 8, 4, 96, 1), (1, 64, 6, 3, 96, -1)]
 # Relative to max(1, max |plain|): fp32 sums in another order; in bf16 the
 # kernel rounds the online softmax's unnormalized p, the plain version
 # the normalized p, and outputs are rounded to bf16.
@@ -285,6 +298,24 @@ def test_flash_attention_kernels_match_plain_on_card(B, S, H, KVH, hd,
 
 
 @pytest.mark.cuda
+def test_hd64_128_outputs_bitwise_the_parents_on_card():
+    """At hd 64 and 128 every output of the attention kernels (o, lse,
+    dq, dk, dv, decode) is bitwise what the kernels gave before the
+    padded head dims: sha256 digests on fixed inputs, against the ones
+    those kernels wrote (``_attn_fingerprints.py``)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    import json
+
+    import _attn_fingerprints as fp
+
+    want = json.loads(fp.FINGERPRINTS.read_text())
+    got = fp.attn_fingerprints(ops)
+    assert set(got) == set(want)
+    assert [k for k in sorted(got) if got[k] != want[k]] == []
+
+
+@pytest.mark.cuda
 def test_lm_loss_on_card_launches_attention_kernels_per_layer():
     """Every layer's attention is a kernel launch on the card: under
     remat 'group' the forward kernel runs twice per layer (the backward
@@ -317,10 +348,11 @@ def test_flash_attention_rejects_bad_inputs_on_card():
     k = torch.zeros((1, 8, 2, 64), device="cuda")
     with pytest.raises(ValueError):
         ops.flash_attention(q.half(), k.half(), k.half())          # dtype
-    with pytest.raises(ValueError):
-        ops.flash_attention(q[..., :32].contiguous(),
-                            k[..., :32].contiguous(),
-                            k[..., :32].contiguous())              # hd 32
+    for hd in (20, 136):  # not a multiple of 8, or above 128
+        qh, kh = (torch.zeros((*t.shape[:3], hd), device="cuda")
+                  for t in (q, k))
+        with pytest.raises(ValueError):
+            ops.flash_attention(qh, kh, kh)
     with pytest.raises(ValueError):
         ops.flash_attention(q, k.transpose(1, 2), k.transpose(1, 2))
     with pytest.raises(ValueError):

@@ -27,7 +27,11 @@ TOL = dict(rtol=1e-5, atol=1e-5)
 SHAPES = [(4, 16, 1, 64, 64), (4, 16, 1, 4096, 64), (4, 16, 1, 32768, 64),
           (4, 8, 16, 4096, 128), (4, 2, 1, 1, 64), (4, 2, 1, 65, 64),
           (4, 2, 1, 4097, 64), (2, 2, 16, 4097, 128), (1, 1, 1, 32768, 64),
-          (1, 1, 4, 31, 128), (64, 16, 1, 4096, 64), (3, 5, 2, 1000, 128)]
+          (1, 1, 4, 31, 128), (64, 16, 1, 4096, 64), (3, 5, 2, 1000, 128),
+          # Head dims the kernel runs zero-padded to its instance's HD
+          # (tiles of 4096 / HD rows): 24 -> 32, 48 -> 64, 96 -> 128, 8.
+          (4, 2, 1, 4097, 24), (2, 2, 4, 300, 48), (4, 2, 16, 257, 96),
+          (3, 2, 1, 65, 8)]
 
 
 @pytest.mark.parametrize("B,KVH,G,L,hd", SHAPES)
@@ -95,7 +99,18 @@ def test_split_mirror_matches_plain_and_pallas(G, hd, L, splits, tile):
     assert np.all(got[3] == 0.0)
 
 
-@pytest.mark.parametrize("G,hd", [(1, 64), (4, 128)])
+def test_padded_head_dims_run_on_whole_tiles():
+    """hd 24 and 48 (the smoke LM's and the composition twin's) run on
+    the HD 32 and HD 64 instances, whose tiles are whole numbers of rows
+    (4096 / 24 is not)."""
+    assert [ops.kernel_head_dim(h) for h in (8, 24, 32, 48, 64, 96, 128)] \
+        == [32, 32, 32, 64, 64, 128, 128]
+    assert ops.decode_tile_rows(24) == 128 and ops.decode_tile_rows(48) == 64
+    assert all(ops.head_dim_ok(h) for h in range(8, 129, 8))
+    assert not any(ops.head_dim_ok(h) for h in (0, 4, 20, 130, 136, 256))
+
+
+@pytest.mark.parametrize("G,hd", [(1, 64), (4, 128), (1, 24), (4, 48)])
 def test_split_mirror_at_the_chosen_splits(G, hd):
     """The mirror at what decode_splits chooses for a cache of 4.5 tiles
     (S > 1; row 0 lives only in the first split)."""

@@ -85,7 +85,7 @@ def test_configs_match_the_jax_registry():
             dataclasses.asdict(b.reduced()), arch
 
 
-@pytest.mark.parametrize("arch", ["deepseek-v3-671b", "xlstm-350m",
+@pytest.mark.parametrize("arch", ["deepseek-v3-671b", "jamba-1.5-large-398b",
                                   "seamless-m4t-large-v2", "qwen2-vl-2b",
                                   "gemma3-27b"])
 def test_uncovered_families_raise(arch):
