@@ -83,13 +83,26 @@ port's main paths through the entry points a user calls:
     its loss, fp32 and bf16; the reduced
     xlstm-350m, a small Mamba hybrid and the composition twin's four
     dense <-> xLSTM pairs card against CPU in fp32; and ``python -m
-    repro_torch.examples.compose_inference --device cuda``.
+    repro_torch.examples.compose_inference --device cuda``;
+  * MoE, MLA and MTP (phase 4n): deepseek-v3-671b at its published
+    widths (d 7168, 128 MLA heads of q/k 192 and v 128, 256 routed
+    experts top-8 and a shared one, vocab 129,280, bf16) cut to depth
+    only (1 dense prefix layer, no base group, 1 modular MoE group, the
+    MTP head), served to 2 tenants at W 4 (no kernel: MLA decodes in the
+    absorbed form, plain as in the JAX package), and one ``lm_loss``
+    forward and backward at B 1, S 512 on the attention kernels at MLA's
+    head dims (launches == derived, experts' gradients zero exactly where
+    no token arrived, aux == the routing's Switch loss, a first-order
+    check over the LM and MTP heads in fp32); the reduced deepseek-v3 and
+    a jamba period with its experts card against CPU in fp32 (expert
+    choices compared); ``launch.train --reduced`` of deepseek-v3-671b
+    and jamba-1.5-large-398b (one IFL round, one DP step).
 
 It checks each path's results, compares short runs on the card with the
 same runs on the CPU, and times each kernel at the shapes its path gives
 it. The attention kernels also run at head dims other than 64 and 128
-(every multiple of 8 up to 128, zero-padded to the instance's 32, 64 or
-128), and at 64 and 128 their outputs are held bitwise to those of the
+(every multiple of 8 up to 192, zero-padded to the instance's 32, 64,
+128 or 192, with v's head dim apart from q's and k's), and at 64 and 128 their outputs are held bitwise to those of the
 kernels before that change (sha256 digests in
 ``tests/data/attn_fingerprints_hd64_128.json``, computed by
 ``tests/_attn_fingerprints.py``). Each attention kernel also runs between
@@ -494,6 +507,18 @@ ATTN_TIMED = [ATTN_CASES[0], (2, 512, 16, 16, 128, -1)]
 # The padded head dims at the LM path's B, S and heads: the smoke LM's 24
 # and the composition twin's 48 (the kernels line's hd24_* / hd48_*).
 ATTN_HD_TIMED = {24: (2, 512, 16, 16, 24, -1), 48: (2, 512, 16, 16, 48, -1)}
+# MLA's head dims, v's apart from q's and k's: (B, S, H, KVH, hd, hdv,
+# window). Deepseek-v3's path shape (q/k 192 = nope 128 + rope 64, v 128,
+# 128 heads, S 512) first; then the reduced config's (48, 32) with a
+# window, (192, 128) at tile edges and a window, GQA, and hd 192 with v
+# at its full 192.
+MLA_ATTN_CASES = [(1, 512, 128, 128, 192, 128, -1),
+                  (2, 512, 4, 4, 48, 32, -1), (2, 129, 4, 4, 48, 32, 65),
+                  (1, 200, 8, 8, 192, 128, -1), (2, 65, 8, 8, 192, 128, 48),
+                  (2, 130, 8, 2, 192, 128, -1), (1, 64, 4, 4, 192, 192, -1)]
+# Timed at deepseek-v3's path shape (bf16, causal): the kernels line's
+# mla_* keys.
+MLA_ATTN_TIMED = MLA_ATTN_CASES[0]
 # Tolerance, as max |kernel - plain| over max(1, max |plain|): fp32 sums
 # in another order; in bf16 the kernel rounds the unnormalized p of its
 # online softmax to bf16 where the plain version rounds the normalized
@@ -502,13 +527,21 @@ ATTN_TOL = {torch.float32: {"fwd": 2e-5, "bwd": 1e-4},
             torch.bfloat16: {"fwd": 2e-2, "bwd": 3e-2}}
 
 
-def attn_inputs(B, S, H, KVH, hd, dtype, seed):
+def attn_inputs(B, S, H, KVH, hd, dtype, seed, hdv=None):
+    """q, k (head dim hd), v and dO (head dim hdv, default hd)."""
+    hdv = hdv or hd
     gen = torch.Generator(device="cuda").manual_seed(seed)
     q = torch.randn((B, S, H, hd), generator=gen, device="cuda").to(dtype)
     k = torch.randn((B, S, KVH, hd), generator=gen, device="cuda").to(dtype)
-    v = torch.randn((B, S, KVH, hd), generator=gen, device="cuda").to(dtype)
-    do = torch.randn((B, S, H, hd), generator=gen, device="cuda").to(dtype)
+    v = torch.randn((B, S, KVH, hdv), generator=gen, device="cuda").to(dtype)
+    do = torch.randn((B, S, H, hdv), generator=gen, device="cuda").to(dtype)
     return q, k, v, do
+
+
+def attn_cases():
+    """ATTN_CASES and MLA_ATTN_CASES as (B, S, H, KVH, hd, hdv, window)."""
+    return ([(*c[:5], c[4], c[5]) for c in ATTN_CASES]
+            + list(MLA_ATTN_CASES))
 
 
 def rel_err(got, want) -> float:
@@ -531,25 +564,30 @@ def attn_lse_ref(q, k, window):
 
 def attn_checks(ops, ref):
     """Both attention kernels against their plain versions at every case
-    of ATTN_CASES in fp32 and bf16 -> max |err| of each kernel at the
-    path's case (bf16, its dtype) and over all cases (relative)."""
-    errs = {"path": {}, "all": {"fwd": 0.0, "bwd": 0.0}}
-    for B, S, H, KVH, hd, window in ATTN_CASES:
+    of ATTN_CASES and MLA_ATTN_CASES in fp32 and bf16 -> max |err| of
+    each kernel at the LM path's case and at MLA's (bf16, their dtype)
+    and over all cases (relative)."""
+    errs = {"path": {}, "mla": {}, "all": {"fwd": 0.0, "bwd": 0.0}}
+    for B, S, H, KVH, hd, hdv, window in attn_cases():
         for dtype in (torch.float32, torch.bfloat16):
-            q, k, v, do = attn_inputs(B, S, H, KVH, hd, dtype, seed=S + hd)
+            q, k, v, do = attn_inputs(B, S, H, KVH, hd, dtype, seed=S + hd,
+                                      hdv=hdv)
             o, lse = ops.flash_attention_fwd(q, k, v, window=window)
             grads = ops.flash_attention_bwd(q, k, v, o, lse, do,
                                             window=window)
             o_ref = ref.flash_attention_ref(q, k, v, window=window)
             g_ref = ref.flash_attention_bwd_ref(q, k, v, do, window=window)
             torch.cuda.synchronize()
-            label = (f"B {B} S {S} H {H} KVH {KVH} hd {hd} window {window} "
-                     f"{str(dtype)[6:]}")
+            label = (f"B {B} S {S} H {H} KVH {KVH} hd {hd}"
+                     + (f" hdv {hdv}" if hdv != hd else "")
+                     + f" window {window} {str(dtype)[6:]}")
             tol = ATTN_TOL[dtype]
             fwd = rel_err(o, o_ref)
             lse_err = float((lse - attn_lse_ref(q, k, window)).abs().max())
             bwd = max(rel_err(a, b) for a, b in zip(grads, g_ref))
-            check(all(g.dtype == dtype for g in grads), f"{label}: dtypes")
+            check(all(g.dtype == dtype and g.shape == t.shape
+                      for g, t in zip(grads, (q, k, v)))
+                  and o.shape == (B, S, H, hdv), f"{label}: dtypes, shapes")
             check(fwd <= tol["fwd"] and lse_err <= 1e-4,
                   f"flash_attention {label}: err {fwd:.3e}, lse {lse_err:.3e}")
             check(bwd <= tol["bwd"], f"flash_attention_bwd {label}: err "
@@ -559,9 +597,11 @@ def attn_checks(ops, ref):
                   f"max|err|)", flush=True)
             errs["all"]["fwd"] = max(errs["all"]["fwd"], fwd)
             errs["all"]["bwd"] = max(errs["all"]["bwd"], bwd)
-            if (B, S, H, KVH, hd, window) == ATTN_CASES[0] and \
-                    dtype == torch.bfloat16:
-                errs["path"] = {
+            key = ("path" if (B, S, H, KVH, hd, window) == ATTN_CASES[0]
+                   else "mla" if (B, S, H, KVH, hd, hdv, window)
+                   == MLA_ATTN_CASES[0] else None)
+            if key and dtype == torch.bfloat16:
+                errs[key] = {
                     "fwd": float((o.float() - o_ref.float()).abs().max()),
                     "bwd": max(float((a.float() - b.float()).abs().max())
                                for a, b in zip(grads, g_ref))}
@@ -654,12 +694,13 @@ def guarded_decode(ops, q, k, v, valid) -> None:
               f"{label}: arrival counters not back at 0")
 
 
-def guarded_attention(ops, B, S, H, KVH, hd, window, dtype) -> None:
+def guarded_attention(ops, B, S, H, KVH, hd, hdv, window, dtype) -> None:
     """flash_attention_fwd and _bwd's C entries on banded copies of one
     case: the wrappers' bits (o, lse, dq, dk, dv), every band intact,
     after each of GUARD_REPS launches."""
     nan = float("nan")
-    q, k, v, do = attn_inputs(B, S, H, KVH, hd, dtype, seed=S + hd + 1)
+    q, k, v, do = attn_inputs(B, S, H, KVH, hd, dtype, seed=S + hd + 1,
+                              hdv=hdv)
     o, lse = ops.flash_attention_fwd(q, k, v, window=window)
     grads = ops.flash_attention_bwd(q, k, v, o, lse, do, window=window)
     ins = {n: _banded(t, nan) for n, t in
@@ -672,10 +713,10 @@ def guarded_attention(ops, B, S, H, KVH, hd, window, dtype) -> None:
             "dv": grads[2]}
     p = {n: b[0].data_ptr() for n, b in ins.items()}
     w = {n: b[0].data_ptr() for n, b in outs.items()}
-    dims = (B, S, H, KVH, hd, int(window), ops._DTYPE_CODE[dtype],
+    dims = (B, S, H, KVH, hd, hdv, int(window), ops._DTYPE_CODE[dtype],
             1.0 / math.sqrt(hd), torch.cuda.current_stream().cuda_stream)
-    label = (f"guarded attention B {B} S {S} H {H} KVH {KVH} hd {hd} "
-             f"window {window} {str(dtype)[6:]}")
+    label = (f"guarded attention B {B} S {S} H {H} KVH {KVH} hd {hd} hdv "
+             f"{hdv} window {window} {str(dtype)[6:]}")
     for _ in range(GUARD_REPS):
         ops._attn_call("flash_attention_fwd", p["q"], p["k"], p["v"],
                        w["o"], w["lse"], *dims)
@@ -692,7 +733,8 @@ def guarded_attention(ops, B, S, H, KVH, hd, window, dtype) -> None:
 def guard_checks(ops, gen) -> int:
     """The guard-band probes at every DECODE_SPLIT_CASES case, the decode
     shapes of the serving lanes (W 4, cache 64, hd 24/48/64/128) and
-    every ATTN_CASES case in fp32 and bf16 -> cases run."""
+    every ATTN_CASES and MLA_ATTN_CASES case in fp32 and bf16 -> cases
+    run."""
     n = 0
     decode = [(B, L, KVH, G, hd, dtype, lengths)
               for B, L, KVH, G, hd, dtype, lengths in DECODE_SPLIT_CASES]
@@ -702,7 +744,7 @@ def guard_checks(ops, gen) -> int:
         guarded_decode(ops, *decode_inputs(gen, B, L, KVH, G, hd, dtype,
                                            lengths))
         n += 1
-    for case in ATTN_CASES:
+    for case in attn_cases():
         for dtype in (torch.float32, torch.bfloat16):
             guarded_attention(ops, *case, dtype)
             n += 1
@@ -728,15 +770,16 @@ def event_time_ms(fn, reps: int = 20) -> float:
 
 
 def attn_times(ops, ref, shape):
-    """Forward and backward times at ``shape`` (B, S, H, KVH, hd, window;
-    bf16, causal): kernel, plain version, SDPA (``is_causal=True``) and
-    the bound. Forwards are graph-replayed (16 input sets, ~8 MB each at
+    """Forward and backward times at ``shape`` (B, S, H, KVH, hd, window,
+    or B, S, H, KVH, hd, hdv, window; bf16, causal): kernel, plain
+    version, SDPA (``is_causal=True``) and the bound. Forwards are graph-replayed (16 input sets, ~8 MB each at
     hd 64, so K/V come from HBM as in the model); backwards are timed
     eagerly with events (the plain and SDPA backwards run through
     autograd), each the backward alone on a forward done once."""
-    B, S, H, KVH, hd, window = shape
-    sets = [attn_inputs(B, S, H, KVH, hd, torch.bfloat16, seed=100 + i)
-            for i in range(16)]
+    B, S, H, KVH, hd, hdv, window = (shape if len(shape) == 7 else
+                                     (*shape[:5], shape[4], shape[5]))
+    sets = [attn_inputs(B, S, H, KVH, hd, torch.bfloat16, seed=100 + i,
+                        hdv=hdv) for i in range(16)]
     sdpa = torch.nn.functional.scaled_dot_product_attention
     t = {}
     t["fwd"] = graph_time_ms([lambda s=s: ops.flash_attention_fwd(
@@ -765,13 +808,15 @@ def attn_times(ops, ref, shape):
     # The least work these inputs need: every (query, key) pair the mask
     # keeps, and each tensor moved once.
     pairs = S * (S + 1) // 2
-    elt = B * S * H * hd * 2                 # one (B, S, H, hd) bf16 tensor
-    kv = B * S * KVH * hd * 2
+    q_b, o_b = B * S * H * hd * 2, B * S * H * hdv * 2   # bf16 tensors
+    k_b, v_b = B * S * KVH * hd * 2, B * S * KVH * hdv * 2
     lse_b = B * H * S * 4
-    bytes_fwd = 2 * elt + 2 * kv + lse_b     # q, k, v in; o, lse out
-    bytes_bwd = 4 * elt + 4 * kv + lse_b     # q, k, v, o, dO, lse in; dq, dk, dv out
-    flops_fwd = 4 * B * H * hd * pairs       # q.k and p.v
-    flops_bwd = 10 * B * H * hd * pairs      # q.k, dO.v, p^T dO, ds^T q, ds k
+    bytes_fwd = q_b + k_b + v_b + o_b + lse_b  # q, k, v in; o, lse out
+    # q, k, v, o, dO, lse in; dq, dk, dv out
+    bytes_bwd = 2 * (q_b + k_b + v_b + o_b) + lse_b
+    flops_fwd = 2 * B * H * pairs * (hd + hdv)      # q.k and p.v
+    # q.k, ds^T q, ds k over hd; dO.v, p^T dO over hdv
+    flops_bwd = 2 * B * H * pairs * (3 * hd + 2 * hdv)
     for key, nb, fl in (("fwd", bytes_fwd, flops_fwd),
                         ("bwd", bytes_bwd, flops_bwd)):
         b_ms = nb / HBM_BYTES_PER_S * 1e3
@@ -779,7 +824,7 @@ def attn_times(ops, ref, shape):
         t[key + "_bound"] = max(b_ms, o_ms)
         t[key + "_bound_by"] = "bytes" if b_ms >= o_ms else "operations"
         print(f"[time] flash_attention {key} at B {B} S {S} H {H} KVH {KVH} "
-              f"hd {hd} bf16 causal: kernel {t[key] * 1e3:.2f} us, plain "
+              f"hd {hd} hdv {hdv} bf16 causal: kernel {t[key] * 1e3:.2f} us, plain "
               f"{t[key + '_plain'] * 1e3:.2f} us, sdpa "
               f"{t[key + '_sdpa'] * 1e3:.2f} us, bound "
               f"{t[key + '_bound'] * 1e3:.3f} us ({nb} bytes, {fl} flops)",
@@ -789,17 +834,23 @@ def attn_times(ops, ref, shape):
 
 def expected_attn_launches(cfg, *, steps_full, steps_mod, fwd_only):
     """Attention launches the code makes: each differentiated pass over a
-    layer runs the forward kernel, again under remat (the backward
-    recomputes the checkpointed forward), and the backward kernel once.
-    ``steps_full``: passes through all layers with autograd;
-    ``steps_mod``: through the modular layers only; ``fwd_only``: base
-    forwards without autograd."""
-    _, bp, bg, mp, mg = cfg._resolved_program()
-    lb, lm = len(bp) * bg, len(mp) * mg
+    layer with attention runs the forward kernel, again under remat for
+    the groups' layers (the backward recomputes the checkpointed group;
+    prefix layers and the MTP head's layer are not checkpointed), and the
+    backward kernel once. ``steps_full``: passes through all layers with
+    autograd; ``steps_mod``: through the modular layers (and the MTP
+    layer) only; ``fwd_only``: base forwards without autograd."""
+    pre, bp, bg, mp, mg = cfg._resolved_program()
+
+    def attn(specs):
+        return sum(s.mixer == "attn" for s in specs)
+
+    lp, lb, lm = attn(pre), attn(bp) * bg, attn(mp) * mg
+    lt = 1 if cfg.use_mtp else 0
     recompute = 2 if cfg.remat in ("group", "layer") else 1
-    fwd = (recompute * (steps_full * (lb + lm) + steps_mod * lm)
-           + fwd_only * lb)
-    bwd = steps_full * (lb + lm) + steps_mod * lm
+    fwd = (steps_full * (lp + recompute * (lb + lm) + lt)
+           + steps_mod * (recompute * lm + lt) + fwd_only * (lp + lb))
+    bwd = steps_full * (lp + lb + lm + lt) + steps_mod * (lm + lt)
     return fwd, bwd
 
 
@@ -3201,7 +3252,7 @@ def recurrent_card_vs_cpu():
                 p = tree_map(lambda a: a.to(dev), params)
                 batch = {"tokens": torch.from_numpy(toks).to(dev)}
                 res[dev] = (float(lm_loss(p, cfg, batch)),
-                            lm_apply(p, cfg, batch).cpu(),
+                            lm_apply(p, cfg, batch)[0].cpu(),
                             greedy_tokens(p["base"], cfg, p["modular"], cfg,
                                           toks[:, :16], 8, dev))
             (lc, gc, tc), (lg, gg, tg) = res["cpu"], res["cuda"]
@@ -3222,11 +3273,11 @@ def recurrent_card_vs_cpu():
             out = {}
             for dev in ("cpu", "cuda"):
                 batch = {"tokens": torch.from_numpy(toks).to(dev)}
-                z = base_forward(tree_map(lambda a: a.to(dev), bp["base"]),
-                                 bcfg, batch)
+                z, _ = base_forward(tree_map(lambda a: a.to(dev),
+                                             bp["base"]), bcfg, batch)
                 out[dev] = [modular_forward(
                     tree_map(lambda a: a.to(dev), mp["modular"]), mcfg,
-                    z).cpu() for _, mcfg, mp in vendors]
+                    z)[0].cpu() for _, mcfg, mp in vendors]
             for a, b in zip(out["cuda"], out["cpu"]):
                 perr = max(perr, float((a - b).abs().max()
                                        / max(1.0, b.abs().max())))
@@ -3259,6 +3310,400 @@ def compose_twin_phase():
           f"--device cuda in {wall:.1f}s: 4 x 4 composition matrix (diagonal "
           f"{[round(float(mat[i, i]), 3) for i in range(4)]}), 4 LLM pairs "
           f"finite", flush=True)
+
+
+# -- phase 4n: MoE, MLA and MTP ---------------------------------------------
+#
+# deepseek-v3-671b (arXiv:2412.19437) at its published widths: d 7168, 128
+# heads, q LoRA 1536, kv LoRA 512, nope 128, rope 64, v 128, 256 routed
+# experts top-8 plus 1 shared, moe_d_ff 2048, dense d_ff 18432, vocab
+# 129,280, d_fusion 4096, bf16, random weights drawn leaf by leaf in bf16.
+# One cut, depth: the 3 dense prefix layers become 1, the base groups 29
+# -> 0 and the modular groups 29 -> 1, with the MTP head on. A lane holds
+# W copies of a tenant's base, so the routed experts sit in the shared
+# modular block: base 1.54e9 parameters (3.1 GB), modular 13.05e9 (26.1
+# GB, 11.27e9 of them routed experts).
+DS_ARCH = "deepseek-v3-671b"
+DS_SERVE = dict(tenants=2, width=4, prompt_len=32, gen=32, horizon=8)
+DS_TRAIN = dict(batch=1, seq=512)
+# The first-order check at full width (tolerances written in PERF.md
+# before the first run): a step eps = GRAD_DROP / |g|^2 along -g lowers
+# the fp32 loss by eps * (g32 . g) within DS_GRAD_TOL, for g = g32 and
+# g = g16 (the bf16 loss's gradient). 80 GB holds the bf16 model and its
+# bf16 gradient, not an fp32 copy of either (58 GB each), so the check is
+# over the leaves above the trunk, the LM head and the MTP head (1.5e9
+# parameters, held in fp32), with the trunk's output computed once in
+# fp32 and held fixed.
+DS_GRAD_TOL = {"g32": 0.1, "g16": 0.2}
+
+
+def deepseek_cut():
+    from repro_torch.configs import get_config
+
+    cfg = get_config(DS_ARCH)
+    return cfg.replace(name=DS_ARCH + "-depth-cut", num_layers=2,
+                       prefix_pattern=cfg.prefix_pattern[:1], base_groups=0,
+                       mod_groups=1).validate()
+
+
+def jamba_moe_period():
+    """Jamba's 8-layer period with its MoE FFNs (attention at position 3,
+    Mamba elsewhere, MoE on odd positions), cut at the middle, at
+    jamba-1.5-large-398b's reduced widths with d_model 128
+    (``tests/test_torch_mla_mtp.py``'s config)."""
+    from repro_torch.config import LayerSpec
+    from repro_torch.configs import get_config
+
+    pat = tuple(LayerSpec(mixer="attn" if i == 3 else "mamba",
+                          ffn="moe" if i % 2 else "dense", use_rope=False)
+                for i in range(8))
+    return get_config("jamba-1.5-large-398b").reduced().replace(
+        name="jamba-moe-period-smoke", num_layers=8, base_pattern=pat[:4],
+        mod_pattern=pat[4:], d_model=128).validate()
+
+
+class RoutingLog:
+    """Records (probs, idx) of every MoE routing while active: the
+    harness wraps ``models.moe.route``, which every MoE layer calls."""
+
+    def __enter__(self):
+        from repro_torch.models import moe
+
+        self.calls, self._moe, self._route = [], moe, moe.route
+
+        def record(p, cfg, x):
+            out = self._route(p, cfg, x)
+            self.calls.append((out[0].detach(), out[2].detach()))
+            return out
+
+        moe.route = record
+        return self
+
+    def __exit__(self, *exc):
+        self._moe.route = self._route
+
+
+def switch_aux(cfg, probs, idx) -> float:
+    """E * sum_e f_e * p_e * coef of one routing."""
+    E = cfg.num_experts
+    f = torch.bincount(idx.reshape(-1), minlength=E).float() / idx.numel()
+    return E * float((f * probs.mean(0)).sum()) * cfg.router_aux_coef
+
+
+def deepseek_store(cfg, n):
+    """n tenants, each its own bf16 init; tenant 0's modular block
+    shared."""
+    from repro_torch.launch.serve import tenant_generator
+    from repro_torch.models.transformer import init_lm
+    from repro_torch.serve import CompositionStore
+
+    store = CompositionStore()
+    name = store.add_arch(cfg, reduced=False)
+    for k in range(n):
+        p = init_lm(cfg, generator=tenant_generator(0, k, "cuda"),
+                    device="cuda", dtype=torch.bfloat16)
+        if k == 0:
+            store.set_modular(name, p["modular"])
+        store.add_tenant(f"tenant{k}", name, p["base"])
+        del p
+    return store
+
+
+def deepseek_serve_phase(ops, cfg):
+    """The cut deepseek-v3 served to 2 tenants at W 4 (prompt 32, gen 32)
+    through the store and engine: engine == oracle bitwise, no kernel
+    launched (MLA decodes in the absorbed form and MoE routes each row
+    alone, both plain PyTorch as in the JAX package)."""
+    from repro_torch.launch.serve import demo_requests
+    from repro_torch.serve import ServeEngine
+
+    r = DS_SERVE
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    store = deepseek_store(cfg, r["tenants"])
+    engine = ServeEngine(store, width=r["width"],
+                         cache_len=r["prompt_len"] + r["gen"],
+                         horizon=r["horizon"], device="cuda")
+    reqs = demo_requests(cfg, r["tenants"], prompt_len=r["prompt_len"],
+                         gen=r["gen"], stagger=2, seed=0)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    reset_counts(ops)
+    t0 = time.perf_counter()
+    comps = engine.run(reqs)
+    torch.cuda.synchronize()
+    cold_s = time.perf_counter() - t0
+    zero_launches(ops, "deepseek serve")
+    steps = sum(lane.composed_steps for lane in engine.lanes())
+    check(len(comps) == r["tenants"]
+          and all(len(c.tokens) == r["gen"] for c in comps)
+          and all(0 <= t < cfg.vocab_size for c in comps for t in c.tokens),
+          "deepseek serve: a request did not complete in vocab")
+    for q, c in zip(reqs, comps):
+        check(engine.oracle(q).tokens == c.tokens,
+              f"deepseek serve: request {q.rid} != oracle")
+    warm = engine.fresh_clone()
+    del engine
+    t0 = time.perf_counter()
+    warm_comps = warm.run(reqs)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    check([c.tokens for c in warm_comps] == [c.tokens for c in comps],
+          "deepseek serve: warm run differs")
+    n_tok = sum(len(c.tokens) for c in comps)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"[deepseek serve] {cfg.name}: {DS_ARCH} at its widths cut to "
+          f"depth (1 dense prefix layer of 3, base groups 0 of 29, modular "
+          f"groups 1 of 29, MTP on), bf16; {r['tenants']} tenants, W "
+          f"{r['width']}, prompt {r['prompt_len']}, gen {r['gen']}: engine "
+          f"== oracle bitwise; no kernel launched (flash_decode 0); "
+          f"store built in {build_s:.1f}s; {steps} composed steps; first "
+          f"run {cold_s:.2f}s, warm {warm_s:.3f}s = {n_tok / warm_s:.1f} "
+          f"tok/s ({warm_s / steps * 1e3:.2f} ms a composed step); peak "
+          f"memory {peak:.2f} GiB", flush=True)
+    del warm, store
+    torch.cuda.empty_cache()
+    return {"steps": steps, "warm_s": warm_s, "peak": peak}
+
+
+def _tree_flat(t, pre=""):
+    if isinstance(t, dict):
+        return {k2: v2 for k, v in t.items()
+                for k2, v2 in _tree_flat(v, f"{pre}/{k}" if pre
+                                         else k).items()}
+    return {pre: t}
+
+
+def deepseek_grad_phase(ops, cfg):
+    """One ``lm_loss`` forward and backward of the cut deepseek-v3 at B 1,
+    S 512 (bf16): loss and every gradient finite; flash_attention /
+    _bwd launches == the count derived from the checkpointing (the
+    prefix and MTP layers once, the modular group again under remat
+    'group': 4 and 3); a routed expert that received no token has an
+    exactly zero gradient, one that did a nonzero one; aux == E * sum f
+    p * coef from the phase's own routing; then the first-order check
+    over the LM and MTP heads (DS_GRAD_TOL)."""
+    from repro_torch.core.ifl_spmd import value_and_grad
+    from repro_torch.data.synthetic import SyntheticLM
+    from repro_torch.models import moe
+    from repro_torch.models import transformer as tf
+
+    r = DS_TRAIN
+    torch.cuda.reset_peak_memory_stats()
+    params = tf.init_lm(cfg, generator=torch.Generator(
+        device="cuda").manual_seed(0), device="cuda", dtype=torch.bfloat16)
+    toks = torch.from_numpy(SyntheticLM(cfg.vocab_size, seed=0).sample(
+        r["batch"], r["seq"], step=0)).cuda()
+    b = {"tokens": toks}
+    reset_counts(ops)
+    with RoutingLog() as log:
+        t0 = time.perf_counter()
+        l16, g16 = value_and_grad(tf.lm_loss, params, cfg, b)
+        l16 = float(l16)
+        grad_s = time.perf_counter() - t0
+    got = launch_counts(ops)
+    fwd, bwd = expected_attn_launches(cfg, steps_full=1, steps_mod=0,
+                                      fwd_only=0)
+    check(got["flash_attention"] == fwd and got["flash_attention_bwd"] == bwd
+          and all(v == 0 for k, v in got.items()
+                  if not k.startswith("flash_attention")),
+          f"deepseek grad: launches {got} != fwd {fwd}, bwd {bwd}")
+    flat = _tree_flat(g16)
+    check(np.isfinite(l16) and all(bool(torch.isfinite(g).all())
+                                   for g in flat.values()),
+          f"deepseek grad: loss {l16} or a gradient not finite")
+    # The modular MoE layer routes once and again in the recompute.
+    T = r["batch"] * r["seq"]
+    _, idx = log.calls[0]
+    check(len(log.calls) == 2 and torch.equal(idx, log.calls[1][1]),
+          f"deepseek grad: {len(log.calls)} routings")
+    e_flat = idx.reshape(-1)
+    keep = moe.rank_in_expert(e_flat, cfg.num_experts) < moe._capacity(T, cfg)
+    got_tok = torch.zeros(cfg.num_experts, dtype=torch.bool, device="cuda")
+    got_tok[e_flat[keep]] = True
+    ex = g16["modular"]["groups"]["l0"]["moe"]["experts"]
+    amax = torch.stack([ex[k]["w"][0].flatten(1).abs().amax(1)
+                        for k in ("w_gate", "w_up", "w_down")]).amax(0)
+    check(bool((amax[~got_tok] == 0).all()) and bool((amax[got_tok] > 0)
+                                                      .all()),
+          f"deepseek grad: experts with tokens {int(got_tok.sum())}, "
+          f"nonzero gradients {int((amax > 0).sum())}")
+    n_drop = int((~keep).sum())
+    del ex, amax
+    # aux from a forward's own routing.
+    with torch.no_grad(), RoutingLog() as log2:
+        _, aux, mtp_logits = tf.lm_apply(params, cfg, b)
+    aux_re = sum(switch_aux(cfg, p_, i_) for p_, i_ in log2.calls)
+    check(mtp_logits is not None
+          and abs(float(aux) - aux_re) <= 1e-6 * max(1.0, aux_re),
+          f"deepseek grad: aux {float(aux)} != recomputed {aux_re}")
+    del log, log2, mtp_logits
+    # The first-order check over the heads: keep their bf16 gradient, drop
+    # the rest, and hold the trunk's fp32 output fixed.
+    heads = ("lm_head", "mtp")
+    g16h = {k: g16["modular"][k] for k in heads}
+    del g16, flat
+    torch.cuda.empty_cache()
+    c32 = cfg.replace(compute_dtype="float32")
+    mod = params["modular"]
+    with torch.no_grad():
+        z, _ = tf.base_forward(params["base"], c32, b)
+        h, aux_m, positions = tf.modular_trunk(mod, c32, z)
+        del z
+    from repro_torch.models.modules import tree_map
+
+    h32 = tree_map(lambda a: a.float(), {k: mod[k] for k in heads})
+
+    def head_loss(hp):
+        m = dict(mod, **hp)
+        loss = tf._next_token_ce(tf._head_logits(m, c32, h), toks, 1, 0)
+        h2 = tf.mtp_hidden(m, c32, h, positions)
+        return loss + 0.3 * tf._next_token_ce(tf._head_logits(m, c32, h2),
+                                              toks, 2, 0)
+
+    l32, g32 = value_and_grad(head_loss, h32)
+    l32 = float(l32)
+    f32, f16 = _tree_flat(g32), _tree_flat(g16h)
+
+    def dot(a, c):
+        return float(sum((a[k].double() * c[k].double()).sum() for k in a))
+
+    n32, n16, cross = dot(f32, f32), dot(f16, f16), dot(f32, f16)
+    drops = {}
+    for name, g, n in (("g32", g32, n32), ("g16", g16h, n16)):
+        eps = GRAD_DROP / n
+        with torch.no_grad():
+            stepped = {k: _step_tree(h32[k], g[k], eps) for k in heads}
+            drop = l32 - float(head_loss(stepped))
+            del stepped
+        want = GRAD_DROP if name == "g32" else eps * cross
+        drops[name] = (drop, want)
+        check(want > 0 and abs(drop - want) <= DS_GRAD_TOL[name] * want,
+              f"deepseek gradient check {name}: the fp32 loss fell "
+              f"{drop:.5f} along -g, first order says {want:.5f}")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"[deepseek grad] {cfg.name} at B {r['batch']}, S {r['seq']} "
+          f"(bf16, remat {cfg.remat}): lm_loss {l16:.5f} (aux included, "
+          f"{float(aux):.5f}; recomputed from the routing {aux_re:.5f}), "
+          f"loss and every gradient finite; flash_attention {fwd}, "
+          f"flash_attention_bwd {bwd} == derived; {int(got_tok.sum())} of "
+          f"{cfg.num_experts} routed experts received tokens ({n_drop} of "
+          f"{e_flat.numel()} choices dropped at capacity "
+          f"{moe._capacity(T, cfg)}): exactly their gradients nonzero; "
+          f"forward+backward {grad_s:.2f}s; heads (LM head, MTP: "
+          f"{sum(v.numel() for v in f32.values()):,} parameters) in fp32 "
+          f"on the fp32 trunk's output: loss {l32:.5f}, |g32| "
+          f"{n32 ** 0.5:.3f}, cos(g32, g16) {cross / (n32 * n16) ** 0.5:.4f}; "
+          f"along -g32 the loss fell {drops['g32'][0]:.5f} (first order "
+          f"{drops['g32'][1]:.5f}, within {DS_GRAD_TOL['g32']:.0%}), along "
+          f"-g16 {drops['g16'][0]:.5f} (first order {drops['g16'][1]:.5f}, "
+          f"within {DS_GRAD_TOL['g16']:.0%}); peak memory {peak:.2f} GiB",
+          flush=True)
+    del params, h32, g32, g16h, h
+    torch.cuda.empty_cache()
+    return {"flash_attention": fwd, "flash_attention_bwd": bwd}
+
+
+def _step_tree(t, g, eps):
+    if isinstance(t, dict):
+        return {k: _step_tree(t[k], g[k], eps) for k in t}
+    return t - eps * g.float()
+
+
+def moe_card_vs_cpu():
+    """fp32, the same params (drawn on the CPU) and tokens on the card
+    and the CPU: lm_loss, logits, 8 greedy tokens and every MoE layer's
+    expert choices of the reduced deepseek-v3 and the jamba MoE period.
+    Differing choices are counted and printed."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.modules import tree_map
+    from repro_torch.models.transformer import init_lm, lm_apply, lm_loss
+
+    rng = np.random.default_rng(11)
+    report = {}
+    with torch.no_grad():
+        for cfg in (get_config(DS_ARCH).reduced(), jamba_moe_period()):
+            params = init_lm(cfg, generator=torch.Generator().manual_seed(0),
+                             device="cpu")
+            toks = rng.integers(0, cfg.vocab_size, (2, 64))
+            res = {}
+            for dev in ("cpu", "cuda"):
+                p = tree_map(lambda a: a.to(dev), params)
+                batch = {"tokens": torch.from_numpy(toks).to(dev)}
+                with RoutingLog() as log:
+                    loss = float(lm_loss(p, cfg, batch))
+                    logits = lm_apply(p, cfg, batch)[0].cpu()
+                res[dev] = (loss, logits, [i.cpu() for _, i in log.calls],
+                            greedy_tokens(p["base"], cfg, p["modular"], cfg,
+                                          toks[:, :16], 8, dev))
+            (lc, gc, ic, tc), (lg, gg, ig, tg) = res["cpu"], res["cuda"]
+            lerr = abs(lg - lc)
+            gerr = float((gg - gc).abs().max() / max(1.0, gc.abs().max()))
+            n_choice = sum(a.numel() for a in ic)
+            n_diff = sum(int((a != b).sum()) for a, b in zip(ig, ic))
+            check(len(ig) == len(ic) and n_choice > 0,
+                  f"{cfg.name}: routings {len(ig)} vs {len(ic)}")
+            check(lerr <= LM_LOSS_TOL and gerr <= LM_LOSS_TOL and tg == tc
+                  and bool(torch.isfinite(gg).all()),
+                  f"{cfg.name} card vs CPU: loss {lerr}, logits {gerr}, "
+                  f"tokens {tg} vs {tc}")
+            report[cfg.name] = (lerr, gerr, n_diff, n_choice)
+    print("[moe card vs cpu] fp32, same params and tokens: "
+          + "; ".join(f"{n}: loss |diff| {a:.2e}, logits {b:.2e} of max "
+                      f"|logit|, 8 greedy tokens equal, expert choices "
+                      f"differing {d} of {c}"
+                      for n, (a, b, d, c) in report.items())
+          + f" (tolerance {LM_LOSS_TOL})", flush=True)
+
+
+def moe_train_phase(train_cli, ops):
+    """``python -m repro_torch.launch.train --reduced`` on the card for
+    deepseek-v3-671b and jamba-1.5-large-398b: one IFL round (N 2, tau 1)
+    and one DP step at B 2, S 64; losses finite, the reference loop's
+    ledger, attention launches == derived."""
+    import tempfile
+
+    from repro_torch.configs import get_config
+
+    lines = []
+    for arch in (DS_ARCH, "jamba-1.5-large-398b"):
+        cfg = get_config(arch).reduced()
+        with tempfile.TemporaryDirectory() as out_dir:
+            common = ["--arch", arch, "--reduced", "--rounds", "1",
+                      "--batch", "2", "--seq", "64", "--out", out_dir]
+            reset_counts(ops)
+            t0 = time.perf_counter()
+            out = train_cli.main(common + ["--tau", "1", "--n-clients", "2"])
+            ifl_s = time.perf_counter() - t0
+            got = launch_counts(ops)
+            fwd, bwd = expected_attn_launches(cfg, steps_full=2, steps_mod=4,
+                                              fwd_only=2)
+            check(got["flash_attention"] == fwd
+                  and got["flash_attention_bwd"] == bwd,
+                  f"{arch} ifl: launches {got} != {fwd}, {bwd}")
+            h = out["history"][0]
+            up = 2 * (2 * 64 * cfg.d_fusion * 2 + 2 * 64 * 4)
+            check(np.isfinite(h["base_loss"]) and np.isfinite(h["mod_loss"])
+                  and out["ledger"].per_round == [{"up": up, "down": 2 * up}],
+                  f"{arch} ifl: {h}, ledger {out['ledger'].per_round}")
+            reset_counts(ops)
+            t0 = time.perf_counter()
+            dp = train_cli.main(common + ["--mode", "dp"])
+            dp_s = time.perf_counter() - t0
+            got = launch_counts(ops)
+            fwd_d, bwd_d = expected_attn_launches(cfg, steps_full=1,
+                                                  steps_mod=0, fwd_only=0)
+            check(got["flash_attention"] == fwd_d
+                  and got["flash_attention_bwd"] == bwd_d
+                  and np.isfinite(dp["history"][0]["loss"]),
+                  f"{arch} dp: launches {got}, {dp['history']}")
+        lines.append(f"{cfg.name}: IFL round losses ({h['base_loss']:.4f}, "
+                     f"{h['mod_loss']:.4f}), attention {fwd}/{bwd} == "
+                     f"derived, ledger == analytic, {ifl_s:.2f}s; DP step "
+                     f"loss {dp['history'][0]['loss']:.4f}, attention "
+                     f"{fwd_d}/{bwd_d}, {dp_s:.2f}s")
+    print("[moe train] launch.train --reduced on the card, B 2, S 64, fp32: "
+          + "; ".join(lines), flush=True)
 
 
 def tree_numpy(tree):
@@ -3385,17 +3830,22 @@ def main() -> None:
     n_guard = guard_checks(ops, gen)
     print(f"[kernel] flash_decode / flash_attention / flash_attention_bwd "
           f"between NaN guard bands at {n_guard} cases (every split-L and "
-          f"attention case, the lanes' decode shapes), {GUARD_REPS} launches "
+          f"attention case, MLA's head dims among them, the lanes' decode "
+          f"shapes), {GUARD_REPS} launches "
           f"each: the wrappers' bits every time, no band read into a result "
           f"or written, arrival counters back at 0", flush=True)
     print(f"[kernel] attention at hd 64 and 128: {n_fp} outputs (fwd o, lse; "
           f"bwd dq, dk, dv; decode) bitwise those of the kernels before the "
           f"padded head dims (attn_fingerprints_hd64_128.json)", flush=True)
     print(f"[kernel] flash_attention / flash_attention_bwd vs plain at "
-          f"{len(ATTN_CASES)} cases x fp32, bf16: relative max|err| fwd "
+          f"{len(ATTN_CASES)} cases and {len(MLA_ATTN_CASES)} with v's head "
+          f"dim apart from q/k's (MLA: 48/32, 192/128, 192/192) x fp32, "
+          f"bf16: relative max|err| fwd "
           f"{attn_err['all']['fwd']:.3e}, bwd {attn_err['all']['bwd']:.3e}; "
           f"at the path's case (bf16) max|err| fwd "
-          f"{attn_err['path']['fwd']:.3e}, bwd {attn_err['path']['bwd']:.3e}",
+          f"{attn_err['path']['fwd']:.3e}, bwd {attn_err['path']['bwd']:.3e}; "
+          f"at deepseek-v3's {MLA_ATTN_CASES[0]} (bf16) fwd "
+          f"{attn_err['mla']['fwd']:.3e}, bwd {attn_err['mla']['bwd']:.3e}",
           flush=True)
 
     fused_err, n_codes, n_flips = fused_checks(ops, ref, get_codec)
@@ -3597,6 +4047,17 @@ def main() -> None:
     print(f"[recurrent] phase 4m took {time.perf_counter() - t0:.1f}s",
           flush=True)
 
+    # -- 4n. MoE, MLA and MTP: deepseek-v3-671b at its widths -------------
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    ds_cfg = deepseek_cut()
+    deepseek_serve_phase(ops, ds_cfg)
+    ds_grad = deepseek_grad_phase(ops, ds_cfg)
+    moe_card_vs_cpu()
+    moe_train_phase(train_cli, ops)
+    print(f"[deepseek] phase 4n took {time.perf_counter() - t0:.1f}s",
+          flush=True)
+
     # -- 5. times at the slice's shape ------------------------------------
     decode_t = []
     for Bt, Lt, KVHt, Gt, hdt, lengths, n_sets in DECODE_SHAPES:
@@ -3671,6 +4132,7 @@ def main() -> None:
         attn_times(ops, ref, shape)
     at_hd = {h: attn_times(ops, ref, shape)
              for h, shape in ATTN_HD_TIMED.items()}
+    at_mla = attn_times(ops, ref, MLA_ATTN_TIMED)
     for kname, key, err, replaces in (
             ("flash_attention", "fwd", attn_err["path"]["fwd"],
              "src/repro/kernels/flash_attention.py:167"),
@@ -3692,6 +4154,14 @@ def main() -> None:
             "bound_by": at[key + "_bound_by"],
             "library_ms": at[key + "_sdpa"],
             **{f"hd{h}_{k}": at_hd[h][key + suffix] for h in at_hd
+               for k, suffix in (("ms", ""), ("plain_ms", "_plain"),
+                                 ("bound_ms", "_bound"),
+                                 ("library_ms", "_sdpa"))},
+            # deepseek-v3's MLA at its widths (phase 4n): launches in the
+            # full-width lm_loss pass, error and times at its shape.
+            "mla_launches": ds_grad[kname],
+            "mla_max_abs_err": attn_err["mla"][key],
+            **{f"mla_{k}": at_mla[key + suffix]
                for k, suffix in (("ms", ""), ("plain_ms", "_plain"),
                                  ("bound_ms", "_bound"),
                                  ("library_ms", "_sdpa"))},

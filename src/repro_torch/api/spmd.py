@@ -324,8 +324,9 @@ class SPMDIFLTrainer:
         accs = []
         with torch.no_grad():
             for p in params:
-                z = base_forward(p["base"], cfg, {"tokens": toks})
-                pred = modular_forward(p["modular"], cfg, z)[:, :-1].argmax(-1)
+                z, _ = base_forward(p["base"], cfg, {"tokens": toks})
+                pred = modular_forward(p["modular"], cfg,
+                                       z)[0][:, :-1].argmax(-1)
                 accs.append(float((pred == toks[:, 1:]).float().mean()))
         return accs
 

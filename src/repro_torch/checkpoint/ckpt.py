@@ -101,10 +101,11 @@ def params_from_numpy(tree, *, device, dtype: Optional[torch.dtype] = None):
 def cache_from_numpy(tree, *, device):
     """A decode cache of the JAX package (as numpy arrays) -> the port's,
     leaf for leaf: recurrent states carry across as they are, -inf
-    stabilizers included. The one layout that differs is an attention
-    cache's ``slot_pos``, which the port keeps per row ((..., B, L)
-    beside k's (..., B, L, KVH, hd)) where the reference keeps one
-    (..., L) for its batch."""
+    stabilizers included, and so does an MLA layer's latent cache
+    (``ckv``, ``krope``; it has no ``slot_pos``). The one layout that
+    differs is a GQA cache's ``slot_pos``, which the port keeps per row
+    ((..., B, L) beside k's (..., B, L, KVH, hd)) where the reference
+    keeps one (..., L) for its batch."""
     if isinstance(tree, dict):
         out = {k: cache_from_numpy(v, device=device) for k, v in tree.items()}
         if "slot_pos" in out and "k" in out:

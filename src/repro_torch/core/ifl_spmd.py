@@ -60,6 +60,7 @@ from repro_torch.models.transformer import (
     lm_loss,
     modular_forward,
     modular_trunk,
+    mtp_hidden,
 )
 from repro_torch.optim import make_optimizer
 
@@ -67,19 +68,32 @@ from repro_torch.optim import make_optimizer
 # ------------------------------------------------------------------ losses
 
 
+def _next_ce(logits, tokens, offset: int):
+    lp = F.log_softmax(logits[:, :-offset], dim=-1)
+    return -torch.gather(lp, -1, tokens[:, offset:, None].long()).mean()
+
+
 def _modular_loss(mod, cfg: ModelConfig, z, tokens):
+    """The modular block's loss on z: next-token CE, + 0.3 x the MTP
+    head's offset-2 CE, + the modular layers' MoE load-balance loss."""
     if cfg.ce_chunk:
-        h = modular_trunk(mod, cfg, z)
-        return chunked_ce(mod, cfg, h, tokens, offset=1, start=0)
-    logits = modular_forward(mod, cfg, z)
-    lp = F.log_softmax(logits[:, :-1], dim=-1)
-    tgt = tokens[:, 1:]
-    return -torch.gather(lp, -1, tgt[..., None].long()).mean()
+        h, aux, positions = modular_trunk(mod, cfg, z)
+        loss = chunked_ce(mod, cfg, h, tokens, offset=1, start=0)
+        if cfg.use_mtp:
+            h2 = mtp_hidden(mod, cfg, h, positions)
+            loss = loss + 0.3 * chunked_ce(mod, cfg, h2, tokens, offset=2,
+                                           start=0)
+        return loss + aux
+    out = modular_forward(mod, cfg, z)
+    loss = _next_ce(out[0], tokens, 1)
+    if cfg.use_mtp:
+        loss = loss + 0.3 * _next_ce(out[2], tokens, 2)
+    return loss + out[1]
 
 
 def _full_loss_wrt_base(base, mod, cfg: ModelConfig, batch):
-    z = base_forward(base, cfg, batch)
-    return _modular_loss(mod, cfg, z, batch["tokens"])
+    z, aux_b = base_forward(base, cfg, batch)
+    return _modular_loss(mod, cfg, z, batch["tokens"]) + aux_b
 
 
 def _unflatten_like(tree, it):
@@ -198,7 +212,7 @@ def make_ifl_round_step(
         fusion_tokens = tokens[:, tau]
         with torch.no_grad():
             zs = {k: base_forward(params[k]["base"], cfg,
-                                  {"tokens": fusion_tokens[k]})
+                                  {"tokens": fusion_tokens[k]})[0]
                   for k in active}
             shape = (fusion_tokens.shape[1], fusion_tokens.shape[2],
                      cfg.d_fusion)
@@ -268,8 +282,7 @@ def init_ifl_state(cfg: ModelConfig, *, n_clients: int,
     pdt = nn.dtype_of(cfg.param_dtype)
     params, states = [], []
     for _ in range(n_clients):
-        p = nn.tree_map(lambda a: a.to(pdt),
-                        init_lm(cfg, generator=generator, device=device))
+        p = init_lm(cfg, generator=generator, device=device, dtype=pdt)
         params.append(p)
         states.append({"base": opt.init(p["base"]),
                        "modular": opt.init(p["modular"])})
@@ -317,7 +330,7 @@ def make_prefill_step(cfg: ModelConfig) -> Callable:
     """prefill_step(params, batch) -> logits (B, S, V) fp32."""
 
     def prefill_step(params, batch):
-        return lm_apply(params, cfg, batch)
+        return lm_apply(params, cfg, batch)[0]
 
     return prefill_step
 

@@ -85,9 +85,9 @@ def llm_scale(device: DeviceLike = None, seed: int = 0
     out = {}
     with torch.no_grad():
         for bname, bcfg, bp in vendors:
-            z = base_forward(bp["base"], bcfg, batch)
+            z, _ = base_forward(bp["base"], bcfg, batch)
             for mname, mcfg, mp in vendors:
-                logits = modular_forward(mp["modular"], mcfg, z)
+                logits = modular_forward(mp["modular"], mcfg, z)[0]
                 ok = bool(torch.all(torch.isfinite(logits)))
                 print(f"  base[{bname}] -> z{tuple(z.shape)} -> "
                       f"modular[{mname}] -> logits{tuple(logits.shape)} "

@@ -64,17 +64,24 @@
 // fp32 path is held to, and the reduced LM config's card-vs-CPU check
 // (1e-4) runs it.
 //
-// Head dims: any hd with hd % 8 == 0 and 8 <= hd <= 128 runs on the
-// instance of the next HD in {32, 64, 128}: a bf16 row is then a whole
-// number of 16-byte chunks. Every kernel reads and writes global memory
-// at the true hd (rows of hd elements, never a column past hd); the
-// columns hd .. HD - 1 of q, k, v, o and dO are zero-filled in shared
-// memory or registers, so they add exactly 0 to every product over the
-// head dim (q.k, dO.v, rowsum(dO * O)), and the padded columns of o, dq,
-// dk and dv are not written. The scale (1 / sqrt(hd)) comes from the
-// wrapper. At hd == HD nothing is padded; chip_smoke.py holds hd 64 and
-// 128 bitwise to the kernels before the padding
-// (tests/data/attn_fingerprints_hd64_128.json).
+// Head dims: q and k have a head dim hd, v (and so o, dO and dv) its own
+// hdv <= hd (MLA: hd 192 = nope 128 + rope 64, hdv 128). Any hd with
+// hd % 8 == 0 and 8 <= hd <= 192 runs on the instance of the next HD in
+// {32, 64, 128, 192}, and any hdv % 8 == 0 in [8, hd] on the same one: a
+// bf16 row is then a whole number of 16-byte chunks. Every kernel reads
+// and writes global memory at the true hd and hdv (rows of hd or hdv
+// elements, never a column past them); the columns hd .. HD - 1 of q
+// and k and hdv .. HD - 1 of v, o and dO are zero-filled in shared
+// memory or registers, so they add exactly 0 to every product over a
+// head dim (q.k, dO.v, rowsum(dO * O)) and give exactly 0 in the padded
+// columns of P V, which are not written, nor are those of dq, dk and dv.
+// The PV products still run over HD columns: at MLA's (192, 128) a
+// third of that work multiplies zeros. The scale comes from the wrapper
+// (1 / sqrt(hd) unless the caller gives one). At hd == hdv == HD nothing
+// is padded; chip_smoke.py holds hd 64 and 128 bitwise to the kernels
+// before the padding (tests/data/attn_fingerprints_hd64_128.json). The
+// fp32 kernels stage 16-row tiles at HD 192 (two 32-row tiles would
+// pass the 48 KB of static shared memory).
 //
 // Built by nvcc into a shared library with a plain C interface and
 // called through ctypes (src/repro_torch/kernels/ops.py).
@@ -104,7 +111,21 @@ constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
 constexpr int kGroup = 8;               // lanes per group
 constexpr int kGroups = 32 / kGroup;    // groups per warp
-constexpr int kTile = 32;               // rows per shared-memory tile
+// Rows per shared-memory tile: 32, or 16 at HD 192, where two 32-row
+// fp32 tiles (51,200 bytes) would pass the 48 KB static limit.
+template <int HD>
+__host__ __device__ constexpr int simt_tile() {
+  return HD > 128 ? 16 : 32;
+}
+// Query rows a warp (the forward, dQ) and key rows a warp (dK/dV) own.
+template <int HD>
+__host__ __device__ constexpr int simt_rows_q() {
+  return 32 / (HD / 8) > 0 ? 32 / (HD / 8) : 1;
+}
+template <int HD>
+__host__ __device__ constexpr int simt_rows_k() {
+  return 16 / (HD / 8) > 0 ? 16 / (HD / 8) : 1;
+}
 constexpr float kNeg = -1e30f;          // the TPU kernel's mask value
 
 // Sum over the 8 lanes of a group.
@@ -132,15 +153,15 @@ __device__ __forceinline__ bool visible(int i, int j, int S, int window) {
   return i < S && j < S && j <= i && (window <= 0 || j > i - window);
 }
 
-// Stage rows r0 .. r0 + kTile of head `head` of batch row b of a
-// (B, S, NH, hd) fp32 tensor into shared memory as HD columns, zeros past
-// S and past hd.
+// Stage rows r0 .. r0 + simt_tile<HD>() of head `head` of batch row b of
+// a (B, S, NH, hd) fp32 tensor into shared memory as HD columns, zeros
+// past S and past hd.
 template <int HD>
 __device__ __forceinline__ void load_tile(float* dst, const float* src, int b,
                                           int r0, int S, int NH, int head,
                                           int hd) {
   constexpr int HDP = HD + 8;
-  for (int idx = threadIdx.x; idx < kTile * HD; idx += kThreads) {
+  for (int idx = threadIdx.x; idx < simt_tile<HD>() * HD; idx += kThreads) {
     const int r = idx / HD;
     const int c = idx - r * HD;
     const int row = r0 + r;
@@ -169,11 +190,12 @@ __global__ void __launch_bounds__(kThreads)
 attn_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                 const float* __restrict__ v, float* __restrict__ o,
                 float* __restrict__ lse, int S, int H, int KVH, int window,
-                float scale, int hd) {
+                float scale, int hd, int hdv) {
   constexpr int EPL = HD / kGroup;  // dims per lane
-  constexpr int R = 32 / EPL;       // query rows per warp
+  constexpr int R = simt_rows_q<HD>();  // query rows per warp
   constexpr int BQ = kWarps * R;    // query rows per block
   constexpr int HDP = HD + 8;
+  constexpr int kTile = simt_tile<HD>();
   __shared__ float sk[kTile * HDP];
   __shared__ float sv[kTile * HDP];
 
@@ -202,7 +224,7 @@ attn_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   for (int j0 = (kv_lo / kTile) * kTile; j0 < kv_hi; j0 += kTile) {
     __syncthreads();  // the previous tile is consumed
     load_tile<HD>(sk, k, b, j0, S, KVH, kvh, hd);
-    load_tile<HD>(sv, v, b, j0, S, KVH, kvh, hd);
+    load_tile<HD>(sv, v, b, j0, S, KVH, kvh, hdv);
     __syncthreads();
     for (int jj = g; jj < kTile; jj += kGroups) {
       const int j = j0 + jj;
@@ -241,8 +263,8 @@ attn_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
     for (int e = 0; e < EPL; ++e) {
       const float a = groups_sum(acc[r][e] * c);
-      if (g == 0 && i < S && t + kGroup * e < hd)
-        o[(((size_t)b * S + i) * H + h) * hd + t + kGroup * e] = a * inv;
+      if (g == 0 && i < S && t + kGroup * e < hdv)
+        o[(((size_t)b * S + i) * H + h) * hdv + t + kGroup * e] = a * inv;
     }
     if (lane == 0 && i < S)
       lse[((size_t)b * H + h) * S + i] = lt > 0.f ? mt + logf(lt) : kNeg;
@@ -258,11 +280,12 @@ attn_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
                    const float* __restrict__ v, const float* __restrict__ o,
                    const float* __restrict__ dout, const float* __restrict__ lse,
                    float* __restrict__ dsum, float* __restrict__ dq, int S, int H,
-                   int KVH, int window, float scale, int hd) {
+                   int KVH, int window, float scale, int hd, int hdv) {
   constexpr int EPL = HD / kGroup;
-  constexpr int R = 32 / EPL;
+  constexpr int R = simt_rows_q<HD>();
   constexpr int BQ = kWarps * R;
   constexpr int HDP = HD + 8;
+  constexpr int kTile = simt_tile<HD>();
   __shared__ float sk[kTile * HDP];
   __shared__ float sv[kTile * HDP];
 
@@ -282,8 +305,8 @@ attn_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const int i = row0 + r;
     float orow[EPL];
     load_row<HD>(qr[r], q, b, i, S, H, h, t, hd);
-    load_row<HD>(dor[r], dout, b, i, S, H, h, t, hd);
-    load_row<HD>(orow, o, b, i, S, H, h, t, hd);
+    load_row<HD>(dor[r], dout, b, i, S, H, h, t, hdv);
+    load_row<HD>(orow, o, b, i, S, H, h, t, hdv);
     float d = 0.f;
 #pragma unroll
     for (int e = 0; e < EPL; ++e) {
@@ -300,7 +323,7 @@ attn_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
   for (int j0 = (kv_lo / kTile) * kTile; j0 < kv_hi; j0 += kTile) {
     __syncthreads();
     load_tile<HD>(sk, k, b, j0, S, KVH, kvh, hd);
-    load_tile<HD>(sv, v, b, j0, S, KVH, kvh, hd);
+    load_tile<HD>(sv, v, b, j0, S, KVH, kvh, hdv);
     __syncthreads();
     for (int jj = g; jj < kTile; jj += kGroups) {
       const int j = j0 + jj;
@@ -352,11 +375,12 @@ attn_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ lse,
                      const float* __restrict__ dsum, float* __restrict__ dk,
                      float* __restrict__ dv, int S, int H, int KVH, int window,
-                     float scale, int hd) {
+                     float scale, int hd, int hdv) {
   constexpr int EPL = HD / kGroup;
-  constexpr int RK = 16 / EPL;       // key rows per warp: 2 or 1
+  constexpr int RK = simt_rows_k<HD>();  // key rows per warp: 2 or 1
   constexpr int BK = kWarps * RK;    // key rows per block
   constexpr int HDP = HD + 8;
+  constexpr int kTile = simt_tile<HD>();
   __shared__ float sq[kTile * HDP];
   __shared__ float sdo[kTile * HDP];
   __shared__ float slse[kTile];
@@ -376,7 +400,7 @@ attn_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
   for (int r = 0; r < RK; ++r) {
     load_row<HD>(kr[r], k, b, krow0 + r, S, KVH, kvh, t, hd);
-    load_row<HD>(vr[r], v, b, krow0 + r, S, KVH, kvh, t, hd);
+    load_row<HD>(vr[r], v, b, krow0 + r, S, KVH, kvh, t, hdv);
 #pragma unroll
     for (int e = 0; e < EPL; ++e) {
       dka[r][e] = 0.f;
@@ -392,7 +416,7 @@ attn_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
     for (int i0 = (k0 / kTile) * kTile; i0 < i_hi; i0 += kTile) {
       __syncthreads();
       load_tile<HD>(sq, q, b, i0, S, H, h, hd);
-      load_tile<HD>(sdo, dout, b, i0, S, H, h, hd);
+      load_tile<HD>(sdo, dout, b, i0, S, H, h, hdv);
       for (int r = threadIdx.x; r < kTile; r += kThreads) {
         const int i = i0 + r;
         slse[r] = i < S ? lse[((size_t)b * H + h) * S + i] : 0.f;
@@ -439,11 +463,11 @@ attn_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
     for (int e = 0; e < EPL; ++e) {
       const float a = groups_sum(dka[r][e]) * scale;
       const float c = groups_sum(dva[r][e]);
-      if (g == 0 && j < S && t + kGroup * e < hd) {
-        const size_t off = (((size_t)b * S + j) * KVH + kvh) * hd + t + kGroup * e;
-        dk[off] = a;
-        dv[off] = c;
-      }
+      const size_t row = ((size_t)b * S + j) * KVH + kvh;
+      if (g == 0 && j < S && t + kGroup * e < hd)
+        dk[row * hd + t + kGroup * e] = a;
+      if (g == 0 && j < S && t + kGroup * e < hdv)
+        dv[row * hdv + t + kGroup * e] = c;
     }
   }
 }
@@ -648,7 +672,7 @@ __global__ void __launch_bounds__(kTcThreads)
 attn_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                    const bf16* __restrict__ v, bf16* __restrict__ o,
                    float* __restrict__ lse, int S, int H, int KVH, int window,
-                   float scale, int hd) {
+                   float scale, int hd, int hdv) {
   constexpr int kStage = kKeys * (HD + kPad);
   extern __shared__ __align__(16) unsigned char smem[];
   bf16* sq = reinterpret_cast<bf16*>(smem);
@@ -672,7 +696,7 @@ attn_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
   stage_rows<kBlk, HD>(sq, q, b, q0, S, H, h, hd);
   stage_rows<kKeys, HD>(sk, k, b, t_lo * kKeys, S, KVH, kvh, hd);
-  stage_rows<kKeys, HD>(sv, v, b, t_lo * kKeys, S, KVH, kvh, hd);
+  stage_rows<kKeys, HD>(sv, v, b, t_lo * kKeys, S, KVH, kvh, hdv);
   cp_async_commit();
 
   const float c = scale * kLog2e;  // scores in log2 units
@@ -686,7 +710,7 @@ attn_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       stage_rows<kKeys, HD>(sk + (st ^ 1) * kStage, k, b, (it + 1) * kKeys, S,
                             KVH, kvh, hd);
       stage_rows<kKeys, HD>(sv + (st ^ 1) * kStage, v, b, (it + 1) * kKeys, S,
-                            KVH, kvh, hd);
+                            KVH, kvh, hdv);
       cp_async_commit();
       cp_async_wait<1>();
     } else {
@@ -756,10 +780,10 @@ attn_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const float lt = quad_sum(l[r]);
     const float inv = 1.f / fmaxf(lt, 1e-30f);
     if (i >= S) continue;
-    bf16* orow = o + (((size_t)b * S + i) * H + h) * hd + 2 * t;
+    bf16* orow = o + (((size_t)b * S + i) * H + h) * hdv + 2 * t;
 #pragma unroll
     for (int nb = 0; nb < HD / 8; ++nb)
-      if (nb * 8 < hd)
+      if (nb * 8 < hdv)
         *reinterpret_cast<uint32_t*>(orow + nb * 8) =
             pack_bf16(acc[nb][2 * r] * inv, acc[nb][2 * r + 1] * inv);
     if (t == 0)
@@ -778,7 +802,7 @@ attn_bwd_dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                       const bf16* __restrict__ dout,
                       const float* __restrict__ lse, float* __restrict__ dsum,
                       bf16* __restrict__ dq, int S, int H, int KVH, int window,
-                      float scale, int hd) {
+                      float scale, int hd, int hdv) {
   constexpr int kStage = kKeys * (HD + kPad);
   extern __shared__ __align__(16) unsigned char smem[];
   bf16* sq = reinterpret_cast<bf16*>(smem);
@@ -805,9 +829,9 @@ attn_bwd_dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int t_hi = (kv_hi + kKeys - 1) / kKeys;
 
   stage_rows<kBlk, HD>(sq, q, b, q0, S, H, h, hd);
-  stage_rows<kBlk, HD>(sdo, dout, b, q0, S, H, h, hd);
+  stage_rows<kBlk, HD>(sdo, dout, b, q0, S, H, h, hdv);
   stage_rows<kKeys, HD>(sk, k, b, t_lo * kKeys, S, KVH, kvh, hd);
-  stage_rows<kKeys, HD>(sv, v, b, t_lo * kKeys, S, KVH, kvh, hd);
+  stage_rows<kKeys, HD>(sv, v, b, t_lo * kKeys, S, KVH, kvh, hdv);
   cp_async_commit();
 
   // D and lse of the block's rows: two threads a row, half a row each.
@@ -817,10 +841,10 @@ attn_bwd_dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const int i = q0 + r;
     float d = 0.f;
     if (i < S) {
-      const size_t off = (((size_t)b * S + i) * H + h) * hd + half * (HD / 2);
+      const size_t off = (((size_t)b * S + i) * H + h) * hdv + half * (HD / 2);
 #pragma unroll
       for (int e = 0; e < HD / 2; e += 8) {
-        if (half * (HD / 2) + e >= hd) break;  // the padded columns add 0
+        if (half * (HD / 2) + e >= hdv) break;  // the padded columns add 0
         const uint4 xo = *reinterpret_cast<const uint4*>(o + off + e);
         const uint4 xd = *reinterpret_cast<const uint4*>(dout + off + e);
         const bf16* po = reinterpret_cast<const bf16*>(&xo);
@@ -854,7 +878,7 @@ attn_bwd_dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       stage_rows<kKeys, HD>(sk + (st ^ 1) * kStage, k, b, (it + 1) * kKeys, S,
                             KVH, kvh, hd);
       stage_rows<kKeys, HD>(sv + (st ^ 1) * kStage, v, b, (it + 1) * kKeys, S,
-                            KVH, kvh, hd);
+                            KVH, kvh, hdv);
       cp_async_commit();
       cp_async_wait<1>();
     } else {
@@ -912,7 +936,7 @@ attn_bwd_dkdv_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                         const float* __restrict__ lse,
                         const float* __restrict__ dsum, bf16* __restrict__ dk,
                         bf16* __restrict__ dv, int S, int H, int KVH,
-                        int window, float scale, int hd) {
+                        int window, float scale, int hd, int hdv) {
   constexpr int N = dkdv_rows<HD>();
   constexpr int kStage = N * (HD + kPad);
   extern __shared__ __align__(16) unsigned char smem[];
@@ -945,13 +969,13 @@ attn_bwd_dkdv_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const int i0 = (t_lo + n % nt) * N;
     const size_t bh = (size_t)b * H + h;
     stage_rows<N, HD>(sq + st * kStage, q, b, i0, S, H, h, hd);
-    stage_rows<N, HD>(sdo + st * kStage, dout, b, i0, S, H, h, hd);
+    stage_rows<N, HD>(sdo + st * kStage, dout, b, i0, S, H, h, hdv);
     stage_vec<N>(sl + st * N, lse + bh * S, i0, S);
     stage_vec<N>(sd + st * N, dsum + bh * S, i0, S);
   };
 
   stage_rows<kBlk, HD>(sk, k, b, k0, S, KVH, kvh, hd);
-  stage_rows<kBlk, HD>(sv, v, b, k0, S, KVH, kvh, hd);
+  stage_rows<kBlk, HD>(sv, v, b, k0, S, KVH, kvh, hdv);
   stage(0, 0);
   cp_async_commit();
 
@@ -1005,14 +1029,15 @@ attn_bwd_dkdv_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   for (int r = 0; r < 2; ++r) {
     const int j = w0 + g + 8 * r;
     if (j >= S) continue;
-    const size_t off = (((size_t)b * S + j) * KVH + kvh) * hd + 2 * t;
+    const size_t row = ((size_t)b * S + j) * KVH + kvh;
 #pragma unroll
     for (int nb = 0; nb < HD / 8; ++nb) {
-      if (nb * 8 >= hd) break;
-      *reinterpret_cast<uint32_t*>(dk + off + nb * 8) =
-          pack_bf16(dka[nb][2 * r] * scale, dka[nb][2 * r + 1] * scale);
-      *reinterpret_cast<uint32_t*>(dv + off + nb * 8) =
-          pack_bf16(dva[nb][2 * r], dva[nb][2 * r + 1]);
+      if (nb * 8 < hd)
+        *reinterpret_cast<uint32_t*>(dk + row * hd + 2 * t + nb * 8) =
+            pack_bf16(dka[nb][2 * r] * scale, dka[nb][2 * r + 1] * scale);
+      if (nb * 8 < hdv)
+        *reinterpret_cast<uint32_t*>(dv + row * hdv + 2 * t + nb * 8) =
+            pack_bf16(dva[nb][2 * r], dva[nb][2 * r + 1]);
     }
   }
 }
@@ -1023,33 +1048,34 @@ struct Args {
   const void *q, *k, *v, *o, *dout, *lse;
   void *out, *lse_out, *dsum, *dq, *dk, *dv;
   int B, S, H, KVH, window;
-  int hd;  // the true head dim, <= the instance's HD
+  int hd;   // q's and k's true head dim, <= the instance's HD
+  int hdv;  // v's (and o's) true head dim, <= hd
   float scale;
   cudaStream_t stream;
 };
 
 template <int HD>
 void launch_fwd_simt(const Args& a) {
-  constexpr int BQ = kWarps * (32 / (HD / kGroup));
+  constexpr int BQ = kWarps * simt_rows_q<HD>();
   dim3 grid((a.S + BQ - 1) / BQ, a.B * a.H);
   attn_fwd_kernel<HD><<<grid, kThreads, 0, a.stream>>>(
       static_cast<const float*>(a.q), static_cast<const float*>(a.k),
       static_cast<const float*>(a.v), static_cast<float*>(a.out),
       static_cast<float*>(a.lse_out), a.S, a.H, a.KVH, a.window, a.scale,
-      a.hd);
+      a.hd, a.hdv);
 }
 
 template <int HD>
 int launch_bwd_simt(const Args& a) {
-  constexpr int BQ = kWarps * (32 / (HD / kGroup));
-  constexpr int BK = kWarps * (16 / (HD / kGroup));
+  constexpr int BQ = kWarps * simt_rows_q<HD>();
+  constexpr int BK = kWarps * simt_rows_k<HD>();
   dim3 grid_q((a.S + BQ - 1) / BQ, a.B * a.H);
   attn_bwd_dq_kernel<HD><<<grid_q, kThreads, 0, a.stream>>>(
       static_cast<const float*>(a.q), static_cast<const float*>(a.k),
       static_cast<const float*>(a.v), static_cast<const float*>(a.o),
       static_cast<const float*>(a.dout), static_cast<const float*>(a.lse),
       static_cast<float*>(a.dsum), static_cast<float*>(a.dq), a.S, a.H,
-      a.KVH, a.window, a.scale, a.hd);
+      a.KVH, a.window, a.scale, a.hd, a.hdv);
   const int rc = static_cast<int>(cudaGetLastError());
   if (rc != 0) return rc;
   dim3 grid_k((a.S + BK - 1) / BK, a.B * a.KVH);
@@ -1058,7 +1084,7 @@ int launch_bwd_simt(const Args& a) {
       static_cast<const float*>(a.v), static_cast<const float*>(a.dout),
       static_cast<const float*>(a.lse), static_cast<const float*>(a.dsum),
       static_cast<float*>(a.dk), static_cast<float*>(a.dv), a.S, a.H, a.KVH,
-      a.window, a.scale, a.hd);
+      a.window, a.scale, a.hd, a.hdv);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1090,7 +1116,7 @@ int launch_fwd_tc(const Args& a) {
       static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
       static_cast<const bf16*>(a.v), static_cast<bf16*>(a.out),
       static_cast<float*>(a.lse_out), a.S, a.H, a.KVH, a.window, a.scale,
-      a.hd);
+      a.hd, a.hdv);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1110,7 +1136,7 @@ int launch_bwd_tc(const Args& a) {
       static_cast<const bf16*>(a.v), static_cast<const bf16*>(a.o),
       static_cast<const bf16*>(a.dout), static_cast<const float*>(a.lse),
       static_cast<float*>(a.dsum), static_cast<bf16*>(a.dq), a.S, a.H, a.KVH,
-      a.window, a.scale, a.hd);
+      a.window, a.scale, a.hd, a.hdv);
   const int rc = static_cast<int>(cudaGetLastError());
   if (rc != 0) return rc;
   dim3 grid_k((a.S + kBlk - 1) / kBlk, a.B * a.KVH);
@@ -1120,7 +1146,7 @@ int launch_bwd_tc(const Args& a) {
           static_cast<const bf16*>(a.v), static_cast<const bf16*>(a.dout),
           static_cast<const float*>(a.lse), static_cast<const float*>(a.dsum),
           static_cast<bf16*>(a.dk), static_cast<bf16*>(a.dv), a.S, a.H,
-          a.KVH, a.window, a.scale, a.hd);
+          a.KVH, a.window, a.scale, a.hd, a.hdv);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1136,15 +1162,18 @@ int dispatch(const Args& a, int dtype, bool bwd) {
   return -1;
 }
 
-// The instance of a head dim: the next of 32, 64 and 128 at or above it.
+// The instance of a head dim: the next of 32, 64, 128 and 192 at or
+// above q's and k's.
 int run(const Args& a, int dtype, bool bwd) {
   if (a.B < 1 || a.S < 1 || a.H < 1 || a.KVH < 1 || a.H % a.KVH != 0)
     return -1;
   if (a.B * a.H > 65535) return -1;  // grid y of the forward and of dQ
-  if (a.hd < 8 || a.hd > 128 || a.hd % 8 != 0) return -1;
+  if (a.hd < 8 || a.hd > 192 || a.hd % 8 != 0) return -1;
+  if (a.hdv < 8 || a.hdv > a.hd || a.hdv % 8 != 0) return -1;
   if (a.hd <= 32) return dispatch<32>(a, dtype, bwd);
   if (a.hd <= 64) return dispatch<64>(a, dtype, bwd);
-  return dispatch<128>(a, dtype, bwd);
+  if (a.hd <= 128) return dispatch<128>(a, dtype, bwd);
+  return dispatch<192>(a, dtype, bwd);
 }
 
 }  // namespace
@@ -1154,16 +1183,19 @@ int run(const Args& a, int dtype, bool bwd) {
 // cudaError_t of a launch. dtype: 0 = float32, 1 = bfloat16. window <= 0
 // means global causal attention.
 
-// q: (B, S, H, hd); k, v: (B, S, KVH, hd) -> o (B, S, H, hd),
-// lse (B, H, S) fp32; hd a multiple of 8 in [8, 128].
+// q, k: (B, S, H or KVH, hd); v: (B, S, KVH, hdv) -> o (B, S, H, hdv),
+// lse (B, H, S) fp32; hd a multiple of 8 in [8, 192], hdv one in
+// [8, hd].
 extern "C" int flash_attention_fwd(const void* q, const void* k,
                                    const void* v, void* o, void* lse, int B,
-                                   int S, int H, int KVH, int hd, int window,
-                                   int dtype, float scale, void* stream) {
+                                   int S, int H, int KVH, int hd, int hdv,
+                                   int window, int dtype, float scale,
+                                   void* stream) {
   Args a{};
   a.q = q; a.k = k; a.v = v; a.out = o; a.lse_out = lse;
   a.B = B; a.S = S; a.H = H; a.KVH = KVH; a.window = window; a.scale = scale;
   a.hd = hd;
+  a.hdv = hdv;
   a.stream = static_cast<cudaStream_t>(stream);
   return run(a, dtype, false);
 }
@@ -1175,13 +1207,14 @@ extern "C" int flash_attention_bwd(const void* q, const void* k,
                                    const void* dout, const void* lse,
                                    void* dsum, void* dq, void* dk, void* dv,
                                    int B, int S, int H, int KVH, int hd,
-                                   int window, int dtype, float scale,
-                                   void* stream) {
+                                   int hdv, int window, int dtype,
+                                   float scale, void* stream) {
   Args a{};
   a.q = q; a.k = k; a.v = v; a.o = o; a.dout = dout; a.lse = lse;
   a.dsum = dsum; a.dq = dq; a.dk = dk; a.dv = dv;
   a.B = B; a.S = S; a.H = H; a.KVH = KVH; a.window = window; a.scale = scale;
   a.hd = hd;
+  a.hdv = hdv;
   a.stream = static_cast<cudaStream_t>(stream);
   return run(a, dtype, true);
 }

@@ -75,6 +75,15 @@ def kernel_head_dim(hd: int) -> int:
     return 32 if hd <= 32 else 64 if hd <= 64 else 128
 
 
+def attn_head_dims_ok(hd: int, hdv: int) -> bool:
+    """The full-sequence attention kernels (``flash_attention``) take a
+    q/k head dim ``hd`` that is a multiple of 8 from 8 to 192 and a v
+    head dim ``hdv`` that is a multiple of 8 from 8 to ``hd`` (MLA: 192
+    and 128)."""
+    return (hd % 8 == 0 and 8 <= hd <= 192
+            and hdv % 8 == 0 and 8 <= hdv <= hd)
+
+
 # The split of the cache across blocks (csrc/flash_decode.cu). A tile is
 # 4096 / HD cache rows (16 KB of K and V in bf16 at hd == HD), the
 # kernel's Decode::TL, HD the instance's head dim (``kernel_head_dim``);
@@ -741,17 +750,19 @@ def _check_attn(name: str, q: torch.Tensor, k: torch.Tensor,
     if q.dtype not in _DTYPE_CODE or k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(f"{name}: dtypes {q.dtype}/{k.dtype}/{v.dtype}"
                          " (float32 or bfloat16, all equal)")
-    if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
+    if (q.dim() != 4 or k.dim() != 4 or v.dim() != 4
+            or v.shape[:3] != k.shape[:3]):
         raise ValueError(f"{name}: shapes q {tuple(q.shape)} k "
                          f"{tuple(k.shape)} v {tuple(v.shape)}")
     B, S, H, hd = q.shape
     KVH = k.shape[2]
     if (k.shape[0] != B or k.shape[1] != S or k.shape[3] != hd
-            or H % KVH or not head_dim_ok(hd) or S < 1):
-        raise ValueError(f"{name}: q {tuple(q.shape)} and k "
-                         f"{tuple(k.shape)} are not (B, S, H, hd) / "
-                         f"(B, S, KVH, hd) with H % KVH == 0, hd a "
-                         "multiple of 8 in [8, 128], S >= 1")
+            or H % KVH or not attn_head_dims_ok(hd, v.shape[3]) or S < 1):
+        raise ValueError(f"{name}: q {tuple(q.shape)}, k {tuple(k.shape)} "
+                         f"and v {tuple(v.shape)} are not (B, S, H, hd) / "
+                         f"(B, S, KVH, hd) / (B, S, KVH, hdv) with H % KVH "
+                         "== 0, hd a multiple of 8 in [8, 192], hdv one in "
+                         "[8, hd], S >= 1")
     if not all(t.is_contiguous() for t in (q, k, v)):
         raise ValueError(f"{name}: tensors must be contiguous")
     if any(t.data_ptr() % 16 for t in (q, k, v)):
@@ -763,9 +774,10 @@ def _attn_call(fn_name: str, *args) -> None:
     lib = build.load("flash_attention")
     fn = getattr(lib, fn_name)
     fn.restype = ctypes.c_int
-    # pointers, then B, S, H, KVH, hd, window, dtype, then scale, stream
-    fn.argtypes = ([ctypes.c_void_p] * (len(args) - 9)
-                   + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p])
+    # pointers, then B, S, H, KVH, hd, hdv, window, dtype, then scale,
+    # stream
+    fn.argtypes = ([ctypes.c_void_p] * (len(args) - 10)
+                   + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_void_p])
     rc = fn(*args)
     if rc != 0:
         raise RuntimeError(f"{fn_name} launch failed (code {rc})")
@@ -773,20 +785,22 @@ def _attn_call(fn_name: str, *args) -> None:
 
 def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         *, window: int = -1, scale: Optional[float] = None):
-    """Launch the forward kernel on CUDA tensors q (B, S, H, hd), k, v
-    (B, S, KVH, hd) -> (o (B, S, H, hd) in q's dtype, lse (B, H, S)
-    fp32, each row's softmax logsumexp). Raises on anything the kernel
-    does not take. Counts in ``flash_attention.launches``."""
+    """Launch the forward kernel on CUDA tensors q (B, S, H, hd), k
+    (B, S, KVH, hd), v (B, S, KVH, hdv) -> (o (B, S, H, hdv) in q's
+    dtype, lse (B, H, S) fp32, each row's softmax logsumexp). Raises on
+    anything the kernel does not take. Counts in
+    ``flash_attention.launches``."""
     _check_attn("flash_attention", q, k, v)
     B, S, H, hd = q.shape
+    hdv = v.shape[3]
     scale = scale if scale is not None else 1.0 / math.sqrt(hd)
-    o = torch.empty_like(q)
+    o = torch.empty((B, S, H, hdv), dtype=q.dtype, device=q.device)
     lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         _attn_call("flash_attention_fwd", q.data_ptr(), k.data_ptr(),
                    v.data_ptr(), o.data_ptr(), lse.data_ptr(), B, S, H,
-                   k.shape[2], hd, int(window), _DTYPE_CODE[q.dtype],
+                   k.shape[2], hd, hdv, int(window), _DTYPE_CODE[q.dtype],
                    float(scale), stream)
     flash_attention.launches += 1
     return o, lse
@@ -800,15 +814,18 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     inputs' dtype. One call counts one launch of the backward."""
     _check_attn("flash_attention_bwd", q, k, v)
     B, S, H, hd = q.shape
-    if (o.shape != q.shape or do.shape != q.shape or o.dtype != q.dtype
+    hdv = v.shape[3]
+    if (o.shape != (B, S, H, hdv) or do.shape != o.shape
+            or o.dtype != q.dtype
             or do.dtype != q.dtype or lse.shape != (B, H, S)
             or lse.dtype != torch.float32
             or not all(t.is_contiguous() and t.device == q.device
                        for t in (o, do, lse))
             or o.data_ptr() % 16 or do.data_ptr() % 16):
-        raise ValueError("flash_attention_bwd: o, dO must match q and lse "
-                         "be (B, H, S) fp32, all contiguous on q's device, "
-                         "o and dO starting on 16 bytes")
+        raise ValueError("flash_attention_bwd: o, dO must be (B, S, H, hdv) "
+                         "in q's dtype and lse (B, H, S) fp32, all "
+                         "contiguous on q's device, o and dO starting on "
+                         "16 bytes")
     scale = scale if scale is not None else 1.0 / math.sqrt(hd)
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     dsum = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
@@ -818,7 +835,7 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    v.data_ptr(), o.data_ptr(), do.data_ptr(),
                    lse.data_ptr(), dsum.data_ptr(), dq.data_ptr(),
                    dk.data_ptr(), dv.data_ptr(), B, S, H, k.shape[2], hd,
-                   int(window), _DTYPE_CODE[q.dtype], float(scale), stream)
+                   hdv, int(window), _DTYPE_CODE[q.dtype], float(scale), stream)
     flash_attention_bwd.launches += 1
     return dq, dk, dv
 
@@ -850,13 +867,15 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """Causal (optionally sliding-window) attention over a full
     sequence, the training path's dispatch point.
 
-    q: (B, S, H, hd); k, v: (B, S, KVH, hd), the model's layout, GQA
-    read directly (no repeated K/V). Returns (B, S, H, hd). CPU tensors
-    run ``ref.flash_attention_ref``; CUDA tensors run the kernels through
-    a ``torch.autograd.Function`` (contiguous and starting on 16 bytes,
-    float32 or bfloat16, hd a multiple of 8 in [8, 128]) or raise: bf16 on the
-    tensor-core kernels, float32 on the SIMT ones (tensor cores would
-    take it only as TF32).
+    q: (B, S, H, hd); k: (B, S, KVH, hd); v: (B, S, KVH, hdv), the
+    model's layout, GQA read directly (no repeated K/V); hdv may be
+    smaller than hd (MLA). Returns (B, S, H, hdv). ``scale`` defaults to
+    1 / sqrt(hd). CPU tensors run ``ref.flash_attention_ref``; CUDA
+    tensors run the kernels through a ``torch.autograd.Function``
+    (contiguous and starting on 16 bytes, float32 or bfloat16, hd a
+    multiple of 8 in [8, 192], hdv one in [8, hd]) or raise: bf16 on
+    the tensor-core kernels, float32 on the SIMT ones (tensor cores
+    would take it only as TF32).
     """
     if q.device.type == "cpu":
         return ref.flash_attention_ref(q, k, v, causal=True, window=window,

@@ -181,8 +181,10 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     plain version of the ``flash_attention`` kernel (a port of
     ``repro/kernels/ref.py:79`` that takes GQA K/V directly).
 
-    q: (B, S, H, hd); k, v: (B, S, KVH, hd) with H % KVH == 0, the
-    model's layout. Returns (B, S, H, hd) in ``q.dtype``.
+    q: (B, S, H, hd); k: (B, S, KVH, hd); v: (B, S, KVH, hdv) with
+    H % KVH == 0, the model's layout; v's head dim may differ from q's
+    and k's (MLA). Returns (B, S, H, hdv) in ``q.dtype``. ``scale``
+    defaults to 1 / sqrt(hd).
 
     Scores, softmax and the weighted sum are fp32. The probabilities are
     rounded to v's dtype before the PV product, as the TPU kernel does;

@@ -5,8 +5,10 @@
       --mode ifl --rounds 3 --tau 2 --batch 2 --seq 512
 
 runs on the card; ``--reduced --device cpu`` runs the smoke-scale
-family variant on the CPU. Dense GQA decoders only (``check_supported``
-raises for the other families). Writes ``<out>/<name>__<mode>.json``
+family variant on the CPU. Dense GQA, MLA, MoE (with its load-balance
+loss), MTP, Mamba and xLSTM layer programs (``--arch deepseek-v3-671b``,
+``jamba-1.5-large-398b``, ``xlstm-350m``, ...); ``check_supported``
+raises for the families that wait for ROADMAP item 4a-iii. Writes ``<out>/<name>__<mode>.json``
 (the history) and, with ``--save-ckpt``, the params in the reference's
 checkpoint format (IFL clients stacked along a leading (N,) dim).
 """

@@ -1,7 +1,17 @@
-"""GQA self-attention: init, QKV projection, full-sequence causal
-attention for training (``blocked_attention``, ``attn_forward``), the KV
-cache and the single-token decode step. MLA, cross-attention and M-RoPE
-wait for later slices.
+"""Self-attention: GQA and MLA (multi-head latent attention,
+deepseek-v3 [arXiv:2412.19437]): init, full-sequence causal attention
+for training (``blocked_attention``, ``attn_forward``), the decode cache
+and the single-token decode step. Cross-attention and M-RoPE wait for a
+later slice.
+
+MLA trains and prefills in the expanded form: q and k of head dim
+nope + rope (192 at deepseek-v3's widths), v of its own head dim (128),
+scale 1 / sqrt(nope + rope), through the same ``blocked_attention`` (on
+the card the ``flash_attention`` kernels, which take v's head dim apart
+from q's). It decodes in the absorbed form over the compressed
+``{"ckv", "krope"}`` cache (kv_lora + rope = 576 values a token at full
+width): an MQA over the latent that no kernel of the repo takes, plain
+PyTorch here as it is plain ``jnp`` in the reference.
 
 Full-sequence attention dispatches on the device of its tensors: on the
 CPU it is the reference's blocked path (a loop over ``q_block`` query
@@ -31,10 +41,13 @@ from repro_torch.models.rope import apply_rope
 
 
 def init_attn(generator, cfg: ModelConfig, spec: LayerSpec, *, device=None,
-              lead=()):
+              lead=(), dtype=torch.float32):
+    if cfg.use_mla:
+        return _init_mla(generator, cfg, device=device, lead=lead,
+                         dtype=dtype)
     d, hd = cfg.d_model, cfg.resolved_head_dim
     h, kvh = cfg.num_heads, cfg.num_kv_heads
-    kw = dict(device=device, lead=lead)
+    kw = dict(device=device, lead=lead, dtype=dtype)
     return {
         "wq": nn.init_linear(generator, d, h * hd, bias=cfg.qkv_bias, **kw),
         "wk": nn.init_linear(generator, d, kvh * hd, bias=cfg.qkv_bias, **kw),
@@ -118,6 +131,8 @@ def blocked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 def attn_forward(p, cfg: ModelConfig, spec: LayerSpec, x, positions):
     """Full-sequence causal self-attention. x: (B, S, d); positions:
     (B, S) int."""
+    if cfg.use_mla:
+        return _mla_forward(p, cfg, x, positions)
     B, S, _ = x.shape
     q, k, v = _project_qkv(p, cfg, spec, x, positions)
     out = blocked_attention(q, k, v, window=spec.window, q_block=cfg.q_block)
@@ -127,7 +142,18 @@ def attn_forward(p, cfg: ModelConfig, spec: LayerSpec, x, positions):
 def init_attn_cache(cfg: ModelConfig, spec: LayerSpec, batch: int,
                     cache_len: int, dtype, *, device=None, lead=()) -> dict:
     """Zeroed cache. Windowed layers get a ring buffer of len window.
-    ``slot_pos`` (-1 = empty) records the position each slot holds."""
+    ``slot_pos`` (-1 = empty) records the position each slot holds. An
+    MLA layer caches the compressed latent and the rotated shared key
+    instead, ``{"ckv": (B, L, kv_lora), "krope": (B, L, rope)}``, which
+    a position indexes directly (no ``slot_pos``)."""
+    if cfg.use_mla:
+        return {
+            "ckv": torch.zeros((*lead, batch, cache_len, cfg.kv_lora_rank),
+                               dtype=dtype, device=device),
+            "krope": torch.zeros((*lead, batch, cache_len,
+                                  cfg.qk_rope_head_dim),
+                                 dtype=dtype, device=device),
+        }
     L = min(cache_len, spec.window) if spec.window > 0 else cache_len
     shape = (*lead, batch, L, cfg.num_kv_heads, cfg.resolved_head_dim)
     return {
@@ -149,6 +175,8 @@ def attn_decode(p, cfg: ModelConfig, spec: LayerSpec, x, cache, pos,
     not written, so a padded prefill step leaves their cache untouched.
     Returns y: (B, 1, d).
     """
+    if cfg.use_mla:
+        return _mla_decode(p, cfg, x, cache, pos, live)
     B = x.shape[0]
     hd = cfg.resolved_head_dim
     q, k, v = _project_qkv(p, cfg, spec, x, pos[:, None])
@@ -171,4 +199,128 @@ def attn_decode(p, cfg: ModelConfig, spec: LayerSpec, x, cache, pos,
     if spec.window > 0:
         valid &= spos > (pos - spec.window)[:, None]
     o = kops.cached_attn_decode(qh, ck, cv, valid)
+    return nn.linear(p["wo"], o.reshape(B, 1, -1))
+
+
+# =========================================================================
+# MLA (DeepSeek-V3) [arXiv:2412.19437]
+# =========================================================================
+
+
+def _init_mla(generator, cfg: ModelConfig, *, device=None, lead=(),
+              dtype=torch.float32):
+    d, h = cfg.d_model, cfg.num_heads
+    qk = cfg.qk_nope_head_dim + cfg.qk_rope_head_dim
+    kw = dict(device=device, lead=lead, dtype=dtype)
+
+    def norm(n):
+        return {"scale": torch.ones((*lead, n), device=device, dtype=dtype)}
+
+    p = {}
+    if cfg.q_lora_rank > 0:
+        p["wq_a"] = nn.init_linear(generator, d, cfg.q_lora_rank, **kw)
+        p["q_a_norm"] = norm(cfg.q_lora_rank)
+        p["wq_b"] = nn.init_linear(generator, cfg.q_lora_rank, h * qk, **kw)
+    else:
+        p["wq"] = nn.init_linear(generator, d, h * qk, **kw)
+    p["wkv_a"] = nn.init_linear(generator, d,
+                                cfg.kv_lora_rank + cfg.qk_rope_head_dim, **kw)
+    p["kv_a_norm"] = norm(cfg.kv_lora_rank)
+    p["wkv_b"] = nn.init_linear(
+        generator, cfg.kv_lora_rank,
+        h * (cfg.qk_nope_head_dim + cfg.v_head_dim), **kw)
+    p["wo"] = nn.init_linear(generator, h * cfg.v_head_dim, d, **kw)
+    return p
+
+
+def _mla_q(p, cfg: ModelConfig, x):
+    """x: (B, S, d) -> (q_nope (B, S, h, nope), q_rope (B, S, h, rope)),
+    through the q LoRA (``wq_a``, rmsnorm, ``wq_b``) or plain ``wq``."""
+    B, S, _ = x.shape
+    qk = cfg.qk_nope_head_dim + cfg.qk_rope_head_dim
+    if "wq_a" in p:
+        ql = nn.apply_norm(p["q_a_norm"], nn.linear(p["wq_a"], x), "rmsnorm")
+        q = nn.linear(p["wq_b"], ql)
+    else:
+        q = nn.linear(p["wq"], x)
+    q = q.reshape(B, S, cfg.num_heads, qk)
+    return q[..., :cfg.qk_nope_head_dim], q[..., cfg.qk_nope_head_dim:]
+
+
+def _mla_latent(p, cfg: ModelConfig, x, positions):
+    """x: (B, S, d) -> (ckv (B, S, kv_lora) normed, krope (B, S, rope)
+    rotated), both in x's dtype: what the decode cache holds."""
+    kv = nn.linear(p["wkv_a"], x)
+    ckv = nn.apply_norm(p["kv_a_norm"], kv[..., :cfg.kv_lora_rank],
+                        "rmsnorm")
+    krope = apply_rope(kv[..., cfg.kv_lora_rank:][:, :, None, :], positions,
+                       cfg.rope_theta)[:, :, 0]
+    return ckv.to(x.dtype), krope.to(x.dtype)
+
+
+def mla_scale(cfg: ModelConfig) -> float:
+    return 1.0 / math.sqrt(cfg.qk_nope_head_dim + cfg.qk_rope_head_dim)
+
+
+def _mla_forward(p, cfg: ModelConfig, x, positions):
+    """Expanded (non-absorbed) MLA for training and full prefill: per
+    head q, k of dim nope + rope, v of dim v_head_dim."""
+    B, S, _ = x.shape
+    h, nope, rope = cfg.num_heads, cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
+    qn, qr = _mla_q(p, cfg, x)
+    qr = apply_rope(qr, positions, cfg.rope_theta)
+    ckv, krope = _mla_latent(p, cfg, x, positions)
+    kvb = nn.linear(p["wkv_b"], ckv).reshape(B, S, h, nope + cfg.v_head_dim)
+    kn, v = kvb[..., :nope], kvb[..., nope:]
+    q = torch.cat([qn, qr], dim=-1)
+    k = torch.cat([kn, krope[:, :, None].expand(B, S, h, rope)], dim=-1)
+    out = blocked_attention(q, k, v, q_block=cfg.q_block,
+                            scale=mla_scale(cfg))
+    return nn.linear(p["wo"], out.reshape(B, S, -1))
+
+
+def _mla_decode(p, cfg: ModelConfig, x, cache, pos,
+                live: Optional[torch.Tensor] = None):
+    """Absorbed MLA decode, one token per row: scores and values live in
+    the latent space, so a token costs O(L * (kv_lora + rope)) and the
+    cache stays compressed. x: (B, 1, d); pos: (B,) int; cache:
+    {"ckv": (B, L, kv_lora), "krope": (B, L, rope)}, written in place at
+    each live row's position (clamped to L - 1, as the reference's
+    ``dynamic_update_slice`` clamps). Returns y: (B, 1, d)."""
+    B = x.shape[0]
+    h, nope = cfg.num_heads, cfg.qk_nope_head_dim
+    positions = pos[:, None]
+    qn, qr = _mla_q(p, cfg, x)  # (B, 1, h, nope), (B, 1, h, rope)
+    qr = apply_rope(qr, positions, cfg.rope_theta)
+    ckv_t, krope_t = _mla_latent(p, cfg, x, positions)  # (B, 1, .)
+    ckv, krope = cache["ckv"], cache["krope"]
+    L = ckv.shape[1]
+    slot = torch.clamp(pos, max=L - 1)
+    rows = torch.arange(B, device=x.device)
+    c1, r1 = ckv_t[:, 0], krope_t[:, 0]
+    if live is not None:
+        c1 = torch.where(live[:, None], c1, ckv[rows, slot])
+        r1 = torch.where(live[:, None], r1, krope[rows, slot])
+    ckv[rows, slot] = c1
+    krope[rows, slot] = r1
+
+    # (lora, h, nope + v), or (B, lora, h, nope + v) per row.
+    w = p["wkv_b"]["w"]
+    wkv_b = w.reshape(*w.shape[:-1], h, nope + cfg.v_head_dim).to(x.dtype)
+    w_uk, w_uv = wkv_b[..., :nope], wkv_b[..., nope:]
+    if wkv_b.dim() == 4:  # per-row weights (B, lora, h, .)
+        q_lat = torch.einsum("bqhn,blhn->bqhl", qn, w_uk)
+    else:
+        q_lat = torch.einsum("bqhn,lhn->bqhl", qn, w_uk)  # absorb k up-proj
+    s = torch.einsum("bqhl,bsl->bhqs", q_lat, ckv)
+    s = s + torch.einsum("bqhr,bsr->bhqs", qr, krope)
+    s = s.float() * mla_scale(cfg)
+    valid = torch.arange(L, device=x.device)[None, :] <= pos[:, None]
+    s = torch.where(valid[:, None, None, :], s, NEG_INF)
+    pr = torch.softmax(s, dim=-1).to(ckv.dtype)
+    o_lat = torch.einsum("bhqs,bsl->bqhl", pr, ckv)
+    if wkv_b.dim() == 4:
+        o = torch.einsum("bqhl,blhv->bqhv", o_lat, w_uv)
+    else:
+        o = torch.einsum("bqhl,lhv->bqhv", o_lat, w_uv)  # absorb v up-proj
     return nn.linear(p["wo"], o.reshape(B, 1, -1))

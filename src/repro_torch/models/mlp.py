@@ -2,17 +2,18 @@
 
 from __future__ import annotations
 
+import torch
+
 from repro_torch.models import modules as nn
 
 
-def init_mlp(generator, d_model: int, d_ff: int, *, device=None, lead=()):
+def init_mlp(generator, d_model: int, d_ff: int, *, device=None, lead=(),
+             dtype=torch.float32):
+    kw = dict(device=device, lead=lead, dtype=dtype)
     return {
-        "w_gate": nn.init_linear(generator, d_model, d_ff, device=device,
-                                 lead=lead),
-        "w_up": nn.init_linear(generator, d_model, d_ff, device=device,
-                               lead=lead),
-        "w_down": nn.init_linear(generator, d_ff, d_model, device=device,
-                                 lead=lead),
+        "w_gate": nn.init_linear(generator, d_model, d_ff, **kw),
+        "w_up": nn.init_linear(generator, d_model, d_ff, **kw),
+        "w_down": nn.init_linear(generator, d_ff, d_model, **kw),
     }
 
 

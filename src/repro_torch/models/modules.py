@@ -21,22 +21,43 @@ def dtype_of(name: str) -> torch.dtype:
     return getattr(torch, name)
 
 
-def _randn(shape, generator, device) -> torch.Tensor:
-    return torch.randn(shape, generator=generator, device=device,
-                       dtype=torch.float32)
+# Elements drawn in fp32 at once when a leaf is drawn in another dtype.
+_DRAW_CHUNK = 1 << 28
+
+
+def normal(shape, std: float, generator, device,
+           dtype=torch.float32) -> torch.Tensor:
+    """N(0, std^2) in ``dtype``. In fp32 one draw of the whole leaf. In
+    another dtype the leaf is drawn in fp32 a slab of leading rows at a
+    time and cast as it is drawn, so a bf16 model never holds more than
+    ``_DRAW_CHUNK`` fp32 elements at once (one routed-expert leaf of
+    deepseek-v3, 256 x 7168 x 2048, would be 15 GB in fp32)."""
+    def draw(s):
+        return torch.randn(s, generator=generator, device=device,
+                           dtype=torch.float32) * std
+
+    if dtype == torch.float32:
+        return draw(shape)
+    out = torch.empty(shape, dtype=dtype, device=device)
+    flat = out.view(-1, shape[-1]) if len(shape) > 1 else out.view(1, -1)
+    rows = max(1, _DRAW_CHUNK // max(1, flat.shape[1]))
+    for r0 in range(0, flat.shape[0], rows):
+        blk = flat[r0:r0 + rows]
+        blk.copy_(draw(blk.shape))
+    return out
 
 
 # ----------------------------------------------------------------- linear
 
 
 def init_linear(generator, d_in: int, d_out: int, *, bias: bool = False,
-                device=None, lead=()):
+                device=None, lead=(), dtype=torch.float32):
     """N(0, 1/d_in) weights, zero bias, as the JAX package draws them.
     ``lead`` prepends stacked dims (e.g. the group dim)."""
     scale = 1.0 / math.sqrt(d_in)
-    p = {"w": _randn((*lead, d_in, d_out), generator, device) * scale}
+    p = {"w": normal((*lead, d_in, d_out), scale, generator, device, dtype)}
     if bias:
-        p["b"] = torch.zeros((*lead, d_out), device=device)
+        p["b"] = torch.zeros((*lead, d_out), device=device, dtype=dtype)
     return p
 
 
@@ -64,8 +85,9 @@ def linear(p, x: torch.Tensor) -> torch.Tensor:
 # ----------------------------------------------------------------- embedding
 
 
-def init_embedding(generator, vocab: int, d_model: int, *, device=None):
-    return {"table": _randn((vocab, d_model), generator, device) * 0.02}
+def init_embedding(generator, vocab: int, d_model: int, *, device=None,
+                   dtype=torch.float32):
+    return {"table": normal((vocab, d_model), 0.02, generator, device, dtype)}
 
 
 def embedding(p, ids: torch.Tensor, *, compute_dtype=None) -> torch.Tensor:
@@ -83,12 +105,12 @@ def embedding(p, ids: torch.Tensor, *, compute_dtype=None) -> torch.Tensor:
 # ----------------------------------------------------------------- norms
 
 
-def init_norm(d: int, kind: str, *, device=None):
+def init_norm(d: int, kind: str, *, device=None, dtype=torch.float32):
     if kind == "rmsnorm":
-        return {"scale": torch.ones((d,), device=device)}
+        return {"scale": torch.ones((d,), device=device, dtype=dtype)}
     if kind == "layernorm":
-        return {"scale": torch.ones((d,), device=device),
-                "bias": torch.zeros((d,), device=device)}
+        return {"scale": torch.ones((d,), device=device, dtype=dtype),
+                "bias": torch.zeros((d,), device=device, dtype=dtype)}
     if kind == "nonparam_ln":  # OLMo: LN without learnable affine
         return {}
     raise ValueError(kind)

@@ -20,13 +20,18 @@ forward inside the backward, 'layer' each layer's, 'none' keeps every
 activation), with ``torch.utils.checkpoint`` in its non-reentrant form.
 
 The layer program's mixers are GQA attention ('attn', RoPE or NoPE,
-sliding windows), mLSTM and sLSTM (``xlstm.py``) and Mamba (``ssm.py``),
-with dense or no FFN and rmsnorm / layernorm / nonparam_ln. Every other
-family raises NotImplementedError naming the ROADMAP item that ports it.
-Those families are also the only ones with an auxiliary loss (MoE
-routing) or extra inputs (images, encoder frames, MTP), so the port's
-forward functions return just their tensors where the reference returns
-``(..., aux)`` with aux == 0 here.
+sliding windows), MLA (``cfg.use_mla``), mLSTM and sLSTM (``xlstm.py``)
+and Mamba (``ssm.py``), with a dense, MoE (``moe.py``) or no FFN and
+rmsnorm / layernorm / nonparam_ln, and deepseek-v3's multi-token
+prediction head (``cfg.use_mtp``). The families that need qk-norm, a
+logit softcap, M-RoPE with images or cross-attention raise
+NotImplementedError naming the ROADMAP item that ports them.
+
+The forward functions return the reference's tuples: the MoE layers'
+auxiliary load-balance loss is summed through the layers and groups
+(``base_forward -> (z, aux)``, ``modular_forward -> (logits, aux)`` or
+``(logits, aux, mtp_logits)``), and ``lm_loss`` adds it, with 0.3 times
+the MTP head's offset-2 cross-entropy.
 """
 
 from __future__ import annotations
@@ -46,6 +51,7 @@ from repro_torch.models.attention import (
     init_attn_cache,
 )
 from repro_torch.models.mlp import init_mlp, mlp_forward
+from repro_torch.models.moe import init_moe, moe_decode, moe_forward
 from repro_torch.models.ssm import (
     init_mamba,
     init_mamba_cache,
@@ -65,9 +71,10 @@ from repro_torch.models.xlstm import (
 
 Params = Dict[str, Any]
 
-_MOE_MLA_MTP = "ROADMAP.md queue 1, item 4a-ii (MoE, MLA, MTP)"
 _ATTN_VARIANTS = ("ROADMAP.md queue 1, item 4a-iii (qk-norm, softcap, "
                   "M-RoPE and images, cross-attention and the encoder)")
+
+
 class _Mixer(NamedTuple):
     init: Callable
     forward: Callable
@@ -94,13 +101,9 @@ def check_supported(cfg: ModelConfig) -> ModelConfig:
     for s in cfg.layer_specs():
         if s.mixer != "attn" and s.mixer not in _RECURRENT:
             raise ValueError(f"{cfg.name}: unknown mixer {s.mixer!r}")
-        if s.ffn == "moe":
-            missing["MoE FFN"] = _MOE_MLA_MTP
         if s.cross_attn:
             missing["cross-attention"] = _ATTN_VARIANTS
     flags = {
-        "MLA": (cfg.use_mla, _MOE_MLA_MTP),
-        "MTP head": (cfg.use_mtp, _MOE_MLA_MTP),
         "encoder-decoder": (cfg.is_encdec, _ATTN_VARIANTS),
         "M-RoPE": (cfg.rope_type == "mrope", _ATTN_VARIANTS),
         "qk-norm": (cfg.use_qk_norm, _ATTN_VARIANTS),
@@ -122,26 +125,37 @@ def check_supported(cfg: ModelConfig) -> ModelConfig:
 
 
 def init_layer(generator, cfg: ModelConfig, spec: LayerSpec, *, device=None,
-               lead=()) -> Params:
+               lead=(), dtype=torch.float32) -> Params:
+    """One layer's params, each leaf drawn in ``dtype`` (the recurrent
+    mixers' leaves are drawn in fp32 and cast, a mixer at a time)."""
     def norm():
         return nn.tree_map(
             lambda a: a.expand(*lead, *a.shape).clone(),
-            nn.init_norm(cfg.d_model, cfg.norm, device=device))
+            nn.init_norm(cfg.d_model, cfg.norm, device=device, dtype=dtype))
 
     kw = dict(device=device, lead=lead)
     p: Params = {"norm1": norm()}
     if spec.mixer == "attn":
-        p["attn"] = init_attn(generator, cfg, spec, **kw)
+        p["attn"] = init_attn(generator, cfg, spec, dtype=dtype, **kw)
     else:
-        p[spec.mixer] = _RECURRENT[spec.mixer].init(generator, cfg, **kw)
+        p[spec.mixer] = nn.tree_map(
+            lambda a: a.to(dtype),
+            _RECURRENT[spec.mixer].init(generator, cfg, **kw))
     if spec.ffn == "dense":
         p["norm2"] = norm()
-        p["ffn"] = init_mlp(generator, cfg.d_model, cfg.d_ff, **kw)
+        p["ffn"] = init_mlp(generator, cfg.d_model, cfg.d_ff, dtype=dtype,
+                            **kw)
+    elif spec.ffn == "moe":
+        p["norm2"] = norm()
+        p["moe"] = init_moe(generator, cfg, dtype=dtype, **kw)
     return p
 
 
 def apply_layer(p, cfg: ModelConfig, spec: LayerSpec, x, positions):
-    """One layer over a full sequence. x: (B, S, d); positions: (B, S)."""
+    """One layer over a full sequence. x: (B, S, d); positions: (B, S).
+    Returns (x, aux): aux is the MoE FFN's load-balance loss (fp32
+    scalar), 0 for every other layer."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     h = nn.apply_norm(p["norm1"], x, cfg.norm)
     if spec.mixer == "attn":
         y = attn_forward(p["attn"], cfg, spec, h, positions)
@@ -151,7 +165,12 @@ def apply_layer(p, cfg: ModelConfig, spec: LayerSpec, x, positions):
     if spec.ffn == "dense":
         x = x + mlp_forward(p["ffn"], nn.apply_norm(p["norm2"], x, cfg.norm),
                             cfg.act)
-    return x
+    elif spec.ffn == "moe":
+        y, a = moe_forward(p["moe"], cfg,
+                           nn.apply_norm(p["norm2"], x, cfg.norm))
+        x = x + y
+        aux = aux + a
+    return x, aux
 
 
 def decode_layer(p, cfg: ModelConfig, spec: LayerSpec, x, lcache, pos,
@@ -168,6 +187,9 @@ def decode_layer(p, cfg: ModelConfig, spec: LayerSpec, x, lcache, pos,
     if spec.ffn == "dense":
         x = x + mlp_forward(p["ffn"], nn.apply_norm(p["norm2"], x, cfg.norm),
                             cfg.act)
+    elif spec.ffn == "moe":  # each row routed alone, as one B=1 slot
+        x = x + moe_decode(p["moe"], cfg,
+                           nn.apply_norm(p["norm2"], x, cfg.norm))
     return x
 
 
@@ -182,9 +204,11 @@ def init_layer_cache(cfg: ModelConfig, spec: LayerSpec, batch: int,
 
 
 def apply_group(p, cfg: ModelConfig, pattern, x, positions):
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i, spec in enumerate(pattern):
-        x = apply_layer(p[f"l{i}"], cfg, spec, x, positions)
-    return x
+        x, a = apply_layer(p[f"l{i}"], cfg, spec, x, positions)
+        aux = aux + a
+    return x, aux
 
 
 def _remat(fn, *args):
@@ -199,23 +223,28 @@ def scan_groups(groups_p, cfg: ModelConfig, pattern, n_groups: int, x,
                 positions):
     """The stacked groups over a full sequence, one after another
     (``lax.scan`` in JAX). remat='group' checkpoints each group's body,
-    remat='layer' each layer, remat='none' nothing."""
+    remat='layer' each layer, remat='none' nothing. Returns (x, aux), aux
+    summed over the groups' layers."""
     # One unbind per stacked leaf: its backward stacks the groups'
     # gradients once, where indexing each group would scatter every
     # group's gradient into a zeroed copy of the whole stack.
     per_group = nn.tree_map(lambda a: a.unbind(0), groups_p)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for g in range(n_groups):
         gp = nn.tree_map(lambda t: t[g], per_group)
         if cfg.remat == "group":
-            x = _remat(lambda p_, x_: apply_group(p_, cfg, pattern, x_,
-                                                  positions), gp, x)
+            x, a = _remat(lambda p_, x_: apply_group(p_, cfg, pattern, x_,
+                                                     positions), gp, x)
+            aux = aux + a
         elif cfg.remat == "layer":
             for i, spec in enumerate(pattern):
-                x = _remat(lambda p_, x_, spec=spec: apply_layer(
+                x, a = _remat(lambda p_, x_, spec=spec: apply_layer(
                     p_, cfg, spec, x_, positions), gp[f"l{i}"], x)
+                aux = aux + a
         else:
-            x = apply_group(gp, cfg, pattern, x, positions)
-    return x
+            x, a = apply_group(gp, cfg, pattern, x, positions)
+            aux = aux + a
+    return x, aux
 
 
 def _decode_groups(groups, caches, cfg: ModelConfig, pattern, n_groups: int,
@@ -234,15 +263,19 @@ def _decode_groups(groups, caches, cfg: ModelConfig, pattern, n_groups: int,
 # =========================================================================
 
 
-def init_lm(cfg: ModelConfig, *, generator: torch.Generator,
-            device) -> Params:
+def init_lm(cfg: ModelConfig, *, generator: torch.Generator, device,
+            dtype: torch.dtype = torch.float32) -> Params:
     """Random params with the JAX package's shapes, keys and scales:
     N(0, 1/d_in) linears with zero biases, N(0, 0.02) embeddings, unit
     norm scales. The draws themselves differ from JAX's threefry; parity
-    tests carry JAX's params across with ``params_from_numpy`` instead."""
+    tests carry JAX's params across with ``params_from_numpy`` instead.
+
+    Each leaf is drawn in ``dtype`` (``modules.normal``): pass the
+    config's ``param_dtype`` to build a bf16 model without an fp32 copy
+    of it (deepseek-v3 cut to 2 layers + MTP is 58 GB in fp32)."""
     check_supported(cfg.validate())
     pre, bp, bg, mp, mg = cfg._resolved_program()
-    kw = dict(device=device)
+    kw = dict(device=device, dtype=dtype)
     base: Params = {"embed": nn.init_embedding(generator, cfg.vocab_size,
                                                cfg.d_model, **kw)}
     if pre:
@@ -265,6 +298,11 @@ def init_lm(cfg: ModelConfig, *, generator: torch.Generator,
     # forces an untied head: embed lives in base, the head in modular.
     modular["lm_head"] = nn.init_linear(generator, cfg.d_model,
                                         cfg.vocab_size, **kw)
+    if cfg.use_mtp:
+        modular["mtp"] = {
+            "layer": init_layer(generator, cfg, LayerSpec(), **kw),
+            "norm": nn.init_norm(cfg.d_model, cfg.norm, **kw),
+        }
     return {"base": base, "modular": modular}
 
 
@@ -277,42 +315,62 @@ def _positions(cfg: ModelConfig, batch_size: int, seq: int, device):
     return torch.arange(seq, device=device)[None].expand(batch_size, seq)
 
 
-def base_forward(base: Params, cfg: ModelConfig, batch) -> torch.Tensor:
-    """-> z (B, S, d_fusion) in the compute dtype: the fusion-layer
-    output that IFL shares, the only activation crossing the client
-    boundary. batch: {"tokens": (B, S) int}."""
+def base_forward(base: Params, cfg: ModelConfig,
+                 batch) -> Tuple[torch.Tensor, torch.Tensor]:
+    """-> (z (B, S, d_fusion) in the compute dtype, aux fp32): z is the
+    fusion-layer output that IFL shares, the only activation crossing
+    the client boundary; aux the base layers' MoE load-balance loss.
+    batch: {"tokens": (B, S) int}."""
     pre, bp, bg, _, _ = cfg._resolved_program()
     tokens = batch["tokens"]
     B, S = tokens.shape
     cdt = nn.dtype_of(cfg.compute_dtype)
     x = nn.embedding(base["embed"], tokens, compute_dtype=cdt)
     positions = _positions(cfg, B, S, tokens.device)
+    aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
     for i, spec in enumerate(pre):
-        x = apply_layer(base["prefix"][f"l{i}"], cfg, spec, x, positions)
+        x, a = apply_layer(base["prefix"][f"l{i}"], cfg, spec, x, positions)
+        aux = aux + a
     if bg:
-        x = scan_groups(base["groups"], cfg, bp, bg, x, positions)
-    return nn.linear(base["fusion_in"], x).to(cdt)
+        x, a = scan_groups(base["groups"], cfg, bp, bg, x, positions)
+        aux = aux + a
+    return nn.linear(base["fusion_in"], x).to(cdt), aux
 
 
-def modular_trunk(mod: Params, cfg: ModelConfig, z) -> torch.Tensor:
-    """z -> the final normed hidden state: everything above the fusion
-    interface except the LM head."""
+def modular_trunk(mod: Params, cfg: ModelConfig, z):
+    """z -> (the final normed hidden state, aux, positions): everything
+    above the fusion interface except the LM head."""
     _, _, _, mp, mg = cfg._resolved_program()
     B, S, _ = z.shape
     x = nn.linear(mod["fusion_out"], z.to(nn.dtype_of(cfg.compute_dtype)))
+    positions = _positions(cfg, B, S, z.device)
+    aux = torch.zeros((), dtype=torch.float32, device=z.device)
     if mg:
-        x = scan_groups(mod["groups"], cfg, mp, mg, x,
-                        _positions(cfg, B, S, z.device))
-    return nn.apply_norm(mod["final_norm"], x, cfg.norm)
+        x, aux = scan_groups(mod["groups"], cfg, mp, mg, x, positions)
+    return nn.apply_norm(mod["final_norm"], x, cfg.norm), aux, positions
 
 
 def _head_logits(mod: Params, cfg: ModelConfig, x) -> torch.Tensor:
     return nn.linear(mod["lm_head"], x).float()
 
 
-def modular_forward(mod: Params, cfg: ModelConfig, z) -> torch.Tensor:
-    """z: (B, S, d_fusion) -> logits (B, S, V) fp32."""
-    return _head_logits(mod, cfg, modular_trunk(mod, cfg, z))
+def mtp_hidden(mod: Params, cfg: ModelConfig, x, positions):
+    """The MTP head's hidden state from the trunk's: one more dense
+    layer and its norm; the shared LM head reads it to predict the token
+    two ahead."""
+    h2, _ = apply_layer(mod["mtp"]["layer"], cfg, LayerSpec(), x, positions)
+    return nn.apply_norm(mod["mtp"]["norm"], h2, cfg.norm)
+
+
+def modular_forward(mod: Params, cfg: ModelConfig, z):
+    """z: (B, S, d_fusion) -> (logits (B, S, V) fp32, aux), or (logits,
+    aux, mtp_logits) when the config has the MTP head."""
+    x, aux, positions = modular_trunk(mod, cfg, z)
+    logits = _head_logits(mod, cfg, x)
+    if cfg.use_mtp:
+        return logits, aux, _head_logits(mod, cfg,
+                                         mtp_hidden(mod, cfg, x, positions))
+    return logits, aux
 
 
 def chunked_ce(mod: Params, cfg: ModelConfig, h, tokens, *, offset: int,
@@ -337,9 +395,12 @@ def chunked_ce(mod: Params, cfg: ModelConfig, h, tokens, *, offset: int,
     return total / (B * T)
 
 
-def lm_apply(params: Params, cfg: ModelConfig, batch) -> torch.Tensor:
-    z = base_forward(params["base"], cfg, batch)
-    return modular_forward(params["modular"], cfg, z)
+def lm_apply(params: Params, cfg: ModelConfig, batch):
+    """-> (logits, aux, mtp_logits or None)."""
+    z, aux_b = base_forward(params["base"], cfg, batch)
+    out = modular_forward(params["modular"], cfg, z)
+    mtp_logits = out[2] if cfg.use_mtp else None
+    return out[0], aux_b + out[1], mtp_logits
 
 
 def _next_token_ce(logits, tokens, offset: int, start: int) -> torch.Tensor:
@@ -350,12 +411,24 @@ def _next_token_ce(logits, tokens, offset: int, start: int) -> torch.Tensor:
 
 
 def lm_loss(params: Params, cfg: ModelConfig, batch) -> torch.Tensor:
+    """Next-token CE (+ 0.3 x the MTP head's offset-2 CE) + the MoE
+    load-balance loss."""
+    tokens = batch["tokens"]
     if cfg.ce_chunk:
-        z = base_forward(params["base"], cfg, batch)
-        h = modular_trunk(params["modular"], cfg, z)
-        return chunked_ce(params["modular"], cfg, h, batch["tokens"],
-                          offset=1, start=0)
-    return _next_token_ce(lm_apply(params, cfg, batch), batch["tokens"], 1, 0)
+        z, aux_b = base_forward(params["base"], cfg, batch)
+        mod = params["modular"]
+        h, aux_m, positions = modular_trunk(mod, cfg, z)
+        loss = chunked_ce(mod, cfg, h, tokens, offset=1, start=0)
+        if cfg.use_mtp:
+            h2 = mtp_hidden(mod, cfg, h, positions)
+            loss = loss + 0.3 * chunked_ce(mod, cfg, h2, tokens, offset=2,
+                                           start=0)
+        return loss + aux_b + aux_m
+    logits, aux, mtp_logits = lm_apply(params, cfg, batch)
+    loss = _next_token_ce(logits, tokens, 1, 0)
+    if mtp_logits is not None:
+        loss = loss + 0.3 * _next_token_ce(mtp_logits, tokens, 2, 0)
+    return loss + aux
 
 
 # =========================================================================
@@ -473,6 +546,12 @@ def composed_decode_step(base: Params, base_cfg: ModelConfig, mod: Params,
     (B,) bool leaves the cache of rows where it is False untouched.
     ``base`` may hold per-row weights (leading B dim, see
     ``modules.linear``), ``mod`` is shared by all rows.
+
+    The B rows are the reference's vmapped B=1 slots: no row depends on
+    another. An MoE layer routes each row alone (T = 1, so its capacity
+    C = max(floor(K * cf / E), 4) never drops a choice); one joint
+    capacity over the B rows would drop choices once more than C rows
+    pick an expert and break the lanes' bitwise contract.
     Returns (logits (B, 1, V) fp32, cache).
     """
     z, cache = base_decode_step(base, base_cfg, cache, token, pos, live)

@@ -107,8 +107,8 @@ def train_dp_lm(cfg: ModelConfig, *, steps: int = 50, batch: int = 8,
     dev = resolve_device(device)
     check_supported(cfg)
     gen = torch.Generator(device=dev).manual_seed(seed)
-    params = nn.tree_map(lambda a: a.to(nn.dtype_of(cfg.param_dtype)),
-                         init_lm(cfg, generator=gen, device=dev))
+    params = init_lm(cfg, generator=gen, device=dev,
+                     dtype=nn.dtype_of(cfg.param_dtype))
     opt = make_optimizer("sgd")
     opt_state = opt.init(params)
     step_fn = make_dp_train_step(cfg, lr=lr)

@@ -304,7 +304,8 @@ def _loss_and_grads(params, cfg, batch):
 
 def test_xlstm_forward_and_grad(smoke):
     cfg, params, batch = smoke
-    logits = tf.lm_apply(params, cfg, batch)
+    logits, aux, mtp_logits = tf.lm_apply(params, cfg, batch)
+    assert float(aux) == 0.0 and mtp_logits is None
     assert logits.shape == (B, S, cfg.vocab_size)
     assert not torch.any(torch.isnan(logits))
     loss, grads = _loss_and_grads(params, cfg, batch)

@@ -297,6 +297,41 @@ def test_flash_attention_kernels_match_plain_on_card(B, S, H, KVH, hd,
         assert torch.equal(a, b)
 
 
+# MLA's head dims: (B, S, H, KVH, hd, hdv, window), v's head dim apart
+# from q's and k's. deepseek-v3's (192, 128) on the HD 192 instance (its
+# path shape at S 512 with 128 heads, tile edges, a window, GQA), the
+# reduced config's (48, 32) on HD 64, and hd 192 with v at 192.
+MLA_ATTN = [(1, 512, 128, 128, 192, 128, -1), (2, 65, 8, 8, 192, 128, 48),
+            (1, 200, 8, 2, 192, 128, -1), (2, 64, 4, 4, 48, 32, -1),
+            (2, 129, 4, 4, 48, 32, 65), (1, 63, 4, 4, 192, 192, -1)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,H,KVH,hd,hdv,window", MLA_ATTN)
+def test_flash_attention_mla_head_dims_match_plain_on_card(
+        B, S, H, KVH, hd, hdv, window, dtype):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    rng = np.random.default_rng(S + hd + hdv)
+    q, k, v, do = (torch.from_numpy(rng.standard_normal(shape).astype(
+        np.float32)).cuda().to(dtype) for shape in (
+        (B, S, H, hd), (B, S, KVH, hd), (B, S, KVH, hdv), (B, S, H, hdv)))
+    qa, ka, va = (t.clone().requires_grad_() for t in (q, k, v))
+    scale = 1.0 / np.sqrt(hd)
+    out = ops.flash_attention(qa, ka, va, window=window, scale=scale)
+    assert out.shape == (B, S, H, hdv)
+    grads = torch.autograd.grad(out, (qa, ka, va), do)
+    fwd_tol, bwd_tol = ATTN_TOL[dtype]
+    assert _rel(out, ref.flash_attention_ref(q, k, v, window=window,
+                                             scale=scale)) <= fwd_tol
+    want = ref.flash_attention_bwd_ref(q, k, v, do, window=window,
+                                       scale=scale)
+    for g, w, name in zip(grads, want, "qkv"):
+        assert g.dtype == dtype and g.shape == w.shape
+        assert _rel(g, w) <= bwd_tol, f"d{name}"
+
+
 @pytest.mark.cuda
 def test_hd64_128_outputs_bitwise_the_parents_on_card():
     """At hd 64 and 128 every output of the attention kernels (o, lse,
@@ -348,11 +383,15 @@ def test_flash_attention_rejects_bad_inputs_on_card():
     k = torch.zeros((1, 8, 2, 64), device="cuda")
     with pytest.raises(ValueError):
         ops.flash_attention(q.half(), k.half(), k.half())          # dtype
-    for hd in (20, 136):  # not a multiple of 8, or above 128
+    for hd in (20, 200):  # not a multiple of 8, or above 192
         qh, kh = (torch.zeros((*t.shape[:3], hd), device="cuda")
                   for t in (q, k))
         with pytest.raises(ValueError):
             ops.flash_attention(qh, kh, kh)
+    for hdv in (20, 72):  # v's head dim not a multiple of 8, or above q's
+        with pytest.raises(ValueError):
+            ops.flash_attention(q, k, torch.zeros((1, 8, 2, hdv),
+                                                  device="cuda"))
     with pytest.raises(ValueError):
         ops.flash_attention(q, k.transpose(1, 2), k.transpose(1, 2))
     with pytest.raises(ValueError):

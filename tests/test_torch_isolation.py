@@ -31,6 +31,7 @@ def test_import_loads_no_jax_and_no_reference_module():
         "import repro_torch.data.images, repro_torch.data.dirichlet\n"
         "import repro_torch.models.small, repro_torch.launch.quickstart\n"
         "import repro_torch.models.xlstm, repro_torch.models.ssm\n"
+        "import repro_torch.models.moe\n"
         "import repro_torch.examples.compose_inference\n"
         "import repro_torch.core.ifl_spmd, repro_torch.optim\n"
         "import repro_torch.train.loop, repro_torch.launch.train\n"

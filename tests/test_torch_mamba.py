@@ -140,8 +140,9 @@ def test_hybrid_lm_matches_jax():
     toks = np.random.default_rng(3).integers(0, 512, (2, 64)).astype(np.int32)
     jlogits, _, _ = _fast_jit(jtf.lm_apply, jcfg, jp,
                               {"tokens": jnp.asarray(toks)})
-    logits = tf.lm_apply(params_from_numpy(_numpy(params), device="cpu"),
-                         cfg, {"tokens": torch.from_numpy(toks)})
+    logits, _, _ = tf.lm_apply(params_from_numpy(_numpy(params),
+                                                 device="cpu"),
+                               cfg, {"tokens": torch.from_numpy(toks)})
     _close(logits, jlogits)
 
 
