@@ -96,11 +96,29 @@ port's main paths through the entry points a user calls:
     check over the LM and MTP heads in fp32); the reduced deepseek-v3 and
     a jamba period with its experts card against CPU in fp32 (expert
     choices compared); ``launch.train --reduced`` of deepseek-v3-671b
-    and jamba-1.5-large-398b (one IFL round, one DP step).
+    and jamba-1.5-large-398b (one IFL round, one DP step);
+  * the last attention variants (phase 4o): gemma3-27b at its widths
+    (qk-norm, local windows of 1,024) cut to depth (2 local prefix
+    layers, 1 modular group of 6), served to 2 tenants at W 4 and one
+    ``lm_loss`` forward and backward at B 1, S 2048 with the LM head's
+    first-order check; llama4-maverick at its widths (qk-norm, NoPE, 128
+    experts) cut to a local dense base layer and a NoPE global MoE
+    modular layer, served, and one ``lm_loss`` pass at B 1, S 512 with
+    the routed experts held out of the gradient; qwen2-vl-2b at full
+    depth (M-RoPE, 256 image rows) served with text prompts, one
+    ``lm_loss`` pass and ``launch.train --mode dp``; seamless-m4t-large-v2
+    at full depth (24 encoder layers over 1,024 frames on the attention
+    kernels' non-causal mode, cross-attention in the decoder) through
+    ``launch.train --mode dp`` and greedy decoding through its cross
+    caches; the new prefill paths in turns for PROBE_S seconds; the four
+    reduced configs card against CPU (losses, logits, greedy tokens, an
+    IFL round).
 
 It checks each path's results, compares short runs on the card with the
 same runs on the CPU, and times each kernel at the shapes its path gives
-it. The attention kernels also run at head dims other than 64 and 128
+it. The attention kernels also run without the causal mask (the TPU
+kernel's ``causal=False``, checked at ``ATTN_BIDIR_CASES``) and at head
+dims other than 64 and 128
 (every multiple of 8 up to 192, zero-padded to the instance's 32, 64,
 128 or 192, with v's head dim apart from q's and k's), and at 64 and 128 their outputs are held bitwise to those of the
 kernels before that change (sha256 digests in
@@ -519,6 +537,18 @@ MLA_ATTN_CASES = [(1, 512, 128, 128, 192, 128, -1),
 # Timed at deepseek-v3's path shape (bf16, causal): the kernels line's
 # mla_* keys.
 MLA_ATTN_TIMED = MLA_ATTN_CASES[0]
+# The kernels' non-causal mode (the TPU kernel's causal=False, every row
+# sees every key, a window bounding keys from below), (B, S, H, KVH, hd,
+# window): the seamless encoder's self-attention at full width (B 2, S
+# 1024, 16 heads of 64) first; then S 100 and 1000 off the tile
+# multiples, H = KVH and G > 1, hd 64 and 128, with and without a window,
+# a padded head dim. Timed at the encoder's shape (the kernels line's
+# bidir_* keys).
+ATTN_BIDIR_CASES = [(2, 1024, 16, 16, 64, -1), (2, 100, 8, 8, 64, -1),
+                    (1, 1000, 8, 2, 128, -1), (2, 100, 8, 2, 128, 48),
+                    (1, 1000, 4, 4, 64, 65), (2, 100, 16, 2, 64, 1),
+                    (1, 1000, 8, 8, 128, 300), (2, 65, 4, 4, 24, -1)]
+ATTN_BIDIR_TIMED = ATTN_BIDIR_CASES[0]
 # Tolerance, as max |kernel - plain| over max(1, max |plain|): fp32 sums
 # in another order; in bf16 the kernel rounds the unnormalized p of its
 # online softmax to bf16 where the plain version rounds the normalized
@@ -539,9 +569,11 @@ def attn_inputs(B, S, H, KVH, hd, dtype, seed, hdv=None):
 
 
 def attn_cases():
-    """ATTN_CASES and MLA_ATTN_CASES as (B, S, H, KVH, hd, hdv, window)."""
-    return ([(*c[:5], c[4], c[5]) for c in ATTN_CASES]
-            + list(MLA_ATTN_CASES))
+    """ATTN_CASES, MLA_ATTN_CASES (causal) and ATTN_BIDIR_CASES
+    (``causal=False``) as (B, S, H, KVH, hd, hdv, window, causal)."""
+    return ([(*c[:5], c[4], c[5], True) for c in ATTN_CASES]
+            + [(*c, True) for c in MLA_ATTN_CASES]
+            + [(*c[:5], c[4], c[5], False) for c in ATTN_BIDIR_CASES])
 
 
 def rel_err(got, want) -> float:
@@ -550,13 +582,14 @@ def rel_err(got, want) -> float:
                  / max(1.0, float(want.abs().max())))
 
 
-def attn_lse_ref(q, k, window):
+def attn_lse_ref(q, k, window, causal=True):
     """Each row's softmax logsumexp, in fp32, from the plain scores."""
     B, S, H, hd = q.shape
     kf = k.float().repeat_interleave(H // k.shape[2], dim=2)
     s = torch.einsum("bqhd,bkhd->bhqk", q.float(), kf) / math.sqrt(hd)
     i = torch.arange(S, device=q.device)
-    mask = i[None, :] <= i[:, None]
+    mask = (i[None, :] <= i[:, None] if causal
+            else torch.ones((S, S), dtype=torch.bool, device=q.device))
     if window > 0:
         mask &= i[None, :] > i[:, None] - window
     return torch.logsumexp(s.masked_fill(~mask, float("-inf")), dim=-1)
@@ -564,26 +597,33 @@ def attn_lse_ref(q, k, window):
 
 def attn_checks(ops, ref):
     """Both attention kernels against their plain versions at every case
-    of ATTN_CASES and MLA_ATTN_CASES in fp32 and bf16 -> max |err| of
-    each kernel at the LM path's case and at MLA's (bf16, their dtype)
-    and over all cases (relative)."""
-    errs = {"path": {}, "mla": {}, "all": {"fwd": 0.0, "bwd": 0.0}}
-    for B, S, H, KVH, hd, hdv, window in attn_cases():
+    of ATTN_CASES, MLA_ATTN_CASES and ATTN_BIDIR_CASES in fp32 and bf16
+    -> max |err| of each kernel at the LM path's case, at MLA's and at
+    the encoder's (bf16, their dtype) and over all cases (relative)."""
+    errs = {"path": {}, "mla": {}, "enc": {},
+            "all": {"fwd": 0.0, "bwd": 0.0}}
+    cases = attn_cases()
+    first = {cases[0]: "path", cases[len(ATTN_CASES)]: "mla",
+             cases[len(ATTN_CASES) + len(MLA_ATTN_CASES)]: "enc"}
+    for case in cases:
+        B, S, H, KVH, hd, hdv, window, causal = case
         for dtype in (torch.float32, torch.bfloat16):
             q, k, v, do = attn_inputs(B, S, H, KVH, hd, dtype, seed=S + hd,
                                       hdv=hdv)
-            o, lse = ops.flash_attention_fwd(q, k, v, window=window)
-            grads = ops.flash_attention_bwd(q, k, v, o, lse, do,
-                                            window=window)
-            o_ref = ref.flash_attention_ref(q, k, v, window=window)
-            g_ref = ref.flash_attention_bwd_ref(q, k, v, do, window=window)
+            kw = dict(causal=causal, window=window)
+            o, lse = ops.flash_attention_fwd(q, k, v, **kw)
+            grads = ops.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+            o_ref = ref.flash_attention_ref(q, k, v, **kw)
+            g_ref = ref.flash_attention_bwd_ref(q, k, v, do, **kw)
             torch.cuda.synchronize()
             label = (f"B {B} S {S} H {H} KVH {KVH} hd {hd}"
                      + (f" hdv {hdv}" if hdv != hd else "")
-                     + f" window {window} {str(dtype)[6:]}")
+                     + f" window {window} {str(dtype)[6:]}"
+                     + ("" if causal else " bidirectional"))
             tol = ATTN_TOL[dtype]
             fwd = rel_err(o, o_ref)
-            lse_err = float((lse - attn_lse_ref(q, k, window)).abs().max())
+            lse_err = float((lse - attn_lse_ref(q, k, window, causal))
+                            .abs().max())
             bwd = max(rel_err(a, b) for a, b in zip(grads, g_ref))
             check(all(g.dtype == dtype and g.shape == t.shape
                       for g, t in zip(grads, (q, k, v)))
@@ -597,9 +637,7 @@ def attn_checks(ops, ref):
                   f"max|err|)", flush=True)
             errs["all"]["fwd"] = max(errs["all"]["fwd"], fwd)
             errs["all"]["bwd"] = max(errs["all"]["bwd"], bwd)
-            key = ("path" if (B, S, H, KVH, hd, window) == ATTN_CASES[0]
-                   else "mla" if (B, S, H, KVH, hd, hdv, window)
-                   == MLA_ATTN_CASES[0] else None)
+            key = first.get(case)
             if key and dtype == torch.bfloat16:
                 errs[key] = {
                     "fwd": float((o.float() - o_ref.float()).abs().max()),
@@ -694,15 +732,17 @@ def guarded_decode(ops, q, k, v, valid) -> None:
               f"{label}: arrival counters not back at 0")
 
 
-def guarded_attention(ops, B, S, H, KVH, hd, hdv, window, dtype) -> None:
+def guarded_attention(ops, B, S, H, KVH, hd, hdv, window, dtype,
+                      causal=True) -> None:
     """flash_attention_fwd and _bwd's C entries on banded copies of one
     case: the wrappers' bits (o, lse, dq, dk, dv), every band intact,
     after each of GUARD_REPS launches."""
     nan = float("nan")
     q, k, v, do = attn_inputs(B, S, H, KVH, hd, dtype, seed=S + hd + 1,
                               hdv=hdv)
-    o, lse = ops.flash_attention_fwd(q, k, v, window=window)
-    grads = ops.flash_attention_bwd(q, k, v, o, lse, do, window=window)
+    o, lse = ops.flash_attention_fwd(q, k, v, causal=causal, window=window)
+    grads = ops.flash_attention_bwd(q, k, v, o, lse, do, causal=causal,
+                                    window=window)
     ins = {n: _banded(t, nan) for n, t in
            (("q", q), ("k", k), ("v", v), ("o", o), ("do", do),
             ("lse", lse))}
@@ -713,10 +753,12 @@ def guarded_attention(ops, B, S, H, KVH, hd, hdv, window, dtype) -> None:
             "dv": grads[2]}
     p = {n: b[0].data_ptr() for n, b in ins.items()}
     w = {n: b[0].data_ptr() for n, b in outs.items()}
-    dims = (B, S, H, KVH, hd, hdv, int(window), ops._DTYPE_CODE[dtype],
-            1.0 / math.sqrt(hd), torch.cuda.current_stream().cuda_stream)
+    dims = (B, S, H, KVH, hd, hdv, int(window), int(causal),
+            ops._DTYPE_CODE[dtype], 1.0 / math.sqrt(hd),
+            torch.cuda.current_stream().cuda_stream)
     label = (f"guarded attention B {B} S {S} H {H} KVH {KVH} hd {hd} hdv "
-             f"{hdv} window {window} {str(dtype)[6:]}")
+             f"{hdv} window {window} {str(dtype)[6:]}"
+             + ("" if causal else " bidirectional"))
     for _ in range(GUARD_REPS):
         ops._attn_call("flash_attention_fwd", p["q"], p["k"], p["v"],
                        w["o"], w["lse"], *dims)
@@ -733,8 +775,8 @@ def guarded_attention(ops, B, S, H, KVH, hd, hdv, window, dtype) -> None:
 def guard_checks(ops, gen) -> int:
     """The guard-band probes at every DECODE_SPLIT_CASES case, the decode
     shapes of the serving lanes (W 4, cache 64, hd 24/48/64/128) and
-    every ATTN_CASES and MLA_ATTN_CASES case in fp32 and bf16 -> cases
-    run."""
+    every ``attn_cases()`` case (the non-causal ones among them) in fp32
+    and bf16 -> cases run."""
     n = 0
     decode = [(B, L, KVH, G, hd, dtype, lengths)
               for B, L, KVH, G, hd, dtype, lengths in DECODE_SPLIT_CASES]
@@ -746,7 +788,7 @@ def guard_checks(ops, gen) -> int:
         n += 1
     for case in attn_cases():
         for dtype in (torch.float32, torch.bfloat16):
-            guarded_attention(ops, *case, dtype)
+            guarded_attention(ops, *case[:7], dtype, causal=case[7])
             n += 1
     torch.cuda.empty_cache()
     return n
@@ -769,10 +811,19 @@ def event_time_ms(fn, reps: int = 20) -> float:
     return a.elapsed_time(b) / reps
 
 
-def attn_times(ops, ref, shape):
+def attn_pairs(S: int, window: int, causal: bool) -> int:
+    """(query, key) pairs the mask keeps over one head of S rows."""
+    i = np.arange(S)
+    lo = np.maximum(0, i - window + 1) if window > 0 else np.zeros_like(i)
+    hi = i if causal else np.full_like(i, S - 1)
+    return int((hi - lo + 1).sum())
+
+
+def attn_times(ops, ref, shape, causal=True):
     """Forward and backward times at ``shape`` (B, S, H, KVH, hd, window,
-    or B, S, H, KVH, hd, hdv, window; bf16, causal): kernel, plain
-    version, SDPA (``is_causal=True``) and the bound. Forwards are graph-replayed (16 input sets, ~8 MB each at
+    or B, S, H, KVH, hd, hdv, window; bf16, causal or not): kernel, plain
+    version, SDPA (``is_causal=causal``; no window: the timed shapes have
+    none) and the bound. Forwards are graph-replayed (16 input sets, ~8 MB each at
     hd 64, so K/V come from HBM as in the model); backwards are timed
     eagerly with events (the plain and SDPA backwards run through
     autograd), each the backward alone on a forward done once."""
@@ -782,32 +833,33 @@ def attn_times(ops, ref, shape):
                         hdv=hdv) for i in range(16)]
     sdpa = torch.nn.functional.scaled_dot_product_attention
     t = {}
+    kw = dict(causal=causal, window=window)
     t["fwd"] = graph_time_ms([lambda s=s: ops.flash_attention_fwd(
-        s[0], s[1], s[2], window=window) for s in sets])
+        s[0], s[1], s[2], **kw) for s in sets])
     t["fwd_plain"] = graph_time_ms([lambda s=s: ref.flash_attention_ref(
-        s[0], s[1], s[2], window=window) for s in sets])
+        s[0], s[1], s[2], **kw) for s in sets])
     bhsd = [tuple(x.transpose(1, 2) for x in s) for s in sets]
     t["fwd_sdpa"] = graph_time_ms([lambda a=a: sdpa(a[0], a[1], a[2],
-                                                    is_causal=True)
+                                                    is_causal=causal)
                                    for a in bhsd])
     q, k, v, do = sets[0]
-    o, lse = ops.flash_attention_fwd(q, k, v, window=window)
+    o, lse = ops.flash_attention_fwd(q, k, v, **kw)
     t["bwd"] = event_time_ms(lambda: ops.flash_attention_bwd(
-        q, k, v, o, lse, do, window=window))
+        q, k, v, o, lse, do, **kw))
     leaves = [x.detach().clone().requires_grad_() for x in (q, k, v)]
-    o_ref = ref.flash_attention_ref(*leaves, window=window)
+    o_ref = ref.flash_attention_ref(*leaves, **kw)
     t["bwd_plain"] = event_time_ms(lambda: torch.autograd.grad(
         o_ref, leaves, do, retain_graph=True))
     # SDPA in its own (B, H, S, hd) layout, contiguous.
     leaves_t = [x.transpose(1, 2).contiguous().requires_grad_() for x in
                 (q, k, v)]
     do_t = do.transpose(1, 2).contiguous()
-    o_sdpa = sdpa(*leaves_t, is_causal=True)
+    o_sdpa = sdpa(*leaves_t, is_causal=causal)
     t["bwd_sdpa"] = event_time_ms(lambda: torch.autograd.grad(
         o_sdpa, leaves_t, do_t, retain_graph=True))
     # The least work these inputs need: every (query, key) pair the mask
     # keeps, and each tensor moved once.
-    pairs = S * (S + 1) // 2
+    pairs = attn_pairs(S, window, causal)
     q_b, o_b = B * S * H * hd * 2, B * S * H * hdv * 2   # bf16 tensors
     k_b, v_b = B * S * KVH * hd * 2, B * S * KVH * hdv * 2
     lse_b = B * H * S * 4
@@ -824,7 +876,9 @@ def attn_times(ops, ref, shape):
         t[key + "_bound"] = max(b_ms, o_ms)
         t[key + "_bound_by"] = "bytes" if b_ms >= o_ms else "operations"
         print(f"[time] flash_attention {key} at B {B} S {S} H {H} KVH {KVH} "
-              f"hd {hd} hdv {hdv} bf16 causal: kernel {t[key] * 1e3:.2f} us, plain "
+              f"hd {hd} hdv {hdv} bf16 "
+              f"{'causal' if causal else 'bidirectional'}: kernel "
+              f"{t[key] * 1e3:.2f} us, plain "
               f"{t[key + '_plain'] * 1e3:.2f} us, sdpa "
               f"{t[key + '_sdpa'] * 1e3:.2f} us, bound "
               f"{t[key + '_bound'] * 1e3:.3f} us ({nb} bytes, {fl} flops)",
@@ -864,10 +918,19 @@ def counted(ops):
 def reset_counts(ops) -> None:
     for fn in counted(ops):
         fn.launches = 0
+    ops.flash_attention.bidir_launches = 0
+    ops.flash_attention_bwd.bidir_launches = 0
 
 
 def launch_counts(ops):
     return {fn.__name__: fn.launches for fn in counted(ops)}
+
+
+def bidir_counts(ops):
+    """The attention wrappers' ``causal=False`` launches since the last
+    ``reset_counts``."""
+    return {fn.__name__: fn.bidir_launches
+            for fn in (ops.flash_attention, ops.flash_attention_bwd)}
 
 
 def ifl_run(codec, rounds, *, device, tau=10, participation="full",
@@ -3324,17 +3387,19 @@ def compose_twin_phase():
 # modular block: base 1.54e9 parameters (3.1 GB), modular 13.05e9 (26.1
 # GB, 11.27e9 of them routed experts).
 DS_ARCH = "deepseek-v3-671b"
-DS_SERVE = dict(tenants=2, width=4, prompt_len=32, gen=32, horizon=8)
+# The requests of the configs served at their widths, cut to depth
+# (phases 4n and 4o).
+CUT_SERVE = dict(tenants=2, width=4, prompt_len=32, gen=32, horizon=8)
 DS_TRAIN = dict(batch=1, seq=512)
 # The first-order check at full width (tolerances written in PERF.md
 # before the first run): a step eps = GRAD_DROP / |g|^2 along -g lowers
-# the fp32 loss by eps * (g32 . g) within DS_GRAD_TOL, for g = g32 and
+# the fp32 loss by eps * (g32 . g) within HEAD_GRAD_TOL, for g = g32 and
 # g = g16 (the bf16 loss's gradient). 80 GB holds the bf16 model and its
-# bf16 gradient, not an fp32 copy of either (58 GB each), so the check is
-# over the leaves above the trunk, the LM head and the MTP head (1.5e9
-# parameters, held in fp32), with the trunk's output computed once in
-# fp32 and held fixed.
-DS_GRAD_TOL = {"g32": 0.1, "g16": 0.2}
+# bf16 gradient, not an fp32 copy of either (58 GB each for deepseek-v3),
+# so the check is over the leaves above the trunk, the LM head and the
+# MTP head (1.5e9 parameters, held in fp32), with the trunk's output
+# computed once in fp32 and held fixed.
+HEAD_GRAD_TOL = {"g32": 0.1, "g16": 0.2}
 
 
 def deepseek_cut():
@@ -3390,80 +3455,15 @@ def switch_aux(cfg, probs, idx) -> float:
     return E * float((f * probs.mean(0)).sum()) * cfg.router_aux_coef
 
 
-def deepseek_store(cfg, n):
-    """n tenants, each its own bf16 init; tenant 0's modular block
-    shared."""
-    from repro_torch.launch.serve import tenant_generator
-    from repro_torch.models.transformer import init_lm
-    from repro_torch.serve import CompositionStore
-
-    store = CompositionStore()
-    name = store.add_arch(cfg, reduced=False)
-    for k in range(n):
-        p = init_lm(cfg, generator=tenant_generator(0, k, "cuda"),
-                    device="cuda", dtype=torch.bfloat16)
-        if k == 0:
-            store.set_modular(name, p["modular"])
-        store.add_tenant(f"tenant{k}", name, p["base"])
-        del p
-    return store
-
-
 def deepseek_serve_phase(ops, cfg):
     """The cut deepseek-v3 served to 2 tenants at W 4 (prompt 32, gen 32)
     through the store and engine: engine == oracle bitwise, no kernel
     launched (MLA decodes in the absorbed form and MoE routes each row
     alone, both plain PyTorch as in the JAX package)."""
-    from repro_torch.launch.serve import demo_requests
-    from repro_torch.serve import ServeEngine
-
-    r = DS_SERVE
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    store = deepseek_store(cfg, r["tenants"])
-    engine = ServeEngine(store, width=r["width"],
-                         cache_len=r["prompt_len"] + r["gen"],
-                         horizon=r["horizon"], device="cuda")
-    reqs = demo_requests(cfg, r["tenants"], prompt_len=r["prompt_len"],
-                         gen=r["gen"], stagger=2, seed=0)
-    torch.cuda.synchronize()
-    build_s = time.perf_counter() - t0
-    reset_counts(ops)
-    t0 = time.perf_counter()
-    comps = engine.run(reqs)
-    torch.cuda.synchronize()
-    cold_s = time.perf_counter() - t0
-    zero_launches(ops, "deepseek serve")
-    steps = sum(lane.composed_steps for lane in engine.lanes())
-    check(len(comps) == r["tenants"]
-          and all(len(c.tokens) == r["gen"] for c in comps)
-          and all(0 <= t < cfg.vocab_size for c in comps for t in c.tokens),
-          "deepseek serve: a request did not complete in vocab")
-    for q, c in zip(reqs, comps):
-        check(engine.oracle(q).tokens == c.tokens,
-              f"deepseek serve: request {q.rid} != oracle")
-    warm = engine.fresh_clone()
-    del engine
-    t0 = time.perf_counter()
-    warm_comps = warm.run(reqs)
-    torch.cuda.synchronize()
-    warm_s = time.perf_counter() - t0
-    check([c.tokens for c in warm_comps] == [c.tokens for c in comps],
-          "deepseek serve: warm run differs")
-    n_tok = sum(len(c.tokens) for c in comps)
-    peak = torch.cuda.max_memory_allocated() / 2**30
-    print(f"[deepseek serve] {cfg.name}: {DS_ARCH} at its widths cut to "
-          f"depth (1 dense prefix layer of 3, base groups 0 of 29, modular "
-          f"groups 1 of 29, MTP on), bf16; {r['tenants']} tenants, W "
-          f"{r['width']}, prompt {r['prompt_len']}, gen {r['gen']}: engine "
-          f"== oracle bitwise; no kernel launched (flash_decode 0); "
-          f"store built in {build_s:.1f}s; {steps} composed steps; first "
-          f"run {cold_s:.2f}s, warm {warm_s:.3f}s = {n_tok / warm_s:.1f} "
-          f"tok/s ({warm_s / steps * 1e3:.2f} ms a composed step); peak "
-          f"memory {peak:.2f} GiB", flush=True)
-    del warm, store
-    torch.cuda.empty_cache()
-    return {"steps": steps, "warm_s": warm_s, "peak": peak}
+    cut_serve_phase(ops, cfg, f"{cfg.name}: {DS_ARCH} at its widths cut to "
+                    f"depth (1 dense prefix layer of 3, base groups 0 of 29, "
+                    f"modular groups 1 of 29, MTP on), bf16",
+                    "deepseek serve")
 
 
 def _tree_flat(t, pre=""):
@@ -3474,6 +3474,74 @@ def _tree_flat(t, pre=""):
     return {pre: t}
 
 
+def head_names(cfg):
+    """The leaves above the trunk: the LM head, and the MTP head where
+    the config has it."""
+    return ("lm_head", "mtp") if cfg.use_mtp else ("lm_head",)
+
+
+def head_first_order_check(cfg, params, b, g16) -> str:
+    """The first-order check over the heads (``head_names``) in fp32 on
+    the fp32 trunk's output, held fixed: a step eps = GRAD_DROP / |g|^2
+    along -g lowers the fp32 loss (the heads' CE, + 0.3 x the MTP head's
+    offset-2 CE, from position n_img on) by eps * (g32 . g) within
+    HEAD_GRAD_TOL, for g = g32 and g = g16 (the bf16 loss's gradient of
+    the heads) -> the numbers, as a line."""
+    from repro_torch.core.ifl_spmd import value_and_grad
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.modules import tree_map
+
+    heads = head_names(cfg)
+    c32 = cfg.replace(compute_dtype="float32")
+    mod = params["modular"]
+    with torch.no_grad():
+        z, _ = tf.base_forward(params["base"], c32, b)
+        h, _, positions = tf.modular_trunk(mod, c32, z)
+        del z
+    h32 = tree_map(lambda a: a.float(), {k: mod[k] for k in heads})
+    toks, start = b["tokens"], cfg.num_image_tokens
+
+    def head_loss(hp):
+        m = dict(mod, **hp)
+        loss = tf._next_token_ce(tf._head_logits(m, c32, h), toks, 1, start)
+        if cfg.use_mtp:
+            h2 = tf.mtp_hidden(m, c32, h, positions)
+            loss = loss + 0.3 * tf._next_token_ce(
+                tf._head_logits(m, c32, h2), toks, 2, start)
+        return loss
+
+    l32, g32 = value_and_grad(head_loss, h32)
+    l32 = float(l32)
+    f32, f16 = _tree_flat(g32), _tree_flat(g16)
+
+    def dot(a, c):
+        return float(sum((a[k].double() * c[k].double()).sum() for k in a))
+
+    n32, n16, cross = dot(f32, f32), dot(f16, f16), dot(f32, f16)
+    drops = {}
+    for name, g, n in (("g32", g32, n32), ("g16", g16, n16)):
+        eps = GRAD_DROP / n
+        with torch.no_grad():
+            stepped = {k: _step_tree(h32[k], g[k], eps) for k in heads}
+            drop = l32 - float(head_loss(stepped))
+            del stepped
+        want = GRAD_DROP if name == "g32" else eps * cross
+        drops[name] = (drop, want)
+        check(want > 0 and abs(drop - want) <= HEAD_GRAD_TOL[name] * want,
+              f"{cfg.name} head check {name}: the fp32 loss fell "
+              f"{drop:.5f} along -g, first order says {want:.5f}")
+    del h32, g32, h
+    return (f"heads ({', '.join(heads)}: "
+            f"{sum(v.numel() for v in f32.values()):,} parameters) in fp32 "
+            f"on the fp32 trunk's output: loss {l32:.5f}, |g32| "
+            f"{n32 ** 0.5:.3f}, cos(g32, g16) "
+            f"{cross / (n32 * n16) ** 0.5:.4f}; along -g32 the loss fell "
+            f"{drops['g32'][0]:.5f} (first order {drops['g32'][1]:.5f}, "
+            f"within {HEAD_GRAD_TOL['g32']:.0%}), along -g16 "
+            f"{drops['g16'][0]:.5f} (first order {drops['g16'][1]:.5f}, "
+            f"within {HEAD_GRAD_TOL['g16']:.0%})")
+
+
 def deepseek_grad_phase(ops, cfg):
     """One ``lm_loss`` forward and backward of the cut deepseek-v3 at B 1,
     S 512 (bf16): loss and every gradient finite; flash_attention /
@@ -3482,7 +3550,7 @@ def deepseek_grad_phase(ops, cfg):
     'group': 4 and 3); a routed expert that received no token has an
     exactly zero gradient, one that did a nonzero one; aux == E * sum f
     p * coef from the phase's own routing; then the first-order check
-    over the LM and MTP heads (DS_GRAD_TOL)."""
+    over the LM and MTP heads (HEAD_GRAD_TOL)."""
     from repro_torch.core.ifl_spmd import value_and_grad
     from repro_torch.data.synthetic import SyntheticLM
     from repro_torch.models import moe
@@ -3540,47 +3608,10 @@ def deepseek_grad_phase(ops, cfg):
     del log, log2, mtp_logits
     # The first-order check over the heads: keep their bf16 gradient, drop
     # the rest, and hold the trunk's fp32 output fixed.
-    heads = ("lm_head", "mtp")
-    g16h = {k: g16["modular"][k] for k in heads}
+    g16h = {k: g16["modular"][k] for k in head_names(cfg)}
     del g16, flat
     torch.cuda.empty_cache()
-    c32 = cfg.replace(compute_dtype="float32")
-    mod = params["modular"]
-    with torch.no_grad():
-        z, _ = tf.base_forward(params["base"], c32, b)
-        h, aux_m, positions = tf.modular_trunk(mod, c32, z)
-        del z
-    from repro_torch.models.modules import tree_map
-
-    h32 = tree_map(lambda a: a.float(), {k: mod[k] for k in heads})
-
-    def head_loss(hp):
-        m = dict(mod, **hp)
-        loss = tf._next_token_ce(tf._head_logits(m, c32, h), toks, 1, 0)
-        h2 = tf.mtp_hidden(m, c32, h, positions)
-        return loss + 0.3 * tf._next_token_ce(tf._head_logits(m, c32, h2),
-                                              toks, 2, 0)
-
-    l32, g32 = value_and_grad(head_loss, h32)
-    l32 = float(l32)
-    f32, f16 = _tree_flat(g32), _tree_flat(g16h)
-
-    def dot(a, c):
-        return float(sum((a[k].double() * c[k].double()).sum() for k in a))
-
-    n32, n16, cross = dot(f32, f32), dot(f16, f16), dot(f32, f16)
-    drops = {}
-    for name, g, n in (("g32", g32, n32), ("g16", g16h, n16)):
-        eps = GRAD_DROP / n
-        with torch.no_grad():
-            stepped = {k: _step_tree(h32[k], g[k], eps) for k in heads}
-            drop = l32 - float(head_loss(stepped))
-            del stepped
-        want = GRAD_DROP if name == "g32" else eps * cross
-        drops[name] = (drop, want)
-        check(want > 0 and abs(drop - want) <= DS_GRAD_TOL[name] * want,
-              f"deepseek gradient check {name}: the fp32 loss fell "
-              f"{drop:.5f} along -g, first order says {want:.5f}")
+    head_line = head_first_order_check(cfg, params, b, g16h)
     peak = torch.cuda.max_memory_allocated() / 2**30
     print(f"[deepseek grad] {cfg.name} at B {r['batch']}, S {r['seq']} "
           f"(bf16, remat {cfg.remat}): lm_loss {l16:.5f} (aux included, "
@@ -3590,16 +3621,9 @@ def deepseek_grad_phase(ops, cfg):
           f"{cfg.num_experts} routed experts received tokens ({n_drop} of "
           f"{e_flat.numel()} choices dropped at capacity "
           f"{moe._capacity(T, cfg)}): exactly their gradients nonzero; "
-          f"forward+backward {grad_s:.2f}s; heads (LM head, MTP: "
-          f"{sum(v.numel() for v in f32.values()):,} parameters) in fp32 "
-          f"on the fp32 trunk's output: loss {l32:.5f}, |g32| "
-          f"{n32 ** 0.5:.3f}, cos(g32, g16) {cross / (n32 * n16) ** 0.5:.4f}; "
-          f"along -g32 the loss fell {drops['g32'][0]:.5f} (first order "
-          f"{drops['g32'][1]:.5f}, within {DS_GRAD_TOL['g32']:.0%}), along "
-          f"-g16 {drops['g16'][0]:.5f} (first order {drops['g16'][1]:.5f}, "
-          f"within {DS_GRAD_TOL['g16']:.0%}); peak memory {peak:.2f} GiB",
-          flush=True)
-    del params, h32, g32, g16h, h
+          f"forward+backward {grad_s:.2f}s; {head_line}; peak memory "
+          f"{peak:.2f} GiB", flush=True)
+    del params, g16h
     torch.cuda.empty_cache()
     return {"flash_attention": fwd, "flash_attention_bwd": bwd}
 
@@ -3704,6 +3728,497 @@ def moe_train_phase(train_cli, ops):
                      f"{fwd_d}/{bwd_d}, {dp_s:.2f}s")
     print("[moe train] launch.train --reduced on the card, B 2, S 64, fp32: "
           + "; ".join(lines), flush=True)
+
+
+# ---------------------------------- phase 4o: the last attention variants
+
+GEMMA_ARCH = "gemma3-27b"
+LLAMA4_ARCH = "llama4-maverick-400b-a17b"
+QWEN2VL_ARCH = "qwen2-vl-2b"
+SEAMLESS_ARCH = "seamless-m4t-large-v2"
+# gemma3's S passes its local layers' 1,024-key window, so they mask.
+GEMMA_TRAIN = dict(batch=1, seq=2048)
+VARIANT_TRAIN = dict(batch=1, seq=512)
+# Seconds of the prefill probe (ROADMAP section 3): the new prefill
+# paths (qwen2-vl's lanes under M-RoPE, seamless's cross-cache decode)
+# run again and again, each run synchronized.
+PROBE_S = 10.0
+
+
+def gemma3_cut():
+    """gemma3-27b at its widths (d 5376, 32 heads of 128 on 16 KV heads,
+    qk-norm, vocab 262,144, bf16) cut to depth: its 2 local prefix
+    layers, base groups 5 -> 0, modular groups 5 -> 1 (5 local layers,
+    window 1,024, and 1 global)."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config(GEMMA_ARCH)
+    return cfg.replace(name=GEMMA_ARCH + "-depth-cut",
+                       num_layers=len(cfg.prefix_pattern)
+                       + len(cfg.mod_pattern),
+                       base_groups=0, mod_groups=1).validate()
+
+
+def llama4_cut():
+    """llama4-maverick at its widths (d 5120, 40 heads of 128 on 8 KV
+    heads, qk-norm, 128 routed experts top-1 and a shared one, vocab
+    202,048, bf16) cut to one local dense layer (RoPE, window 8,192) in
+    the base and one NoPE global MoE layer in the modular block."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config(LLAMA4_ARCH)
+    local, nope = cfg.base_pattern[0], cfg.base_pattern[3]
+    return cfg.replace(name=LLAMA4_ARCH + "-depth-cut", num_layers=2,
+                       base_pattern=(local,), base_groups=1,
+                       mod_pattern=(nope,), mod_groups=1).validate()
+
+
+def variant_store(cfg, n):
+    """n tenants in cfg.param_dtype: tenant 0's whole init (its modular
+    block shared), the others' base blocks from inits of the base half
+    alone (cfg cut at the fusion layer), so one modular block is held."""
+    from repro_torch.launch.serve import tenant_generator
+    from repro_torch.models.modules import dtype_of
+    from repro_torch.models.transformer import init_lm
+    from repro_torch.serve import CompositionStore
+
+    torch.cuda.reset_peak_memory_stats()
+    store = CompositionStore()
+    name = store.add_arch(cfg, reduced=False)
+    base_cfg = cfg.replace(num_layers=cfg.fusion_cut_layer,
+                           mod_groups=0).validate()
+    for k in range(n):
+        p = init_lm(cfg if k == 0 else base_cfg,
+                    generator=tenant_generator(0, k, "cuda"), device="cuda",
+                    dtype=dtype_of(cfg.param_dtype))
+        if k == 0:
+            store.set_modular(name, p["modular"])
+        store.add_tenant(f"tenant{k}", name, p["base"])
+        del p
+    return store
+
+
+def cut_serve_phase(ops, cfg, label, tag):
+    """cfg, at its widths cut to depth, served from ``variant_store``
+    (``variant_serve``); the store's build timed."""
+    t0 = time.perf_counter()
+    store = variant_store(cfg, CUT_SERVE["tenants"])
+    torch.cuda.synchronize()
+    print(f"[{tag}] {label}: store built in {time.perf_counter() - t0:.1f}s",
+          flush=True)
+    variant_serve(ops, store, cfg, label, tag)
+    del store
+    torch.cuda.empty_cache()
+
+
+def variant_serve(ops, store, cfg, label, tag="variants serve"):
+    """CUT_SERVE's requests through the engine: engine == oracle
+    bitwise, flash_decode launches == attention layers x composed steps
+    (none for MLA, which decodes in plain PyTorch) and no other kernel, a
+    warm run timed -> the requests."""
+    from repro_torch.launch.serve import demo_requests
+    from repro_torch.serve import ServeEngine
+
+    r = CUT_SERVE
+    engine = ServeEngine(store, width=r["width"],
+                         cache_len=r["prompt_len"] + r["gen"],
+                         horizon=r["horizon"], device="cuda")
+    reqs = demo_requests(cfg, r["tenants"], prompt_len=r["prompt_len"],
+                         gen=r["gen"], stagger=2, seed=0)
+    reset_counts(ops)
+    t0 = time.perf_counter()
+    comps = engine.run(reqs)
+    torch.cuda.synchronize()
+    cold_s = time.perf_counter() - t0
+    got = launch_counts(ops)
+    steps = sum(lane.composed_steps for lane in engine.lanes())
+    n_attn = 0 if cfg.use_mla else sum(s.mixer == "attn"
+                                       for s in cfg.layer_specs())
+    check(got["flash_decode"] == n_attn * steps
+          and all(v == 0 for k, v in got.items() if k != "flash_decode"),
+          f"{label} serve: launches {got}, {n_attn} layers x {steps} steps")
+    check(len(comps) == r["tenants"]
+          and all(len(c.tokens) == r["gen"] for c in comps)
+          and all(0 <= t < cfg.vocab_size for c in comps for t in c.tokens),
+          f"{label} serve: a request did not complete in vocab")
+    for q, c in zip(reqs, comps):
+        check(engine.oracle(q).tokens == c.tokens,
+              f"{label} serve: request {q.rid} != oracle")
+    warm = engine.fresh_clone()
+    del engine
+    t0 = time.perf_counter()
+    warm_comps = warm.run(reqs)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    check([c.tokens for c in warm_comps] == [c.tokens for c in comps],
+          f"{label} serve: warm run differs")
+    del warm
+    n_tok = sum(len(c.tokens) for c in comps)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"[{tag}] {label}: {r['tenants']} tenants, W "
+          f"{r['width']}, prompt {r['prompt_len']}, gen {r['gen']}: engine "
+          f"== oracle bitwise; flash_decode {got['flash_decode']} == "
+          f"{n_attn} layers x {steps} composed steps; first run "
+          f"{cold_s:.2f}s, warm {warm_s:.3f}s = {n_tok / warm_s:.1f} tok/s "
+          f"({warm_s / steps * 1e3:.2f} ms a composed step); peak memory "
+          f"{peak:.2f} GiB", flush=True)
+    return reqs
+
+
+def _split(tree, path):
+    """(tree without the subtree at ``path``, that subtree); the tree is
+    copied along the path only."""
+    if len(path) == 1:
+        rest = dict(tree)
+        return rest, rest.pop(path[0])
+    rest, sub = _split(tree[path[0]], path[1:])
+    return dict(tree, **{path[0]: rest}), sub
+
+
+def _graft(tree, path, sub):
+    if len(path) == 1:
+        return dict(tree, **{path[0]: sub})
+    return dict(tree, **{path[0]: _graft(tree[path[0]], path[1:], sub)})
+
+
+def variant_batch(cfg, B, S, seed=0, device="cuda"):
+    """SyntheticLM tokens and, where the config has them, numpy-drawn
+    image rows or frames (normals of ``default_rng(seed)``)."""
+    from repro_torch.data.synthetic import SyntheticLM
+
+    b = {"tokens": torch.from_numpy(SyntheticLM(cfg.vocab_size, seed=0)
+                                    .sample(B, S, step=seed)).to(device)}
+    rng = np.random.default_rng(seed)
+    if cfg.num_image_tokens:
+        b["image_embeds"] = torch.from_numpy(rng.standard_normal(
+            (B, cfg.num_image_tokens, cfg.d_model)).astype(np.float32)
+        ).to(device)
+    if cfg.is_encdec:
+        b["frame_embeds"] = torch.from_numpy(rng.standard_normal(
+            (B, cfg.enc_seq_len, cfg.d_model)).astype(np.float32)).to(device)
+    return b
+
+
+def enc_attn_launches(cfg) -> int:
+    """The encoder's self-attention launches in one pass (the encoder is
+    not checkpointed: each layer's forward and backward kernel once)."""
+    return cfg.enc_layers if cfg.is_encdec else 0
+
+
+def variant_grad(ops, cfg, label, *, batch, seq, frozen=None,
+                 head_check=False):
+    """One ``lm_loss`` forward and backward at (batch, seq) in the config's
+    dtypes: loss and gradients finite, flash_attention / _bwd launches ==
+    derived (the encoder's included). ``frozen``: the path of a subtree
+    that takes no gradient (held outside the differentiated tree).
+    ``head_check``: then the first-order check over the LM head."""
+    from repro_torch.core.ifl_spmd import value_and_grad
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.modules import dtype_of
+
+    torch.cuda.reset_peak_memory_stats()
+    params = tf.init_lm(cfg, generator=torch.Generator(
+        device="cuda").manual_seed(0), device="cuda",
+        dtype=dtype_of(cfg.param_dtype))
+    b = variant_batch(cfg, batch, seq)
+    train, held = params, None
+    if frozen:
+        train, held = _split(params, frozen)
+
+    def loss_fn(t, c, bb):
+        return tf.lm_loss(t if held is None else _graft(t, frozen, held),
+                          c, bb)
+
+    reset_counts(ops)
+    t0 = time.perf_counter()
+    loss, grads = value_and_grad(loss_fn, train, cfg, b)
+    loss = float(loss)
+    grad_s = time.perf_counter() - t0
+    got, bidir = launch_counts(ops), bidir_counts(ops)
+    fwd, bwd = expected_attn_launches(cfg, steps_full=1, steps_mod=0,
+                                      fwd_only=0)
+    enc = enc_attn_launches(cfg)
+    fwd, bwd = fwd + enc, bwd + enc
+    check(got["flash_attention"] == fwd and got["flash_attention_bwd"] == bwd
+          and all(v == enc for v in bidir.values())
+          and all(v == 0 for k, v in got.items()
+                  if not k.startswith("flash_attention")),
+          f"{label} grad: launches {got} (causal=False {bidir}) != fwd "
+          f"{fwd}, bwd {bwd} ({enc} each causal=False)")
+    flat = _tree_flat(grads)
+    check(np.isfinite(loss) and all(bool(torch.isfinite(g).all())
+                                    for g in flat.values()),
+          f"{label} grad: loss {loss} or a gradient not finite")
+    n_grad = sum(g.numel() for g in flat.values())
+    n_par = sum(p.numel() for p in _tree_flat(params).values())
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    line = (f"[variants grad] {label} at B {batch}, S {seq} "
+            f"({cfg.compute_dtype}, params {cfg.param_dtype}, remat "
+            f"{cfg.remat}): lm_loss {loss:.5f}, loss and every gradient "
+            f"finite ({n_grad:,} of {n_par:,} parameters take one"
+            + (f"; {'/'.join(frozen)} held out" if frozen else "")
+            + f"); flash_attention {fwd}, flash_attention_bwd {bwd} == "
+            f"derived; forward+backward {grad_s:.2f}s; peak memory "
+            f"{peak:.2f} GiB")
+    g16 = grads["modular"]["lm_head"]
+    del grads, flat
+    torch.cuda.empty_cache()
+    if head_check:
+        line += "; " + head_first_order_check(cfg, params, b,
+                                              {"lm_head": g16})
+    print(line, flush=True)
+    del params, train, held, g16
+    torch.cuda.empty_cache()
+    return {"flash_attention": fwd, "flash_attention_bwd": bwd}
+
+
+def variant_dp_step(train_cli, ops, arch):
+    """``python -m repro_torch.launch.train --arch <arch> --mode dp`` for
+    one step at B 1, S 512 at full width (the loop's own image / frame
+    draws): loss finite, attention launches == derived, and the
+    wrappers' ``causal=False`` counts == the encoder's layers. -> (params,
+    the measured causal=False launches of each attention wrapper)."""
+    import tempfile
+
+    from repro_torch.configs import get_config
+
+    cfg = get_config(arch)
+    r = VARIANT_TRAIN
+    with tempfile.TemporaryDirectory() as out_dir:
+        reset_counts(ops)
+        t0 = time.perf_counter()
+        out = train_cli.main(["--arch", arch, "--mode", "dp", "--rounds",
+                              "1", "--batch", str(r["batch"]), "--seq",
+                              str(r["seq"]), "--out", out_dir])
+        torch.cuda.synchronize()
+        step_s = time.perf_counter() - t0
+    got, bidir = launch_counts(ops), bidir_counts(ops)
+    fwd, bwd = expected_attn_launches(cfg, steps_full=1, steps_mod=0,
+                                      fwd_only=0)
+    enc = enc_attn_launches(cfg)
+    check(got["flash_attention"] == fwd + enc
+          and got["flash_attention_bwd"] == bwd + enc
+          and all(v == enc for v in bidir.values())
+          and np.isfinite(out["history"][0]["loss"]),
+          f"{arch} dp: launches {got} (causal=False {bidir}) != "
+          f"{fwd + enc}, {bwd + enc} ({enc} each causal=False); "
+          f"{out['history']}")
+    print(f"[variants train] launch.train --arch {arch} --mode dp at full "
+          f"width ({cfg.num_layers} layers"
+          + (f" and {cfg.enc_layers} encoder layers over "
+             f"{cfg.enc_seq_len} frames" if cfg.is_encdec else "")
+          + (f", {cfg.num_image_tokens} image rows" if cfg.num_image_tokens
+             else "")
+          + f"), B {r['batch']}, S {r['seq']}: loss "
+          f"{out['history'][0]['loss']:.5f}; flash_attention "
+          f"{fwd + enc}, flash_attention_bwd {bwd + enc} == derived"
+          + (f" ({bidir['flash_attention']} and "
+             f"{bidir['flash_attention_bwd']} of them causal=False, counted "
+             f"by the wrappers, == {enc} encoder layers)" if enc else "")
+          + f"; the step (draws and init included) {step_s:.2f}s", flush=True)
+    return out["params"], bidir
+
+
+def encdec_greedy(params, cfg, frames, prompts, n, device):
+    """Greedy continuation of (B, P) prompts by the composed decode step
+    through the cross caches of the encoder's output on ``frames``:
+    the prompt fed a token at a time, then n tokens. -> (tokens, the
+    logits at every prompt position)."""
+    from repro_torch.models import transformer as tf
+
+    B, P = prompts.shape
+    with torch.no_grad():
+        enc = tf.encoder_forward(params["base"]["encoder"], cfg,
+                                 frames.to(device))
+        kv = tf.build_cross_caches(params, cfg, enc)
+        cache = tf.init_composed_cache(cfg, cfg, B, P + n, device=device)
+        toks = torch.from_numpy(prompts).to(device)
+        seen, out = [], []
+        nxt = toks[:, :1]
+        for t in range(P + n - 1):
+            logits, cache = tf.composed_decode_step(
+                params["base"], cfg, params["modular"], cfg, cache, nxt,
+                torch.full((B,), t, device=device), cross_kvs=kv)
+            if t < P:
+                seen.append(logits[:, 0])
+            if t + 1 < P:
+                nxt = toks[:, t + 1:t + 2]
+            else:
+                nxt = logits[:, -1].argmax(-1, keepdim=True)
+                out.append(nxt[:, 0])
+    return torch.stack(out, 1).cpu().tolist(), torch.stack(seen, 1)
+
+
+def seamless_decode_phase(params, cfg):
+    """seamless at full width (the DP step's params): greedy decoding at
+    model level through the cross caches of 1,024 frames (B 2, prompt 8,
+    16 tokens) in the config's bf16, twice, the same tokens in vocab;
+    then in fp32 the decode's logits at the 8 prompt positions against
+    the full forward's (the flash kernels' non-causal encoder and causal
+    decoder against the cache path)."""
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.modules import tree_map
+
+    rng = np.random.default_rng(21)
+    frames = torch.from_numpy(rng.standard_normal(
+        (2, cfg.enc_seq_len, cfg.d_model)).astype(np.float32))
+    prompts = rng.integers(0, cfg.vocab_size, (2, 8))
+    t0 = time.perf_counter()
+    toks, _ = encdec_greedy(params, cfg, frames, prompts, 16, "cuda")
+    torch.cuda.synchronize()
+    dec_s = time.perf_counter() - t0
+    again, _ = encdec_greedy(params, cfg, frames, prompts, 16, "cuda")
+    check(toks == again and all(0 <= t < cfg.vocab_size for r in toks
+                                for t in r),
+          f"seamless greedy: {toks} vs {again}")
+    c32 = cfg.replace(compute_dtype="float32")
+    p32 = tree_map(lambda a: a.float(), params)
+    _, seen = encdec_greedy(p32, c32, frames, prompts, 1, "cuda")
+    with torch.no_grad():
+        full = tf.lm_apply(p32, c32, {
+            "tokens": torch.from_numpy(prompts).cuda(),
+            "frame_embeds": frames.cuda()})[0]
+    err = float((seen - full).abs().max() / max(1.0, full.abs().max()))
+    check(err <= 1e-4, f"seamless decode vs forward (fp32): {err}")
+    print(f"[variants decode] {cfg.name} at full width: greedy through the "
+          f"cross caches of {cfg.enc_seq_len} frames, B 2, prompt 8, 16 "
+          f"tokens ({cfg.compute_dtype}) in {dec_s:.2f}s, the same tokens "
+          f"twice, in vocab: {toks[0][:8]}; fp32 decode logits at the prompt "
+          f"positions vs the full forward: {err:.2e} of max |logit|",
+          flush=True)
+    del p32
+    torch.cuda.empty_cache()
+    return frames, prompts
+
+
+def prefill_probe(engine_run, frames, prompts, params, cfg) -> int:
+    """ROADMAP section 3's probe around the new prefill paths: the
+    qwen2-vl lanes' M-RoPE prefill and seamless's cross-cache decode,
+    in turns, each synchronized, for PROBE_S seconds -> iterations."""
+    n, t0 = 0, time.perf_counter()
+    while time.perf_counter() - t0 < PROBE_S:
+        engine_run()
+        encdec_greedy(params, cfg, frames, prompts, 4, "cuda")
+        torch.cuda.synchronize()
+        n += 1
+    return n
+
+
+def variant_card_vs_cpu(ops):
+    """fp32, the same params (drawn on the CPU), tokens, image rows and
+    frames on the card and the CPU, for the reduced gemma3, llama4,
+    qwen2-vl and seamless: lm_loss and logits within LM_LOSS_TOL, 8
+    greedy tokens equal (seamless through its cross caches), and one IFL
+    round (N 2, tau 1, B 2, S 64; ``train_ifl_lm``'s init, draws and
+    step) with losses within LM_LOSS_TOL."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.ifl_spmd import init_ifl_state, make_ifl_round_step
+    from repro_torch.data.synthetic import SyntheticLM
+    from repro_torch.models.modules import tree_map
+    from repro_torch.models.transformer import init_lm, lm_apply, lm_loss
+    from repro_torch.train.loop import _ifl_batch
+
+    rng = np.random.default_rng(13)
+    report = {}
+    for arch in (GEMMA_ARCH, LLAMA4_ARCH, QWEN2VL_ARCH, SEAMLESS_ARCH):
+        cfg = get_config(arch).reduced()
+        params = init_lm(cfg, generator=torch.Generator().manual_seed(0),
+                         device="cpu")
+        batch = variant_batch(cfg, 2, 64, seed=3, device="cpu")
+        prompts = rng.integers(0, cfg.vocab_size, (2, 16))
+        init, _ = init_ifl_state(cfg, n_clients=2,
+                                 generator=torch.Generator().manual_seed(1),
+                                 device="cpu")
+        res = {}
+        for dev in ("cpu", "cuda"):
+            p = tree_map(lambda a: a.to(dev), params)
+            b = {k: v.to(dev) for k, v in batch.items()}
+            with torch.no_grad():
+                loss = float(lm_loss(p, cfg, b))
+                logits = lm_apply(p, cfg, b)[0].cpu()
+                if cfg.is_encdec:
+                    toks = encdec_greedy(p, cfg, batch["frame_embeds"],
+                                         prompts, 8, dev)[0]
+                else:
+                    toks = greedy_tokens(p["base"], cfg, p["modular"], cfg,
+                                         prompts, 8, dev)
+            cp = [tree_map(lambda a: a.to(dev).clone(), q) for q in init]
+            m = make_ifl_round_step(cfg, n_clients=2, tau=1, lr_base=3e-3,
+                                    lr_modular=3e-3)(
+                cp, [{"base": {}, "modular": {}} for _ in range(2)],
+                _ifl_batch(SyntheticLM(cfg.vocab_size, seed=0), cfg, 2, 1, 2,
+                           64, 0, device=dev))[2]
+            res[dev] = (loss, logits, toks,
+                        [float(m["base_loss"]), float(m["mod_loss"])])
+        (lc, gc, tc, rc), (lg, gg, tg, rg) = res["cpu"], res["cuda"]
+        lerr = abs(lg - lc)
+        gerr = float((gg - gc).abs().max() / max(1.0, gc.abs().max()))
+        rerr = max(abs(a - c) for a, c in zip(rg, rc))
+        check(lerr <= LM_LOSS_TOL and gerr <= LM_LOSS_TOL and tg == tc
+              and rerr <= LM_LOSS_TOL and bool(torch.isfinite(gg).all())
+              and all(np.isfinite(rg)),
+              f"{cfg.name} card vs CPU: loss {lerr}, logits {gerr}, tokens "
+              f"{tg} vs {tc}, IFL round losses {rg} vs {rc}")
+        report[cfg.name] = (lerr, gerr, rerr)
+    print("[variants card vs cpu] fp32, same params, tokens, image rows and "
+          "frames: " + "; ".join(
+              f"{n}: loss |diff| {a:.2e}, logits {b:.2e} of max |logit|, 8 "
+              f"greedy tokens equal, IFL round losses |diff| {c:.2e}"
+              for n, (a, b, c) in report.items())
+          + f" (tolerance {LM_LOSS_TOL})", flush=True)
+
+
+def variants_phase(ops, train_cli):
+    """Phase 4o: qk-norm, M-RoPE with the image rows and the encoder with
+    cross-attention at their widths (the non-causal kernels' checks run
+    with the others, in ``attn_checks``) -> the encoder's attention
+    launches in seamless's training step."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import build_demo_store
+    from repro_torch.serve import ServeEngine
+
+    # gemma3 and llama4 at their widths, cut to depth.
+    for cfg, label, grad_kw in (
+            (gemma3_cut(), "gemma3-27b cut to depth (2 local prefix layers, "
+             "base groups 0 of 5, modular groups 1 of 5: 8 of 62 layers)",
+             dict(head_check=True, **GEMMA_TRAIN)),
+            (llama4_cut(), "llama4-maverick cut to depth (1 local dense "
+             "layer in the base, 1 NoPE global MoE layer in the modular "
+             "block: 2 of 48 layers)",
+             dict(frozen=("modular", "groups", "l0", "moe", "experts"),
+                  **VARIANT_TRAIN))):
+        torch.cuda.empty_cache()
+        cut_serve_phase(ops, cfg, label, "variants serve")
+        variant_grad(ops, cfg, label, **grad_kw)
+    # qwen2-vl at full depth: lanes with text prompts, lm_loss with image
+    # rows, one DP step through the CLI.
+    qcfg = get_config(QWEN2VL_ARCH)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    qstore = build_demo_store(qcfg, QWEN2VL_ARCH, CUT_SERVE["tenants"],
+                              seed=0, reduced=False, device="cuda")
+    qreqs = variant_serve(ops, qstore, qcfg, f"{QWEN2VL_ARCH} full depth")
+    variant_grad(ops, qcfg, f"{QWEN2VL_ARCH} ({qcfg.num_image_tokens} "
+                 f"image rows)", **VARIANT_TRAIN)
+    variant_dp_step(train_cli, ops, QWEN2VL_ARCH)
+    # seamless at full depth: one DP step through the CLI, then greedy
+    # decoding through the cross caches, then the probe.
+    scfg = get_config(SEAMLESS_ARCH)
+    torch.cuda.empty_cache()
+    sparams, enc_launches = variant_dp_step(train_cli, ops, SEAMLESS_ARCH)
+    frames, prompts = seamless_decode_phase(sparams, scfg)
+    r = CUT_SERVE
+    n_probe = prefill_probe(lambda: ServeEngine(
+        qstore, width=r["width"], cache_len=r["prompt_len"] + r["gen"],
+        horizon=r["horizon"], device="cuda").run(qreqs),
+        frames, prompts, sparams, scfg)
+    print(f"[variants probe] qwen2-vl lanes (M-RoPE ragged prefill) and "
+          f"seamless cross-cache decoding in turns, each synchronized, for "
+          f"{PROBE_S:.0f}s: {n_probe} iterations, no fault", flush=True)
+    del qstore, sparams
+    torch.cuda.empty_cache()
+    variant_card_vs_cpu(ops)
+    return enc_launches
 
 
 def tree_numpy(tree):
@@ -3830,23 +4345,27 @@ def main() -> None:
     n_guard = guard_checks(ops, gen)
     print(f"[kernel] flash_decode / flash_attention / flash_attention_bwd "
           f"between NaN guard bands at {n_guard} cases (every split-L and "
-          f"attention case, MLA's head dims among them, the lanes' decode "
-          f"shapes), {GUARD_REPS} launches "
+          f"attention case, MLA's head dims and causal=False among them, "
+          f"the lanes' decode shapes), {GUARD_REPS} launches "
           f"each: the wrappers' bits every time, no band read into a result "
           f"or written, arrival counters back at 0", flush=True)
     print(f"[kernel] attention at hd 64 and 128: {n_fp} outputs (fwd o, lse; "
           f"bwd dq, dk, dv; decode) bitwise those of the kernels before the "
           f"padded head dims (attn_fingerprints_hd64_128.json)", flush=True)
     print(f"[kernel] flash_attention / flash_attention_bwd vs plain at "
-          f"{len(ATTN_CASES)} cases and {len(MLA_ATTN_CASES)} with v's head "
-          f"dim apart from q/k's (MLA: 48/32, 192/128, 192/192) x fp32, "
-          f"bf16: relative max|err| fwd "
+          f"{len(ATTN_CASES)} cases, {len(MLA_ATTN_CASES)} with v's head "
+          f"dim apart from q/k's (MLA: 48/32, 192/128, 192/192) and "
+          f"{len(ATTN_BIDIR_CASES)} with causal=False (S 100 and 1000, H = "
+          f"KVH and G > 1, hd 24, 64 and 128, windows 1, 48, 65, 300) x "
+          f"fp32, bf16: relative max|err| fwd "
           f"{attn_err['all']['fwd']:.3e}, bwd {attn_err['all']['bwd']:.3e}; "
           f"at the path's case (bf16) max|err| fwd "
           f"{attn_err['path']['fwd']:.3e}, bwd {attn_err['path']['bwd']:.3e}; "
           f"at deepseek-v3's {MLA_ATTN_CASES[0]} (bf16) fwd "
-          f"{attn_err['mla']['fwd']:.3e}, bwd {attn_err['mla']['bwd']:.3e}",
-          flush=True)
+          f"{attn_err['mla']['fwd']:.3e}, bwd {attn_err['mla']['bwd']:.3e}; "
+          f"at the seamless encoder's {ATTN_BIDIR_CASES[0]} (bf16, "
+          f"causal=False) fwd {attn_err['enc']['fwd']:.3e}, bwd "
+          f"{attn_err['enc']['bwd']:.3e}", flush=True)
 
     fused_err, n_codes, n_flips = fused_checks(ops, ref, get_codec)
     print(f"[kernel] fusion_proj / fusion_proj_quant / fusion_proj_encode / "
@@ -4058,6 +4577,12 @@ def main() -> None:
     print(f"[deepseek] phase 4n took {time.perf_counter() - t0:.1f}s",
           flush=True)
 
+    # -- 4o. qk-norm, softcap, M-RoPE with images, the encoder -------------
+    t0 = time.perf_counter()
+    enc_launches = variants_phase(ops, train_cli)
+    print(f"[variants] phase 4o took {time.perf_counter() - t0:.1f}s",
+          flush=True)
+
     # -- 5. times at the slice's shape ------------------------------------
     decode_t = []
     for Bt, Lt, KVHt, Gt, hdt, lengths, n_sets in DECODE_SHAPES:
@@ -4133,6 +4658,7 @@ def main() -> None:
     at_hd = {h: attn_times(ops, ref, shape)
              for h, shape in ATTN_HD_TIMED.items()}
     at_mla = attn_times(ops, ref, MLA_ATTN_TIMED)
+    at_bidir = attn_times(ops, ref, ATTN_BIDIR_TIMED, causal=False)
     for kname, key, err, replaces in (
             ("flash_attention", "fwd", attn_err["path"]["fwd"],
              "src/repro/kernels/flash_attention.py:167"),
@@ -4162,6 +4688,15 @@ def main() -> None:
             "mla_launches": ds_grad[kname],
             "mla_max_abs_err": attn_err["mla"][key],
             **{f"mla_{k}": at_mla[key + suffix]
+               for k, suffix in (("ms", ""), ("plain_ms", "_plain"),
+                                 ("bound_ms", "_bound"),
+                                 ("library_ms", "_sdpa"))},
+            # causal=False, the seamless encoder's self-attention (phase
+            # 4o): launches in its full-width training step, error and
+            # times at its shape (SDPA non-causal beside them).
+            "bidir_launches": enc_launches[kname],
+            "bidir_max_abs_err": attn_err["enc"][key],
+            **{f"bidir_{k}": at_bidir[key + suffix]
                for k, suffix in (("ms", ""), ("plain_ms", "_plain"),
                                  ("bound_ms", "_bound"),
                                  ("library_ms", "_sdpa"))},

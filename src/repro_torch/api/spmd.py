@@ -120,6 +120,15 @@ class SPMDIFLTrainer:
             cfg = get_config(spec.model).reduced()
         else:
             cfg = smoke_model_config()
+        # The front door draws tokens only, as the reference's does.
+        for key, on in (("image_embeds", cfg.num_image_tokens > 0),
+                        ("frame_embeds", cfg.is_encdec)):
+            if on:
+                raise ValueError(
+                    f"SPMDIFLTrainer: {cfg.name} needs {key!r} in every "
+                    "batch, and the synth_tokens data of this front door "
+                    "draws tokens only; train it with "
+                    "repro_torch.train.loop.train_ifl_lm")
         # The spec is the one source of the fusion interface.
         self.model_cfg = cfg.replace(d_fusion=spec.d_fusion).validate()
         self.spec = spec

@@ -68,26 +68,29 @@ from repro_torch.optim import make_optimizer
 # ------------------------------------------------------------------ losses
 
 
-def _next_ce(logits, tokens, offset: int):
-    lp = F.log_softmax(logits[:, :-offset], dim=-1)
-    return -torch.gather(lp, -1, tokens[:, offset:, None].long()).mean()
+def _next_ce(logits, tokens, offset: int, start: int):
+    lp = F.log_softmax(logits[:, start:-offset], dim=-1)
+    return -torch.gather(lp, -1,
+                         tokens[:, start + offset:, None].long()).mean()
 
 
 def _modular_loss(mod, cfg: ModelConfig, z, tokens):
     """The modular block's loss on z: next-token CE, + 0.3 x the MTP
-    head's offset-2 CE, + the modular layers' MoE load-balance loss."""
+    head's offset-2 CE, + the modular layers' MoE load-balance loss; no
+    CE on the image positions."""
+    start = cfg.num_image_tokens
     if cfg.ce_chunk:
         h, aux, positions = modular_trunk(mod, cfg, z)
-        loss = chunked_ce(mod, cfg, h, tokens, offset=1, start=0)
+        loss = chunked_ce(mod, cfg, h, tokens, offset=1, start=start)
         if cfg.use_mtp:
             h2 = mtp_hidden(mod, cfg, h, positions)
             loss = loss + 0.3 * chunked_ce(mod, cfg, h2, tokens, offset=2,
-                                           start=0)
+                                           start=start)
         return loss + aux
     out = modular_forward(mod, cfg, z)
-    loss = _next_ce(out[0], tokens, 1)
+    loss = _next_ce(out[0], tokens, 1, start)
     if cfg.use_mtp:
-        loss = loss + 0.3 * _next_ce(out[2], tokens, 2)
+        loss = loss + 0.3 * _next_ce(out[2], tokens, 2, start)
     return loss + out[1]
 
 
@@ -135,7 +138,9 @@ def make_ifl_round_step(
     params: a list of N trees ``{"base", "modular"}``; opt_state: a list
     of N ``{"base", "modular"}`` optimizer states; batch: ``{"tokens":
     (N, tau + 1, Bc, S)}``, tau base minibatches and one fusion
-    minibatch per client.
+    minibatch per client, with ``image_embeds`` (N, tau + 1, Bc, n_img,
+    d) or ``frame_embeds`` (N, tau + 1, Bc, S_enc, d) where the config
+    has those frontends (every leaf sliced per client and step).
 
     Stateless codecs:  step(params, opt_state, batch)
                          -> (params, opt_state, metrics)
@@ -200,7 +205,7 @@ def make_ifl_round_step(
         base_losses = []
         for t in range(tau):
             for k in active:
-                mb = {"tokens": tokens[k, t]}
+                mb = {name: a[k, t] for name, a in batch.items()}
                 loss, g = value_and_grad(_full_loss_wrt_base,
                                          params[k]["base"],
                                          params[k]["modular"], cfg, mb)
@@ -212,7 +217,8 @@ def make_ifl_round_step(
         fusion_tokens = tokens[:, tau]
         with torch.no_grad():
             zs = {k: base_forward(params[k]["base"], cfg,
-                                  {"tokens": fusion_tokens[k]})[0]
+                                  {name: a[k, tau]
+                                   for name, a in batch.items()})[0]
                   for k in active}
             shape = (fusion_tokens.shape[1], fusion_tokens.shape[2],
                      cfg.d_fusion)

@@ -1,5 +1,6 @@
-// Flash attention for Hopper (sm_90a): causal, optionally sliding-window
-// self-attention over a full sequence, forward and backward.
+// Flash attention for Hopper (sm_90a): causal or bidirectional, optionally
+// sliding-window self-attention over a full sequence, forward and
+// backward.
 //
 // The forward replaces the TPU kernel flash_attention_pallas
 // (src/repro/kernels/flash_attention.py:167, pallas_call at :189). It
@@ -25,6 +26,16 @@
 // transposed to (B*H, S, hd); here nothing is copied. Any S >= 1: the
 // ragged last tile is masked. Tiles wholly above the diagonal or left of
 // the window are skipped.
+//
+// causal = false is the TPU kernel's causal=False (the encoder's
+// bidirectional self-attention, q and k of one length): the forward and
+// dQ walk every key tile, not only those up to the query tile's last row,
+// the dK/dV kernels walk the query tiles from row 0, not from the key
+// tile's first row, and the mask drops j <= i but keeps the window
+// (j > i - window), as the TPU kernel's does. The flag is a template
+// argument of every kernel (each HD has a causal and a bidirectional
+// instance), so the causal instances compile to the code and the bits
+// they had before it.
 //
 // What bounds it on the card: at the training path's shape (B 2, H 16,
 // S 512, hd 64, bf16) the forward must move ~8.4 MB (2.5 us at 3.35
@@ -148,9 +159,13 @@ __device__ __forceinline__ float groups_max(float x) {
   return x;
 }
 
-// Query row i sees key row j: causal, inside the window, both in range.
-__device__ __forceinline__ bool visible(int i, int j, int S, int window) {
-  return i < S && j < S && j <= i && (window <= 0 || j > i - window);
+// Query row i sees key row j: both in range, inside the window and, when
+// causal, j <= i. Without causal the window still bounds j from below
+// (the TPU kernel's mask: cols > rows - window), and nothing above.
+__device__ __forceinline__ bool visible(int i, int j, int S, int window,
+                                        bool causal) {
+  return i < S && j < S && (!causal || j <= i) &&
+         (window <= 0 || j > i - window);
 }
 
 // Stage rows r0 .. r0 + simt_tile<HD>() of head `head` of batch row b of
@@ -185,7 +200,7 @@ __device__ __forceinline__ void load_row(float (&dst)[HD / kGroup],
 // ----------------------------------------------------------------- forward
 
 // grid (ceil(S / BQ), B * H); each warp owns R query rows.
-template <int HD>
+template <int HD, bool causal>
 __global__ void __launch_bounds__(kThreads)
 attn_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                 const float* __restrict__ v, float* __restrict__ o,
@@ -219,7 +234,8 @@ attn_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     for (int e = 0; e < EPL; ++e) acc[r][e] = 0.f;
   }
 
-  const int kv_hi = min(S, q0 + BQ);  // causal: keys < the block's last row + 1
+  // Causal: keys < the block's last row + 1; else every key.
+  const int kv_hi = causal ? min(S, q0 + BQ) : S;
   const int kv_lo = window > 0 ? max(0, q0 - window + 1) : 0;
   for (int j0 = (kv_lo / kTile) * kTile; j0 < kv_hi; j0 += kTile) {
     __syncthreads();  // the previous tile is consumed
@@ -240,7 +256,7 @@ attn_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
         for (int e = 0; e < EPL; ++e) s += qr[r][e] * kr[e];
         s = group_sum(s) * scale;
-        const bool ok = visible(row0 + r, j, S, window);
+        const bool ok = visible(row0 + r, j, S, window, causal);
         const float m_new = ok ? fmaxf(m[r], s) : m[r];
         const float alpha = expf(m[r] - m_new);
         const float p = ok ? expf(s - m_new) : 0.f;
@@ -274,7 +290,7 @@ attn_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 // ----------------------------------------------------------- backward: dQ
 
 // grid (ceil(S / BQ), B * H). Also writes D_i = rowsum(dO_i * O_i).
-template <int HD>
+template <int HD, bool causal>
 __global__ void __launch_bounds__(kThreads)
 attn_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
                    const float* __restrict__ v, const float* __restrict__ o,
@@ -318,7 +334,7 @@ attn_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
     if (lane == 0 && i < S) dsum[((size_t)b * H + h) * S + i] = Dr[r];
   }
 
-  const int kv_hi = min(S, q0 + BQ);
+  const int kv_hi = causal ? min(S, q0 + BQ) : S;
   const int kv_lo = window > 0 ? max(0, q0 - window + 1) : 0;
   for (int j0 = (kv_lo / kTile) * kTile; j0 < kv_hi; j0 += kTile) {
     __syncthreads();
@@ -343,7 +359,7 @@ attn_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
         }
         s = group_sum(s) * scale;
         dp = group_sum(dp);
-        const bool ok = visible(row0 + r, j, S, window);
+        const bool ok = visible(row0 + r, j, S, window, causal);
         const float p = ok ? expf(s - lr[r]) : 0.f;
         const float ds = p * (dp - Dr[r]);
 #pragma unroll
@@ -368,7 +384,7 @@ attn_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
 // grid (ceil(S / BK), B * KVH); each warp owns RK key rows and walks the
 // query rows that see them, for each of the G heads of its KV head.
-template <int HD>
+template <int HD, bool causal>
 __global__ void __launch_bounds__(kThreads)
 attn_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v, const float* __restrict__ dout,
@@ -408,12 +424,13 @@ attn_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
     }
   }
 
-  // Query rows that see a key of this block: i >= k0 (causal) and
+  // Query rows that see a key of this block: i >= k0 (causal only) and
   // i < k_last + window (window).
+  const int i_lo = causal ? (k0 / kTile) * kTile : 0;
   const int i_hi = window > 0 ? min(S, k0 + BK - 1 + window) : S;
   for (int hh = 0; hh < G; ++hh) {
     const int h = kvh * G + hh;
-    for (int i0 = (k0 / kTile) * kTile; i0 < i_hi; i0 += kTile) {
+    for (int i0 = i_lo; i0 < i_hi; i0 += kTile) {
       __syncthreads();
       load_tile<HD>(sq, q, b, i0, S, H, h, hd);
       load_tile<HD>(sdo, dout, b, i0, S, H, h, hdv);
@@ -443,7 +460,7 @@ attn_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
           }
           s = group_sum(s) * scale;
           dp = group_sum(dp);
-          const bool ok = visible(i, krow0 + r, S, window);
+          const bool ok = visible(i, krow0 + r, S, window, causal);
           const float p = ok ? expf(s - lse_i) : 0.f;
           const float ds = p * (dp - D_i);
 #pragma unroll
@@ -636,10 +653,11 @@ struct TileMask {
 };
 template <int N>
 __device__ __forceinline__ TileMask rows_vs_keys(int w0, int j0, int S,
-                                                 int window) {
+                                                 int window, bool causal) {
   TileMask t;
-  t.any = w0 < S && j0 <= w0 + 15 && (window <= 0 || j0 + N - 1 > w0 - window);
-  t.full = j0 + N - 1 <= w0 && j0 + N <= S &&
+  t.any = w0 < S && (!causal || j0 <= w0 + 15) &&
+          (window <= 0 || j0 + N - 1 > w0 - window);
+  t.full = (!causal || j0 + N - 1 <= w0) && j0 + N <= S &&
            (window <= 0 || j0 > w0 + 15 - window);
   return t;
 }
@@ -667,7 +685,7 @@ constexpr size_t dkdv_smem() {
 
 // grid (ceil(S / 64), B * H); block x takes query tile nq - 1 - x, so
 // the tiles with the most keys start first.
-template <int HD>
+template <int HD, bool causal>
 __global__ void __launch_bounds__(kTcThreads)
 attn_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                    const bf16* __restrict__ v, bf16* __restrict__ o,
@@ -689,7 +707,7 @@ attn_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int q0 = (gridDim.x - 1 - blockIdx.x) * kBlk;
   const int w0 = q0 + warp * 16;  // this warp's first row
 
-  const int kv_hi = min(S, q0 + kBlk);
+  const int kv_hi = causal ? min(S, q0 + kBlk) : S;
   const int kv_lo = window > 0 ? max(0, q0 - window + 1) : 0;
   const int t_lo = kv_lo / kKeys;
   const int t_hi = (kv_hi + kKeys - 1) / kKeys;
@@ -718,7 +736,7 @@ attn_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     }
     __syncthreads();
     const int j0 = it * kKeys;
-    const TileMask tm = rows_vs_keys<kKeys>(w0, j0, S, window);
+    const TileMask tm = rows_vs_keys<kKeys>(w0, j0, S, window, causal);
     if (tm.any) {
       float s[kKeys / 8][4] = {};
       mma_abt<HD, kKeys>(s, sq, warp * 16, sk + st * kStage, lane);
@@ -732,7 +750,7 @@ attn_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
           float x = s[nb][e] * c;
           if (!tm.full &&
               !visible(w0 + g + 8 * (e >> 1), j0 + nb * 8 + 2 * t + (e & 1), S,
-                       window)) {
+                       window, causal)) {
             vis &= ~(1u << (nb * 4 + e));
             x = kNeg;
           }
@@ -795,7 +813,7 @@ attn_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
 // grid (ceil(S / 64), B * H), heaviest tile first. Also writes
 // D_i = rowsum(dO_i * O_i).
-template <int HD>
+template <int HD, bool causal>
 __global__ void __launch_bounds__(kTcThreads)
 attn_bwd_dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                       const bf16* __restrict__ v, const bf16* __restrict__ o,
@@ -823,7 +841,7 @@ attn_bwd_dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int w0 = q0 + warp * 16;
   const size_t bh = (size_t)b * H + h;
 
-  const int kv_hi = min(S, q0 + kBlk);
+  const int kv_hi = causal ? min(S, q0 + kBlk) : S;
   const int kv_lo = window > 0 ? max(0, q0 - window + 1) : 0;
   const int t_lo = kv_lo / kKeys;
   const int t_hi = (kv_hi + kKeys - 1) / kKeys;
@@ -886,7 +904,7 @@ attn_bwd_dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     }
     __syncthreads();
     const int j0 = it * kKeys;
-    const TileMask tm = rows_vs_keys<kKeys>(w0, j0, S, window);
+    const TileMask tm = rows_vs_keys<kKeys>(w0, j0, S, window, causal);
     if (tm.any) {
       const bf16* tk = sk + st * kStage;
       float s[kKeys / 8][4] = {};
@@ -900,7 +918,8 @@ attn_bwd_dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         for (int e = 0; e < 4; ++e) {
           const bool ok =
               tm.full || visible(w0 + g + 8 * (e >> 1),
-                                 j0 + nb * 8 + 2 * t + (e & 1), S, window);
+                                 j0 + nb * 8 + 2 * t + (e & 1), S, window,
+                                 causal);
           const float p = ok ? ex2(s[nb][e] * c - lse2[e >> 1]) : 0.f;
           s[nb][e] = p * (dp[nb][e] - Dr[e >> 1]);
         }
@@ -928,7 +947,7 @@ attn_bwd_dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 // grid (ceil(S / 64), B * KVH). Each warp owns 16 key rows; the block
 // walks, for each of the G heads of its KV head in turn, the query tiles
 // of N rows that see its keys, summing into one accumulator.
-template <int HD>
+template <int HD, bool causal>
 __global__ void __launch_bounds__(kTcThreads)
 attn_bwd_dkdv_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                         const bf16* __restrict__ v,
@@ -957,10 +976,10 @@ attn_bwd_dkdv_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int k0 = blockIdx.x * kBlk;
   const int w0 = k0 + warp * 16;  // this warp's first key row
 
-  // Query rows that see a key of the block: i >= k0 (causal) and
+  // Query rows that see a key of the block: i >= k0 (causal only) and
   // i < k0 + 63 + window (window).
   const int i_hi = window > 0 ? min(S, k0 + kBlk - 1 + window) : S;
-  const int t_lo = k0 / N;
+  const int t_lo = causal ? k0 / N : 0;
   const int nt = (i_hi + N - 1) / N - t_lo;  // query tiles a head
   const int total = G * nt;
 
@@ -994,10 +1013,10 @@ attn_bwd_dkdv_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     __syncthreads();
     const int i0 = (t_lo + it % nt) * N;
     // Keys w0 .. w0 + 15 against queries i0 .. i0 + N - 1.
-    const bool any = i0 + N - 1 >= w0 && w0 < S &&
+    const bool any = (!causal || i0 + N - 1 >= w0) && w0 < S &&
                      (window <= 0 || i0 < w0 + 15 + window);
-    const bool full =
-        i0 >= w0 + 15 && i0 + N <= S && (window <= 0 || i0 + N - 1 - w0 < window);
+    const bool full = (!causal || i0 >= w0 + 15) && i0 + N <= S &&
+                      (window <= 0 || i0 + N - 1 - w0 < window);
     if (any) {
       const bf16* tq = sq + st * kStage;
       const bf16* tdo = sdo + st * kStage;
@@ -1013,7 +1032,8 @@ attn_bwd_dkdv_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         for (int e = 0; e < 4; ++e) {
           const int col = nb * 8 + 2 * t + (e & 1);
           const bool ok =
-              full || visible(i0 + col, w0 + g + 8 * (e >> 1), S, window);
+              full || visible(i0 + col, w0 + g + 8 * (e >> 1), S, window,
+                              causal);
           const float p = ok ? ex2(s[nb][e] * c - tl[col] * kLog2e) : 0.f;
           s[nb][e] = p;
           dp[nb][e] = p * (dp[nb][e] - td[col]);
@@ -1048,29 +1068,30 @@ struct Args {
   const void *q, *k, *v, *o, *dout, *lse;
   void *out, *lse_out, *dsum, *dq, *dk, *dv;
   int B, S, H, KVH, window;
+  bool causal;  // false: every key of the sequence (causal=False)
   int hd;   // q's and k's true head dim, <= the instance's HD
   int hdv;  // v's (and o's) true head dim, <= hd
   float scale;
   cudaStream_t stream;
 };
 
-template <int HD>
+template <int HD, bool C>
 void launch_fwd_simt(const Args& a) {
   constexpr int BQ = kWarps * simt_rows_q<HD>();
   dim3 grid((a.S + BQ - 1) / BQ, a.B * a.H);
-  attn_fwd_kernel<HD><<<grid, kThreads, 0, a.stream>>>(
+  attn_fwd_kernel<HD, C><<<grid, kThreads, 0, a.stream>>>(
       static_cast<const float*>(a.q), static_cast<const float*>(a.k),
       static_cast<const float*>(a.v), static_cast<float*>(a.out),
       static_cast<float*>(a.lse_out), a.S, a.H, a.KVH, a.window, a.scale,
       a.hd, a.hdv);
 }
 
-template <int HD>
+template <int HD, bool C>
 int launch_bwd_simt(const Args& a) {
   constexpr int BQ = kWarps * simt_rows_q<HD>();
   constexpr int BK = kWarps * simt_rows_k<HD>();
   dim3 grid_q((a.S + BQ - 1) / BQ, a.B * a.H);
-  attn_bwd_dq_kernel<HD><<<grid_q, kThreads, 0, a.stream>>>(
+  attn_bwd_dq_kernel<HD, C><<<grid_q, kThreads, 0, a.stream>>>(
       static_cast<const float*>(a.q), static_cast<const float*>(a.k),
       static_cast<const float*>(a.v), static_cast<const float*>(a.o),
       static_cast<const float*>(a.dout), static_cast<const float*>(a.lse),
@@ -1079,7 +1100,7 @@ int launch_bwd_simt(const Args& a) {
   const int rc = static_cast<int>(cudaGetLastError());
   if (rc != 0) return rc;
   dim3 grid_k((a.S + BK - 1) / BK, a.B * a.KVH);
-  attn_bwd_dkdv_kernel<HD><<<grid_k, kThreads, 0, a.stream>>>(
+  attn_bwd_dkdv_kernel<HD, C><<<grid_k, kThreads, 0, a.stream>>>(
       static_cast<const float*>(a.q), static_cast<const float*>(a.k),
       static_cast<const float*>(a.v), static_cast<const float*>(a.dout),
       static_cast<const float*>(a.lse), static_cast<const float*>(a.dsum),
@@ -1103,16 +1124,16 @@ bool aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15u) == 0;
 }
 
-template <int HD>
+template <int HD, bool C>
 int launch_fwd_tc(const Args& a) {
   if (!aligned16(a.q) || !aligned16(a.k) || !aligned16(a.v) ||
       !aligned16(a.out))
     return -1;
   constexpr size_t smem = fwd_smem<HD>();
-  static const int opt = opt_in(attn_fwd_tc_kernel<HD>, smem);
+  static const int opt = opt_in(attn_fwd_tc_kernel<HD, C>, smem);
   if (opt != 0) return opt;
   dim3 grid((a.S + kBlk - 1) / kBlk, a.B * a.H);
-  attn_fwd_tc_kernel<HD><<<grid, kTcThreads, smem, a.stream>>>(
+  attn_fwd_tc_kernel<HD, C><<<grid, kTcThreads, smem, a.stream>>>(
       static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
       static_cast<const bf16*>(a.v), static_cast<bf16*>(a.out),
       static_cast<float*>(a.lse_out), a.S, a.H, a.KVH, a.window, a.scale,
@@ -1120,27 +1141,29 @@ int launch_fwd_tc(const Args& a) {
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int HD>
+template <int HD, bool C>
 int launch_bwd_tc(const Args& a) {
   const void* tensors[] = {a.q, a.k, a.v, a.o, a.dout, a.dq, a.dk, a.dv};
   for (const void* p : tensors)
     if (!aligned16(p)) return -1;
-  static const int opt_dq = opt_in(attn_bwd_dq_tc_kernel<HD>, dq_smem<HD>());
+  static const int opt_dq =
+      opt_in(attn_bwd_dq_tc_kernel<HD, C>, dq_smem<HD>());
   static const int opt_kv =
-      opt_in(attn_bwd_dkdv_tc_kernel<HD>, dkdv_smem<HD>());
+      opt_in(attn_bwd_dkdv_tc_kernel<HD, C>, dkdv_smem<HD>());
   if (opt_dq != 0) return opt_dq;
   if (opt_kv != 0) return opt_kv;
   dim3 grid_q((a.S + kBlk - 1) / kBlk, a.B * a.H);
-  attn_bwd_dq_tc_kernel<HD><<<grid_q, kTcThreads, dq_smem<HD>(), a.stream>>>(
-      static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
-      static_cast<const bf16*>(a.v), static_cast<const bf16*>(a.o),
-      static_cast<const bf16*>(a.dout), static_cast<const float*>(a.lse),
-      static_cast<float*>(a.dsum), static_cast<bf16*>(a.dq), a.S, a.H, a.KVH,
-      a.window, a.scale, a.hd, a.hdv);
+  attn_bwd_dq_tc_kernel<HD, C>
+      <<<grid_q, kTcThreads, dq_smem<HD>(), a.stream>>>(
+          static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
+          static_cast<const bf16*>(a.v), static_cast<const bf16*>(a.o),
+          static_cast<const bf16*>(a.dout), static_cast<const float*>(a.lse),
+          static_cast<float*>(a.dsum), static_cast<bf16*>(a.dq), a.S, a.H,
+          a.KVH, a.window, a.scale, a.hd, a.hdv);
   const int rc = static_cast<int>(cudaGetLastError());
   if (rc != 0) return rc;
   dim3 grid_k((a.S + kBlk - 1) / kBlk, a.B * a.KVH);
-  attn_bwd_dkdv_tc_kernel<HD>
+  attn_bwd_dkdv_tc_kernel<HD, C>
       <<<grid_k, kTcThreads, dkdv_smem<HD>(), a.stream>>>(
           static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
           static_cast<const bf16*>(a.v), static_cast<const bf16*>(a.dout),
@@ -1150,16 +1173,22 @@ int launch_bwd_tc(const Args& a) {
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int HD>
-int dispatch(const Args& a, int dtype, bool bwd) {
+template <int HD, bool C>
+int dispatch_mode(const Args& a, int dtype, bool bwd) {
   if (dtype == 0) {  // fp32: SIMT
-    if (bwd) return launch_bwd_simt<HD>(a);
-    launch_fwd_simt<HD>(a);
+    if (bwd) return launch_bwd_simt<HD, C>(a);
+    launch_fwd_simt<HD, C>(a);
     return static_cast<int>(cudaGetLastError());
   }
   if (dtype == 1)    // bf16: tensor cores
-    return bwd ? launch_bwd_tc<HD>(a) : launch_fwd_tc<HD>(a);
+    return bwd ? launch_bwd_tc<HD, C>(a) : launch_fwd_tc<HD, C>(a);
   return -1;
+}
+
+template <int HD>
+int dispatch(const Args& a, int dtype, bool bwd) {
+  return a.causal ? dispatch_mode<HD, true>(a, dtype, bwd)
+                  : dispatch_mode<HD, false>(a, dtype, bwd);
 }
 
 // The instance of a head dim: the next of 32, 64, 128 and 192 at or
@@ -1181,7 +1210,9 @@ int run(const Args& a, int dtype, bool bwd) {
 // Both return 0 on success, -1 for a shape or dtype these kernels do not
 // take (or, in bf16, a tensor not starting on 16 bytes), else the
 // cudaError_t of a launch. dtype: 0 = float32, 1 = bfloat16. window <= 0
-// means global causal attention.
+// means no window; causal != 0 masks keys after the query's row, causal
+// == 0 lets every row see every key (bidirectional, the encoder's
+// self-attention), the window bounding keys from below only.
 
 // q, k: (B, S, H or KVH, hd); v: (B, S, KVH, hdv) -> o (B, S, H, hdv),
 // lse (B, H, S) fp32; hd a multiple of 8 in [8, 192], hdv one in
@@ -1189,11 +1220,12 @@ int run(const Args& a, int dtype, bool bwd) {
 extern "C" int flash_attention_fwd(const void* q, const void* k,
                                    const void* v, void* o, void* lse, int B,
                                    int S, int H, int KVH, int hd, int hdv,
-                                   int window, int dtype, float scale,
-                                   void* stream) {
+                                   int window, int causal, int dtype,
+                                   float scale, void* stream) {
   Args a{};
   a.q = q; a.k = k; a.v = v; a.out = o; a.lse_out = lse;
   a.B = B; a.S = S; a.H = H; a.KVH = KVH; a.window = window; a.scale = scale;
+  a.causal = causal != 0;
   a.hd = hd;
   a.hdv = hdv;
   a.stream = static_cast<cudaStream_t>(stream);
@@ -1207,12 +1239,13 @@ extern "C" int flash_attention_bwd(const void* q, const void* k,
                                    const void* dout, const void* lse,
                                    void* dsum, void* dq, void* dk, void* dv,
                                    int B, int S, int H, int KVH, int hd,
-                                   int hdv, int window, int dtype,
-                                   float scale, void* stream) {
+                                   int hdv, int window, int causal,
+                                   int dtype, float scale, void* stream) {
   Args a{};
   a.q = q; a.k = k; a.v = v; a.o = o; a.dout = dout; a.lse = lse;
   a.dsum = dsum; a.dq = dq; a.dk = dk; a.dv = dv;
   a.B = B; a.S = S; a.H = H; a.KVH = KVH; a.window = window; a.scale = scale;
+  a.causal = causal != 0;
   a.hd = hd;
   a.hdv = hdv;
   a.stream = static_cast<cudaStream_t>(stream);

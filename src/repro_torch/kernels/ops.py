@@ -9,7 +9,9 @@ plain int attribute (``flash_decode.launches``, ``wire_encode.launches``,
 ``flash_attention_bwd.launches``, ``fusion_proj.launches``,
 ``fusion_proj_quant.launches``, ``fusion_proj_encode.launches``,
 ``decode_proj.launches``, ``rmsnorm.launches``), so a run can show that
-its main path went through the kernel.
+its main path went through the kernel. The attention wrappers also count
+their ``causal=False`` launches apart (``flash_attention.bidir_launches``,
+``flash_attention_bwd.bidir_launches``), so a run can show which mode ran.
 
 ``rmsnorm`` is the JAX package's ``repro.kernels.ops.rmsnorm``: no model
 path of either package calls it (the models normalize inline), so the op
@@ -774,22 +776,25 @@ def _attn_call(fn_name: str, *args) -> None:
     lib = build.load("flash_attention")
     fn = getattr(lib, fn_name)
     fn.restype = ctypes.c_int
-    # pointers, then B, S, H, KVH, hd, hdv, window, dtype, then scale,
-    # stream
-    fn.argtypes = ([ctypes.c_void_p] * (len(args) - 10)
-                   + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_void_p])
+    # pointers, then B, S, H, KVH, hd, hdv, window, causal, dtype, then
+    # scale, stream
+    fn.argtypes = ([ctypes.c_void_p] * (len(args) - 11)
+                   + [ctypes.c_int] * 9 + [ctypes.c_float, ctypes.c_void_p])
     rc = fn(*args)
     if rc != 0:
         raise RuntimeError(f"{fn_name} launch failed (code {rc})")
 
 
 def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        *, window: int = -1, scale: Optional[float] = None):
+                        *, causal: bool = True, window: int = -1,
+                        scale: Optional[float] = None):
     """Launch the forward kernel on CUDA tensors q (B, S, H, hd), k
     (B, S, KVH, hd), v (B, S, KVH, hdv) -> (o (B, S, H, hdv) in q's
     dtype, lse (B, H, S) fp32, each row's softmax logsumexp). Raises on
-    anything the kernel does not take. Counts in
-    ``flash_attention.launches``."""
+    anything the kernel does not take. ``causal=False`` lets every row
+    see every key (the window, if any, still bounds keys from below).
+    Counts in ``flash_attention.launches`` (and, with ``causal=False``,
+    in ``flash_attention.bidir_launches``)."""
     _check_attn("flash_attention", q, k, v)
     B, S, H, hd = q.shape
     hdv = v.shape[3]
@@ -800,18 +805,22 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         stream = torch.cuda.current_stream(q.device).cuda_stream
         _attn_call("flash_attention_fwd", q.data_ptr(), k.data_ptr(),
                    v.data_ptr(), o.data_ptr(), lse.data_ptr(), B, S, H,
-                   k.shape[2], hd, hdv, int(window), _DTYPE_CODE[q.dtype],
-                   float(scale), stream)
+                   k.shape[2], hd, hdv, int(window), int(bool(causal)),
+                   _DTYPE_CODE[q.dtype], float(scale), stream)
     flash_attention.launches += 1
+    if not causal:
+        flash_attention.bidir_launches += 1
     return o, lse
 
 
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
-                        *, window: int = -1, scale: Optional[float] = None):
+                        *, causal: bool = True, window: int = -1,
+                        scale: Optional[float] = None):
     """Launch the backward kernels (dQ with D = rowsum(dO * O), then dK
     and dV) on the forward's tensors and dO -> (dq, dk, dv) in the
-    inputs' dtype. One call counts one launch of the backward."""
+    inputs' dtype. One call counts one launch of the backward (and one
+    in ``flash_attention_bwd.bidir_launches`` with ``causal=False``)."""
     _check_attn("flash_attention_bwd", q, k, v)
     B, S, H, hd = q.shape
     hdv = v.shape[3]
@@ -835,36 +844,43 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    v.data_ptr(), o.data_ptr(), do.data_ptr(),
                    lse.data_ptr(), dsum.data_ptr(), dq.data_ptr(),
                    dk.data_ptr(), dv.data_ptr(), B, S, H, k.shape[2], hd,
-                   hdv, int(window), _DTYPE_CODE[q.dtype], float(scale), stream)
+                   hdv, int(window), int(bool(causal)), _DTYPE_CODE[q.dtype],
+                   float(scale), stream)
     flash_attention_bwd.launches += 1
+    if not causal:
+        flash_attention_bwd.bidir_launches += 1
     return dq, dk, dv
 
 
 flash_attention_bwd.launches = 0
+flash_attention_bwd.bidir_launches = 0
 
 
 class _FlashAttention(torch.autograd.Function):
     """Forward kernel in ``forward``, backward kernel in ``backward``."""
 
     @staticmethod
-    def forward(ctx, q, k, v, window, scale):
-        o, lse = flash_attention_fwd(q, k, v, window=window, scale=scale)
+    def forward(ctx, q, k, v, causal, window, scale):
+        o, lse = flash_attention_fwd(q, k, v, causal=causal, window=window,
+                                     scale=scale)
         ctx.save_for_backward(q, k, v, o, lse)
-        ctx.window, ctx.scale = window, scale
+        ctx.causal, ctx.window, ctx.scale = causal, window, scale
         return o
 
     @staticmethod
     def backward(ctx, do):
         q, k, v, o, lse = ctx.saved_tensors
         dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do.contiguous(),
-                                         window=ctx.window, scale=ctx.scale)
-        return dq, dk, dv, None, None
+                                         causal=ctx.causal, window=ctx.window,
+                                         scale=ctx.scale)
+        return dq, dk, dv, None, None, None
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    window: int = -1,
+                    causal: bool = True, window: int = -1,
                     scale: Optional[float] = None) -> torch.Tensor:
-    """Causal (optionally sliding-window) attention over a full
+    """Causal (or, with ``causal=False``, bidirectional: the encoder's
+    self-attention), optionally sliding-window attention over a full
     sequence, the training path's dispatch point.
 
     q: (B, S, H, hd); k: (B, S, KVH, hd); v: (B, S, KVH, hdv), the
@@ -878,9 +894,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     would take it only as TF32).
     """
     if q.device.type == "cpu":
-        return ref.flash_attention_ref(q, k, v, causal=True, window=window,
+        return ref.flash_attention_ref(q, k, v, causal=causal, window=window,
                                        scale=scale)
-    return _FlashAttention.apply(q, k, v, window, scale)
+    return _FlashAttention.apply(q, k, v, bool(causal), window, scale)
 
 
 flash_attention.launches = 0
+flash_attention.bidir_launches = 0

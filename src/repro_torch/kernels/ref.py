@@ -177,9 +177,10 @@ def decode_proj_ref(payload, w: torch.Tensor,
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         *, causal: bool = True, window: int = -1,
                         scale: Optional[float] = None) -> torch.Tensor:
-    """Plain causal (optionally sliding-window) softmax attention, the
-    plain version of the ``flash_attention`` kernel (a port of
-    ``repro/kernels/ref.py:79`` that takes GQA K/V directly).
+    """Plain causal (or bidirectional, ``causal=False``), optionally
+    sliding-window softmax attention, the plain version of the
+    ``flash_attention`` kernel (a port of ``repro/kernels/ref.py:79``
+    that takes GQA K/V directly).
 
     q: (B, S, H, hd); k: (B, S, KVH, hd); v: (B, S, KVH, hdv) with
     H % KVH == 0, the model's layout; v's head dim may differ from q's
@@ -218,14 +219,14 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor,
                             v: torch.Tensor, do: torch.Tensor, *,
-                            window: int = -1,
+                            causal: bool = True, window: int = -1,
                             scale: Optional[float] = None):
     """The plain version of the ``flash_attention_bwd`` kernel: autograd
-    of ``flash_attention_ref`` (causal) -> (dq, dk, dv) in the inputs'
-    dtypes. dk and dv sum the G query heads that share a KV head."""
+    of ``flash_attention_ref`` -> (dq, dk, dv) in the inputs' dtypes. dk
+    and dv sum the G query heads that share a KV head."""
     with torch.enable_grad():
         qa, ka, va = (t.detach().requires_grad_() for t in (q, k, v))
-        out = flash_attention_ref(qa, ka, va, causal=True, window=window,
+        out = flash_attention_ref(qa, ka, va, causal=causal, window=window,
                                   scale=scale)
         return torch.autograd.grad(out, (qa, ka, va), do)
 

@@ -5,10 +5,12 @@
       --mode ifl --rounds 3 --tau 2 --batch 2 --seq 512
 
 runs on the card; ``--reduced --device cpu`` runs the smoke-scale
-family variant on the CPU. Dense GQA, MLA, MoE (with its load-balance
-loss), MTP, Mamba and xLSTM layer programs (``--arch deepseek-v3-671b``,
-``jamba-1.5-large-398b``, ``xlstm-350m``, ...); ``check_supported``
-raises for the families that wait for ROADMAP item 4a-iii. Writes ``<out>/<name>__<mode>.json``
+family variant on the CPU. Every config of the registry: dense GQA
+(with qk-norm, sliding windows, NoPE), MLA, MoE (with its load-balance
+loss), MTP, Mamba and xLSTM layer programs, qwen2-vl's M-RoPE with its
+image rows and seamless-m4t's encoder and cross-attention, whose batches
+carry numpy-drawn ``image_embeds`` / ``frame_embeds`` as the reference's
+loop draws them. Writes ``<out>/<name>__<mode>.json``
 (the history) and, with ``--save-ckpt``, the params in the reference's
 checkpoint format (IFL clients stacked along a leading (N,) dim).
 """

@@ -1,8 +1,19 @@
-"""Self-attention: GQA and MLA (multi-head latent attention,
-deepseek-v3 [arXiv:2412.19437]): init, full-sequence causal attention
-for training (``blocked_attention``, ``attn_forward``), the decode cache
-and the single-token decode step. Cross-attention and M-RoPE wait for a
-later slice.
+"""Attention: GQA (windowed, NoPE, biased, with gemma3's per-head
+qk-norm, RoPE or qwen2-vl's M-RoPE), MLA (multi-head latent attention,
+deepseek-v3 [arXiv:2412.19437]) and the encoder-decoder's bidirectional
+attention: init, full-sequence causal attention for training
+(``blocked_attention``, ``attn_forward``), the decode cache and the
+single-token decode step; the encoder's self-attention
+(``enc_self_attn_forward``) and the decoder's cross-attention over the
+encoder output (``cross_attn_forward``, its per-layer K/V cache
+``cross_attn_cache`` and ``cross_attn_decode``).
+
+The encoder's self-attention has q and k of one length, so on the card
+it runs on the ``flash_attention`` kernels in their non-causal mode (the
+TPU kernel's ``causal=False``); on the CPU it is the reference's
+``bidir_blocked_attention``. Cross-attention (S_dec queries against S_enc
+keys, a shape the kernel does not take) is ``bidir_blocked_attention`` on
+either device: plain PyTorch, as the reference's is plain ``jnp``.
 
 MLA trains and prefills in the expanded form: q and k of head dim
 nope + rope (192 at deepseek-v3's widths), v of its own head dim (128),
@@ -37,7 +48,7 @@ import torch
 from repro_torch.config import LayerSpec, ModelConfig
 from repro_torch.kernels import ops as kops
 from repro_torch.models import modules as nn
-from repro_torch.models.rope import apply_rope
+from repro_torch.models.rope import apply_mrope, apply_rope
 
 
 def init_attn(generator, cfg: ModelConfig, spec: LayerSpec, *, device=None,
@@ -48,21 +59,45 @@ def init_attn(generator, cfg: ModelConfig, spec: LayerSpec, *, device=None,
     d, hd = cfg.d_model, cfg.resolved_head_dim
     h, kvh = cfg.num_heads, cfg.num_kv_heads
     kw = dict(device=device, lead=lead, dtype=dtype)
-    return {
+    p = {
         "wq": nn.init_linear(generator, d, h * hd, bias=cfg.qkv_bias, **kw),
         "wk": nn.init_linear(generator, d, kvh * hd, bias=cfg.qkv_bias, **kw),
         "wv": nn.init_linear(generator, d, kvh * hd, bias=cfg.qkv_bias, **kw),
         "wo": nn.init_linear(generator, h * hd, d, **kw),
     }
+    if cfg.use_qk_norm:  # per-head RMSNorm of q and k, unit scales
+        for name in ("q_norm", "k_norm"):
+            p[name] = {"scale": torch.ones((*lead, hd), device=device,
+                                           dtype=dtype)}
+    return p
+
+
+def init_cross_attn(generator, cfg: ModelConfig, *, device=None, lead=(),
+                    dtype=torch.float32):
+    """The encoder's self-attention and the decoder's cross-attention:
+    H heads for q, k and v alike (no GQA), no bias."""
+    d, hd, h = cfg.d_model, cfg.resolved_head_dim, cfg.num_heads
+    kw = dict(device=device, lead=lead, dtype=dtype)
+    return {name: nn.init_linear(generator, *dims, **kw)
+            for name, dims in (("wq", (d, h * hd)), ("wk", (d, h * hd)),
+                               ("wv", (d, h * hd)), ("wo", (h * hd, d)))}
 
 
 def _project_qkv(p, cfg: ModelConfig, spec: LayerSpec, x, positions):
+    """q, k, v of x (B, S, d): qk-norm per head (where the layer has it),
+    then RoPE, M-RoPE (positions (3, B, S)) or none. positions: (B, S)."""
     B, S, _ = x.shape
     hd = cfg.resolved_head_dim
     q = nn.linear(p["wq"], x).reshape(B, S, cfg.num_heads, hd)
     k = nn.linear(p["wk"], x).reshape(B, S, cfg.num_kv_heads, hd)
     v = nn.linear(p["wv"], x).reshape(B, S, cfg.num_kv_heads, hd)
-    if spec.use_rope and cfg.rope_type != "none":
+    if "q_norm" in p:
+        q = nn.apply_norm(p["q_norm"], q, "rmsnorm")
+        k = nn.apply_norm(p["k_norm"], k, "rmsnorm")
+    if spec.use_rope and cfg.rope_type == "mrope":
+        q = apply_mrope(q, positions, cfg.rope_theta, cfg.mrope_sections)
+        k = apply_mrope(k, positions, cfg.rope_theta, cfg.mrope_sections)
+    elif spec.use_rope and cfg.rope_type != "none":
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
     return q, k, v
@@ -72,17 +107,20 @@ def _project_qkv(p, cfg: ModelConfig, spec: LayerSpec, x, positions):
 NEG_INF = -0.7 * float(torch.finfo(torch.float32).max)
 
 
-def _gqa_block(q, k, v, q_idx, k_idx, *, window: int, scale: float):
+def _gqa_block(q, k, v, q_idx=None, k_idx=None, *, window: int = -1,
+               scale: float, causal: bool = True):
     """One query block against a KV span, fp32 softmax.
 
     q: (B, qb, KVH, G, hd); k, v: (B, L, KVH, hd); q_idx: (qb,) and
-    k_idx: (L,) the global token indices of the rows.
+    k_idx: (L,) the global token indices of the rows. ``causal=False``:
+    no mask at all (the indices and the window are not read).
     """
     s = torch.einsum("bqkgh,bskh->bkgqs", q, k).float() * scale
-    mask = k_idx[None, :] <= q_idx[:, None]
-    if window > 0:
-        mask &= k_idx[None, :] > q_idx[:, None] - window
-    s = torch.where(mask[None, None, None], s, NEG_INF)
+    if causal:
+        mask = k_idx[None, :] <= q_idx[:, None]
+        if window > 0:
+            mask &= k_idx[None, :] > q_idx[:, None] - window
+        s = torch.where(mask[None, None, None], s, NEG_INF)
     m = torch.amax(s, dim=-1, keepdim=True)
     p = torch.exp(s - m.detach())
     p = p / (torch.sum(p, dim=-1, keepdim=True) + 1e-30)
@@ -130,7 +168,7 @@ def blocked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 def attn_forward(p, cfg: ModelConfig, spec: LayerSpec, x, positions):
     """Full-sequence causal self-attention. x: (B, S, d); positions:
-    (B, S) int."""
+    (B, S) int, or (3, B, S) under M-RoPE."""
     if cfg.use_mla:
         return _mla_forward(p, cfg, x, positions)
     B, S, _ = x.shape
@@ -165,9 +203,11 @@ def init_attn_cache(cfg: ModelConfig, spec: LayerSpec, batch: int,
 
 
 def attn_decode(p, cfg: ModelConfig, spec: LayerSpec, x, cache, pos,
-                live: Optional[torch.Tensor] = None):
+                live: Optional[torch.Tensor] = None, positions=None):
     """One token per row. x: (B, 1, d); pos: (B,) int, each row's
-    position; cache: {"k", "v": (B, L, KVH, hd), "slot_pos": (B, L)}.
+    position; cache: {"k", "v": (B, L, KVH, hd), "slot_pos": (B, L)};
+    ``positions`` the rotary ids when they are not ``pos`` (M-RoPE's
+    (3, B, 1)).
 
     Writes this token's k, v and position into the cache **in place**
     (the JAX package returns a new cache; updating in place saves a copy
@@ -179,7 +219,8 @@ def attn_decode(p, cfg: ModelConfig, spec: LayerSpec, x, cache, pos,
         return _mla_decode(p, cfg, x, cache, pos, live)
     B = x.shape[0]
     hd = cfg.resolved_head_dim
-    q, k, v = _project_qkv(p, cfg, spec, x, pos[:, None])
+    q, k, v = _project_qkv(p, cfg, spec, x,
+                           pos[:, None] if positions is None else positions)
     ck, cv, spos = cache["k"], cache["v"], cache["slot_pos"]
     L = ck.shape[1]
     # Ring buffer for windowed layers; a flat cache clamps at its end.
@@ -323,4 +364,83 @@ def _mla_decode(p, cfg: ModelConfig, x, cache, pos,
         o = torch.einsum("bqhl,blhv->bqhv", o_lat, w_uv)
     else:
         o = torch.einsum("bqhl,lhv->bqhv", o_lat, w_uv)  # absorb v up-proj
+    return nn.linear(p["wo"], o.reshape(B, 1, -1))
+
+
+# =========================================================================
+# The encoder's self-attention and the decoder's cross-attention
+# =========================================================================
+
+
+def bidir_blocked_attention(q, k, v, *, q_block: int = 512):
+    """Unmasked attention, plain PyTorch on any device: the reference's
+    query-blocked loop, an fp32 softmax per block (its ``+ 1e-30``
+    denominator included). q: (B, S, H, hd); k, v: (B, S_kv, KVH, hd)
+    -> (B, S, H, hd). An S that ``min(q_block, S)`` does not divide runs
+    as one block, as in the reference."""
+    B, S, H, hd = q.shape
+    kvh = k.shape[2]
+    g = H // kvh
+    scale = 1.0 / math.sqrt(hd)
+    qb = min(q_block, S)
+    n_blocks = max(S // qb, 1)
+    if n_blocks * qb != S:  # ragged: one block
+        qb, n_blocks = S, 1
+    qr = q.reshape(B, n_blocks, qb, kvh, g, hd)
+    outs = [_gqa_block(qr[:, i], k, v, scale=scale, causal=False)
+            for i in range(n_blocks)]
+    return torch.stack(outs, dim=1).reshape(B, S, H, -1)
+
+
+def _bidir_qkv(p, cfg: ModelConfig, x, kv_in):
+    B, S, _ = x.shape
+    hd, h = cfg.resolved_head_dim, cfg.num_heads
+    q = nn.linear(p["wq"], x).reshape(B, S, h, hd)
+    k = nn.linear(p["wk"], kv_in).reshape(B, kv_in.shape[1], h, hd)
+    v = nn.linear(p["wv"], kv_in).reshape(B, kv_in.shape[1], h, hd)
+    return q, k, v
+
+
+def enc_self_attn_forward(p, cfg: ModelConfig, x):
+    """The encoder's bidirectional self-attention over x (B, S_enc, d):
+    the ``flash_attention`` kernels with ``causal=False`` on CUDA
+    tensors, the reference's blocked path on the CPU."""
+    B, S, _ = x.shape
+    q, k, v = _bidir_qkv(p, cfg, x, x)
+    if x.device.type == "cuda":
+        o = kops.flash_attention(q.contiguous(), k.contiguous(),
+                                 v.contiguous(), causal=False)
+    else:
+        o = bidir_blocked_attention(q, k, v, q_block=cfg.q_block)
+    return nn.linear(p["wo"], o.reshape(B, S, -1))
+
+
+def cross_attn_forward(p, cfg: ModelConfig, x, enc_out):
+    """x: (B, S_dec, d) attends over enc_out (B, S_enc, d), unmasked;
+    plain PyTorch on any device."""
+    B, S, _ = x.shape
+    q, k, v = _bidir_qkv(p, cfg, x, enc_out)
+    o = bidir_blocked_attention(q, k, v, q_block=cfg.q_block)
+    return nn.linear(p["wo"], o.reshape(B, S, -1))
+
+
+def cross_attn_cache(p, cfg: ModelConfig, enc_out) -> dict:
+    """The encoder output's K and V for one cross-attention layer,
+    computed once for decoding: {"k", "v": (B, S_enc, H, hd)}."""
+    B, Se, _ = enc_out.shape
+    hd, h = cfg.resolved_head_dim, cfg.num_heads
+    return {"k": nn.linear(p["wk"], enc_out).reshape(B, Se, h, hd),
+            "v": nn.linear(p["wv"], enc_out).reshape(B, Se, h, hd)}
+
+
+def cross_attn_decode(p, cfg: ModelConfig, x, ccache):
+    """One token per row against the cross cache. x: (B, 1, d) ->
+    (B, 1, d)."""
+    B = x.shape[0]
+    hd, h = cfg.resolved_head_dim, cfg.num_heads
+    q = nn.linear(p["wq"], x).reshape(B, 1, h, hd)
+    s = torch.einsum("bqhd,bshd->bhqs", q, ccache["k"]).float()
+    s = s / math.sqrt(hd)
+    pr = torch.softmax(s, dim=-1).to(ccache["v"].dtype)
+    o = torch.einsum("bhqs,bshd->bqhd", pr, ccache["v"])
     return nn.linear(p["wo"], o.reshape(B, 1, -1))

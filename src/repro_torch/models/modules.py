@@ -61,10 +61,16 @@ def init_linear(generator, d_in: int, d_out: int, *, bias: bool = False,
     return p
 
 
-def row(t: torch.Tensor, per_row_ndim: int) -> torch.Tensor:
-    """Insert the sequence dim into a per-row parameter so it broadcasts
-    against activations of shape (B, S, ...)."""
-    return t.unsqueeze(1) if t.dim() == per_row_ndim else t
+def row(t: torch.Tensor, per_row_ndim: int, x_ndim: int = 3) -> torch.Tensor:
+    """A per-row parameter (leading B dim, ``per_row_ndim`` dims) with
+    singleton dims inserted after B, so it broadcasts against
+    activations of ``x_ndim`` dims, (B, S, ...): a (B, d) norm scale
+    becomes (B, 1, d) for (B, S, d) and (B, 1, 1, d) for per-head
+    (B, S, H, d). A shared parameter is returned as it is."""
+    if t.dim() != per_row_ndim:
+        return t
+    return t.reshape(t.shape[0], *([1] * (x_ndim - per_row_ndim)),
+                     *t.shape[1:])
 
 
 def linear(p, x: torch.Tensor) -> torch.Tensor:
@@ -117,17 +123,20 @@ def init_norm(d: int, kind: str, *, device=None, dtype=torch.float32):
 
 
 def apply_norm(p, x: torch.Tensor, kind: str, *, eps: float = 1e-6):
-    """fp32 upcast, normalize, scale in fp32, cast back to ``x.dtype``."""
+    """fp32 upcast, normalize, scale in fp32, cast back to ``x.dtype``.
+    A per-row scale (B, d) applies row b's to x[b], whatever x's rank
+    (qk-norm normalizes per head, x (B, S, H, hd))."""
     xf = x.float()
     if kind == "rmsnorm":
         y = xf * torch.rsqrt(torch.mean(xf * xf, dim=-1, keepdim=True) + eps)
-        y = y * row(p["scale"].float(), 2)
+        y = y * row(p["scale"].float(), 2, x.dim())
     else:
         mu = torch.mean(xf, dim=-1, keepdim=True)
         var = torch.var(xf, dim=-1, keepdim=True, unbiased=False)
         y = (xf - mu) * torch.rsqrt(var + eps)
         if kind == "layernorm":
-            y = y * row(p["scale"].float(), 2) + row(p["bias"].float(), 2)
+            y = (y * row(p["scale"].float(), 2, x.dim())
+                 + row(p["bias"].float(), 2, x.dim()))
     return y.to(x.dtype)
 
 

@@ -5,7 +5,8 @@ ragged cached prefill that serving runs.
 
 The parameter tree is the JAX package's, key for key:
 
-    base    = embed + prefix layers + base groups + fusion in-projection
+    base    = embed (+ image projector + encoder) + prefix layers
+              + base groups + fusion in-projection
     modular = fusion out-projection + modular groups + final norm + head
 
 Repeated groups are stacked along a leading ``(num_groups,)`` dim and run
@@ -19,13 +20,21 @@ The full-sequence forward checkpoints as the reference's
 forward inside the backward, 'layer' each layer's, 'none' keeps every
 activation), with ``torch.utils.checkpoint`` in its non-reentrant form.
 
-The layer program's mixers are GQA attention ('attn', RoPE or NoPE,
-sliding windows), MLA (``cfg.use_mla``), mLSTM and sLSTM (``xlstm.py``)
-and Mamba (``ssm.py``), with a dense, MoE (``moe.py``) or no FFN and
-rmsnorm / layernorm / nonparam_ln, and deepseek-v3's multi-token
-prediction head (``cfg.use_mtp``). The families that need qk-norm, a
-logit softcap, M-RoPE with images or cross-attention raise
-NotImplementedError naming the ROADMAP item that ports them.
+The layer program's mixers are GQA attention ('attn', RoPE, M-RoPE or
+NoPE, sliding windows, qk-norm), MLA (``cfg.use_mla``), mLSTM and sLSTM
+(``xlstm.py``) and Mamba (``ssm.py``), with a dense, MoE (``moe.py``) or
+no FFN and rmsnorm / layernorm / nonparam_ln, an optional cross-attention
+over an encoder's output (``spec.cross_attn``, below the fusion cut
+only), deepseek-v3's multi-token prediction head (``cfg.use_mtp``) and a
+logit softcap (``tanh(logits / c) * c``).
+
+Two stub frontends, as in the reference: qwen2-vl's image rows
+(``batch["image_embeds"]`` (B, n_img, d) through ``img_proj``, spliced
+over the first n_img token rows, under M-RoPE's 2-D grid, and no LM loss
+on them) and seamless-m4t's frames (``batch["frame_embeds"]`` (B, S_enc,
+d) through the bidirectional encoder, whose output every cross-attention
+layer reads; decoding reads per-layer K/V caches from
+``build_cross_caches``).
 
 The forward functions return the reference's tuples: the MoE layers'
 auxiliary load-balance loss is summed through the layers and groups
@@ -47,11 +56,17 @@ from repro_torch.models import modules as nn
 from repro_torch.models.attention import (
     attn_decode,
     attn_forward,
+    cross_attn_cache,
+    cross_attn_decode,
+    cross_attn_forward,
+    enc_self_attn_forward,
     init_attn,
     init_attn_cache,
+    init_cross_attn,
 )
 from repro_torch.models.mlp import init_mlp, mlp_forward
 from repro_torch.models.moe import init_moe, moe_decode, moe_forward
+from repro_torch.models.rope import default_mrope_positions
 from repro_torch.models.ssm import (
     init_mamba,
     init_mamba_cache,
@@ -70,9 +85,6 @@ from repro_torch.models.xlstm import (
 )
 
 Params = Dict[str, Any]
-
-_ATTN_VARIANTS = ("ROADMAP.md queue 1, item 4a-iii (qk-norm, softcap, "
-                  "M-RoPE and images, cross-attention and the encoder)")
 
 
 class _Mixer(NamedTuple):
@@ -95,27 +107,10 @@ _RECURRENT = {
 
 
 def check_supported(cfg: ModelConfig) -> ModelConfig:
-    """Raise NotImplementedError for what the port does not run yet,
-    naming the ROADMAP item that ports it."""
-    missing = {}
+    """Raise ValueError for a mixer the layer program does not know."""
     for s in cfg.layer_specs():
         if s.mixer != "attn" and s.mixer not in _RECURRENT:
             raise ValueError(f"{cfg.name}: unknown mixer {s.mixer!r}")
-        if s.cross_attn:
-            missing["cross-attention"] = _ATTN_VARIANTS
-    flags = {
-        "encoder-decoder": (cfg.is_encdec, _ATTN_VARIANTS),
-        "M-RoPE": (cfg.rope_type == "mrope", _ATTN_VARIANTS),
-        "qk-norm": (cfg.use_qk_norm, _ATTN_VARIANTS),
-        "logit softcap": (cfg.logit_softcap > 0, _ATTN_VARIANTS),
-        "image-token frontend": (cfg.num_image_tokens > 0, _ATTN_VARIANTS),
-    }
-    missing.update({name: item for name, (on, item) in flags.items() if on})
-    if missing:
-        items = sorted(set(missing.values()))
-        raise NotImplementedError(
-            f"{cfg.name}: {', '.join(sorted(missing))} not ported to "
-            f"repro_torch yet ({'; '.join(items)})")
     return cfg
 
 
@@ -124,14 +119,19 @@ def check_supported(cfg: ModelConfig) -> ModelConfig:
 # =========================================================================
 
 
+def _norm(cfg: ModelConfig, lead, device, dtype) -> Params:
+    """A d_model norm of the config's kind, stacked along ``lead``."""
+    return nn.tree_map(
+        lambda a: a.expand(*lead, *a.shape).clone(),
+        nn.init_norm(cfg.d_model, cfg.norm, device=device, dtype=dtype))
+
+
 def init_layer(generator, cfg: ModelConfig, spec: LayerSpec, *, device=None,
                lead=(), dtype=torch.float32) -> Params:
     """One layer's params, each leaf drawn in ``dtype`` (the recurrent
     mixers' leaves are drawn in fp32 and cast, a mixer at a time)."""
     def norm():
-        return nn.tree_map(
-            lambda a: a.expand(*lead, *a.shape).clone(),
-            nn.init_norm(cfg.d_model, cfg.norm, device=device, dtype=dtype))
+        return _norm(cfg, lead, device, dtype)
 
     kw = dict(device=device, lead=lead)
     p: Params = {"norm1": norm()}
@@ -141,6 +141,9 @@ def init_layer(generator, cfg: ModelConfig, spec: LayerSpec, *, device=None,
         p[spec.mixer] = nn.tree_map(
             lambda a: a.to(dtype),
             _RECURRENT[spec.mixer].init(generator, cfg, **kw))
+    if spec.cross_attn:
+        p["norm_x"] = norm()
+        p["cross"] = init_cross_attn(generator, cfg, dtype=dtype, **kw)
     if spec.ffn == "dense":
         p["norm2"] = norm()
         p["ffn"] = init_mlp(generator, cfg.d_model, cfg.d_ff, dtype=dtype,
@@ -151,10 +154,12 @@ def init_layer(generator, cfg: ModelConfig, spec: LayerSpec, *, device=None,
     return p
 
 
-def apply_layer(p, cfg: ModelConfig, spec: LayerSpec, x, positions):
-    """One layer over a full sequence. x: (B, S, d); positions: (B, S).
-    Returns (x, aux): aux is the MoE FFN's load-balance loss (fp32
-    scalar), 0 for every other layer."""
+def apply_layer(p, cfg: ModelConfig, spec: LayerSpec, x, positions,
+                enc_out=None):
+    """One layer over a full sequence. x: (B, S, d); positions: (B, S),
+    or (3, B, S) under M-RoPE; enc_out: (B, S_enc, d), read by a
+    cross-attention layer. Returns (x, aux): aux is the MoE FFN's
+    load-balance loss (fp32 scalar), 0 for every other layer."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     h = nn.apply_norm(p["norm1"], x, cfg.norm)
     if spec.mixer == "attn":
@@ -162,6 +167,10 @@ def apply_layer(p, cfg: ModelConfig, spec: LayerSpec, x, positions):
     else:  # sLSTM's block holds its own gated FFN
         y = _RECURRENT[spec.mixer].forward(p[spec.mixer], cfg, h)
     x = x + y
+    if spec.cross_attn:
+        x = x + cross_attn_forward(p["cross"], cfg,
+                                   nn.apply_norm(p["norm_x"], x, cfg.norm),
+                                   enc_out)
     if spec.ffn == "dense":
         x = x + mlp_forward(p["ffn"], nn.apply_norm(p["norm2"], x, cfg.norm),
                             cfg.act)
@@ -174,16 +183,23 @@ def apply_layer(p, cfg: ModelConfig, spec: LayerSpec, x, positions):
 
 
 def decode_layer(p, cfg: ModelConfig, spec: LayerSpec, x, lcache, pos,
-                 live=None):
+                 live=None, positions=None, cross_kv=None):
     """One token per row through one layer; the layer's cache is updated
-    in place, and rows where ``live`` is False keep theirs."""
+    in place, and rows where ``live`` is False keep theirs. ``positions``
+    are M-RoPE's (3, B, 1) ids (None: ``pos``); ``cross_kv`` the layer's
+    cross cache."""
     h = nn.apply_norm(p["norm1"], x, cfg.norm)
     if spec.mixer == "attn":
-        y = attn_decode(p["attn"], cfg, spec, h, lcache["mix"], pos, live)
+        y = attn_decode(p["attn"], cfg, spec, h, lcache["mix"], pos, live,
+                        positions)
     else:
         y = _RECURRENT[spec.mixer].decode(p[spec.mixer], cfg, h,
                                           lcache["mix"], live)
     x = x + y
+    if spec.cross_attn:
+        x = x + cross_attn_decode(p["cross"], cfg,
+                                  nn.apply_norm(p["norm_x"], x, cfg.norm),
+                                  cross_kv)
     if spec.ffn == "dense":
         x = x + mlp_forward(p["ffn"], nn.apply_norm(p["norm2"], x, cfg.norm),
                             cfg.act)
@@ -203,10 +219,10 @@ def init_layer_cache(cfg: ModelConfig, spec: LayerSpec, batch: int,
     return {"mix": mix}
 
 
-def apply_group(p, cfg: ModelConfig, pattern, x, positions):
+def apply_group(p, cfg: ModelConfig, pattern, x, positions, enc_out=None):
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i, spec in enumerate(pattern):
-        x, a = apply_layer(p[f"l{i}"], cfg, spec, x, positions)
+        x, a = apply_layer(p[f"l{i}"], cfg, spec, x, positions, enc_out)
         aux = aux + a
     return x, aux
 
@@ -220,7 +236,7 @@ def _remat(fn, *args):
 
 
 def scan_groups(groups_p, cfg: ModelConfig, pattern, n_groups: int, x,
-                positions):
+                positions, enc_out=None):
     """The stacked groups over a full sequence, one after another
     (``lax.scan`` in JAX). remat='group' checkpoints each group's body,
     remat='layer' each layer, remat='none' nothing. Returns (x, aux), aux
@@ -233,29 +249,70 @@ def scan_groups(groups_p, cfg: ModelConfig, pattern, n_groups: int, x,
     for g in range(n_groups):
         gp = nn.tree_map(lambda t: t[g], per_group)
         if cfg.remat == "group":
-            x, a = _remat(lambda p_, x_: apply_group(p_, cfg, pattern, x_,
-                                                     positions), gp, x)
+            x, a = _remat(lambda p_, x_, e_: apply_group(
+                p_, cfg, pattern, x_, positions, e_), gp, x, enc_out)
             aux = aux + a
         elif cfg.remat == "layer":
             for i, spec in enumerate(pattern):
-                x, a = _remat(lambda p_, x_, spec=spec: apply_layer(
-                    p_, cfg, spec, x_, positions), gp[f"l{i}"], x)
+                x, a = _remat(lambda p_, x_, e_, spec=spec: apply_layer(
+                    p_, cfg, spec, x_, positions, e_), gp[f"l{i}"], x,
+                    enc_out)
                 aux = aux + a
         else:
-            x, a = apply_group(gp, cfg, pattern, x, positions)
+            x, a = apply_group(gp, cfg, pattern, x, positions, enc_out)
             aux = aux + a
     return x, aux
 
 
 def _decode_groups(groups, caches, cfg: ModelConfig, pattern, n_groups: int,
-                   x, pos, live):
-    """The stacked groups, one after another (``lax.scan`` in JAX)."""
+                   x, pos, live, positions=None, cross_kvs=None):
+    """The stacked groups, one after another (``lax.scan`` in JAX);
+    ``cross_kvs`` stacked group-major as ``build_cross_caches`` makes
+    them."""
     for g in range(n_groups):
         gp, gc = nn.tree_index(groups, g), nn.tree_index(caches, g)
+        ckv = None if cross_kvs is None else nn.tree_index(cross_kvs, g)
         for i, spec in enumerate(pattern):
             x = decode_layer(gp[f"l{i}"], cfg, spec, x, gc[f"l{i}"], pos,
-                             live)
+                             live, positions,
+                             None if ckv is None else ckv.get(f"l{i}"))
     return x
+
+
+# =========================================================================
+# Encoder (enc-dec archs; consumes the stub frontend's frame embeddings)
+# =========================================================================
+
+
+def init_encoder(generator, cfg: ModelConfig, *, device=None,
+                 dtype=torch.float32) -> Params:
+    """``enc_layers`` bidirectional layers stacked along a leading dim
+    (norm1, self-attention with H heads for k and v, norm2, dense FFN),
+    then a final norm: the reference's tree."""
+    lead = (cfg.enc_layers,)
+    kw = dict(device=device, dtype=dtype)
+    layer = {"norm1": _norm(cfg, lead, device, dtype),
+             "attn": init_cross_attn(generator, cfg, lead=lead, **kw),
+             "norm2": _norm(cfg, lead, device, dtype),
+             "ffn": init_mlp(generator, cfg.d_model, cfg.d_ff, lead=lead,
+                             **kw)}
+    return {"groups": layer,
+            "final_norm": nn.init_norm(cfg.d_model, cfg.norm, **kw)}
+
+
+def encoder_forward(p, cfg: ModelConfig, frames):
+    """frames: (B, S_enc, d_model), the stub frontend's output -> the
+    encoder's normed output in the compute dtype. Its self-attention is
+    the ``flash_attention`` kernels' non-causal mode on the card."""
+    x = frames.to(nn.dtype_of(cfg.compute_dtype))
+    per_layer = nn.tree_map(lambda a: a.unbind(0), p["groups"])
+    for i in range(cfg.enc_layers):
+        lp = nn.tree_map(lambda t: t[i], per_layer)
+        h = nn.apply_norm(lp["norm1"], x, cfg.norm)
+        x = x + enc_self_attn_forward(lp["attn"], cfg, h)
+        h = nn.apply_norm(lp["norm2"], x, cfg.norm)
+        x = x + mlp_forward(lp["ffn"], h, cfg.act)
+    return nn.apply_norm(p["final_norm"], x, cfg.norm)
 
 
 # =========================================================================
@@ -278,6 +335,11 @@ def init_lm(cfg: ModelConfig, *, generator: torch.Generator, device,
     kw = dict(device=device, dtype=dtype)
     base: Params = {"embed": nn.init_embedding(generator, cfg.vocab_size,
                                                cfg.d_model, **kw)}
+    if cfg.num_image_tokens:
+        base["img_proj"] = nn.init_linear(generator, cfg.d_model,
+                                          cfg.d_model, **kw)
+    if cfg.is_encdec:
+        base["encoder"] = init_encoder(generator, cfg, **kw)
     if pre:
         base["prefix"] = {f"l{i}": init_layer(generator, cfg, s, **kw)
                           for i, s in enumerate(pre)}
@@ -311,7 +373,15 @@ def init_lm(cfg: ModelConfig, *, generator: torch.Generator, device,
 # =========================================================================
 
 
-def _positions(cfg: ModelConfig, batch_size: int, seq: int, device):
+def _positions(cfg: ModelConfig, batch_size: int, seq: int, device,
+               batch=None):
+    """(B, S) positions, or M-RoPE's (3, B, S): ``batch["mrope_positions"]``
+    where the batch has them, else the default image grid."""
+    if cfg.rope_type == "mrope":
+        if batch is not None and "mrope_positions" in batch:
+            return batch["mrope_positions"]
+        return default_mrope_positions(batch_size, seq, cfg.num_image_tokens,
+                                       device=device)
     return torch.arange(seq, device=device)[None].expand(batch_size, seq)
 
 
@@ -320,19 +390,28 @@ def base_forward(base: Params, cfg: ModelConfig,
     """-> (z (B, S, d_fusion) in the compute dtype, aux fp32): z is the
     fusion-layer output that IFL shares, the only activation crossing
     the client boundary; aux the base layers' MoE load-balance loss.
-    batch: {"tokens": (B, S) int}."""
+    batch: {"tokens": (B, S) int}, with ``image_embeds`` (B, n_img, d)
+    for an image config (optionally ``mrope_positions`` (3, B, S)) and
+    ``frame_embeds`` (B, S_enc, d) for an encoder-decoder."""
     pre, bp, bg, _, _ = cfg._resolved_program()
     tokens = batch["tokens"]
     B, S = tokens.shape
     cdt = nn.dtype_of(cfg.compute_dtype)
     x = nn.embedding(base["embed"], tokens, compute_dtype=cdt)
-    positions = _positions(cfg, B, S, tokens.device)
+    if cfg.num_image_tokens:  # image rows replace the first n_img tokens
+        img = nn.linear(base["img_proj"], batch["image_embeds"].to(cdt))
+        x = torch.cat([img, x[:, cfg.num_image_tokens:]], dim=1)
+    positions = _positions(cfg, B, S, tokens.device, batch)
+    enc_out = None
+    if cfg.is_encdec:
+        enc_out = encoder_forward(base["encoder"], cfg, batch["frame_embeds"])
     aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
     for i, spec in enumerate(pre):
-        x, a = apply_layer(base["prefix"][f"l{i}"], cfg, spec, x, positions)
+        x, a = apply_layer(base["prefix"][f"l{i}"], cfg, spec, x, positions,
+                           enc_out)
         aux = aux + a
     if bg:
-        x, a = scan_groups(base["groups"], cfg, bp, bg, x, positions)
+        x, a = scan_groups(base["groups"], cfg, bp, bg, x, positions, enc_out)
         aux = aux + a
     return nn.linear(base["fusion_in"], x).to(cdt), aux
 
@@ -351,7 +430,12 @@ def modular_trunk(mod: Params, cfg: ModelConfig, z):
 
 
 def _head_logits(mod: Params, cfg: ModelConfig, x) -> torch.Tensor:
-    return nn.linear(mod["lm_head"], x).float()
+    """fp32 logits of the LM head, soft-capped where the config says."""
+    logits = nn.linear(mod["lm_head"], x).float()
+    if cfg.logit_softcap > 0:
+        c = cfg.logit_softcap
+        logits = torch.tanh(logits / c) * c
+    return logits
 
 
 def mtp_hidden(mod: Params, cfg: ModelConfig, x, positions):
@@ -412,22 +496,23 @@ def _next_token_ce(logits, tokens, offset: int, start: int) -> torch.Tensor:
 
 def lm_loss(params: Params, cfg: ModelConfig, batch) -> torch.Tensor:
     """Next-token CE (+ 0.3 x the MTP head's offset-2 CE) + the MoE
-    load-balance loss."""
+    load-balance loss; no CE on the image positions."""
     tokens = batch["tokens"]
+    start = cfg.num_image_tokens
     if cfg.ce_chunk:
         z, aux_b = base_forward(params["base"], cfg, batch)
         mod = params["modular"]
         h, aux_m, positions = modular_trunk(mod, cfg, z)
-        loss = chunked_ce(mod, cfg, h, tokens, offset=1, start=0)
+        loss = chunked_ce(mod, cfg, h, tokens, offset=1, start=start)
         if cfg.use_mtp:
             h2 = mtp_hidden(mod, cfg, h, positions)
             loss = loss + 0.3 * chunked_ce(mod, cfg, h2, tokens, offset=2,
-                                           start=0)
+                                           start=start)
         return loss + aux_b + aux_m
     logits, aux, mtp_logits = lm_apply(params, cfg, batch)
-    loss = _next_token_ce(logits, tokens, 1, 0)
+    loss = _next_token_ce(logits, tokens, 1, start)
     if mtp_logits is not None:
-        loss = loss + 0.3 * _next_token_ce(mtp_logits, tokens, 2, 0)
+        loss = loss + 0.3 * _next_token_ce(mtp_logits, tokens, 2, start)
     return loss + aux
 
 
@@ -495,11 +580,53 @@ def init_composed_cache(base_cfg: ModelConfig, mod_cfg: ModelConfig,
 # =========================================================================
 
 
+def build_cross_caches(params: Params, cfg: ModelConfig, enc_out) -> Params:
+    """Every cross-attention layer's K/V of the encoder output, computed
+    once for decoding: {"prefix": {"l<i>": ...}} for the prefix layers
+    and {"base": {"l<i>": ...}} stacked group-major for the base groups'
+    (the reference's tree). enc_out: (B, S_enc, d)."""
+    pre, bp, bg, _, _ = cfg._resolved_program()
+    base = params["base"]
+    out: Params = {}
+    if pre:
+        out["prefix"] = {
+            f"l{i}": cross_attn_cache(base["prefix"][f"l{i}"]["cross"], cfg,
+                                      enc_out)
+            for i, s in enumerate(pre) if s.cross_attn}
+    if bg and any(s.cross_attn for s in bp):
+        out["base"] = {}
+        for i, s in enumerate(bp):
+            if s.cross_attn:
+                per_group = [cross_attn_cache(
+                    nn.tree_index(base["groups"][f"l{i}"]["cross"], g), cfg,
+                    enc_out) for g in range(bg)]
+                out["base"][f"l{i}"] = {
+                    k: torch.stack([c[k] for c in per_group])
+                    for k in ("k", "v")}
+    return out
+
+
+def _decode_positions(cfg: ModelConfig, pos: torch.Tensor):
+    """M-RoPE's (3, B, 1) ids of a decode step, or None (``pos`` itself).
+    A text token continues every axis from ``max(pos - n_img, 0) +
+    grid``, grid = max(1, int(sqrt(n_img))) (the reference's decode rule,
+    which differs from ``default_mrope_positions``'s start for a
+    non-square image count)."""
+    if cfg.rope_type != "mrope":
+        return None
+    n_img = cfg.num_image_tokens
+    grid = max(1, int(n_img ** 0.5)) if n_img else 0
+    tid = torch.clamp(pos - n_img, min=0) + grid
+    return tid[None, :, None].expand(3, pos.shape[0], 1)
+
+
 def base_decode_step(base: Params, cfg: ModelConfig, cache: Params,
                      token: torch.Tensor, pos: torch.Tensor,
-                     live: Optional[torch.Tensor] = None):
+                     live: Optional[torch.Tensor] = None,
+                     cross_kvs: Optional[Params] = None):
     """The base half of one decode step: embed -> prefix -> base groups
-    -> fusion in-projection. token: (B, 1) int; pos: (B,) int.
+    -> fusion in-projection. token: (B, 1) int; pos: (B,) int;
+    ``cross_kvs`` from ``build_cross_caches`` for an encoder-decoder.
 
     Returns (z (B, 1, d_fusion), cache); the cache is updated in place.
     ``z`` is the only activation crossing the client boundary.
@@ -507,12 +634,15 @@ def base_decode_step(base: Params, cfg: ModelConfig, cache: Params,
     pre, bp, bg, _, _ = cfg._resolved_program()
     cdt = nn.dtype_of(cfg.compute_dtype)
     x = nn.embedding(base["embed"], token, compute_dtype=cdt)
+    positions = _decode_positions(cfg, pos)
+    cross_kvs = cross_kvs or {}
     for i, spec in enumerate(pre):
         x = decode_layer(base["prefix"][f"l{i}"], cfg, spec, x,
-                         cache["prefix"][f"l{i}"], pos, live)
+                         cache["prefix"][f"l{i}"], pos, live, positions,
+                         cross_kvs.get("prefix", {}).get(f"l{i}"))
     if bg:
         x = _decode_groups(base["groups"], cache["base"], cfg, bp, bg, x,
-                           pos, live)
+                           pos, live, positions, cross_kvs.get("base"))
     z = nn.linear(base["fusion_in"], x).to(cdt)
     return z, cache
 
@@ -528,23 +658,24 @@ def modular_decode_step(mod: Params, cfg: ModelConfig, cache: Params,
     x = nn.linear(mod["fusion_out"], z)
     if mg:
         x = _decode_groups(mod["groups"], cache["mod"], cfg, mp, mg, x, pos,
-                           live)
+                           live, _decode_positions(cfg, pos))
     x = nn.apply_norm(mod["final_norm"], x, cfg.norm)
-    logits = nn.linear(mod["lm_head"], x).float()
-    return logits, cache
+    return _head_logits(mod, cfg, x), cache
 
 
 def composed_decode_step(base: Params, base_cfg: ModelConfig, mod: Params,
                          mod_cfg: ModelConfig, cache: Params,
                          token: torch.Tensor, pos: torch.Tensor,
-                         live: Optional[torch.Tensor] = None):
+                         live: Optional[torch.Tensor] = None,
+                         cross_kvs: Optional[Params] = None):
     """One decode step of the composition f_m(f_b(.)): the base half
     under ``base_cfg``, the modular half under ``mod_cfg``, over the
     merged cache of ``init_composed_cache``.
 
     token: (B, 1) int; pos: (B,) int, each row's own position; ``live``
-    (B,) bool leaves the cache of rows where it is False untouched.
-    ``base`` may hold per-row weights (leading B dim, see
+    (B,) bool leaves the cache of rows where it is False untouched;
+    ``cross_kvs`` (``build_cross_caches``) feeds an encoder-decoder's
+    cross-attention layers. ``base`` may hold per-row weights (leading B dim, see
     ``modules.linear``), ``mod`` is shared by all rows.
 
     The B rows are the reference's vmapped B=1 slots: no row depends on
@@ -554,7 +685,8 @@ def composed_decode_step(base: Params, base_cfg: ModelConfig, mod: Params,
     pick an expert and break the lanes' bitwise contract.
     Returns (logits (B, 1, V) fp32, cache).
     """
-    z, cache = base_decode_step(base, base_cfg, cache, token, pos, live)
+    z, cache = base_decode_step(base, base_cfg, cache, token, pos, live,
+                                cross_kvs)
     return modular_decode_step(mod, mod_cfg, cache, z, pos, live)
 
 

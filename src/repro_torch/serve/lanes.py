@@ -176,6 +176,11 @@ class Lane:
             raise ValueError("lane arch pair disagrees on d_fusion")
         check_supported(base_cfg)
         check_supported(mod_cfg)
+        if base_cfg.is_encdec:
+            # A lane carries no cross caches (nor do the reference's).
+            raise NotImplementedError(
+                f"{base_cfg.name}: enc-dec serving is the fixed-batch path, "
+                "not ported yet (ROADMAP.md queue 1, item 5a)")
         self.base_cfg = base_cfg
         self.mod_cfg = mod_cfg
         self.width = int(width)

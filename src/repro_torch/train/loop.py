@@ -34,7 +34,11 @@ def _ifl_batch(stream: SyntheticLM, cfg: ModelConfig, n_clients: int,
                tau: int, batch: int, seq: int, step: int, *,
                device) -> Dict:
     """Round ``step``'s tokens (N, tau + 1, B, S): client k's minibatch t
-    is ``stream.sample(..., step=step * (tau + 1) + t, client=k)``."""
+    is ``stream.sample(..., step=step * (tau + 1) + t, client=k)``. An
+    image config adds ``image_embeds`` (N, tau + 1, B, n_img, d), normal
+    draws of numpy's ``default_rng(step)``, and an encoder-decoder
+    ``frame_embeds`` (N, tau + 1, B, S_enc, d) of ``default_rng(step +
+    1)``, fp32, as the reference draws them."""
     toks = np.stack([
         np.stack([
             stream.sample(batch, seq, step=step * (tau + 1) + t, client=k)
@@ -42,7 +46,38 @@ def _ifl_batch(stream: SyntheticLM, cfg: ModelConfig, n_clients: int,
         ])
         for k in range(n_clients)
     ])
-    return {"tokens": torch.from_numpy(toks).to(device)}
+    out = {"tokens": torch.from_numpy(toks).to(device)}
+    lead = (n_clients, tau + 1, batch)
+    if cfg.num_image_tokens:
+        out["image_embeds"] = _normal(
+            step, (*lead, cfg.num_image_tokens, cfg.d_model), device)
+    if cfg.is_encdec:
+        out["frame_embeds"] = _normal(
+            step + 1, (*lead, cfg.enc_seq_len, cfg.d_model), device)
+    return out
+
+
+def _dp_batch(stream: SyntheticLM, cfg: ModelConfig, batch: int, seq: int,
+              step: int, *, device) -> Dict:
+    """DP step ``step``'s batch: tokens (B, S), with zero ``image_embeds``
+    for an image config and ``frame_embeds`` of numpy's
+    ``default_rng(step)`` for an encoder-decoder, as the reference's DP
+    loop draws them."""
+    b = {"tokens": torch.from_numpy(
+        stream.sample(batch, seq, step=step)).to(device)}
+    if cfg.num_image_tokens:
+        b["image_embeds"] = torch.zeros(
+            (batch, cfg.num_image_tokens, cfg.d_model), device=device)
+    if cfg.is_encdec:
+        b["frame_embeds"] = _normal(step, (batch, cfg.enc_seq_len,
+                                           cfg.d_model), device)
+    return b
+
+
+def _normal(seed: int, shape, device) -> torch.Tensor:
+    """fp32 standard normals of numpy's ``default_rng(seed)``."""
+    return torch.from_numpy(np.random.default_rng(seed).normal(
+        size=shape).astype(np.float32)).to(device)
 
 
 def train_ifl_lm(
@@ -117,8 +152,7 @@ def train_dp_lm(cfg: ModelConfig, *, steps: int = 50, batch: int = 8,
     walls: List[float] = []
     for s in range(steps):
         t_step = time.perf_counter()
-        b = {"tokens": torch.from_numpy(
-            stream.sample(batch, seq, step=s)).to(dev)}
+        b = _dp_batch(stream, cfg, batch, seq, s, device=dev)
         params, opt_state, m = step_fn(params, opt_state, b)
         hist.append({"step": s, "loss": float(m["loss"])})
         walls.append(time.perf_counter() - t_step)

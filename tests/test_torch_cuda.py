@@ -332,6 +332,61 @@ def test_flash_attention_mla_head_dims_match_plain_on_card(
         assert _rel(g, w) <= bwd_tol, f"d{name}"
 
 
+# The TPU kernel's causal=False (every row sees every key; a window still
+# bounds keys from below): (B, S, H, KVH, hd, window). The seamless
+# encoder's self-attention (B 2, S 1024, 16 heads of 64) first; S 100 and
+# 1000 off the tile multiples, H = KVH and G > 1, hd 64 and 128, windows,
+# a padded head dim and the tile edges.
+ATTN_BIDIR = [(2, 1024, 16, 16, 64, -1), (2, 100, 4, 4, 64, -1),
+              (1, 1000, 8, 2, 128, -1), (2, 100, 8, 2, 128, 48),
+              (1, 1000, 4, 4, 64, 65), (2, 65, 4, 4, 24, -1),
+              (1, 129, 4, 1, 64, 1), (2, 64, 6, 3, 64, -1)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,H,KVH,hd,window", ATTN_BIDIR)
+def test_flash_attention_bidirectional_matches_plain_on_card(
+        B, S, H, KVH, hd, window, dtype):
+    """``causal=False`` forward and backward, one launch each (counted
+    as non-causal too), against the plain version's bidirectional
+    attention; deterministic."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    rng = np.random.default_rng(S + hd + 7)
+    q, k, v, do = (torch.from_numpy(rng.standard_normal(shape).astype(
+        np.float32)).cuda().to(dtype) for shape in (
+        (B, S, H, hd), (B, S, KVH, hd), (B, S, KVH, hd), (B, S, H, hd)))
+    before = (ops.flash_attention.launches, ops.flash_attention_bwd.launches,
+              ops.flash_attention.bidir_launches,
+              ops.flash_attention_bwd.bidir_launches)
+    qa, ka, va = (t.clone().requires_grad_() for t in (q, k, v))
+    out = ops.flash_attention(qa, ka, va, causal=False, window=window)
+    grads = torch.autograd.grad(out, (qa, ka, va), do)
+    torch.cuda.synchronize()
+    assert (ops.flash_attention.launches,
+            ops.flash_attention_bwd.launches,
+            ops.flash_attention.bidir_launches,
+            ops.flash_attention_bwd.bidir_launches) == tuple(
+                c + 1 for c in before)
+    fwd_tol, bwd_tol = ATTN_TOL[dtype]
+    want_o = ref.flash_attention_ref(q, k, v, causal=False, window=window)
+    assert _rel(out, want_o) <= fwd_tol
+    # The last query row sees the same keys either way; the first does not.
+    causal_o = ref.flash_attention_ref(q, k, v, window=window)
+    assert _rel(out[:, 0], causal_o[:, 0]) > 10 * fwd_tol or S == 1
+    want = ref.flash_attention_bwd_ref(q, k, v, do, causal=False,
+                                       window=window)
+    for g, w, name in zip(grads, want, "qkv"):
+        assert g.dtype == dtype and g.shape == w.shape
+        assert _rel(g, w) <= bwd_tol, f"d{name}"
+    again = ops.flash_attention_bwd(q, k, v, *ops.flash_attention_fwd(
+        q, k, v, causal=False, window=window), do, causal=False,
+        window=window)
+    for a, b in zip(again, grads):
+        assert torch.equal(a, b)
+
+
 @pytest.mark.cuda
 def test_hd64_128_outputs_bitwise_the_parents_on_card():
     """At hd 64 and 128 every output of the attention kernels (o, lse,

@@ -298,6 +298,16 @@ def test_train_cli_runs_on_the_card_unless_asked(tmp_path):
 
 
 def test_unsupported_families_and_partial_participation_raise(cfg):
-    with pytest.raises(NotImplementedError, match="4a-iii"):
-        tloop.train_dp_lm(get_config("llama4-maverick-400b-a17b").reduced(),
-                          steps=1, device="cpu")
+    # llama4 (qk-norm, NoPE, MoE), which raised before item 4a-iii, now
+    # takes a DP step (torch on one thread: its many small ops crawl
+    # under the test workers' contention otherwise).
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        out = tloop.train_dp_lm(
+            get_config("llama4-maverick-400b-a17b").reduced(), steps=1,
+            batch=2, seq=32, device="cpu")
+    finally:
+        torch.set_num_threads(n)
+    assert [h["step"] for h in out["history"]] == [0]
+    assert np.isfinite(out["history"][0]["loss"])

@@ -15,6 +15,7 @@ sides, sums in other orders); bytes and expert choices exact.
 """
 
 import dataclasses
+import functools
 import json
 
 import jax
@@ -23,6 +24,8 @@ import numpy as np
 import pytest
 import torch
 
+from _port_parity import (  # noqa: F401 (one_torch_thread is autouse)
+    close, fast_jit, flat, numpy_tree, one_torch_thread, shapes)
 from repro.checkpoint import load_checkpoint as jax_load_checkpoint
 from repro.checkpoint import save_checkpoint as jax_save_checkpoint
 from repro.config import LayerSpec as JLayerSpec
@@ -49,6 +52,7 @@ DEEPSEEK, JAMBA = "deepseek-v3-671b", "jamba-1.5-large-398b"
 B, S = 2, 64
 LOSS_TOL = 1e-4
 REL = 1e-4
+_close = functools.partial(close, rel=REL)
 
 
 def _jamba_period(spec_cls, get):
@@ -69,57 +73,6 @@ def _cfgs(name):
         _jamba_period(JLayerSpec, jax_get_config)
 
 
-@pytest.fixture(scope="module", autouse=True)
-def _one_torch_thread():
-    """The port's side on one intra-op thread: its steps are many small
-    ops, and test workers each spinning a thread a core over them run
-    many times slower than alone (a lane step or a training round here
-    took 100x its time alone in a full parallel run)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
-def _numpy(tree):
-    return {k: _numpy(v) if isinstance(v, dict) else v.detach().numpy()
-            for k, v in tree.items()}
-
-
-def _flat(tree, prefix=""):
-    out = {}
-    for k, v in tree.items():
-        key = f"{prefix}/{k}" if prefix else k
-        if isinstance(v, dict):
-            out.update(_flat(v, key))
-        else:
-            out[key] = v
-    return out
-
-
-def _shapes(tree):
-    return {k: _shapes(v) if isinstance(v, dict) else tuple(v.shape)
-            for k, v in tree.items()}
-
-
-def _close(got, ref, rel=REL, what=""):
-    got = got.detach().float().numpy()
-    ref = np.asarray(ref, np.float32)
-    assert got.shape == ref.shape and np.all(np.isfinite(got)), what
-    err = np.max(np.abs(got - ref))
-    assert err <= rel * max(1.0, np.max(np.abs(ref))), (what, err)
-
-
-def _fast_jit(fn, cfg, *args):
-    """fn(args[0], cfg, *args[1:]) jitted with XLA's LLVM backend at
-    optimization level 0 (it compiles in about half the time; the
-    operations and their order are the same)."""
-    low = jax.jit(fn, static_argnums=1).lower(args[0], cfg, *args[1:])
-    return low.compile(compiler_options={
-        "xla_backend_optimization_level": 0,
-        "xla_llvm_disable_expensive_passes": True})(args[0], *args[1:])
-
-
 def _tokens(shape, seed, vocab=512):
     return np.random.default_rng(seed).integers(0, vocab, shape).astype(
         np.int32)
@@ -136,7 +89,7 @@ def lm(request):
     cfg, jcfg = _cfgs(request.param)
     params = tf.init_lm(cfg, generator=torch.Generator().manual_seed(0),
                         device="cpu")
-    npp = _numpy(params)
+    npp = numpy_tree(params)
     jp = jax.tree.map(jnp.asarray, npp)
     toks = _tokens((B, S), 3)
     batch = {"tokens": jnp.asarray(toks)}
@@ -148,11 +101,11 @@ def lm(request):
 
     grads = None
     if request.param == DEEPSEEK:
-        (loss, out), grads = _fast_jit(jax.value_and_grad(
+        (loss, out), grads = fast_jit(jax.value_and_grad(
             loss_and_forward, has_aux=True), jcfg, jp, batch)
-        grads = _flat(jax.tree.map(np.asarray, grads))
+        grads = flat(jax.tree.map(np.asarray, grads))
     else:
-        loss, out = _fast_jit(loss_and_forward, jcfg, jp, batch)
+        loss, out = fast_jit(loss_and_forward, jcfg, jp, batch)
     return dict(name=request.param, cfg=cfg, jcfg=jcfg, params=npp, jp=jp,
                 toks=toks, out=[np.asarray(a) for a in out],
                 loss=float(loss), grads=grads)
@@ -166,7 +119,7 @@ def test_families_build_with_the_references_shapes(lm):
     for arch in (DEEPSEEK, JAMBA):  # the full configs are accepted
         tf.check_supported(get_config(arch))
     cfg, jcfg = lm["cfg"], lm["jcfg"]
-    assert _shapes(lm["params"]) == _shapes(jax.eval_shape(
+    assert shapes(lm["params"]) == shapes(jax.eval_shape(
         lambda k: jtf.init_lm(k, jcfg), jax.random.PRNGKey(0)))
     assert ("mtp" in lm["params"]["modular"]) == cfg.use_mtp
 
@@ -203,7 +156,7 @@ def test_lm_loss_with_mtp_and_aux_matches_jax(lm, remat, ce_chunk):
     loss, grads = value_and_grad(tf.lm_loss, p, cfg,
                                  {"tokens": torch.from_numpy(lm["toks"])})
     assert abs(float(loss) - lm["loss"]) <= LOSS_TOL
-    got = _flat(grads)
+    got = flat(grads)
     assert all(bool(torch.isfinite(g).all()) for g in got.values())
     if lm["grads"] is None:
         return
@@ -225,9 +178,9 @@ def test_dp_step_is_the_references_sgd_step(lm):
     assert abs(float(m["loss"]) - lm["loss"]) <= LOSS_TOL
     if lm["grads"] is None:
         return
-    got = _flat(p)
+    got = flat(p)
     for key, g in lm["grads"].items():
-        want = _flat(lm["params"])[key] - lr * g
+        want = flat(lm["params"])[key] - lr * g
         np.testing.assert_allclose(got[key].numpy(), want, rtol=1e-5,
                                    atol=1e-5, err_msg=key)
 
@@ -239,14 +192,14 @@ def test_checkpoints_load_across_the_packages(lm, tmp_path):
     save_checkpoint(str(tmp_path / "port"), p, step=1)
     template = jax.eval_shape(lambda k: jtf.init_lm(k, lm["jcfg"]),
                               jax.random.PRNGKey(0))
-    back = _flat(jax.tree.map(np.asarray, jax_load_checkpoint(
+    back = flat(jax.tree.map(np.asarray, jax_load_checkpoint(
         str(tmp_path / "port"), template)))
-    want = _flat(lm["params"])
+    want = flat(lm["params"])
     assert sorted(back) == sorted(want)
     for k in want:
         np.testing.assert_array_equal(back[k], want[k], err_msg=k)
     jax_save_checkpoint(str(tmp_path / "jax"), lm["jp"], step=1)
-    mine = _flat(load_checkpoint(str(tmp_path / "jax"), p))
+    mine = flat(load_checkpoint(str(tmp_path / "jax"), p))
     for k in want:
         np.testing.assert_array_equal(mine[k].numpy(), want[k], err_msg=k)
 
@@ -261,7 +214,7 @@ def mla():
     cfg, jcfg = _cfgs(DEEPSEEK)
     spec = LayerSpec()
     p = attention.init_attn(torch.Generator().manual_seed(5), cfg, spec)
-    jp = jax.tree.map(jnp.asarray, _numpy(p))
+    jp = jax.tree.map(jnp.asarray, numpy_tree(p))
     x = np.random.default_rng(6).standard_normal(
         (B, S, cfg.d_model)).astype(np.float32)
     pos = np.broadcast_to(np.arange(S, dtype=np.int32), (B, S))

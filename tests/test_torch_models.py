@@ -90,15 +90,20 @@ def test_configs_match_the_jax_registry():
                                   "seamless-m4t-large-v2", "qwen2-vl-2b",
                                   "gemma3-27b"])
 def test_uncovered_families_raise(arch):
-    # What waits for item 4a-iii: qk-norm (llama4, gemma3), a logit
-    # softcap, M-RoPE with images (qwen2-vl), cross-attention (seamless).
+    # The families item 4a-iii ported, which raised before it: qk-norm
+    # (llama4, gemma3), a logit softcap, M-RoPE with images (qwen2-vl),
+    # the encoder and cross-attention (seamless). ``init_lm`` builds each
+    # with the reference's tree and shapes.
     name, _, extra = arch.partition("+")
-    cfg = get_config(name).reduced()
+    cfg, jcfg = get_config(name).reduced(), jax_get_config(name).reduced()
     if extra == "softcap":
-        cfg = cfg.replace(logit_softcap=30.0)
-    with pytest.raises(NotImplementedError, match="ROADMAP.*4a-iii"):
-        tf.init_lm(cfg, generator=torch.Generator().manual_seed(0),
-                   device="cpu")
+        cfg, jcfg = (c.replace(logit_softcap=30.0) for c in (cfg, jcfg))
+    p = tf.init_lm(tf.check_supported(cfg),
+                   generator=torch.Generator().manual_seed(0), device="cpu")
+    want = jax.eval_shape(lambda k: jtf.init_lm(k, jcfg),
+                          jax.random.PRNGKey(0))
+    assert {k: tuple(v.shape) for k, v in _flat(p).items()} == {
+        k: tuple(v.shape) for k, v in _flat(want).items()}
 
 
 # ------------------------------------------------------------- modules
