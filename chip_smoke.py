@@ -8,7 +8,10 @@ port's main paths through the entry points a user calls:
 
   * serving: full-width qwen1.5-0.5b to 4 tenants through the serving
     engine (``python -m repro_torch.launch.serve --no-reduced``), the
-    path of the ``flash_decode`` kernel;
+    path of the ``flash_decode`` kernel, greedy and sampled (temperature
+    0.8, top-k 20, on the JAX package's threefry key chain, beside a
+    greedy neighbour), and the serve-plan autotuner whose plan a
+    ``horizon="auto"`` engine takes;
   * training: the paper's eager IFL round (Algorithm 1) at Table-II
     width, 4 heterogeneous clients, d_fusion 432, B 32, tau 10, lr 0.01,
     3 rounds each under ``int8_row`` and ``ef(int4)`` (``build_ifl`` +
@@ -109,10 +112,11 @@ port's main paths through the entry points a user calls:
     ``lm_loss`` pass and ``launch.train --mode dp``; seamless-m4t-large-v2
     at full depth (24 encoder layers over 1,024 frames on the attention
     kernels' non-causal mode, cross-attention in the decoder) through
-    ``launch.train --mode dp`` and greedy decoding through its cross
-    caches; the new prefill paths in turns for PROBE_S seconds; the four
-    reduced configs card against CPU (losses, logits, greedy tokens, an
-    IFL round).
+    ``launch.train --mode dp`` and the serving CLI's fixed-batch
+    ``generate`` through its cross caches; the new prefill paths in
+    turns for PROBE_S seconds; the four reduced configs card against CPU
+    (losses, logits, greedy tokens, an IFL round); ``launch.serve`` of
+    the reduced seamless and the serve_demo twin on the card.
 
 It checks each path's results, compares short runs on the card with the
 same runs on the CPU, and times each kernel at the shapes its path gives
@@ -4019,43 +4023,32 @@ def variant_dp_step(train_cli, ops, arch):
     return out["params"], bidir
 
 
-def encdec_greedy(params, cfg, frames, prompts, n, device):
-    """Greedy continuation of (B, P) prompts by the composed decode step
-    through the cross caches of the encoder's output on ``frames``:
-    the prompt fed a token at a time, then n tokens. -> (tokens, the
-    logits at every prompt position)."""
+def encdec_generate(params, cfg, frames, prompts, n, device):
+    """Greedy continuation of (B, P) prompts by ``launch.serve.generate``
+    (one ``lm_prefill``, then n decode steps) through the cross caches of
+    the encoder's output on ``frames``, as the serving CLI's enc-dec path
+    runs it. -> (the n new tokens of each row, the cross caches)."""
+    from repro_torch.launch.serve import generate
     from repro_torch.models import transformer as tf
 
-    B, P = prompts.shape
     with torch.no_grad():
         enc = tf.encoder_forward(params["base"]["encoder"], cfg,
                                  frames.to(device))
         kv = tf.build_cross_caches(params, cfg, enc)
-        cache = tf.init_composed_cache(cfg, cfg, B, P + n, device=device)
-        toks = torch.from_numpy(prompts).to(device)
-        seen, out = [], []
-        nxt = toks[:, :1]
-        for t in range(P + n - 1):
-            logits, cache = tf.composed_decode_step(
-                params["base"], cfg, params["modular"], cfg, cache, nxt,
-                torch.full((B,), t, device=device), cross_kvs=kv)
-            if t < P:
-                seen.append(logits[:, 0])
-            if t + 1 < P:
-                nxt = toks[:, t + 1:t + 2]
-            else:
-                nxt = logits[:, -1].argmax(-1, keepdim=True)
-                out.append(nxt[:, 0])
-    return torch.stack(out, 1).cpu().tolist(), torch.stack(seen, 1)
+    out = generate(params, cfg, torch.from_numpy(prompts).to(device), n, kv)
+    return out[:, prompts.shape[1]:].cpu().tolist(), kv
 
 
-def seamless_decode_phase(params, cfg):
-    """seamless at full width (the DP step's params): greedy decoding at
-    model level through the cross caches of 1,024 frames (B 2, prompt 8,
-    16 tokens) in the config's bf16, twice, the same tokens in vocab;
-    then in fp32 the decode's logits at the 8 prompt positions against
-    the full forward's (the flash kernels' non-causal encoder and causal
-    decoder against the cache path)."""
+def seamless_decode_phase(ops, params, cfg):
+    """seamless at full width (the DP step's params): ``generate`` through
+    the cross caches of 1,024 frames (B 2, prompt 8, 16 tokens) in the
+    config's bf16, twice, the same tokens in vocab, with the encoder's
+    attention on #8's causal=False (one launch a layer, counted by the
+    wrapper) and the decoder's self-attention on #9 (one launch a layer a
+    composed step: 8 prefill and 16 decode steps); then in fp32
+    ``lm_prefill``'s logits at each of the 8 prompt positions (a prefill
+    of the first t tokens) against the full forward's. -> (frames,
+    prompts, the first run's launch counts)."""
     from repro_torch.models import transformer as tf
     from repro_torch.models.modules import tree_map
 
@@ -4063,32 +4056,92 @@ def seamless_decode_phase(params, cfg):
     frames = torch.from_numpy(rng.standard_normal(
         (2, cfg.enc_seq_len, cfg.d_model)).astype(np.float32))
     prompts = rng.integers(0, cfg.vocab_size, (2, 8))
+    n_self = sum(s.mixer == "attn" for s in cfg.layer_specs())
+    steps = prompts.shape[1] + 16
+    reset_counts(ops)
     t0 = time.perf_counter()
-    toks, _ = encdec_greedy(params, cfg, frames, prompts, 16, "cuda")
+    toks, _ = encdec_generate(params, cfg, frames, prompts, 16, "cuda")
     torch.cuda.synchronize()
     dec_s = time.perf_counter() - t0
-    again, _ = encdec_greedy(params, cfg, frames, prompts, 16, "cuda")
+    got = dict(launch_counts(ops), **{
+        k + "_bidir": v for k, v in bidir_counts(ops).items()})
+    check(got["flash_attention"] == got["flash_attention_bidir"]
+          == cfg.enc_layers and got["flash_decode"] == n_self * steps
+          and all(v == 0 for k, v in got.items()
+                  if k not in ("flash_attention", "flash_attention_bidir",
+                               "flash_decode")),
+          f"seamless generate: launches {got}, want {cfg.enc_layers} "
+          f"causal=False and {n_self} layers x {steps} steps of flash_decode")
+    t0 = time.perf_counter()
+    again, _ = encdec_generate(params, cfg, frames, prompts, 16, "cuda")
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
     check(toks == again and all(0 <= t < cfg.vocab_size for r in toks
                                 for t in r),
-          f"seamless greedy: {toks} vs {again}")
+          f"seamless generate: {toks} vs {again}")
     c32 = cfg.replace(compute_dtype="float32")
     p32 = tree_map(lambda a: a.float(), params)
-    _, seen = encdec_greedy(p32, c32, frames, prompts, 1, "cuda")
+    _, kv = encdec_generate(p32, c32, frames, prompts, 0, "cuda")
+    tp = torch.from_numpy(prompts).cuda()
+    seen = []
     with torch.no_grad():
-        full = tf.lm_apply(p32, c32, {
-            "tokens": torch.from_numpy(prompts).cuda(),
-            "frame_embeds": frames.cuda()})[0]
+        for t in range(1, prompts.shape[1] + 1):
+            cache = tf.init_decode_cache(c32, 2, t, device="cuda")
+            seen.append(tf.lm_prefill(p32, c32, cache, tp[:, :t], kv)[0])
+        full = tf.lm_apply(p32, c32, {"tokens": tp,
+                                      "frame_embeds": frames.cuda()})[0]
+    seen = torch.cat(seen, 1)
     err = float((seen - full).abs().max() / max(1.0, full.abs().max()))
-    check(err <= 1e-4, f"seamless decode vs forward (fp32): {err}")
-    print(f"[variants decode] {cfg.name} at full width: greedy through the "
-          f"cross caches of {cfg.enc_seq_len} frames, B 2, prompt 8, 16 "
-          f"tokens ({cfg.compute_dtype}) in {dec_s:.2f}s, the same tokens "
-          f"twice, in vocab: {toks[0][:8]}; fp32 decode logits at the prompt "
-          f"positions vs the full forward: {err:.2e} of max |logit|",
-          flush=True)
+    check(err <= 1e-4, f"seamless lm_prefill vs forward (fp32): {err}")
+    n_tok = 2 * 16
+    print(f"[variants decode] {cfg.name} at full width: launch.serve."
+          f"generate through the cross caches of {cfg.enc_seq_len} frames, "
+          f"B 2, prompt 8, 16 tokens ({cfg.compute_dtype}): flash_attention "
+          f"{got['flash_attention']} (causal=False, == {cfg.enc_layers} "
+          f"encoder layers), flash_decode {got['flash_decode']} == {n_self} "
+          f"layers x {steps} composed steps; first run {dec_s:.3f}s, warm "
+          f"{warm_s:.3f}s = {n_tok / warm_s:.1f} tok/s (encoder and prefill "
+          f"included); the same tokens twice, in vocab: {toks[0][:8]}; fp32 "
+          f"lm_prefill logits at the prompt positions vs the full forward: "
+          f"{err:.2e} of max |logit|", flush=True)
     del p32
     torch.cuda.empty_cache()
-    return frames, prompts
+    return frames, prompts, got
+
+
+def serving_clis_phase():
+    """The serving entry points as a user runs them, on the card:
+    ``python -m repro_torch.launch.serve --arch seamless-m4t-large-v2``
+    (reduced: the fixed-batch ``generate`` path) and the serve_demo twin
+    at 4 tenants, W 4, prompt 16, 12 tokens, horizon 8 (engine == oracle
+    bitwise)."""
+    import contextlib
+    import io
+
+    from repro_torch.examples import serve_demo
+    from repro_torch.launch import serve as serve_cli
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        serve_cli.main(["--arch", SEAMLESS_ARCH, "--tenants", "2",
+                        "--prompt-len", "8", "--gen", "8"])
+    out = buf.getvalue()
+    check("fixed-batch generate path" in out and "generated (2, 16)" in out,
+          f"launch.serve --arch {SEAMLESS_ARCH}: {out}")
+    gen_line = next(x for x in out.splitlines() if x.startswith("generated"))
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        demo = serve_demo.main(["--tenants", "4", "--width", "4",
+                                "--prompt-len", "16", "--gen", "12",
+                                "--horizon", "8"])
+    out = buf.getvalue()
+    check(demo["parity"] and demo["tokens"] == 48
+          and "bitwise parity vs fixed-batch oracle: True" in out,
+          f"serve_demo: {out}")
+    print(f"[serving clis] launch.serve --arch {SEAMLESS_ARCH} (reduced) on "
+          f"the card: {gen_line}; examples.serve_demo --tenants 4 --width 4 "
+          f"--prompt-len 16 --gen 12 --horizon 8: engine == oracle bitwise, "
+          f"{demo['tokens']} tokens, hot run {demo['hot_s']:.3f}s", flush=True)
 
 
 def prefill_probe(engine_run, frames, prompts, params, cfg) -> int:
@@ -4098,7 +4151,7 @@ def prefill_probe(engine_run, frames, prompts, params, cfg) -> int:
     n, t0 = 0, time.perf_counter()
     while time.perf_counter() - t0 < PROBE_S:
         engine_run()
-        encdec_greedy(params, cfg, frames, prompts, 4, "cuda")
+        encdec_generate(params, cfg, frames, prompts, 4, "cuda")
         torch.cuda.synchronize()
         n += 1
     return n
@@ -4137,8 +4190,8 @@ def variant_card_vs_cpu(ops):
                 loss = float(lm_loss(p, cfg, b))
                 logits = lm_apply(p, cfg, b)[0].cpu()
                 if cfg.is_encdec:
-                    toks = encdec_greedy(p, cfg, batch["frame_embeds"],
-                                         prompts, 8, dev)[0]
+                    toks = encdec_generate(p, cfg, batch["frame_embeds"],
+                                           prompts, 8, dev)[0]
                 else:
                     toks = greedy_tokens(p["base"], cfg, p["modular"], cfg,
                                          prompts, 8, dev)
@@ -4171,8 +4224,9 @@ def variant_card_vs_cpu(ops):
 def variants_phase(ops, train_cli):
     """Phase 4o: qk-norm, M-RoPE with the image rows and the encoder with
     cross-attention at their widths (the non-causal kernels' checks run
-    with the others, in ``attn_checks``) -> the encoder's attention
-    launches in seamless's training step."""
+    with the others, in ``attn_checks``), then the serving CLIs -> (the
+    encoder's attention launches in seamless's training step, the
+    launch counts of seamless's ``generate``)."""
     from repro_torch.configs import get_config
     from repro_torch.launch.serve import build_demo_store
     from repro_torch.serve import ServeEngine
@@ -4206,7 +4260,7 @@ def variants_phase(ops, train_cli):
     scfg = get_config(SEAMLESS_ARCH)
     torch.cuda.empty_cache()
     sparams, enc_launches = variant_dp_step(train_cli, ops, SEAMLESS_ARCH)
-    frames, prompts = seamless_decode_phase(sparams, scfg)
+    frames, prompts, gen_launches = seamless_decode_phase(ops, sparams, scfg)
     r = CUT_SERVE
     n_probe = prefill_probe(lambda: ServeEngine(
         qstore, width=r["width"], cache_len=r["prompt_len"] + r["gen"],
@@ -4218,7 +4272,184 @@ def variants_phase(ops, train_cli):
     del qstore, sparams
     torch.cuda.empty_cache()
     variant_card_vs_cpu(ops)
-    return enc_launches
+    serving_clis_phase()
+    return enc_launches, gen_launches
+
+
+# ----------------------------- phase 4: sampling and the serve-plan tuner
+
+# Phase 4's sampled requests: the greedy requests' prompts and arrivals.
+SAMPLED = dict(temperature=0.8, top_k=20)
+
+
+def warm_serve(engine, reqs):
+    """A warm run: ``engine.fresh_clone()`` serves ``reqs``, the card
+    synchronized before each clock read -> (completions, seconds,
+    composed steps)."""
+    warm = engine.fresh_clone()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    comps = warm.run(reqs)
+    torch.cuda.synchronize()
+    return (comps, time.perf_counter() - t0,
+            sum(lane.composed_steps for lane in warm.lanes()))
+
+
+def sampler_cost(V: int, W: int = 4):
+    """One tick's sampling work in a lane of W rows over a vocab of V:
+    the keys' split and ``sample_token`` (threshold top-k, temperature,
+    ``categorical`` on the threefry bits). -> (device kernels launched,
+    their device time in ms from the profiler, the eager call's time in
+    ms between CUDA events, host launches included)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.serve import lanes, prng
+
+    g = torch.Generator(device="cuda").manual_seed(5)
+    logits = torch.randn((W, V), generator=g, device="cuda")
+    keys = prng.split(prng.prng_key(3, "cuda"), W)
+    temp = torch.tensor([0.8, 0.0, 0.8, 1.2][:W], device="cuda")
+    top_k = torch.tensor([20, 0, 20, 0][:W], device="cuda")
+
+    def step():
+        nk = prng.split(keys)
+        return lanes.sample_token(logits, nk[:, 1], temp, top_k)
+
+    ms = event_time_ms(step)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step()
+        torch.cuda.synchronize()
+    rows = [r for r in prof.key_averages()
+            if r.device_type == DeviceType.CUDA]
+    n = sum(r.count for r in rows)
+    dev_ms = sum(r.self_device_time_total for r in rows) / 1e3
+    return n, dev_ms, ms
+
+
+def sampled_serve_phase(ops, cfg, store, reqs, greedy, greedy_warm_s):
+    """Phase 4's sampled run on the full-width store: ``reqs`` at
+    temperature 0.8 and top-k 20, plus a greedy neighbour (request 0's
+    prompt under another rid), through the engine at W 4, horizon 8:
+    flash_decode launches == layers x composed steps and no other
+    kernel; engine == oracle bitwise for every request; the greedy
+    neighbour's stream == request 0's in the all-greedy run; horizon 1
+    gives the same streams; a warm run of the 4 sampled requests timed
+    as the greedy one was. -> the counts and times."""
+    import dataclasses
+
+    from repro_torch.serve import ServeEngine
+
+    sreqs = [dataclasses.replace(r, **SAMPLED) for r in reqs]
+    neighbour = dataclasses.replace(reqs[0], rid=len(reqs), arrival=1)
+    mixed = sreqs + [neighbour]
+    engine = ServeEngine(store, width=4, cache_len=64, horizon=8,
+                         device="cuda")
+    reset_counts(ops)
+    t0 = time.perf_counter()
+    comps = engine.run(mixed)
+    torch.cuda.synchronize()
+    cold_s = time.perf_counter() - t0
+    got = launch_counts(ops)
+    steps = sum(lane.composed_steps for lane in engine.lanes())
+    check(got["flash_decode"] == cfg.num_layers * steps
+          and all(v == 0 for k, v in got.items() if k != "flash_decode"),
+          f"sampled serve: launches {got}, {cfg.num_layers} layers x "
+          f"{steps} composed steps")
+    check(len(comps) == 5 and all(len(c.tokens) == 32 for c in comps)
+          and all(0 <= t < cfg.vocab_size for c in comps for t in c.tokens),
+          "sampled serve: a request did not complete in vocab")
+    check(comps[-1].tokens == greedy[0].tokens,
+          f"sampled serve: the greedy neighbour {comps[-1].tokens[:8]} != "
+          f"its all-greedy stream {greedy[0].tokens[:8]}")
+    n_moved = sum(c.tokens != g.tokens for c, g in zip(comps, greedy))
+    check(n_moved == 4, f"sampled serve: {n_moved} of 4 streams left "
+          "the greedy ones")
+    for r, c in zip(mixed, comps):
+        check(engine.oracle(r).tokens == c.tokens,
+              f"sampled serve: request {r.rid} != oracle")
+    h1 = ServeEngine(store, width=4, cache_len=64, horizon=1,
+                     device="cuda").run(mixed)
+    check([c.tokens for c in h1] == [c.tokens for c in comps],
+          "sampled serve: horizon 1 streams != horizon 8's")
+    warm_comps, warm_s, warm_steps = warm_serve(engine, sreqs)
+    check([c.tokens for c in warm_comps] == [c.tokens for c in comps[:4]],
+          "sampled serve: warm run differs")
+    n_tok = sum(len(c.tokens) for c in warm_comps)
+    n_k, dev_ms, eager_ms = sampler_cost(cfg.vocab_size)
+    print(f"[serve sampled] 4 requests at temperature 0.8, top-k 20, and a "
+          f"greedy neighbour, W 4, horizon 8: engine == oracle bitwise; "
+          f"horizon 1 == 8; the neighbour == request 0's greedy stream; "
+          f"flash_decode {got['flash_decode']} == {cfg.num_layers} layers x "
+          f"{steps} composed steps; first run {cold_s:.2f}s; warm run of the "
+          f"4 sampled requests {warm_s:.3f}s = {n_tok / warm_s:.1f} tok/s, "
+          f"{warm_s / warm_steps * 1e3:.2f} ms a composed step (greedy "
+          f"{greedy_warm_s:.3f}s = {n_tok / greedy_warm_s:.1f} tok/s); the "
+          f"sampler at W 4, V {cfg.vocab_size}: {n_k} kernels a "
+          f"composed step, {dev_ms:.4f} ms of device time, {eager_ms:.4f} ms "
+          f"eager", flush=True)
+    print(f"[serve sampled] tenant0 tokens {comps[0].tokens[:12]}",
+          flush=True)
+    return dict(launches=got["flash_decode"], steps=steps,
+                warm_s=warm_s, warm_steps=warm_steps, sampler_kernels=n_k,
+                sampler_ms=dev_ms, sampler_eager_ms=eager_ms)
+
+
+def autotune_phase(ops, store, reqs, comps):
+    """``ServeEngine.autotune`` on the full-width store (W 4, cache 64)
+    over horizons 1, 4, 8 and the two default edge sets, into a plan
+    file under a temporary directory; a ``horizon="auto"`` engine takes
+    the plan and serves ``reqs`` to the integer-horizon engine's
+    streams (``comps``). The tuning workload is the first two of
+    ``reqs`` (their prompts and staggered arrivals) cut to 8 new tokens:
+    each of the 6 candidates serves it twice, and at horizon 1 every
+    arrival is its own 32-step prefill. -> the plan."""
+    import dataclasses
+    import os
+    import tempfile
+
+    from repro_torch.serve import ServeEngine
+
+    env = "REPRO_TORCH_SERVE_PLAN_CACHE"
+    old = os.environ.get(env)
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "serve_plan.json")
+        os.environ[env] = path
+        ops._serve_cache_mem = None
+        try:
+            eng = ServeEngine(store, width=4, cache_len=64, device="cuda")
+            t0 = time.perf_counter()
+            plan = eng.autotune([dataclasses.replace(r, max_new_tokens=8)
+                                 for r in reqs[:2]], horizons=(1, 4, 8))
+            tune_s = time.perf_counter() - t0
+            with open(path) as f:
+                on_disk = json.load(f)
+            key = ops._serve_key(eng.plan_key(), "cuda")
+            check(list(on_disk) == [key] and len(plan["candidates"]) == 6,
+                  f"autotune: plan file {list(on_disk)}, {plan}")
+            auto = ServeEngine(store, width=4, cache_len=64, horizon="auto",
+                               device="cuda")
+            check(auto.horizon == plan["horizon"]
+                  and auto.bucket_edges == plan["bucket_edges"],
+                  f"horizon='auto' took {auto.horizon}, "
+                  f"{auto.bucket_edges}, not the plan {plan}")
+            got = auto.run(reqs)
+            check([c.tokens for c in got] == [c.tokens for c in comps],
+                  "horizon='auto' streams != the integer horizon's")
+        finally:
+            if old is None:
+                os.environ.pop(env, None)
+            else:
+                os.environ[env] = old
+            ops._serve_cache_mem = None
+    cands = "; ".join(f"h {c['horizon']} edges {c['bucket_edges']}: "
+                      f"{c['seconds']:.4f}s" for c in plan["candidates"])
+    print(f"[serve autotune] {key}: horizon {plan['horizon']}, edges "
+          f"{plan['bucket_edges']}, {plan['seconds']:.4f}s (tuning took "
+          f"{tune_s:.1f}s); candidates {cands}; horizon='auto' took the "
+          f"plan, streams == the horizon-8 engine's", flush=True)
+    return plan
 
 
 def tree_numpy(tree):
@@ -4429,7 +4660,10 @@ def main() -> None:
     if args.profile:
         clone = engine.fresh_clone()
         profile_run("serve", lambda: clone.run(reqs))
-    del engine, warm, store
+    del engine, warm
+    sampled = sampled_serve_phase(ops, cfg, store, reqs, comps, warm_s)
+    autotune_phase(ops, store, reqs, comps)
+    del store
 
     # -- 4b. the card against the CPU on the reduced config (fp32) --------
     small = cfg.reduced()
@@ -4437,14 +4671,23 @@ def main() -> None:
                                  device="cpu")
     small_reqs = demo_requests(small, 3, prompt_len=12, gen=10, stagger=1,
                                seed=1)
-    streams = {}
+    small_sampled = demo_requests(small, 3, prompt_len=12, gen=10,
+                                  stagger=1, seed=1, **SAMPLED)
+    streams, sampled_streams = {}, {}
     for dev in ("cpu", "cuda"):
         eng = ServeEngine(cpu_store, width=2, cache_len=32, horizon=4,
                           device=dev)
         streams[dev] = [c.tokens for c in eng.run(small_reqs)]
+        eng = ServeEngine(cpu_store, width=2, cache_len=32, horizon=4,
+                          device=dev)
+        sampled_streams[dev] = [c.tokens for c in eng.run(small_sampled)]
     check(streams["cuda"] == streams["cpu"],
           f"reduced config: card streams {streams['cuda']} != CPU "
           f"{streams['cpu']}")
+    check(sampled_streams["cuda"] == sampled_streams["cpu"]
+          and sampled_streams["cpu"] != streams["cpu"],
+          f"reduced config, sampled: card streams {sampled_streams['cuda']} "
+          f"!= CPU {sampled_streams['cpu']}")
     e0 = cpu_store.entry("tenant0")
     logits = {}
     for dev in ("cpu", "cuda"):
@@ -4460,8 +4703,9 @@ def main() -> None:
     lerr = float((logits["cuda"] - logits["cpu"]).abs().max())
     check(bool(torch.isfinite(logits["cuda"]).all()) and lerr <= 1e-4,
           f"reduced config: card logits differ from CPU by {lerr}")
-    print(f"[serve] reduced {small.name} fp32: card streams == CPU streams; "
-          f"logits max|card - cpu| {lerr:.2e}", flush=True)
+    print(f"[serve] reduced {small.name} fp32: card streams == CPU streams, "
+          f"greedy and sampled (temperature 0.8, top-k 20); logits "
+          f"max|card - cpu| {lerr:.2e}", flush=True)
 
     # -- 4c. the eager IFL round at Table-II width (the second main path) --
     ifl_launches = {}
@@ -4579,7 +4823,7 @@ def main() -> None:
 
     # -- 4o. qk-norm, softcap, M-RoPE with images, the encoder -------------
     t0 = time.perf_counter()
-    enc_launches = variants_phase(ops, train_cli)
+    enc_launches, gen_launches = variants_phase(ops, train_cli)
     print(f"[variants] phase 4o took {time.perf_counter() - t0:.1f}s",
           flush=True)
 
@@ -4624,6 +4868,9 @@ def main() -> None:
         "bound_by": dt["bound_by"],
         "library_ms": dt["library_ms"],
         "cross_launches": cross["flash_decode"],
+        # Phase 4's sampled run and seamless's generate (phase 4o).
+        "sampled_launches": sampled["launches"],
+        "generate_launches": gen_launches["flash_decode"],
         **{f"hd{h}_{k}": decode_hd[h][k] for h in (128, 24, 48)
            for k in ("ms", "plain_ms", "bound_ms", "library_ms")},
     }]
@@ -4695,6 +4942,9 @@ def main() -> None:
             # 4o): launches in its full-width training step, error and
             # times at its shape (SDPA non-causal beside them).
             "bidir_launches": enc_launches[kname],
+            **({"generate_bidir_launches":
+                gen_launches["flash_attention_bidir"]}
+               if kname == "flash_attention" else {}),
             "bidir_max_abs_err": attn_err["enc"][key],
             **{f"bidir_{k}": at_bidir[key + suffix]
                for k, suffix in (("ms", ""), ("plain_ms", "_plain"),

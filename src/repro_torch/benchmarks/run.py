@@ -7,7 +7,7 @@
 Every training run goes through ``repro_torch.api.run_experiment`` and
 is cached under ``results/torch/`` by its spec hash. The reference's
 kernel, roofline and collectives reports have no twin yet (ROADMAP.md
-queue 6); their sections say so.
+queue 1, item 6); their sections say so.
 """
 
 from __future__ import annotations
@@ -76,7 +76,8 @@ def main(argv=None) -> None:
 
     for name in ("kernel_bench", "roofline_report", "ifl_vs_dp_collectives"):
         _section(name)
-        print(f"# {name}: no twin on the port yet (ROADMAP.md queue 6)")
+        print(f"# {name}: no twin on the port yet (ROADMAP.md queue 1, "
+              "item 6)")
 
     print(f"\n# benchmarks done in {time.time() - t0:.0f}s")
 

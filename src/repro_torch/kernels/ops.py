@@ -45,12 +45,19 @@ JAX wrappers' TPU tiling conditions are not carried over (padded rows,
 kernels mask partial tiles and take any shape. ``decode_proj`` of an
 ``ef(...)`` codec decodes with its inner codec's scheme (the EF wire
 format is the inner one), where the JAX wrapper runs its jnp path.
+
+The serve-plan autotuner (``serve_plan``, ``autotune_serve_plan``) is
+the JAX package's: a wall-clock search of the serving engine's horizon
+and prompt-length bucket edges, persisted to a JSON file of the port's
+own, keyed by the card's name and the engine's geometry.
 """
 
 from __future__ import annotations
 
 import ctypes
+import json
 import math
+import os
 from dataclasses import dataclass
 from typing import Dict, Optional, Tuple
 
@@ -901,3 +908,85 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 flash_attention.launches = 0
 flash_attention.bidir_launches = 0
+
+
+# ------------------------------------------------- serve-plan autotuner
+#
+# Picks the serving engine's horizon S and the bucket edges of batch
+# admission for one (device, arch pairs, lane width, cache_len), by
+# timing a workload, and persists the winner to a JSON file, as the JAX
+# package's tuner does. The read side (``serve_plan``) never times
+# anything: ``ServeEngine(horizon="auto")`` consults it and falls back
+# to its defaults when the geometry is untuned.
+
+_serve_cache_mem: Optional[dict] = None
+
+
+def _serve_cache_path() -> str:
+    """The port's own plan file (the JAX package writes another), under
+    ``REPRO_TORCH_SERVE_PLAN_CACHE`` if it is set."""
+    return os.environ.get(
+        "REPRO_TORCH_SERVE_PLAN_CACHE",
+        os.path.join(os.path.expanduser("~"), ".cache", "repro_torch",
+                     "serve_plan.json"))
+
+
+def _load_serve_cache(refresh: bool = False) -> dict:
+    global _serve_cache_mem
+    if _serve_cache_mem is None or refresh:
+        try:
+            with open(_serve_cache_path()) as f:
+                _serve_cache_mem = json.load(f)
+        except (OSError, ValueError):
+            _serve_cache_mem = {}
+    return _serve_cache_mem
+
+
+def _serve_key(plan_key: str, device) -> str:
+    """The card's name with spaces as '_' (``"cpu"`` on the CPU),
+    ``|serve|`` and the engine's plan key."""
+    dev = torch.device(device)
+    name = ("cpu" if dev.type == "cpu"
+            else torch.cuda.get_device_name(dev).replace(" ", "_"))
+    return f"{name}|serve|{plan_key}"
+
+
+def serve_plan(plan_key: str, device) -> dict:
+    """The tuned {"horizon", "bucket_edges", "seconds"} of one engine
+    geometry on ``device``, or ``{}`` when untuned."""
+    return dict(_load_serve_cache().get(_serve_key(plan_key, device), {}))
+
+
+def autotune_serve_plan(plan_key: str, timer, device, *,
+                        horizons=(1, 2, 4, 8, 16),
+                        edge_sets=((8, 16, 32, 64, 128),),
+                        force: bool = False) -> dict:
+    """Grid search over (horizon, bucket edges) with
+    ``timer(horizon, edges) -> seconds``, the winner persisted under
+    (device, plan_key) so that later runs and other processes read it
+    from ``serve_plan``. Returns the winning entry, with every
+    candidate's seconds under "candidates" (also on a cache hit, unless
+    ``force``). A timer that raises is not skipped, as the JAX package's
+    tuner skips it: a failing kernel must not vanish into a plan."""
+    key = _serve_key(plan_key, device)
+    cache = _load_serve_cache(refresh=True)
+    if key in cache and not force:
+        return cache[key]
+    best, candidates = None, []
+    for edges in edge_sets:
+        edges = [int(e) for e in edges]
+        for h in horizons:
+            t = float(timer(int(h), edges))
+            candidates.append({"horizon": int(h), "bucket_edges": edges,
+                               "seconds": t})
+            if best is None or t < best["seconds"]:
+                best = dict(candidates[-1])
+    if best is None:
+        return {}
+    best["candidates"] = candidates
+    cache[key] = best
+    path = _serve_cache_path()
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    with open(path, "w") as f:
+        json.dump(cache, f, indent=1, sort_keys=True)
+    return best

@@ -1,7 +1,9 @@
 """LM assembly: layer program -> {base, modular} params; the
 full-sequence forward and losses that training runs (``base_forward``,
 ``modular_forward``, ``lm_loss``); the composed decode step and the
-ragged cached prefill that serving runs.
+ragged cached prefill that the serving lanes run; the fixed-batch decode
+API (``init_decode_cache``, ``lm_decode_step``, ``composed_prefill``,
+``lm_prefill``) that ``launch/serve.py``'s ``generate`` runs.
 
 The parameter tree is the JAX package's, key for key:
 
@@ -575,6 +577,13 @@ def init_composed_cache(base_cfg: ModelConfig, mod_cfg: ModelConfig,
     return cache
 
 
+def init_decode_cache(cfg: ModelConfig, batch: int, cache_len: int,
+                      dtype=None, *, device=None) -> Params:
+    """The decode cache of one LM (both halves under ``cfg``)."""
+    return init_composed_cache(cfg, cfg, batch, cache_len, dtype,
+                               device=device)
+
+
 # =========================================================================
 # Decode steps
 # =========================================================================
@@ -688,6 +697,54 @@ def composed_decode_step(base: Params, base_cfg: ModelConfig, mod: Params,
     z, cache = base_decode_step(base, base_cfg, cache, token, pos, live,
                                 cross_kvs)
     return modular_decode_step(mod, mod_cfg, cache, z, pos, live)
+
+
+def _row_positions(pos, batch: int, device) -> torch.Tensor:
+    """A scalar position (an int or a 0-d tensor) as the (B,) positions
+    the decode step takes; a (B,) tensor as it is."""
+    pos = torch.as_tensor(pos, device=device)
+    return pos.expand(batch).contiguous() if pos.dim() == 0 else pos
+
+
+def lm_decode_step(params: Params, cfg: ModelConfig, cache: Params,
+                   token: torch.Tensor, pos,
+                   cross_kvs: Optional[Params] = None):
+    """One decode step of one LM: token (B, 1) int at position ``pos``
+    (a scalar, the reference's form, or (B,) per row). Returns (logits
+    (B, 1, V) fp32, cache); the cache is updated in place."""
+    return composed_decode_step(
+        params["base"], cfg, params["modular"], cfg, cache, token,
+        _row_positions(pos, token.shape[0], token.device),
+        cross_kvs=cross_kvs)
+
+
+def composed_prefill(base: Params, base_cfg: ModelConfig, mod: Params,
+                     mod_cfg: ModelConfig, cache: Params,
+                     tokens: torch.Tensor,
+                     cross_kvs: Optional[Params] = None, start: int = 0):
+    """Batched cached prefill: the composed decode step at positions
+    ``start .. start+P-1`` of tokens (B, P), so the cache it leaves is
+    the one P sequential decode steps write (the reference runs the
+    same steps as one ``lax.scan``). Returns (the last position's
+    logits (B, 1, V) fp32, cache)."""
+    B, P = tokens.shape
+    logits = torch.zeros((B, 1, mod_cfg.vocab_size), dtype=torch.float32,
+                         device=tokens.device)
+    for t in range(P):
+        pos = torch.full((B,), start + t, dtype=torch.long,
+                         device=tokens.device)
+        logits, cache = composed_decode_step(
+            base, base_cfg, mod, mod_cfg, cache, tokens[:, t:t + 1], pos,
+            cross_kvs=cross_kvs)
+    return logits, cache
+
+
+def lm_prefill(params: Params, cfg: ModelConfig, cache: Params,
+               tokens: torch.Tensor, cross_kvs: Optional[Params] = None,
+               start: int = 0):
+    """``composed_prefill`` of one LM."""
+    return composed_prefill(params["base"], cfg, params["modular"], cfg,
+                            cache, tokens, cross_kvs, start)
 
 
 def composed_prefill_ragged(base: Params, base_cfg: ModelConfig,

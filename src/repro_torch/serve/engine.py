@@ -26,20 +26,23 @@ an otherwise-empty lane of the SAME width and horizon; by the lane's row
 independence a continuously-batched served output is bitwise equal to
 its oracle, on the CPU and on the card.
 
-The JAX package's ``horizon="auto"`` and ``autotune`` (the serve-plan
-autotuner) wait for ROADMAP.md queue 1, item 5a.
+``autotune`` times the horizon and bucket edges of batch admission on a
+workload and persists the winner (``repro_torch.kernels.ops``'s
+serve-plan autotuner); ``horizon="auto"`` reads it back.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import time
 from collections import deque
 from typing import Any, Deque, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.serve.lanes import Lane, require_greedy
+from repro_torch.kernels import ops
+from repro_torch.serve.lanes import Lane, default_bucket_edges
 from repro_torch.serve.store import CompositionStore
 from repro_torch.serve.types import Completion, Request
 
@@ -82,28 +85,32 @@ def fetch(payload: Dict[Any, Dict[str, Any]]) -> Dict[Any, Dict[str, Any]]:
 class ServeEngine:
     """Continuous-batching server over a ``CompositionStore``.
 
-    ``horizon`` is the fused-decode span S (ticks per engine step), an
-    integer. ``bucket_edges`` overrides the padded prompt-length buckets
-    of batch admission (default: powers of two up to ``cache_len``).
-    ``device`` defaults to the card; pass ``"cpu"`` to serve on the CPU.
+    ``horizon`` is the fused-decode span S (ticks per engine step);
+    ``"auto"`` reads the serve-plan autotuner's file
+    (``repro_torch.kernels.ops.serve_plan``) for this (device, arch
+    pairs, width, cache_len) and falls back to 8. ``bucket_edges``
+    overrides the padded prompt-length buckets of batch admission
+    (default: the plan's under "auto", else powers of two up to
+    ``cache_len``). ``device`` defaults to the card; pass ``"cpu"`` to
+    serve on the CPU.
     """
 
     def __init__(self, store: CompositionStore, *, width: int = 8,
-                 cache_len: int = 128, horizon: int = 1,
+                 cache_len: int = 128, horizon: Any = 1,
                  bucket_edges: Optional[Sequence[int]] = None,
                  device: DeviceLike = None):
         if width < 1:
             raise ValueError(f"lane width must be >= 1, got {width}")
-        if horizon == "auto":
-            raise NotImplementedError(
-                "horizon='auto': the port takes an integer horizon; the "
-                "serve-plan autotuner behind 'auto' is ROADMAP.md queue 1, "
-                "item 5a")
         self.device = resolve_device(device)
         self.store = store
         self.width = int(width)
         self.cache_len = int(cache_len)
         self.bucket_edges = list(bucket_edges) if bucket_edges else None
+        if horizon == "auto":
+            plan = ops.serve_plan(self.plan_key(), self.device)
+            horizon = plan.get("horizon", 8)
+            if self.bucket_edges is None and plan.get("bucket_edges"):
+                self.bucket_edges = [int(e) for e in plan["bucket_edges"]]
         self.horizon = int(horizon)
         if self.horizon < 1:
             raise ValueError(f"horizon must be >= 1, got {horizon}")
@@ -116,6 +123,15 @@ class ServeEngine:
         self._inflight = 0
 
     # ---------------------------------------------------------- lanes
+
+    def plan_key(self) -> str:
+        """The autotuner's key: every (base_arch, modular_arch) pair the
+        store can serve, and the lane geometry."""
+        pairs = sorted({(e.arch, e.modular_arch)
+                        for e in (self.store.entry(t)
+                                  for t in self.store.tenants())})
+        tag = ",".join(f"{a}+{m}" for a, m in pairs)
+        return f"{tag}|W{self.width}|L{self.cache_len}"
 
     def _lane_key(self, request: Request) -> Tuple[str, str]:
         e = self.store.entry(request.tenant)
@@ -143,7 +159,6 @@ class ServeEngine:
     # --------------------------------------------------------- submit
 
     def submit(self, request: Request) -> None:
-        require_greedy(request)
         e = self.store.entry(request.tenant)  # the ONE tenant lookup
         bc = self.store.cfg(e.arch)
         if len(request.prompt) + request.max_new_tokens > self.cache_len:
@@ -296,3 +311,38 @@ class ServeEngine:
                 return finished[0]
             t0 += S
         raise RuntimeError("oracle did not finish")
+
+    # ------------------------------------------------------- autotune
+
+    def autotune(self, requests: List[Request], *,
+                 horizons: Sequence[int] = (1, 2, 4, 8, 16),
+                 edge_sets: Optional[Sequence[Sequence[int]]] = None,
+                 force: bool = False) -> Dict[str, Any]:
+        """Wall-clock autotune of (horizon, bucket edges) for this
+        store, width and cache_len on this device, persisted to the
+        serve-plan file (``repro_torch.kernels.ops``). Each candidate
+        serves ``requests`` once, then times a warm ``fresh_clone`` run
+        of them, the card synchronized before each clock read."""
+        if edge_sets is None:
+            edge_sets = (default_bucket_edges(self.cache_len),
+                         [self.cache_len])
+
+        def sync():
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+
+        def timer(h: int, edges: Sequence[int]) -> float:
+            eng = ServeEngine(self.store, width=self.width,
+                              cache_len=self.cache_len, horizon=h,
+                              bucket_edges=list(edges), device=self.device)
+            eng.run(list(requests))      # the first run
+            warm = eng.fresh_clone()
+            sync()
+            t0 = time.perf_counter()
+            warm.run(list(requests))
+            sync()
+            return time.perf_counter() - t0
+
+        return ops.autotune_serve_plan(
+            self.plan_key(), timer, self.device, horizons=horizons,
+            edge_sets=edge_sets, force=force)

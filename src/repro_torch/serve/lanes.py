@@ -46,8 +46,18 @@ otherwise-empty width-W lane (``ServeEngine.oracle``). Empty slots carry
 zero params and a fresh cache and decode finite garbage that nobody
 reads.
 
-Greedy only in this slice: a request with ``temperature > 0`` raises
-NotImplementedError.
+Sampling happens inside the lane step, on the JAX package's own key
+chain (``prng.py``): a request's key is ``request_key`` (seed, rid),
+split once at its prefill and once a tick, and a token is
+``sample_token`` of the step's fp32 logits, the reference's threshold
+top-k and temperature before ``categorical``. Given the same logits, a
+sampled token is the reference's. A lane runs the greedy step, with no
+PRNG work, until the first non-greedy request is admitted, then the
+sampling step, in which every row splits its key each tick (greedy,
+empty and post-stop rows too, as the reference's vmapped program does),
+so a row's chain depends only on its own history: engine == oracle
+bitwise and the streams are the same at every horizon. Greedy rows
+select the argmax either way.
 """
 
 from __future__ import annotations
@@ -65,9 +75,11 @@ from repro_torch.models.transformer import (
     composed_prefill_ragged,
     init_composed_cache,
 )
+from repro_torch.serve import prng
 from repro_torch.serve.types import Completion, Request
 
-__all__ = ["Lane", "SlotState", "default_bucket_edges", "require_greedy"]
+__all__ = ["Lane", "SlotState", "default_bucket_edges", "request_key",
+           "sample_token"]
 
 
 def default_bucket_edges(cache_len: int) -> List[int]:
@@ -80,11 +92,32 @@ def default_bucket_edges(cache_len: int) -> List[int]:
     return edges
 
 
-def require_greedy(request: Request) -> None:
-    if request.temperature > 0:
-        raise NotImplementedError(
-            f"request {request.rid}: temperature > 0; the port serves greedy "
-            "requests only, per-slot sampling is ROADMAP.md queue 1, item 5a")
+def request_key(request: Request) -> np.ndarray:
+    """The request's raw PRNG key, the words (seed, rid) as uint32 in an
+    int64 array, derived on the host: the oracle rebuilds the same key
+    from the same request."""
+    return np.array([request.seed & 0xFFFFFFFF, request.rid & 0xFFFFFFFF],
+                    dtype=np.int64)
+
+
+def sample_token(logits: torch.Tensor, key: torch.Tensor,
+                 temperature: torch.Tensor,
+                 top_k: torch.Tensor) -> torch.Tensor:
+    """One token per row of (..., V) fp32 logits, each row with its own
+    key (..., 2), temperature and top_k: the argmax where the
+    temperature is 0, else ``categorical`` of the logits over the top
+    ``top_k`` (0 = the full vocab) divided by the temperature. ``top_k``
+    varies by row, so the filter is a threshold at the k-th largest
+    logit (ties with it kept), not a top-k selection."""
+    greedy = logits.argmax(dim=-1)
+    v = logits.shape[-1]
+    desc = torch.sort(logits, dim=-1, descending=True).values
+    kth = desc.gather(-1, (top_k - 1).clamp(0, v - 1)[..., None])
+    thresh = torch.where(top_k[..., None] > 0, kth, -torch.inf)
+    filt = torch.where(logits >= thresh, logits, -torch.inf)
+    t = torch.where(temperature > 0, temperature, 1.0)
+    drawn = prng.categorical(key, filt / t[..., None])
+    return torch.where(temperature > 0, drawn, greedy)
 
 
 def _zero_stack(template, width: int, dtype: torch.dtype, device,
@@ -179,8 +212,9 @@ class Lane:
         if base_cfg.is_encdec:
             # A lane carries no cross caches (nor do the reference's).
             raise NotImplementedError(
-                f"{base_cfg.name}: enc-dec serving is the fixed-batch path, "
-                "not ported yet (ROADMAP.md queue 1, item 5a)")
+                f"{base_cfg.name}: a lane carries no cross caches; serve an "
+                "encoder-decoder through the fixed-batch path, "
+                "repro_torch.launch.serve.generate")
         self.base_cfg = base_cfg
         self.mod_cfg = mod_cfg
         self.width = int(width)
@@ -203,6 +237,7 @@ class Lane:
         # Decode steps (ticks and prefill positions) this lane has run:
         # each is one composed step over all W rows.
         self.composed_steps = 0
+        self.sampling = False  # upgraded on the first non-greedy admit
         self._reset_state()
 
     def _reset_state(self) -> None:
@@ -219,6 +254,11 @@ class Lane:
         # stopped or empty), eos = per-slot eos id (-1 disables).
         self.rem = torch.zeros((W,), dtype=torch.long, device=dev)
         self.eos = torch.full((W,), -1, dtype=torch.long, device=dev)
+        # Sampling state: temperature (0 = greedy), top_k (0 = full
+        # vocab) and the PRNG key of every slot.
+        self.temp = torch.zeros((W,), dtype=torch.float32, device=dev)
+        self.topk = torch.zeros((W,), dtype=torch.long, device=dev)
+        self.keys = torch.zeros((W, 2), dtype=torch.long, device=dev)
         self.slots: List[Optional[SlotState]] = [None] * W
         self._admits: List[_AdmitGroup] = []
         self._window: Optional[torch.Tensor] = None  # (S, W) device tokens
@@ -233,6 +273,7 @@ class Lane:
             setattr(clone, name, getattr(self, name))
         clone.bucket_edges = list(self.bucket_edges)
         clone.composed_steps = 0
+        clone.sampling = self.sampling
         clone._reset_state()
         return clone
 
@@ -266,11 +307,11 @@ class Lane:
         fetch."""
         if not admits:
             return
-        for req, _ in admits:
-            require_greedy(req)
         free = self.free_slots()
         if len(admits) > len(free):
             raise RuntimeError("admit_batch() with too few free slots")
+        if any(r.temperature > 0 for r, _ in admits):
+            self.sampling = True
         W = self.width
         by_bucket: Dict[int, List[Tuple[Request, Any, int]]] = {}
         for (req, base), slot in zip(admits, free):
@@ -281,12 +322,18 @@ class Lane:
             lens = np.zeros((W,), np.int64)  # 0 = row not admitted
             max_new = np.ones((W,), np.int64)
             eos_rows = np.full((W,), -1, np.int64)
+            temp_rows = np.zeros((W,), np.float32)
+            topk_rows = np.zeros((W,), np.int64)
+            key_rows = np.zeros((W, 2), np.int64)
             slots = []
             for req, base, slot in group:
                 prompts[slot, : len(req.prompt)] = req.prompt
                 lens[slot] = len(req.prompt)
                 max_new[slot] = req.max_new_tokens
                 eos_rows[slot] = req.eos_id
+                temp_rows[slot] = req.temperature
+                topk_rows[slot] = req.top_k
+                key_rows[slot] = request_key(req)
                 slots.append(slot)
                 _copy_into_slot(self.base_stack, base, slot)
                 comp = Completion(
@@ -302,10 +349,25 @@ class Lane:
                 self.base_stack, self.base_cfg, self.modular, self.mod_cfg,
                 self.cache, self._tensor(prompts), lens_t)
             self.composed_steps += P
-            first = last.argmax(dim=-1)
+            admitted = lens_t > 0
+            self.temp = torch.where(admitted, self._tensor(temp_rows),
+                                    self.temp)
+            self.topk = torch.where(admitted, self._tensor(topk_rows),
+                                    self.topk)
+            # Only the admitted rows take a key (the reference scatters
+            # its prefill's keys into the admitted slots alone): a live
+            # slot's chain must not move at a neighbour's admission.
+            keys = torch.where(admitted[:, None], self._tensor(key_rows),
+                               self.keys)
+            if self.sampling:
+                nk = prng.split(keys)
+                first = sample_token(last, nk[:, 1], self.temp, self.topk)
+                keys = torch.where(admitted[:, None], nk[:, 0], keys)
+            else:
+                first = last.argmax(dim=-1)
+            self.keys = keys
             max_new_t, eos_t = self._tensor(max_new), self._tensor(eos_rows)
             done = (first == eos_t) | (max_new_t <= 1)
-            admitted = lens_t > 0
             self.tok = torch.where(admitted, first, self.tok)
             self.pos = torch.where(admitted, lens_t, self.pos)
             self.rem = torch.where(admitted,
@@ -322,19 +384,25 @@ class Lane:
         W-row step S times, the stop state updated on the device. The
         emitted (S, W) token window goes to the engine's fetch via
         :meth:`pending_transfer`."""
-        tok, pos, rem = self.tok, self.pos, self.rem
+        tok, pos, rem, keys = self.tok, self.pos, self.rem, self.keys
         toks = []
         for _ in range(S):
             logits, self.cache = composed_decode_step(
                 self.base_stack, self.base_cfg, self.modular, self.mod_cfg,
                 self.cache, tok[:, None], pos)
-            nxt = logits[:, -1].argmax(dim=-1)
+            if self.sampling:
+                nk = prng.split(keys)
+                keys = nk[:, 0]
+                nxt = sample_token(logits[:, -1], nk[:, 1], self.temp,
+                                   self.topk)
+            else:
+                nxt = logits[:, -1].argmax(dim=-1)
             live = rem > 0
             stop = (nxt == self.eos) | (rem == 1)
             rem = torch.where(live & ~stop, rem - 1, 0)
             tok, pos = nxt, pos + 1
             toks.append(nxt)
-        self.tok, self.pos, self.rem = tok, pos, rem
+        self.tok, self.pos, self.rem, self.keys = tok, pos, rem, keys
         self.composed_steps += S
         self._window = torch.stack(toks)
         self._window_span = (tick0, S)

@@ -24,10 +24,10 @@ class Request:
     arrival time, so staggered traffic is deterministic and testable.
     ``eos_id`` < 0 disables EOS eviction (run to ``max_new_tokens``).
 
-    Sampling: ``temperature == 0`` (the default) is greedy argmax.  The
-    sampling fields (``temperature > 0``, ``top_k``, ``seed``) keep the
-    JAX package's meaning, but the port's engine serves greedy requests
-    only for now and raises NotImplementedError for the others.
+    Sampling: ``temperature == 0`` (the default) is greedy argmax;
+    ``temperature > 0`` samples from the logits over the ``top_k``
+    largest (0 = the full vocab) divided by the temperature, on a PRNG
+    key chain derived from (``seed``, ``rid``), the JAX package's own.
     """
 
     rid: int

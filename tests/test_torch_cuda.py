@@ -1101,3 +1101,31 @@ def test_run_experiment_under_delta_on_card_matches_cpu():
         assert a["shipped_entries"] == b["shipped_entries"]
         for key in ("base_loss", "mod_loss"):
             assert abs(a[key] - b[key]) <= 1e-4, (key, a[key], b[key])
+
+
+@pytest.mark.cuda
+def test_batched_sampler_bits_on_card_equal_the_cpus():
+    """The serving lanes' sampler at full width: a (4, 2) batch of keys
+    over (4, 151936) counters (qwen1.5-0.5b's vocab), its bits, its key
+    split and its sampled tokens on the card, bitwise the CPU's (integer
+    ops, then the same fp32 steps; the logits here are far from ties)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from repro_torch.serve import lanes, prng
+
+    V = 151936
+    keys = prng.split(prng.prng_key(17), 4)
+    bits = {dev: prng.random_bits(keys.to(dev), (V,)).cpu()
+            for dev in ("cpu", "cuda")}
+    assert bits["cpu"].shape == (4, V)
+    assert torch.equal(bits["cuda"], bits["cpu"])
+    assert int(bits["cpu"].min()) >= 0 and int(bits["cpu"].max()) < 2**32
+    assert torch.equal(prng.split(keys.cuda()).cpu(), prng.split(keys))
+    logits = torch.from_numpy(np.random.default_rng(2).standard_normal(
+        (4, V)).astype(np.float32)) * 4
+    temp = torch.tensor([0.8, 0.0, 1.3, 0.5])
+    top_k = torch.tensor([20, 0, 0, 1])
+    toks = {dev: lanes.sample_token(logits.to(dev), keys.to(dev),
+                                    temp.to(dev), top_k.to(dev)).cpu()
+            for dev in ("cpu", "cuda")}
+    assert torch.equal(toks["cuda"], toks["cpu"])

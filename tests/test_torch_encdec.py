@@ -15,6 +15,11 @@ largest reference magnitude (fp32 on both sides, sums in other orders);
 the plain non-causal attention within 2e-5 of the Pallas kernel in
 interpret mode in fp32 (the bf16 kernels are held to that plain version
 on the card, ``tests/test_torch_cuda.py``); frame draws exact.
+
+Serving: the fixed-batch decode API (``lm_prefill``, ``composed_prefill``,
+``lm_decode_step``) and the CLI's ``generate`` through the cross caches,
+against the reference's ``lm_prefill`` (logits within 1e-5) and
+``generate`` (the same greedy tokens).
 """
 
 import functools
@@ -31,6 +36,7 @@ from repro.configs import get_config as jax_get_config
 from repro.core import ifl_spmd as jspmd
 from repro.data.synthetic import SyntheticLM as JaxSyntheticLM
 from repro.kernels import ops as jops
+from repro.launch import serve as jserve
 from repro.kernels import ref as jref
 from repro.models import attention as jattn
 from repro.models import transformer as jtf
@@ -303,19 +309,85 @@ def test_frame_batches_and_ifl_round_match_jax(cfgs):
 
 
 def test_serving_paths_refuse_encdec_naming_item_5a(cfgs):
-    """A lane carries no cross caches (nor do the reference's), and the
-    fixed-batch enc-dec CLI path is item 5a: both raise, by name."""
+    """A lane carries no cross caches (nor do the reference's): it
+    refuses an encoder-decoder and names the fixed-batch ``generate``
+    path that serves one (the CLI's, ``test_encdec_cli_serves_on_cpu``)."""
     cfg, _ = cfgs
     p = tf.init_lm(cfg, generator=torch.Generator().manual_seed(0),
                    device="cpu")
     store = CompositionStore()
     name = store.add_arch(cfg, reduced=True)
     store.set_modular(name, p["modular"])
-    with pytest.raises(NotImplementedError, match="5a"):
+    with pytest.raises(NotImplementedError, match="generate"):
         Lane(cfg, cfg, p["modular"], p["base"], width=2, cache_len=16,
              device="cpu")
-    with pytest.raises(NotImplementedError, match="5a"):
-        serve_cli.main(["--arch", ARCH, "--device", "cpu"])
+
+
+# ------------------------------------------- fixed-batch enc-dec serving
+
+P_SERVE, GEN = 6, 5
+
+
+@pytest.fixture(scope="module")
+def served(cfgs, lm):
+    """The reference's ``lm_prefill`` (last logits and cache) and greedy
+    ``generate`` on the fixture's params, through the cross caches of
+    its encoder output, prompts from a seed."""
+    _, jcfg = cfgs
+    prompts = np.random.default_rng(8).integers(
+        0, jcfg.vocab_size, (B, P_SERVE)).astype(np.int32)
+    jkv = jtf.build_cross_caches(lm["jp"], jcfg, jnp.asarray(lm["out"][0]))
+    logits, _ = jax.jit(lambda p_, c_, t_, k_: jtf.lm_prefill(
+        p_, jcfg, c_, t_, k_))(lm["jp"], jtf.init_decode_cache(
+            jcfg, B, P_SERVE + GEN), jnp.asarray(prompts), jkv)
+    toks = jserve.generate(lm["jp"], jcfg, jnp.asarray(prompts), GEN, jkv)
+    return dict(prompts=prompts, logits=np.asarray(logits),
+                tokens=np.asarray(toks))
+
+
+def _port_side(cfg, lm, prompts):
+    p = params_from_numpy(lm["params"], device="cpu")
+    kv = tf.build_cross_caches(p, cfg, torch.from_numpy(lm["out"][0].copy()))
+    return p, kv, torch.from_numpy(prompts.astype(np.int64))
+
+
+def test_lm_prefill_and_generate_match_jax(cfgs, lm, served):
+    cfg, _ = cfgs
+    p, kv, prompts = _port_side(cfg, lm, served["prompts"])
+    cache = tf.init_decode_cache(cfg, B, P_SERVE + GEN, device="cpu")
+    logits, _ = tf.lm_prefill(p, cfg, cache, prompts, kv)
+    assert logits.shape == (B, 1, cfg.vocab_size)
+    _close(logits, served["logits"], what="lm_prefill")
+    toks = serve_cli.generate(p, cfg, prompts, GEN, kv)
+    assert np.array_equal(toks.numpy(), served["tokens"])
+
+
+def test_composed_prefill_is_sequential_decode_steps(cfgs, lm):
+    """``composed_prefill`` from position ``start`` leaves bitwise the
+    cache (and last logits) of P ``lm_decode_step`` calls with scalar
+    positions."""
+    cfg, _ = cfgs
+    prompts = np.random.default_rng(9).integers(0, cfg.vocab_size, (B, 7))
+    p, kv, toks = _port_side(cfg, lm, prompts)
+    start = 2
+    pre = tf.init_decode_cache(cfg, B, 12, device="cpu")
+    seq = tf.init_decode_cache(cfg, B, 12, device="cpu")
+    got, pre = tf.composed_prefill(p["base"], cfg, p["modular"], cfg, pre,
+                                   toks, kv, start=start)
+    for t in range(toks.shape[1]):
+        want, seq = tf.lm_decode_step(p, cfg, seq, toks[:, t:t + 1],
+                                      start + t, kv)
+    assert torch.equal(got, want)
+    for key, a in flat(pre).items():
+        assert torch.equal(a, flat(seq)[key]), key
+
+
+def test_encdec_cli_serves_on_cpu(capsys):
+    serve_cli.main(["--arch", ARCH, "--device", "cpu", "--tenants", "2",
+                    "--prompt-len", "4", "--gen", "3"])
+    out = capsys.readouterr().out
+    assert "fixed-batch generate path" in out
+    assert "generated (2, 7)" in out
 
 
 @pytest.mark.parametrize("arch,key", [(ARCH, "frame_embeds"),

@@ -46,6 +46,7 @@ def test_import_loads_no_jax_and_no_reference_module():
         "import repro_torch.benchmarks.async_vs_sync\n"
         "import repro_torch.benchmarks.fleet_scale\n"
         "import repro_torch.api.spmd, repro_torch.examples.llm_ifl_train\n"
+        "import repro_torch.serve.prng, repro_torch.examples.serve_demo\n"
         "assert 'jax' not in sys.modules, 'jax loaded'\n"
         "bad = [m for m in sys.modules if m == 'repro' "
         "or m.startswith('repro.')]\n"
