@@ -81,7 +81,7 @@ port's main paths through the entry points a user calls:
     two vendors' common fusion dim), 2 tenants and 6 requests a lane,
     the path of ``flash_decode`` (olmo-1b's 8 layers in either half);
     ``python -m repro_torch.launch.train --arch xlstm-350m`` at B 2 and
-    its lr 3e-3 (3 DP steps at S 512, 2 IFL rounds of N 4, tau 2 at S
+    its lr 3e-3 (1 DP step at S 512, 1 IFL round of N 4, tau 2 at S
     128) and the full-width gradient held to the first-order drop of
     its loss, fp32 and bf16; the reduced
     xlstm-350m, a small Mamba hybrid and the composition twin's four
@@ -116,7 +116,17 @@ port's main paths through the entry points a user calls:
     ``generate`` through its cross caches; the new prefill paths in
     turns for PROBE_S seconds; the four reduced configs card against CPU
     (losses, logits, greedy tokens, an IFL round); ``launch.serve`` of
-    the reduced seamless and the serve_demo twin on the card.
+    the reduced seamless and the serve_demo twin on the card;
+  * the dry-run (phase 4p): full-width qwen1.5-0.5b's DP step at B 2,
+    S 512 and a W 4 composed decode step, each run on meta tensors and
+    then on the card under ``roofline.accounting.Accounting``: the meta
+    prediction equals the card's count in FLOPs, bytes and each kernel's
+    launches, which equal the launch counters; each step's warm wall
+    against its model FLOPs (``mfu``) and its roofline bound, with the
+    card's name and power limit; and ``python -m
+    repro_torch.launch.dryrun`` (deepseek-v3-671b at train_4k, and
+    ``--all --accounting-only``) run beside the other phases on this
+    machine's CPU.
 
 It checks each path's results, compares short runs on the card with the
 same runs on the CPU, and times each kernel at the shapes its path gives
@@ -157,6 +167,7 @@ from __future__ import annotations
 import argparse
 import json
 import math
+import os
 import re
 import statistics
 import subprocess
@@ -173,13 +184,37 @@ sys.path.insert(0, str(ROOT / "src"))
 # with the tests.
 sys.path.insert(0, str(ROOT / "tests"))
 
-# H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, dense bf16 FLOP/s and
-# fp32 FLOP/s outside the tensor cores.
-HBM_BYTES_PER_S = 3.35e12
-BF16_FLOPS = 989e12
-FP32_FLOPS = 67e12
+# The one timing harness (graph and event timers, each kernel's timed
+# shapes and inputs) and the one count of a kernel's work: the
+# ``kernel_bench`` twin and ``kernels/cost.py``.
+from repro_torch.benchmarks.kernel_bench import (  # noqa: E402
+    ATTN_BIDIR_TIMED,
+    ATTN_HD_TIMED,
+    ATTN_TIMED,
+    BF16,
+    D_FUSION,
+    DECODE_SHAPES,
+    F32,
+    LM_PROJ,
+    MLA_ATTN_TIMED,
+    PATH_FCS,
+    WIRE_SCHEMES,
+    attn_inputs,
+    attn_times,
+    decode_inputs,
+    decode_times,
+    event_time_ms,
+    fused_times,
+    kernel_times,
+    launch_floor_ms,
+    proj_inputs,
+    rms_inputs,
+    rms_times,
+    wire_inputs,
+    wire_times,
+)
 
-WIRE_SCHEMES = ("int8_row", "int4", "topk", "sketch")
+
 # Tolerance of the wire kernels' float outputs against the plain version
 # (values, sketch sums, scales, EF residual): both compute in fp32 with
 # the same rounding, except the EF clip's two norms, which the kernel
@@ -196,36 +231,6 @@ IFL_LOSS_TOL = 1e-4
 def check(ok: bool, msg: str) -> None:
     if not ok:
         raise RuntimeError(f"chip smoke failed: {msg}")
-
-
-def graph_time_ms(calls, reps: int = 50) -> float:
-    """Device time of one call, in ms. The calls are captured once into a
-    CUDA graph, so they run back to back with no host launch gaps; the
-    graph is replayed ``reps`` times, each replay timed with CUDA events;
-    the median replay is divided by the number of calls."""
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):  # warm-up off the capture stream
-        for c in calls:
-            c()
-    torch.cuda.current_stream().wait_stream(side)
-    torch.cuda.synchronize()
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for c in calls:
-            c()
-    for _ in range(3):
-        graph.replay()
-    marks = []
-    for _ in range(reps):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        graph.replay()
-        b.record()
-        marks.append((a, b))
-    torch.cuda.synchronize()
-    return statistics.median(a.elapsed_time(b) for a, b in marks) / len(calls)
 
 
 def profile_run(label: str, run, top: int = 8, groups=()) -> None:
@@ -265,18 +270,6 @@ def profile_run(label: str, run, top: int = 8, groups=()) -> None:
                   f"{r.count:7d}x {r.key[:90]}")
 
 
-def decode_inputs(gen, B, L, KVH, G, hd, dtype, lengths):
-    """Random q/k/v on the card and a decode-like validity mask: row b
-    has its first lengths[b] cache rows live (0 = fully masked)."""
-    dev = "cuda"
-    q = torch.randn((B, 1, KVH, G, hd), generator=gen, device=dev).to(dtype)
-    k = torch.randn((B, L, KVH, hd), generator=gen, device=dev).to(dtype)
-    v = torch.randn((B, L, KVH, hd), generator=gen, device=dev).to(dtype)
-    valid = (torch.arange(L, device=dev)[None, :]
-             < torch.tensor(lengths, device=dev)[:, None])
-    return q, k, v, valid
-
-
 # flash_decode against its plain version at the split's edges: (B, L,
 # KVH, G, hd, dtype, lengths). One tile (S 1) at L 1; two splits at L
 # 65; at L 4097 the splits of the path's heads (S 4) and of llama3-405b's
@@ -305,16 +298,6 @@ DECODE_SPLIT_CASES = [
     # olmo-1b's half of the cross-family lanes (phase 4m): G 1 at hd 128.
     (4, 64, 16, 1, 128, torch.bfloat16, [64, 40, 33, 17]),
 ]
-# flash_decode's timed shapes, (B, L, KVH, G, hd, live lengths, input
-# sets): the serving path's (W 4, cache 64; 64 sets of ~1 MB of K/V
-# cycle through the 50 MB L2, as each layer's cache arrives cold in a
-# decode step), then a 4,096-row cache, Qwen1.5-0.5B's published
-# 32,768-token context and llama3-405b's head layout (KVH 8, G 16, hd
-# 128), every row live, with enough sets that their K and V exceed L2.
-DECODE_SHAPES = [(4, 64, 16, 1, 64, [64, 40, 33, 17], 64),
-                 (4, 4096, 16, 1, 64, [4096] * 4, 2),
-                 (4, 32768, 16, 1, 64, [32768] * 4, 1),
-                 (4, 4096, 8, 16, 128, [4096] * 4, 2)]
 
 
 def decode_split_checks(ops, ref, gen):
@@ -360,59 +343,6 @@ def decode_split_checks(ops, ref, gen):
             torch.testing.assert_close(o, want)
             check(bool(torch.all(o[3] == 0)), "graph replay: masked row")
     return err
-
-
-def decode_times(ops, ref, gen, B, L, KVH, G, hd, lengths, n_sets, note=""):
-    """flash_decode's device time at one bf16 shape over ``n_sets`` input
-    sets, with its plain version, SDPA and the bound; ``note`` goes into
-    the printed line. The kernel is first held to its plain version on
-    the first set (the bf16 defaults). -> the JSON row's numbers."""
-    sets = [decode_inputs(gen, B, L, KVH, G, hd, torch.bfloat16, lengths)
-            for _ in range(n_sets)]
-    torch.testing.assert_close(ops.cached_attn_decode(*sets[0]),
-                               ref.cached_attn_decode_ref(*sets[0]))
-    kernel_ms = graph_time_ms(
-        [lambda s=s: ops.cached_attn_decode(*s) for s in sets])
-    plain_ms = graph_time_ms(
-        [lambda s=s: ref.cached_attn_decode_ref(*s) for s in sets])
-    sdpa = []
-    for q, k, v, valid in sets:
-        sdpa.append((q.reshape(B, KVH * G, 1, hd), k.transpose(1, 2),
-                     v.transpose(1, 2), valid[:, None, None, :]))
-    gqa = {"enable_gqa": True} if G > 1 else {}
-    library_ms = graph_time_ms(
-        [lambda a=a: torch.nn.functional.scaled_dot_product_attention(
-            a[0], a[1], a[2], attn_mask=a[3], **gqa) for a in sdpa])
-    # The least work this data needs: masked cache rows cannot change the
-    # output, so only the live rows of K and V count.
-    live = int(sets[0][3].sum())
-    esz = 2  # bf16
-    nbytes = (2 * live * KVH * hd * esz       # live K and V rows, read once
-              + 2 * B * KVH * G * hd * esz    # q in, out
-              + B * L)                        # valid
-    flops = 4 * live * KVH * G * hd           # q.k and p.v
-    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = flops / BF16_FLOPS * 1e3
-    print(f"[time] flash_decode at B={B} L={L} KVH={KVH} G={G} hd={hd} bf16 "
-          f"{note}: kernel {kernel_ms * 1e3:.2f} us, plain "
-          f"{plain_ms * 1e3:.2f} us, sdpa {library_ms * 1e3:.2f} us, bound "
-          f"{max(bytes_ms, ops_ms) * 1e3:.3f} us ({nbytes} bytes, {live} of "
-          f"{B * L} cache rows live); {nbytes / kernel_ms / 1e9:.3f} TB/s",
-          flush=True)
-    return dict(ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
-                bound_ms=max(bytes_ms, ops_ms),
-                bound_by="bytes" if bytes_ms >= ops_ms else "operations")
-
-
-def wire_inputs(rows, d, seed, scale=2.0):
-    """Fusion-output-like rows on the card: normal values, an all-zero
-    row, dead-ReLU zeros and ties in |z|."""
-    gen = torch.Generator(device="cuda").manual_seed(seed)
-    z = torch.randn((rows, d), generator=gen, device="cuda") * scale
-    z[min(3, rows - 1)] = 0.0
-    z[0, : d // 3] = 0.0
-    z[1 % rows, [5, 40, 77]] = torch.tensor([3.5, -3.5, 3.5], device="cuda")
-    return z
 
 
 def payload_err(got, want, label) -> float:
@@ -469,42 +399,6 @@ def wire_checks(ops, ref, get_codec):
     return errs
 
 
-def wire_times(ops, ref, get_codec, rows, d=432, schemes=WIRE_SCHEMES):
-    """Device times of each wire kernel and its plain version at (rows,
-    d), per scheme, with the byte bound; 64 input sets per graph."""
-    out = {}
-    for scheme in schemes:
-        codec, ef = get_codec(scheme), get_codec(f"ef({scheme})")
-        zs = [wire_inputs(rows, d, seed=1000 + i) for i in range(64)]
-        es = [0.1 * wire_inputs(rows, d, seed=2000 + i) for i in range(64)]
-        sch = ops.scheme_for(codec, d)
-        logd = math.log2(d)
-        per_elt = {"int8_row": 8, "int4": 8, "topk": 2 + logd, "sketch": 3}
-        for kname, kern, plain in (
-                ("wire_encode", lambda z, e: ops.wire_encode(z, codec),
-                 lambda z, e: ref.wire_encode_ref(z, codec)),
-                ("wire_encode_ef", lambda z, e: ops.wire_encode_ef(z, e, ef),
-                 lambda z, e: ref.wire_encode_ef_ref(z, e, ef))):
-            is_ef = kname == "wire_encode_ef"
-            k_ms = graph_time_ms([lambda z=z, e=e: kern(z, e)
-                                  for z, e in zip(zs, es)])
-            p_ms = graph_time_ms([lambda z=z, e=e: plain(z, e)
-                                  for z, e in zip(zs, es)])
-            nbytes = ops.wire_bytes_moved(sch, rows, ef=is_ef)
-            flops = rows * d * (per_elt[scheme] + (7 if is_ef else 0))
-            bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-            ops_ms = flops / FP32_FLOPS * 1e3
-            out[(kname, scheme)] = dict(
-                ms=k_ms, plain_ms=p_ms, bound_ms=max(bytes_ms, ops_ms),
-                bound_by="bytes" if bytes_ms >= ops_ms else "operations",
-                nbytes=nbytes)
-            print(f"[time] {kname} {scheme} at ({rows},{d}): kernel "
-                  f"{k_ms * 1e3:.2f} us, plain {p_ms * 1e3:.2f} us, bound "
-                  f"{max(bytes_ms, ops_ms) * 1e3:.4f} us ({nbytes} bytes)",
-                  flush=True)
-    return out
-
-
 # Flash attention against its plain version: (B, S, H, KVH, hd, window).
 # The LM path's shape first; then hd 128 with GQA (G 2), a partial last
 # tile (S 200) and a sliding window (48); then the edges of the bf16
@@ -523,12 +417,6 @@ ATTN_CASES = [(2, 512, 16, 16, 64, -1), (2, 256, 8, 4, 128, -1),
               (2, 512, 4, 4, 48, -1), (2, 65, 8, 2, 48, 65),
               (2, 64, 4, 1, 8, -1), (2, 200, 8, 4, 96, 1),
               (2, 256, 8, 2, 32, -1)]
-# Timed shapes (bf16, causal): the LM path's (qwen1.5-0.5b), and hd 128
-# as olmo-1b's attention has it.
-ATTN_TIMED = [ATTN_CASES[0], (2, 512, 16, 16, 128, -1)]
-# The padded head dims at the LM path's B, S and heads: the smoke LM's 24
-# and the composition twin's 48 (the kernels line's hd24_* / hd48_*).
-ATTN_HD_TIMED = {24: (2, 512, 16, 16, 24, -1), 48: (2, 512, 16, 16, 48, -1)}
 # MLA's head dims, v's apart from q's and k's: (B, S, H, KVH, hd, hdv,
 # window). Deepseek-v3's path shape (q/k 192 = nope 128 + rope 64, v 128,
 # 128 heads, S 512) first; then the reduced config's (48, 32) with a
@@ -538,9 +426,6 @@ MLA_ATTN_CASES = [(1, 512, 128, 128, 192, 128, -1),
                   (2, 512, 4, 4, 48, 32, -1), (2, 129, 4, 4, 48, 32, 65),
                   (1, 200, 8, 8, 192, 128, -1), (2, 65, 8, 8, 192, 128, 48),
                   (2, 130, 8, 2, 192, 128, -1), (1, 64, 4, 4, 192, 192, -1)]
-# Timed at deepseek-v3's path shape (bf16, causal): the kernels line's
-# mla_* keys.
-MLA_ATTN_TIMED = MLA_ATTN_CASES[0]
 # The kernels' non-causal mode (the TPU kernel's causal=False, every row
 # sees every key, a window bounding keys from below), (B, S, H, KVH, hd,
 # window): the seamless encoder's self-attention at full width (B 2, S
@@ -552,24 +437,12 @@ ATTN_BIDIR_CASES = [(2, 1024, 16, 16, 64, -1), (2, 100, 8, 8, 64, -1),
                     (1, 1000, 8, 2, 128, -1), (2, 100, 8, 2, 128, 48),
                     (1, 1000, 4, 4, 64, 65), (2, 100, 16, 2, 64, 1),
                     (1, 1000, 8, 8, 128, 300), (2, 65, 4, 4, 24, -1)]
-ATTN_BIDIR_TIMED = ATTN_BIDIR_CASES[0]
 # Tolerance, as max |kernel - plain| over max(1, max |plain|): fp32 sums
 # in another order; in bf16 the kernel rounds the unnormalized p of its
 # online softmax to bf16 where the plain version rounds the normalized
 # p, and the outputs are rounded to bf16.
 ATTN_TOL = {torch.float32: {"fwd": 2e-5, "bwd": 1e-4},
             torch.bfloat16: {"fwd": 2e-2, "bwd": 3e-2}}
-
-
-def attn_inputs(B, S, H, KVH, hd, dtype, seed, hdv=None):
-    """q, k (head dim hd), v and dO (head dim hdv, default hd)."""
-    hdv = hdv or hd
-    gen = torch.Generator(device="cuda").manual_seed(seed)
-    q = torch.randn((B, S, H, hd), generator=gen, device="cuda").to(dtype)
-    k = torch.randn((B, S, KVH, hd), generator=gen, device="cuda").to(dtype)
-    v = torch.randn((B, S, KVH, hdv), generator=gen, device="cuda").to(dtype)
-    do = torch.randn((B, S, H, hdv), generator=gen, device="cuda").to(dtype)
-    return q, k, v, do
 
 
 def attn_cases():
@@ -796,98 +669,6 @@ def guard_checks(ops, gen) -> int:
             n += 1
     torch.cuda.empty_cache()
     return n
-
-
-def event_time_ms(fn, reps: int = 20) -> float:
-    """Device time of one eager call, in ms: ``reps`` calls back to back
-    between two CUDA events (for calls through autograd, which the
-    graph timer does not capture)."""
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-    a = torch.cuda.Event(enable_timing=True)
-    b = torch.cuda.Event(enable_timing=True)
-    a.record()
-    for _ in range(reps):
-        fn()
-    b.record()
-    torch.cuda.synchronize()
-    return a.elapsed_time(b) / reps
-
-
-def attn_pairs(S: int, window: int, causal: bool) -> int:
-    """(query, key) pairs the mask keeps over one head of S rows."""
-    i = np.arange(S)
-    lo = np.maximum(0, i - window + 1) if window > 0 else np.zeros_like(i)
-    hi = i if causal else np.full_like(i, S - 1)
-    return int((hi - lo + 1).sum())
-
-
-def attn_times(ops, ref, shape, causal=True):
-    """Forward and backward times at ``shape`` (B, S, H, KVH, hd, window,
-    or B, S, H, KVH, hd, hdv, window; bf16, causal or not): kernel, plain
-    version, SDPA (``is_causal=causal``; no window: the timed shapes have
-    none) and the bound. Forwards are graph-replayed (16 input sets, ~8 MB each at
-    hd 64, so K/V come from HBM as in the model); backwards are timed
-    eagerly with events (the plain and SDPA backwards run through
-    autograd), each the backward alone on a forward done once."""
-    B, S, H, KVH, hd, hdv, window = (shape if len(shape) == 7 else
-                                     (*shape[:5], shape[4], shape[5]))
-    sets = [attn_inputs(B, S, H, KVH, hd, torch.bfloat16, seed=100 + i,
-                        hdv=hdv) for i in range(16)]
-    sdpa = torch.nn.functional.scaled_dot_product_attention
-    t = {}
-    kw = dict(causal=causal, window=window)
-    t["fwd"] = graph_time_ms([lambda s=s: ops.flash_attention_fwd(
-        s[0], s[1], s[2], **kw) for s in sets])
-    t["fwd_plain"] = graph_time_ms([lambda s=s: ref.flash_attention_ref(
-        s[0], s[1], s[2], **kw) for s in sets])
-    bhsd = [tuple(x.transpose(1, 2) for x in s) for s in sets]
-    t["fwd_sdpa"] = graph_time_ms([lambda a=a: sdpa(a[0], a[1], a[2],
-                                                    is_causal=causal)
-                                   for a in bhsd])
-    q, k, v, do = sets[0]
-    o, lse = ops.flash_attention_fwd(q, k, v, **kw)
-    t["bwd"] = event_time_ms(lambda: ops.flash_attention_bwd(
-        q, k, v, o, lse, do, **kw))
-    leaves = [x.detach().clone().requires_grad_() for x in (q, k, v)]
-    o_ref = ref.flash_attention_ref(*leaves, **kw)
-    t["bwd_plain"] = event_time_ms(lambda: torch.autograd.grad(
-        o_ref, leaves, do, retain_graph=True))
-    # SDPA in its own (B, H, S, hd) layout, contiguous.
-    leaves_t = [x.transpose(1, 2).contiguous().requires_grad_() for x in
-                (q, k, v)]
-    do_t = do.transpose(1, 2).contiguous()
-    o_sdpa = sdpa(*leaves_t, is_causal=causal)
-    t["bwd_sdpa"] = event_time_ms(lambda: torch.autograd.grad(
-        o_sdpa, leaves_t, do_t, retain_graph=True))
-    # The least work these inputs need: every (query, key) pair the mask
-    # keeps, and each tensor moved once.
-    pairs = attn_pairs(S, window, causal)
-    q_b, o_b = B * S * H * hd * 2, B * S * H * hdv * 2   # bf16 tensors
-    k_b, v_b = B * S * KVH * hd * 2, B * S * KVH * hdv * 2
-    lse_b = B * H * S * 4
-    bytes_fwd = q_b + k_b + v_b + o_b + lse_b  # q, k, v in; o, lse out
-    # q, k, v, o, dO, lse in; dq, dk, dv out
-    bytes_bwd = 2 * (q_b + k_b + v_b + o_b) + lse_b
-    flops_fwd = 2 * B * H * pairs * (hd + hdv)      # q.k and p.v
-    # q.k, ds^T q, ds k over hd; dO.v, p^T dO over hdv
-    flops_bwd = 2 * B * H * pairs * (3 * hd + 2 * hdv)
-    for key, nb, fl in (("fwd", bytes_fwd, flops_fwd),
-                        ("bwd", bytes_bwd, flops_bwd)):
-        b_ms = nb / HBM_BYTES_PER_S * 1e3
-        o_ms = fl / BF16_FLOPS * 1e3
-        t[key + "_bound"] = max(b_ms, o_ms)
-        t[key + "_bound_by"] = "bytes" if b_ms >= o_ms else "operations"
-        print(f"[time] flash_attention {key} at B {B} S {S} H {H} KVH {KVH} "
-              f"hd {hd} hdv {hdv} bf16 "
-              f"{'causal' if causal else 'bidirectional'}: kernel "
-              f"{t[key] * 1e3:.2f} us, plain "
-              f"{t[key + '_plain'] * 1e3:.2f} us, sdpa "
-              f"{t[key + '_sdpa'] * 1e3:.2f} us, bound "
-              f"{t[key + '_bound'] * 1e3:.3f} us ({nb} bytes, {fl} flops)",
-              flush=True)
-    return t
 
 
 def expected_attn_launches(cfg, *, steps_full, steps_mod, fwd_only):
@@ -1142,24 +923,8 @@ def lm_card_vs_cpu(small):
 # quantum. Kernel against kernel (csrc/fusion_proj.cu) is bitwise.
 FUSED_TOL = 1e-5
 BF16_TOL = 2.0 ** -7
-D_FUSION = 432
-# Table-II: the fusion FC of clients 2, 3, 4 (K -> 432, relu); the other
-# FCs of the path (client 4's base, the modular blocks after their first).
+# Table-II: the fusion FC of clients 2, 3, 4 (K -> 432, relu).
 FUSION_K = {2: 1568, 3: 784, 4: 512}
-PATH_FCS = [(784, 1024), (1024, 512), (256, 128), (128, 64), (64, 10),
-            (128, 10)]
-LM_PROJ = (4096, 4096, 2048)
-
-
-def proj_inputs(M, K, N, seed, dtype=torch.float32, zero_row=True):
-    """x (M, K) with an all-zero row, w (K, N) at 1/sqrt(K), b (N,)."""
-    gen = torch.Generator(device="cuda").manual_seed(seed)
-    x = torch.randn((M, K), generator=gen, device="cuda")
-    if zero_row:
-        x[min(3, M - 1)] = 0.0
-    w = torch.randn((K, N), generator=gen, device="cuda") / math.sqrt(K)
-    b = 0.1 * torch.randn((N,), generator=gen, device="cuda")
-    return x.to(dtype), w.to(dtype), b
 
 
 def same_payload(a, b, label):
@@ -1430,171 +1195,6 @@ def boundary_phase(ops, get_codec):
     return calls
 
 
-def fused_bound(nbytes, flops, rate):
-    b_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    o_ms = flops / rate * 1e3
-    return max(b_ms, o_ms), "bytes" if b_ms >= o_ms else "operations"
-
-
-# The fused encode's timed calls: (M, K, codec, quant, input sets). #5
-# and #6 at client 2's fusion FC (32, 1568, 432), under int8_row,
-# ef(int4) and top-k (its sort); #6 at fig2's (1024, 432, 432) and at
-# (4096, 96, 432), where #4's larger tiles fill the card.
-ENCODE_TIMED = {
-    "fusion_proj_quant": (32, 1568, "int8_row", True, 32),
-    "fusion_proj_encode": (32, 1568, "int8_row", False, 32),
-    "fusion_proj_encode_ef": (32, 1568, "ef(int4)", False, 32),
-    "fusion_proj_encode_topk": (32, 1568, "topk", False, 32),
-    "fusion_proj_encode_fig2": (1024, 432, "int8_row", False, 8),
-    "fusion_proj_encode_fig2_ef": (1024, 432, "ef(int4)", False, 8),
-    "fusion_proj_encode_4096": (4096, 96, "int8_row", False, 4),
-}
-
-
-def fused_times(ops, ref, get_codec):
-    """Device times of the four kernels, their plain versions, the one
-    PyTorch call that computes #4 (``torch.addmm`` and the activation)
-    and, for #3, #5 and #6, the unfused pair (cuBLAS and the codec /
-    ``wire_encode``), with the bounds; distinct input sets per graph so w
-    comes from HBM (32 sets at M 32). -> the JSON rows' numbers."""
-    out = {}
-
-    def time_proj(M, K, N, dtype, act="relu", sets=32):
-        ins = [proj_inputs(M, K, N, seed=500 + i, dtype=dtype, zero_row=False)
-               for i in range(sets)]
-        k_ms = graph_time_ms([lambda a=a: ops.fusion_proj(*a, act)
-                              for a in ins])
-        p_ms = graph_time_ms([lambda a=a: ref.fusion_proj_ref(*a, act)
-                              for a in ins])
-        bb = [(x, w, b.to(dtype)) for x, w, b in ins]
-        l_ms = graph_time_ms([lambda a=a: torch.relu_(torch.addmm(
-            a[2], a[0], a[1])) for a in bb])
-        esz = 2 if dtype == torch.bfloat16 else 4
-        nbytes = (M * K + K * N + M * N) * esz + N * 4
-        bound, by = fused_bound(nbytes, 2 * M * K * N, BF16_FLOPS
-                                if dtype == torch.bfloat16 else FP32_FLOPS)
-        print(f"[time] fusion_proj ({M},{K},{N}) {str(dtype)[6:]} {act}: "
-              f"kernel {k_ms * 1e3:.2f} us, plain {p_ms * 1e3:.2f} us, "
-              f"addmm+relu {l_ms * 1e3:.2f} us, bound {bound * 1e3:.4f} us "
-              f"({by}; {nbytes} bytes); kernel / addmm+relu "
-              f"{k_ms / l_ms:.2f}x", flush=True)
-        return dict(ms=k_ms, plain_ms=p_ms, library_ms=l_ms, bound_ms=bound,
-                    bound_by=by)
-
-    for k, n in PATH_FCS:
-        out[("fusion_proj", k, n)] = time_proj(32, k, n, torch.float32)
-    out["fusion_proj_1568"] = time_proj(32, 1568, D_FUSION, torch.float32)
-    out["fusion_proj_bf16"] = time_proj(32, 784, 1024, torch.bfloat16)
-    for dtype in (torch.float32, torch.bfloat16):
-        out[("fusion_proj_lm", dtype)] = time_proj(*LM_PROJ, dtype, sets=2)
-
-    for key, (M, K, name, quant, sets) in ENCODE_TIMED.items():
-        out[key] = encode_times(ops, ref, get_codec, M, K, name, quant, sets)
-
-    for M, N, sets in DECODE_TIMED:
-        out[("decode_proj", M, N)] = decode_proj_times(ops, ref, get_codec,
-                                                       M, N, sets=sets)
-    return out
-
-
-# decode_proj's timed calls: (M, N, input sets) of an int8_row payload of
-# (M, 432) into a first modular FC of width N, relu. The boundary's three
-# widths, and fig2's (1024, 432, 432).
-DECODE_TIMED = [(32, 256, 32), (32, 128, 32), (32, 10, 32), (1024, 432, 8)]
-
-
-def decode_proj_times(ops, ref, get_codec, M, N, name="int8_row", sets=32):
-    """Device times of ``decode_proj`` at an (M, 432) payload -> N, its
-    plain version, the unfused decode + ``addmm`` + relu, and
-    ``fusion_proj`` on the decoded input (the identity's right side,
-    without the decode), with the bound. -> the JSON row's numbers."""
-    codec, d = get_codec(name), D_FUSION
-    ins = []
-    for i in range(sets):
-        _, w, b = proj_inputs(1, d, N, seed=1100 + i)
-        ins.append((codec.encode(wire_inputs(M, d, seed=1200 + i)), w, b))
-    shape = (M, d)
-    decoded = [(codec.decode(p, shape=shape), w, b) for p, w, b in ins]
-    times = [graph_time_ms([lambda a=a: f(*a) for a in ins]) for f in (
-        lambda p, w, b: ops.decode_proj(p, w, b, "relu", codec=codec,
-                                        shape=shape),
-        lambda p, w, b: ref.decode_proj_ref(p, w, b, "relu", codec=codec,
-                                            shape=shape),
-        lambda p, w, b: torch.relu_(torch.addmm(
-            b, codec.decode(p, shape=shape), w)))]
-    proj_ms = graph_time_ms([lambda a=a: ops.fusion_proj(*a, "relu")
-                             for a in decoded])
-    sch = ops.scheme_for(codec, d)
-    nbytes = (sch.payload_bytes(M) + (d * N + N + M * N) * 4
-              + (4 * (2 * d + sch.n) if name.startswith("sketch") else 0))
-    bound, by = fused_bound(nbytes, 2 * M * d * N, FP32_FLOPS)
-    print(f"[time] decode_proj {name} ({M},{d})->{N} relu: kernel "
-          f"{times[0] * 1e3:.2f} us, plain {times[1] * 1e3:.2f} us, "
-          f"unfused decode+addmm+relu {times[2] * 1e3:.2f} us, fusion_proj "
-          f"on the decoded input {proj_ms * 1e3:.2f} us, bound "
-          f"{bound * 1e3:.4f} us ({by}; {nbytes} bytes)", flush=True)
-    return dict(ms=times[0], plain_ms=times[1], unfused_ms=times[2],
-                bound_ms=bound, bound_by=by)
-
-
-def launch_floor_ms() -> float:
-    """The per-call time of a one-element ``add_`` in the graph harness:
-    the least a kernel launch costs there."""
-    t = torch.zeros(1, device="cuda")
-    ms = graph_time_ms([lambda: t.add_(1.0)] * 64)
-    print(f"[time] launch floor (one-element add_, 64 in a CUDA graph): "
-          f"{ms * 1e3:.2f} us", flush=True)
-    return ms
-
-
-def encode_times(ops, ref, get_codec, M, K, name, quant=False, sets=32):
-    """Device times of the fused encode #6 (or, with ``quant``, #5) at
-    (M, K, 432) relu under codec ``name``, its plain version and the
-    unfused ``addmm`` + relu + ``wire_encode`` pair, with the bound,
-    over ``sets`` distinct input sets. -> the JSON row's numbers."""
-    codec = get_codec(name)
-    inner = codec.inner if codec.has_state else codec
-    N = D_FUSION
-    ins = [proj_inputs(M, K, N, seed=700 + i, zero_row=False)
-           for i in range(sets)]
-    es = [0.1 * wire_inputs(M, N, seed=900 + i) for i in range(sets)]
-    if quant:
-        def kern(a, e):
-            return ops.fusion_proj_quant(*a, "relu")
-
-        def plain(a, e):
-            return ref.fusion_proj_quant_ref(*a, "relu")
-    else:
-        def kern(a, e):
-            return ops.fusion_proj_encode(*a, "relu", codec=codec,
-                                          ef_state=e)
-
-        def plain(a, e):
-            return ref.fusion_proj_encode_ref(*a, "relu", codec=codec, e=e)
-
-    def unfused(a, e):
-        y = torch.relu_(torch.addmm(a[2], a[0], a[1]))
-        return (ops.wire_encode_ef(y, e, codec) if codec.has_state
-                else ops.wire_encode(y, codec))
-
-    es = es if codec.has_state else [None] * sets
-    times = [graph_time_ms([lambda a=a, e=e: f(a, e)
-                            for a, e in zip(ins, es)])
-             for f in (kern, plain, unfused)]
-    sch = ops.scheme_for(inner, N)
-    nbytes = ((M * K + K * N + N) * 4 + sch.payload_bytes(M)
-              + sch.table_bytes() + (2 * M * N * 4 if codec.has_state
-                                     else 0))
-    bound, by = fused_bound(nbytes, 2 * M * K * N, FP32_FLOPS)
-    kname = "fusion_proj_quant" if quant else "fusion_proj_encode"
-    print(f"[time] {kname} {name} ({M},{K},{N}) relu: kernel "
-          f"{times[0] * 1e3:.2f} us, plain {times[1] * 1e3:.2f} us, "
-          f"unfused addmm+relu+wire_encode {times[2] * 1e3:.2f} us, bound "
-          f"{bound * 1e3:.4f} us ({by}; {nbytes} bytes)", flush=True)
-    return dict(ms=times[0], plain_ms=times[1], unfused_ms=times[2],
-                bound_ms=bound, bound_by=by)
-
-
 # ------------------------------------------------------------- rmsnorm
 
 # The op's calls in the rmsnorm phase: (M, D, x dtype, scale dtype,
@@ -1602,7 +1202,6 @@ def encode_times(ops, ref, get_codec, M, K, name, quant=False, sets=32):
 # scale; the four LM clients' B * S rows at qwen1.5-0.5b's d_model in
 # bf16 with fp32 params; M off a multiple of 256, an odd D (rows not on
 # 16 bytes), a long row, each in fp32 and in bf16.
-F32, BF16 = torch.float32, torch.bfloat16
 RMS_CALLS = ([(8192, 4096, F32, F32, "ones"), (8192, 4096, F32, F32, "random"),
               (4096, 1024, BF16, F32, "random")]
              + [(M, D, xd, F32, "random") for M, D in ((1, 432), (1000, 432),
@@ -1612,14 +1211,6 @@ RMS_CALLS = ([(8192, 4096, F32, F32, "ones"), (8192, 4096, F32, F32, "random"),
 # reference's fp32 tolerance (tests/test_kernels.py:188; the sums run in
 # another order); bf16 within one bf16 rounding of the plain value.
 RMS_FP32_TOL = 2e-5
-
-
-def rms_inputs(M, D, xd, sd, scale, seed):
-    gen = torch.Generator(device="cuda").manual_seed(seed)
-    x = 2.0 * torch.randn((M, D), generator=gen, device="cuda")
-    s = (torch.ones((D,), device="cuda") if scale == "ones"
-         else torch.randn((D,), generator=gen, device="cuda"))
-    return x.to(xd), s.to(sd)
 
 
 def rmsnorm_phase(ops, ref):
@@ -1667,35 +1258,6 @@ def rmsnorm_phase(ops, ref):
           f"max(1,|plain|), bf16 within one rounding); RMSNorm(3.7x) vs "
           f"RMSNorm(x) {inv_err:.2e}", flush=True)
     return got["rmsnorm"], err32
-
-
-def rms_times(ops, ref):
-    """Device times at (8192, 4096) fp32 and (4096, 1024) bf16 x / fp32
-    scale: kernel, plain, ``F.rms_norm`` (scale cast to x's dtype, the
-    one PyTorch call for the function) and the byte bound. Enough input
-    sets per graph that the inputs come from HBM (2 x 128 MB; 8 x 8 MB)."""
-    out = {}
-    for M, D, xd, sd, sets in ((8192, 4096, F32, F32, 2),
-                               (4096, 1024, BF16, F32, 8)):
-        ins = [rms_inputs(M, D, xd, sd, "random", seed=300 + i)
-               for i in range(sets)]
-        k_ms = graph_time_ms([lambda a=a: ops.rmsnorm(*a) for a in ins])
-        p_ms = graph_time_ms([lambda a=a: ref.rmsnorm_ref(*a) for a in ins])
-        lib = [(x, s.to(xd)) for x, s in ins]
-        l_ms = graph_time_ms([lambda a=a: torch.nn.functional.rms_norm(
-            a[0], (D,), a[1], 1e-6) for a in lib])
-        xb, sb = (2 if xd == BF16 else 4), (2 if sd == BF16 else 4)
-        nbytes = 2 * M * D * xb + D * sb      # x in, y out, scale in
-        bound, by = fused_bound(nbytes, 4 * M * D, FP32_FLOPS)
-        out[(M, D)] = dict(ms=k_ms, plain_ms=p_ms, library_ms=l_ms,
-                           bound_ms=bound, bound_by=by)
-        print(f"[time] rmsnorm ({M},{D}) x {str(xd)[6:]} scale "
-              f"{str(sd)[6:]}: kernel {k_ms * 1e3:.2f} us, plain "
-              f"{p_ms * 1e3:.2f} us, F.rms_norm {l_ms * 1e3:.2f} us, bound "
-              f"{bound * 1e3:.2f} us ({by}; {nbytes} bytes); kernel at "
-              f"{nbytes / (k_ms * 1e-3) / 1e12:.2f} TB/s; kernel / F.rms_norm "
-              f"{k_ms / l_ms:.2f}x", flush=True)
-    return out
 
 
 # ------------------------------------------------------- the front door
@@ -2942,7 +2504,7 @@ CROSS_D_FUSION = 1024
 # width is checked directly, by the first-order drop of the loss along it
 # (``full_width_grad_check``).
 RECUR_RUN = dict(arch="xlstm-350m", tau=2, n_clients=4, batch=2, seq=512,
-                 ifl_seq=128, dp_steps=3, ifl_rounds=2, lr=3e-3)
+                 ifl_seq=128, dp_steps=1, ifl_rounds=1, lr=3e-3)
 # The gradient check's step: eps = GRAD_DROP / |g|^2 along -g lowers the
 # loss by GRAD_DROP to first order (~1e3 times the fp32 loss's rounding,
 # and ~1e-3 of the 3e-3 step); the measured drop must be within
@@ -3184,8 +2746,8 @@ def cross_family_phase(ops, profile):
 
 
 def recurrent_train_phase(train_cli, ops):
-    """xlstm-350m through the training CLI at B 2 and its lr 3e-3: 3 DP
-    steps at S 512 and 2 IFL rounds (N 4, tau 2) at S 128, the counts set
+    """xlstm-350m through the training CLI at B 2 and its lr 3e-3: one DP
+    step at S 512 and one IFL round (N 4, tau 2) at S 128, the counts set
     to 0 before each run; then the full-width gradient check. No
     attention kernel, and no wire kernel: the LM IFL CLI ships z in fp32
     (phase 4e counts none either). Losses finite."""
@@ -4452,6 +4014,215 @@ def autotune_phase(ops, store, reqs, comps):
     return plan
 
 
+# ------------------------------------------------- the dry-run (phase 4p)
+
+# Phase 4p's steps on full-width qwen1.5-0.5b: one DP step at phase 4e's
+# B 2, S 512 and one W 4 composed decode step over phase 4's cache of 64
+# rows (at position 40); each step's warm wall time is the median of
+# DRY_REPS runs between CUDA events.
+DRY_DP = dict(batch=LM_RUN["batch"], seq=LM_RUN["seq"])
+DRY_DECODE = dict(width=4, cache=64, pos=40)
+DRY_REPS = 5
+# The dry-run CLI's runs on this machine (meta tensors, no card), started
+# in the background after the build and read in phase 4p.
+DRY_CLI = (["--arch", "deepseek-v3-671b", "--shape", "train_4k"],
+           ["--all", "--accounting-only"])
+
+
+def start_dryrun_cli():
+    """``python -m repro_torch.launch.dryrun`` for each of DRY_CLI, in the
+    background (CPU and meta only), into a temporary directory; a run
+    still going when the script exits (a failed phase) is killed. ->
+    [(argv, process, start time, out dir)]."""
+    import atexit
+    import tempfile
+
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    runs = []
+    for argv in DRY_CLI:
+        out = tempfile.mkdtemp(prefix="dryrun_")
+        cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", *argv,
+               "--out", out]
+        runs.append((argv, subprocess.Popen(
+            cmd, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True), time.perf_counter(), out))
+    atexit.register(lambda: [r[1].kill() for r in runs
+                             if r[1].poll() is None])
+    return runs
+
+
+def finish_dryrun_cli(runs) -> None:
+    """Wait for each background dry-run, check it ended with "all
+    dry-runs OK", print its wall and its last lines; remove its files."""
+    import shutil
+
+    for argv, proc, t0, out in runs:
+        text, _ = proc.communicate(timeout=600)
+        wall = time.perf_counter() - t0
+        shutil.rmtree(out, ignore_errors=True)
+        lines = [x for x in text.splitlines() if x.startswith("[ok]")]
+        done = re.search(r"all dry-runs OK in ([\d.]+)s", text)
+        check(proc.returncode == 0 and done is not None,
+              f"dryrun {' '.join(argv)}: exit {proc.returncode}\n"
+              + text[-3000:])
+        print(f"[dryrun cli] python -m repro_torch.launch.dryrun "
+              f"{' '.join(argv)}: {len(lines)} rows, exit 0, "
+              f"{done.group(1)} s (its own clock, beside phases 3-4o; "
+              f"{wall:.1f} s from its start to this phase)", flush=True)
+        print(f"[dryrun cli]   {lines[0][:300]}", flush=True)
+
+
+def accounted(step, args, device, log):
+    """``step(*args)`` once under an ``Accounting`` of ``device`` holding
+    ``args`` -> its result."""
+    from repro_torch.roofline.accounting import Accounting
+
+    acc = Accounting(device=device, log=log)
+    with acc:
+        acc.hold(args)
+        step(*args)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    return acc.result()
+
+
+def _kernel_counts(r):
+    return {k: (v["launches"], v["flops"], v["bytes"])
+            for k, v in r["kernels"].items()}
+
+
+def dryrun_phase(ops, cfg, smi):
+    """Phase 4p: the dry-run's prediction against the card. Each of the
+    two steps (DRY_DP, DRY_DECODE) runs once on meta tensors under the
+    accounting (the dry-run's own path: ``configs.shapes.param_specs``,
+    no memory behind it) and once on the card under the same accounting:
+    FLOPs, bytes, the bytes of each op family and each kernel's launches,
+    FLOPs and bytes must be equal, and the kernels' launches equal to the
+    launch counters (attention: the layers times remat, derived; decode:
+    24 a step). On a difference both op logs go to ``chiprun_out/``.
+    Then each step's warm wall between CUDA events against its model
+    FLOPs (``mfu``) and against the roofline's bound (``bound_step_s``),
+    and the accounting's peak beside ``torch.cuda.max_memory_allocated``.
+    -> {step: numbers}."""
+    from repro_torch.configs.shapes import META, param_specs
+    from repro_torch.core.ifl_spmd import make_dp_train_step, make_serve_step
+    from repro_torch.launch.dryrun import _active_params, _block_params
+    from repro_torch.models import modules as nn
+    from repro_torch.models.transformer import init_decode_cache, init_lm
+    from repro_torch.optim import make_optimizer
+    from repro_torch.roofline.analysis import HW, model_flops, roofline_terms
+
+    opt = make_optimizer("sgd")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    card_params = init_lm(cfg, generator=gen, device="cuda",
+                          dtype=nn.dtype_of(cfg.param_dtype))
+    meta_params = param_specs(cfg)
+    B, S = DRY_DP["batch"], DRY_DP["seq"]
+    W, L = DRY_DECODE["width"], DRY_DECODE["cache"]
+
+    def tokens(shape, dev):
+        if dev == "meta":
+            return torch.empty(shape, dtype=torch.int32, device=META)
+        return torch.randint(0, cfg.vocab_size, shape, generator=gen,
+                             device="cuda", dtype=torch.int32)
+
+    def dp_args(params, dev):
+        return [params, opt.init(params), {"tokens": tokens((B, S), dev)}]
+
+    def decode_args(params, dev):
+        return [params, init_decode_cache(cfg, W, L, device=dev),
+                tokens((W, 1), dev),
+                torch.tensor(DRY_DECODE["pos"], device=dev)]
+
+    fwd, bwd = expected_attn_launches(cfg, steps_full=1, steps_mod=0,
+                                      fwd_only=False)
+    a_base, a_mod = _active_params(cfg, *_block_params(cfg))
+    out = {}
+    for name, step, make, want, tok in (
+            ("dp", make_dp_train_step(cfg), dp_args,
+             {"flash_attention": fwd, "flash_attention_bwd": bwd}, B * S),
+            ("decode", make_serve_step(cfg), decode_args,
+             {"flash_decode": cfg.num_layers}, W)):
+        logs = {"meta": [], "card": []}
+        pred = accounted(step, make(meta_params, "meta"), "meta",
+                         logs["meta"])
+        args = make(card_params, "cuda")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts(ops)
+        card = accounted(step, args, "cuda", logs["card"])
+        got = launch_counts(ops)
+        peak = torch.cuda.max_memory_allocated()
+        fams = {k: v for k, v in card["by_family"].items() if k != "host"}
+        pfams = {k: v for k, v in pred["by_family"].items() if k != "host"}
+        if (pred["flops"], pred["bytes"], pfams, _kernel_counts(pred)) != (
+                card["flops"], card["bytes"], fams, _kernel_counts(card)):
+            odir = ROOT / "chiprun_out"
+            odir.mkdir(exist_ok=True)
+            for dev, log in logs.items():
+                (odir / f"phase4p_{name}_{dev}.txt").write_text(
+                    "\n".join(f"{o}\t{f}\t{b}" for o, f, b in log))
+            first = next((i for i, (a, b) in enumerate(zip(
+                logs["meta"], logs["card"])) if a != b), None)
+            check(False, f"dryrun {name}: meta {pred['flops']} FLOPs, "
+                  f"{pred['bytes']} bytes, {pfams}, {pred['kernels']} != "
+                  f"card {card['flops']}, {card['bytes']}, {fams}, "
+                  f"{card['kernels']}; first differing op {first}: "
+                  f"{logs['meta'][first] if first is not None else None} "
+                  f"vs {logs['card'][first] if first is not None else None}"
+                  f" (of {len(logs['meta'])} / {len(logs['card'])} ops)")
+        check({k: v[0] for k, v in _kernel_counts(card).items()} == want
+              and all(got[k] == want.get(k, 0) for k in got),
+              f"dryrun {name}: kernels {card['kernels']}, counters {got}, "
+              f"want {want}")
+        # The warm wall: the step again, DRY_REPS times between events.
+        step(*args)
+        times = []
+        for _ in range(DRY_REPS):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            step(*args)
+            b.record()
+            torch.cuda.synchronize()
+            times.append(a.elapsed_time(b) / 1e3)
+        wall = statistics.median(times)
+        mf = model_flops("dp_train" if name == "dp" else "decode",
+                         params_base=a_base, params_mod=a_mod, tokens=tok)
+        terms = roofline_terms({"flops": card["flops"],
+                                "bytes accessed": card["bytes"]},
+                               cfg.compute_dtype, HW, model_flops_total=mf)
+        peak_flops = HW.peak_flops(cfg.compute_dtype)
+        out[name] = dict(
+            flops=card["flops"], bytes=card["bytes"], wall_s=wall,
+            walls_s=times, model_flops=mf,
+            mfu=mf / (wall * peak_flops),
+            roofline_share=terms["bound_step_s"] / wall,
+            bound_step_s=terms["bound_step_s"], dominant=terms["dominant"],
+            peak_accounted=card["peak_bytes"], peak_allocated=peak,
+            kernels={k: v[0] for k, v in _kernel_counts(card).items()})
+        o = out[name]
+        print(f"[dryrun {name}] {cfg.name} full width, "
+              + (f"make_dp_train_step at B {B}, S {S}" if name == "dp" else
+                 f"make_serve_step at W {W}, cache {L}")
+              + f": meta prediction == card: {card['flops']:.6e} FLOPs, "
+              f"{card['bytes']:.6e} bytes ({len(logs['card'])} ops; "
+              f"{ {k: int(v['bytes']) for k, v in fams.items()} }), kernels "
+              f"{o['kernels']} == the counters; peak accounted "
+              f"{o['peak_accounted'] / 2**30:.3f} GiB, "
+              f"max_memory_allocated {peak / 2**30:.3f} GiB", flush=True)
+        print(f"[dryrun {name}] {smi}: warm wall {wall * 1e3:.3f} ms "
+              f"(median of {DRY_REPS}: "
+              f"{[round(t * 1e3, 3) for t in times]}); mfu "
+              f"{o['mfu']:.6f} (model {mf:.4e} FLOPs at "
+              f"{peak_flops:.3g} FLOP/s), roofline share "
+              f"{o['roofline_share']:.6f} (bound {o['bound_step_s'] * 1e3:.4f}"
+              f" ms, {o['dominant']})", flush=True)
+        del args
+        torch.cuda.empty_cache()
+    return out
+
+
 def tree_numpy(tree):
     """A tree of tensors -> the same tree of numpy arrays."""
     if isinstance(tree, dict):
@@ -4525,17 +4296,9 @@ def main() -> None:
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     if args.kernel_times:
-        launch_floor_ms()
-        for B, L, KVH, G, hd, lengths, n_sets in DECODE_SHAPES:
-            decode_times(ops, ref, gen, B, L, KVH, G, hd, lengths, n_sets)
-            torch.cuda.empty_cache()
-        for M, K, name, quant, sets in ENCODE_TIMED.values():
-            encode_times(ops, ref, get_codec, M, K, name, quant, sets)
-        for M, N, sets in DECODE_TIMED:
-            decode_proj_times(ops, ref, get_codec, M, N, sets=sets)
-        for rows in (32, 4096):
-            wire_times(ops, ref, get_codec, rows)
+        kernel_times(ops, ref, get_codec, gen)
         return
+    dryrun_cli = start_dryrun_cli()
 
     # -- 3. kernel vs plain on the card -----------------------------------
     B, L, KVH, G, hd = 4, 64, 16, 1, 64   # the slice: W = 4, cache 64
@@ -4825,6 +4588,14 @@ def main() -> None:
     t0 = time.perf_counter()
     enc_launches, gen_launches = variants_phase(ops, train_cli)
     print(f"[variants] phase 4o took {time.perf_counter() - t0:.1f}s",
+          flush=True)
+
+    # -- 4p. the dry-run's prediction against the card -------------------
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    dryrun_phase(ops, cfg, smi)
+    finish_dryrun_cli(dryrun_cli)
+    print(f"[dryrun] phase 4p took {time.perf_counter() - t0:.1f}s",
           flush=True)
 
     # -- 5. times at the slice's shape ------------------------------------

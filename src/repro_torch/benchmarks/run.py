@@ -5,9 +5,13 @@
         [--device cpu]
 
 Every training run goes through ``repro_torch.api.run_experiment`` and
-is cached under ``results/torch/`` by its spec hash. The reference's
-kernel, roofline and collectives reports have no twin yet (ROADMAP.md
-queue 1, item 6); their sections say so.
+is cached under ``results/torch/`` by its spec hash. Then the twins of
+the reference's kernel, roofline and collectives reports:
+``kernel_bench`` (``cost.py``'s rows, and on the card the kernels
+timed; ``--device cpu`` gives the rows alone), ``roofline_report`` (the
+files of ``python -m repro_torch.launch.dryrun`` under
+``results/torch/dryrun``, and the wire table) and
+``ifl_vs_dp_collectives`` (analytic bytes).
 """
 
 from __future__ import annotations
@@ -19,6 +23,9 @@ from repro_torch.benchmarks import (
     fig2_comm_efficiency,
     fig3_heterogeneity,
     fig4_matrix,
+    ifl_vs_dp_collectives,
+    kernel_bench,
+    roofline_report,
     table1_comm_costs,
 )
 
@@ -74,10 +81,13 @@ def main(argv=None) -> None:
         fig4_matrix.run(args.rounds, participation=args.participation,
                         device=args.device)
 
-    for name in ("kernel_bench", "roofline_report", "ifl_vs_dp_collectives"):
-        _section(name)
-        print(f"# {name}: no twin on the port yet (ROADMAP.md queue 1, "
-              "item 6)")
+    _section("kernel_bench")
+    kernel_bench.main(["--device", "cpu" if args.device == "cpu"
+                       else "cuda"])
+    _section("roofline_report")
+    roofline_report.run()
+    _section("ifl_vs_dp_collectives")
+    ifl_vs_dp_collectives.run(codec=args.codec)
 
     print(f"\n# benchmarks done in {time.time() - t0:.0f}s")
 

@@ -1,5 +1,6 @@
-"""Model configuration: the port's own copy of ``LayerSpec`` and
-``ModelConfig``.
+"""Model configuration: the port's own copy of ``LayerSpec``,
+``ModelConfig`` and the assigned input shapes (``ShapeConfig``,
+``INPUT_SHAPES``).
 
 A ModelConfig describes an architecture as a *layer program*: an
 optional unstacked ``prefix`` of layers, then ``base_groups`` repetitions
@@ -35,6 +36,24 @@ class LayerSpec:
     window: int = -1  # -1 = global causal attention; >0 = sliding window
     use_rope: bool = True  # False => NoPE (llama4 global layers)
     cross_attn: bool = False  # decoder cross-attention (enc-dec only)
+
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    """One assigned input shape (the JAX package's ``ShapeConfig``)."""
+
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # 'train' | 'prefill' | 'decode'
+
+
+INPUT_SHAPES: dict[str, ShapeConfig] = {
+    "train_4k": ShapeConfig("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524288, 1, "decode"),
+}
 
 
 @dataclass(frozen=True)

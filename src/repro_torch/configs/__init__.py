@@ -41,3 +41,20 @@ _MODULES: Dict[str, str] = {
 def get_config(arch_id: str) -> ModelConfig:
     mod = importlib.import_module(f"repro_torch.configs.{_MODULES[arch_id]}")
     return mod.CONFIG.validate()
+
+
+# Pure full-attention archs where long_500k (decode at a 524,288-token
+# context) is skipped: no sub-quadratic or windowed variant in the
+# source model (the JAX package's set).
+LONG_CONTEXT_OK = {
+    "xlstm-350m",  # recurrent state, O(1) decode
+    "jamba-1.5-large-398b",  # mamba state + 9 windowless attn layers
+    "gemma3-27b",  # 5:1 sliding-window(1024):global
+    "llama4-maverick-400b-a17b",  # 3:1 chunked(8192):global (iRoPE)
+}
+
+
+def supports_shape(arch_id: str, shape_name: str) -> bool:
+    if shape_name == "long_500k":
+        return arch_id in LONG_CONTEXT_OK
+    return True

@@ -506,21 +506,26 @@ class SPMDFusionExchange(ExchangePlane):
         ``valid`` the (N,) 0/1 fp32 staleness weights and ``new_cache``
         the refreshed cache (both None at full participation), and the
         EF residual (``()`` for a stateless codec). ``mask`` is an (N,)
-        bool tensor; absent clients' rows of z are never read."""
+        bool tensor; absent clients' rows of z are never read. The
+        staleness arithmetic runs where the cache's ``age`` lives: on the
+        host in a dry-run on the meta device (``init_payload_cache``'s
+        ``age_device``), whose tensors have no values to read."""
         shape = tuple(z.shape[1:])
         if mask is None:
             payload, ef_state = self._encode(z, ef_state)
             return (self._decode(payload, shape, z.dtype), tokens, None,
                     None, ef_state)
+        any_upload = bool(mask.any())
+        age_mask = mask.to(device=cache["age"].device, dtype=torch.bool)
         mask = mask.to(device=z.device, dtype=torch.bool)
         payload, toks = cache["payload"], cache["tokens"]
-        if bool(mask.any()):
+        if any_upload:
             enc, ef_new = self._encode(z, ef_state)
             if self.codec.has_state:
                 ef_state = _tree_where(mask, ef_new, ef_state)
             payload = _tree_where(mask, enc, payload)
             toks = _tree_where(mask, tokens.to(toks.dtype), toks)
-        age = torch.where(mask, torch.zeros_like(cache["age"]),
+        age = torch.where(age_mask, torch.zeros_like(cache["age"]),
                           torch.clamp_max(cache["age"], _NEVER - 1) + 1)
         new_cache = {"payload": payload, "tokens": toks, "age": age}
         valid = (age <= self.age_bound).float()
@@ -634,13 +639,16 @@ def init_ef_state(codec, z_shape: Tuple[int, ...], *, device=None):
 
 def init_payload_cache(codec, z_shape: Tuple[int, ...],
                        token_shape: Tuple[int, ...], *,
-                       dtype=torch.float32, device=None) -> Dict[str, Any]:
+                       dtype=torch.float32, device=None,
+                       age_device=None) -> Dict[str, Any]:
     """Initial carried payload cache of a partial-participation step:
     ``z_shape`` (N, Bc, S, d_fusion), ``token_shape`` (N, Bc, S). The
     payload is the codec's encode of a zero z, stacked N times (the
     reference's leaf names, dtypes and shapes); tokens are int32 zeros
     and every age is ``_NEVER``: a slot is invalid until its client
-    first uploads, whatever the staleness bound."""
+    first uploads, whatever the staleness bound. The ages live on
+    ``age_device`` (default ``device``): a dry-run on the meta device
+    keeps them on the host, with the mask."""
     n = z_shape[0]
     one = get_codec(codec).encode(
         torch.zeros(tuple(z_shape[1:]), dtype=dtype, device=device))
@@ -649,4 +657,5 @@ def init_payload_cache(codec, z_shape: Tuple[int, ...],
             "tokens": torch.zeros(tuple(token_shape), dtype=torch.int32,
                                   device=device),
             "age": torch.full((n,), _NEVER, dtype=torch.int32,
-                              device=device)}
+                              device=device if age_device is None
+                              else age_device)}

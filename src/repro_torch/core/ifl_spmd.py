@@ -56,7 +56,7 @@ from repro_torch.models.transformer import (
     chunked_ce,
     composed_decode_step,
     init_lm,
-    lm_apply,
+    lm_logits,
     lm_loss,
     modular_forward,
     modular_trunk,
@@ -333,25 +333,27 @@ def make_dp_train_step(cfg: ModelConfig, *, lr: float = 1e-3,
 
 
 def make_prefill_step(cfg: ModelConfig) -> Callable:
-    """prefill_step(params, batch) -> logits (B, S, V) fp32."""
+    """prefill_step(params, batch) -> logits (B, S, V) fp32: the LM
+    head's alone (``lm_logits``; an MTP head's are not computed)."""
 
     def prefill_step(params, batch):
-        return lm_apply(params, cfg, batch)[0]
+        return lm_logits(params, cfg, batch)
 
     return prefill_step
 
 
 def make_serve_step(cfg: ModelConfig) -> Callable:
-    """serve_step(params, cache, token, pos) -> (logits (B, 1, V),
-    cache): one decode step of the model over a cache from
+    """serve_step(params, cache, token, pos, cross_kvs=None) -> (logits
+    (B, 1, V), cache): one decode step of the model over a cache from
     ``transformer.init_composed_cache(cfg, cfg, ...)``; ``pos`` is this
-    token's index, a scalar or one per row. The cache is updated in
-    place."""
+    token's index, a scalar or one per row; ``cross_kvs`` an enc-dec
+    arch's ``build_cross_caches``. The cache is updated in place."""
 
-    def serve_step(params, cache, token, pos):
+    def serve_step(params, cache, token, pos, cross_kvs=None):
         pos = torch.as_tensor(pos, device=token.device).expand(
             token.shape[0])
         return composed_decode_step(params["base"], cfg, params["modular"],
-                                    cfg, cache, token, pos)
+                                    cfg, cache, token, pos,
+                                    cross_kvs=cross_kvs)
 
     return serve_step

@@ -13,6 +13,16 @@ its main path went through the kernel. The attention wrappers also count
 their ``causal=False`` launches apart (``flash_attention.bidir_launches``,
 ``flash_attention_bwd.bidir_launches``), so a run can show which mode ran.
 
+Meta tensors (a dry-run, ``repro_torch.launch.dryrun``) take a third
+branch in every kernel wrapper: the checks a CUDA tensor passes (but
+the 16-byte alignment, which a meta tensor has no address for), then
+empty outputs of the kernel's shapes and dtypes, with nothing built or
+launched. Each such call counts in the wrapper's ``meta_launches``,
+apart from ``launches``. A launch on the card and a meta call both
+count, with the kernel's cost from ``cost.py``, in the active
+accounting (``cost.launch``, ``repro_torch.roofline.accounting``); a
+CPU call runs the plain version and counts no kernel.
+
 ``rmsnorm`` is the JAX package's ``repro.kernels.ops.rmsnorm``: no model
 path of either package calls it (the models normalize inline), so the op
 itself is its path.
@@ -65,7 +75,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import codec as codec_mod
-from repro_torch.kernels import build, ref
+from repro_torch.kernels import build, cost, ref
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_GROUP = 16
@@ -157,11 +167,16 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     of one dtype (float32 or bfloat16) on 16 bytes, hd a multiple of 8
     from 8 to 128 (``head_dim_ok``), G <= 16. Returns (B, KVH, G, hd) in
     q's dtype. Raises on anything else.
+
+    Meta tensors (a dry-run) are checked the same way and launch
+    nothing: the output is an empty tensor of the kernel's shape, and
+    the launch counts in ``flash_decode.meta_launches`` and in the
+    active accounting (``cost.launch``), with every cache row live.
     """
     B, KVH, G, hd = q.shape
     L = k.shape[1]
     dev = q.device
-    if dev.type != "cuda":
+    if dev.type not in ("cuda", "meta"):
         raise ValueError(f"flash_decode takes CUDA tensors, got {dev}")
     if any(t.device != dev for t in (k, v, valid)):
         raise ValueError("flash_decode: tensors on different devices")
@@ -180,31 +195,42 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"[8, 128], or G {G} > {_MAX_GROUP}, or empty cache")
     if not all(t.is_contiguous() for t in (q, k, v, valid)):
         raise ValueError("flash_decode: tensors must be contiguous")
+    def work():
+        return cost.flash_decode(B, L, KVH, G, hd, q.dtype)
+
+    if dev.type == "meta":
+        with cost.launch("flash_decode", work):
+            out = torch.empty_like(q)
+        flash_decode.meta_launches += 1
+        return out
     if q.data_ptr() % 16 or k.data_ptr() % 16 or v.data_ptr() % 16:
         raise ValueError("flash_decode: q/k/v must be 16-byte aligned")
     scale = scale if scale is not None else 1.0 / math.sqrt(hd)
     S, chunk = decode_splits(B, KVH, G, L, hd)
-    out = torch.empty_like(q)
-    part_ml = part_acc = count = None
-    if S > 1:
-        part_ml = torch.empty((B * KVH, S, G, 2), dtype=torch.float32,
-                              device=dev)
-        part_acc = torch.empty((B * KVH, S, G, kernel_head_dim(hd)),
-                               dtype=torch.float32, device=dev)
-        count = _arrival_counters(dev, B * KVH)
-    fn = _c_fn("flash_decode", "flash_decode", [_P] * 8 + [_I] * 8 + [_F, _P])
-    with torch.cuda.device(dev):
-        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), valid.data_ptr(),
-                out.data_ptr(), _nullable(part_ml), _nullable(part_acc),
-                _nullable(count), B, L, KVH, G, hd, S, chunk,
-                _DTYPE_CODE[q.dtype], scale, _stream(dev))
-    if rc != 0:
-        raise RuntimeError(f"flash_decode launch failed (code {rc})")
+    with cost.launch("flash_decode", work):
+        out = torch.empty_like(q)
+        part_ml = part_acc = count = None
+        if S > 1:
+            part_ml = torch.empty((B * KVH, S, G, 2), dtype=torch.float32,
+                                  device=dev)
+            part_acc = torch.empty((B * KVH, S, G, kernel_head_dim(hd)),
+                                   dtype=torch.float32, device=dev)
+            count = _arrival_counters(dev, B * KVH)
+        fn = _c_fn("flash_decode", "flash_decode",
+                   [_P] * 8 + [_I] * 8 + [_F, _P])
+        with torch.cuda.device(dev):
+            rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                    valid.data_ptr(), out.data_ptr(), _nullable(part_ml),
+                    _nullable(part_acc), _nullable(count), B, L, KVH, G, hd,
+                    S, chunk, _DTYPE_CODE[q.dtype], scale, _stream(dev))
+        if rc != 0:
+            raise RuntimeError(f"flash_decode launch failed (code {rc})")
     flash_decode.launches += 1
     return out
 
 
 flash_decode.launches = 0
+flash_decode.meta_launches = 0
 
 
 def cached_attn_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -217,8 +243,9 @@ def cached_attn_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     valid: (B, L) bool live-row mask (causality and the ring-buffer
     window already folded in). Returns (B, 1, KVH, G, hd).
 
-    CPU tensors run ``ref.cached_attn_decode_ref``; CUDA tensors launch
-    ``flash_decode`` directly on the cache, in its own layout.
+    CPU tensors run ``ref.cached_attn_decode_ref``; CUDA (and meta)
+    tensors go to ``flash_decode``, directly on the cache, in its own
+    layout.
     """
     if q.device.type == "cpu":
         return ref.cached_attn_decode_ref(q, k, v, valid, scale)
@@ -355,14 +382,6 @@ def encode_warps(rows: int, d: int, kind: str) -> int:
     return ENCODE_WARPS if rows >= least and d <= ENCODE_WARP_MAX_D else 0
 
 
-def wire_bytes_moved(scheme: WireScheme, rows: int, ef: bool) -> int:
-    """The bytes one encode must move: z (and e) read once, the payload
-    (and e') written once, the sketch tables read once."""
-    z_bytes = rows * scheme.d * 4
-    return (z_bytes * (3 if ef else 1) + scheme.payload_bytes(rows)
-            + scheme.table_bytes())
-
-
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
 
@@ -395,7 +414,7 @@ def _clip(max_ratio: Optional[float]):
 
 
 def _check_rows(name: str, t: torch.Tensor, d: int) -> None:
-    if t.device.type != "cuda":
+    if t.device.type not in ("cuda", "meta"):
         raise ValueError(f"{name} takes CUDA tensors, got {t.device}")
     if t.dtype != torch.float32:
         raise ValueError(f"{name}: fp32 input required, got {t.dtype}")
@@ -405,32 +424,39 @@ def _check_rows(name: str, t: torch.Tensor, d: int) -> None:
         raise ValueError(f"{name}: tensors must be contiguous")
 
 
-def _launch_wire(scheme: WireScheme, z: torch.Tensor,
+def _launch_wire(name: str, scheme: WireScheme, z: torch.Tensor,
                  e: Optional[torch.Tensor],
                  max_ratio: Optional[float]):
-    """Launch ``csrc/wire_encode.cu`` on z (and e) -> (payload, e')."""
+    """Launch ``csrc/wire_encode.cu`` on z (and e) -> (payload, e'),
+    counted as ``name`` in the active accounting. On meta tensors
+    nothing launches: the outputs are empty tensors of their shapes,
+    and the call counts in ``<name>.meta_launches``."""
     d = scheme.d
     rows = z.numel() // d
     lead = tuple(z.shape[:-1])
     dev = z.device
-    outs = {name: torch.empty((rows, *tail), dtype=dt, device=dev)
-            for name, (tail, dt) in scheme.leaves.items()}
-    bufs = list(outs.values()) + [None] * (2 - len(outs))
-    e_out = torch.empty_like(z) if e is not None else None
-    fn = _c_fn("wire_encode", "wire_encode",
-               [_I, _I, _P, _P, _I, _I, _I, _F, _F, _I, _F] + [_P] * 8
-               + [_I, _P])
-    with torch.cuda.device(dev):
-        rc = fn(_SCHEME_CODE[scheme.kind], int(e is not None), z.data_ptr(),
-                _nullable(e), rows, d, scheme.n, *_qparams(scheme),
-                *_clip(max_ratio),
-                *(_nullable(t) for t in scheme.tables(dev)),
-                _nullable(bufs[0]), _nullable(bufs[1]), _nullable(e_out),
-                encode_warps(rows, d, scheme.kind), _stream(dev))
-    if rc != 0:
-        raise RuntimeError(f"wire_encode launch failed (code {rc})")
-    payload = {name: o.reshape(*lead, *o.shape[1:])
-               for name, o in outs.items()}
+    with cost.launch(name, lambda: cost.wire_encode(scheme, rows,
+                                                    e is not None)):
+        outs = {leaf: torch.empty((rows, *tail), dtype=dt, device=dev)
+                for leaf, (tail, dt) in scheme.leaves.items()}
+        e_out = torch.empty_like(z) if e is not None else None
+        if dev.type != "meta":
+            bufs = list(outs.values()) + [None] * (2 - len(outs))
+            fn = _c_fn("wire_encode", "wire_encode",
+                       [_I, _I, _P, _P, _I, _I, _I, _F, _F, _I, _F]
+                       + [_P] * 8 + [_I, _P])
+            with torch.cuda.device(dev):
+                rc = fn(_SCHEME_CODE[scheme.kind], int(e is not None),
+                        z.data_ptr(), _nullable(e), rows, d, scheme.n,
+                        *_qparams(scheme), *_clip(max_ratio),
+                        *(_nullable(t) for t in scheme.tables(dev)),
+                        _nullable(bufs[0]), _nullable(bufs[1]),
+                        _nullable(e_out), encode_warps(rows, d, scheme.kind),
+                        _stream(dev))
+            if rc != 0:
+                raise RuntimeError(f"wire_encode launch failed (code {rc})")
+    payload = {leaf: o.reshape(*lead, *o.shape[1:])
+               for leaf, o in outs.items()}
     return payload, e_out
 
 
@@ -440,19 +466,25 @@ def wire_encode(z: torch.Tensor, codec) -> Optional[dict]:
 
     A CPU tensor takes the plain version (``ref.wire_encode_ref``, the
     codec's own encode); a CUDA tensor launches ``csrc/wire_encode.cu``
-    (z fp32 and contiguous, d <= MAX_FUSED_D) or raises."""
+    (z fp32 and contiguous, d <= MAX_FUSED_D) or raises; a meta tensor
+    is checked the same way and returns the payload's empty leaves
+    (``_launch_wire``)."""
     scheme = scheme_for(codec, z.shape[-1])
     if scheme is None:
         return None
     if z.device.type == "cpu":
         return ref.wire_encode_ref(z, codec)
     _check_rows("wire_encode", z, scheme.d)
-    payload, _ = _launch_wire(scheme, z, None, None)
-    wire_encode.launches += 1
+    payload, _ = _launch_wire("wire_encode", scheme, z, None, None)
+    if z.device.type == "meta":
+        wire_encode.meta_launches += 1
+    else:
+        wire_encode.launches += 1
     return payload
 
 
 wire_encode.launches = 0
+wire_encode.meta_launches = 0
 
 
 def wire_encode_ef(z: torch.Tensor, e: torch.Tensor, ef_codec):
@@ -463,7 +495,8 @@ def wire_encode_ef(z: torch.Tensor, e: torch.Tensor, ef_codec):
     trust-region-clipped residual e' = c - z_hat, in one launch. A CPU
     tensor takes the plain version (``ref.wire_encode_ef_ref``); a CUDA
     tensor launches the kernel (z, e fp32, contiguous, one shape) or
-    raises."""
+    raises; a meta tensor is checked the same way and launches
+    nothing."""
     scheme = scheme_for(ef_codec.inner, z.shape[-1])
     if scheme is None:
         return None
@@ -474,12 +507,54 @@ def wire_encode_ef(z: torch.Tensor, e: torch.Tensor, ef_codec):
     if e.shape != z.shape or e.device != z.device:
         raise ValueError(f"wire_encode_ef: e {tuple(e.shape)} on {e.device} "
                          f"vs z {tuple(z.shape)} on {z.device}")
-    out = _launch_wire(scheme, z, e, ef_codec.max_ratio)
-    wire_encode_ef.launches += 1
+    out = _launch_wire("wire_encode_ef", scheme, z, e, ef_codec.max_ratio)
+    if z.device.type == "meta":
+        wire_encode_ef.meta_launches += 1
+    else:
+        wire_encode_ef.launches += 1
     return out
 
 
 wire_encode_ef.launches = 0
+wire_encode_ef.meta_launches = 0
+
+
+def fused_wire_report(codec, z_shape) -> dict:
+    """Which wire path a codec runs for a z of ``z_shape`` on the card,
+    for the dry-run's ``client_boundary`` (the JAX package's
+    ``ops.fused_wire_report``, with the port's kernels): the encode
+    kernel (``csrc/wire_encode.cu``; ``csrc/fusion_proj.cu`` where the
+    fusion FC's epilogue encodes), the scheme, the team ``encode_warps``
+    picks, the payload's leaves and bytes, and the bytes the kernel must
+    move (``cost.wire_bytes_moved``) beside those of the plain
+    composition, whose c and decoded z_hat make a round trip each under
+    EF (the reference's count). A codec without a scheme at that dim
+    runs the plain path, and the report says why."""
+    codec = codec_mod.get_codec(codec)
+    is_ef = isinstance(codec, codec_mod.EFCodec)
+    d = int(z_shape[-1])
+    rows = int(np.prod(z_shape[:-1]))
+    scheme = scheme_for(codec.inner if is_ef else codec, d)
+    if scheme is None:
+        return {"fused": False, "path": "plain", "kernel": None,
+                "fallback": f"no wire scheme for codec {codec.name!r} at "
+                            f"d={d}"}
+    ef = is_ef and codec.has_state
+    fused = cost.wire_bytes_moved(scheme, rows, ef)
+    return {
+        "fused": True,
+        "path": "cuda",
+        "kernel": f"wire_encode[{codec.name}]",
+        "source": "src/repro_torch/kernels/csrc/wire_encode.cu",
+        "proj_epilogue_source": "src/repro_torch/kernels/csrc/fusion_proj.cu",
+        "scheme": scheme.kind,
+        "encode_warps": encode_warps(rows, d, scheme.kind),
+        "payload_leaves": list(scheme.leaves),
+        "payload_bytes": scheme.payload_bytes(rows),
+        "hbm_bytes_fused": fused,
+        "hbm_bytes_unfused": fused + (4 * rows * d * 4 if ef else 0),
+        "fallback": None,
+    }
 
 
 # ------------------------------------- fused projection and wire path
@@ -497,8 +572,9 @@ def _check_proj(name: str, x: torch.Tensor, w: torch.Tensor,
                 b: Optional[torch.Tensor], dev: torch.device):
     """x (..., K) or None (decode_proj), w (K, N), b (N,) or None on one
     CUDA device, x and w of one dtype (float32 or bfloat16),
-    contiguous -> b as a contiguous fp32 tensor (or None)."""
-    if dev.type != "cuda":
+    contiguous -> b as a contiguous fp32 tensor (or None). Meta tensors
+    pass the same checks (a dry-run)."""
+    if dev.type not in ("cuda", "meta"):
         raise ValueError(f"{name} takes CUDA tensors, got {dev}")
     if w.device != dev or (b is not None and b.device != dev):
         raise ValueError(f"{name}: tensors on different devices")
@@ -524,25 +600,32 @@ def fusion_proj(x: torch.Tensor, w: torch.Tensor,
 
     A CPU tensor takes the plain version (``ref.fusion_proj_ref``); a
     CUDA tensor launches ``csrc/fusion_proj.cu`` (x and w fp32 or bf16,
-    one dtype, contiguous, any M, K, N) or raises."""
+    one dtype, contiguous, any M, K, N) or raises; a meta tensor is
+    checked the same way and returns an empty y (``meta_launches``)."""
     code = _act_code(act)
     if x.device.type == "cpu":
         return ref.fusion_proj_ref(x, w, b, act)
-    bf = _check_proj("fusion_proj", x, w, b, x.device)
     K, N = w.shape
     M = x.numel() // K
-    y = torch.empty((*x.shape[:-1], N), dtype=x.dtype, device=x.device)
-    fn = _c_fn("fusion_proj", "fusion_proj", [_P] * 4 + [_I] * 5 + [_P])
-    with torch.cuda.device(x.device):
-        rc = fn(x.data_ptr(), w.data_ptr(), _nullable(bf), y.data_ptr(), M, K,
-                N, _DTYPE_CODE[x.dtype], code, _stream(x.device))
-    if rc != 0:
-        raise RuntimeError(f"fusion_proj launch failed (code {rc})")
+    with cost.launch("fusion_proj", lambda: cost.fusion_proj(
+            M, K, N, x.dtype, b is not None)):
+        bf = _check_proj("fusion_proj", x, w, b, x.device)
+        y = torch.empty((*x.shape[:-1], N), dtype=x.dtype, device=x.device)
+        if x.device.type == "meta":
+            fusion_proj.meta_launches += 1
+            return y
+        fn = _c_fn("fusion_proj", "fusion_proj", [_P] * 4 + [_I] * 5 + [_P])
+        with torch.cuda.device(x.device):
+            rc = fn(x.data_ptr(), w.data_ptr(), _nullable(bf), y.data_ptr(),
+                    M, K, N, _DTYPE_CODE[x.dtype], code, _stream(x.device))
+        if rc != 0:
+            raise RuntimeError(f"fusion_proj launch failed (code {rc})")
     fusion_proj.launches += 1
     return y
 
 
 fusion_proj.launches = 0
+fusion_proj.meta_launches = 0
 
 
 def _encode_scratch(M: int, N: int, dev: torch.device):
@@ -562,34 +645,42 @@ def fusion_proj_quant(x: torch.Tensor, w: torch.Tensor,
 
     A CPU tensor, or N above ``MAX_FUSED_D`` on any device, takes the
     plain version (``ref.fusion_proj_quant_ref``); a CUDA tensor launches
-    the kernel or raises."""
+    the kernel or raises; a meta tensor is checked the same way and
+    returns empty codes and scales (``meta_launches``)."""
     code = _act_code(act)
     N = w.shape[-1]
     if x.device.type == "cpu" or scheme_for(codec_mod.CODECS["int8_row"],
                                             N) is None:
         return ref.fusion_proj_quant_ref(x, w, b, act)
-    bf = _check_proj("fusion_proj_quant", x, w, b, x.device)
     K = w.shape[0]
     M = x.numel() // K
     lead = tuple(x.shape[:-1])
-    q = torch.empty((*lead, N), dtype=torch.int8, device=x.device)
-    scale = torch.empty((*lead, 1), dtype=torch.float32, device=x.device)
-    y, count = _encode_scratch(M, N, x.device)
-    inv_qmax, _ = _qparams(WireScheme("int8_row", N))
-    fn = _c_fn("fusion_proj", "fusion_proj_quant",
-               [_P] * 5 + [_I] * 6 + [_F] + [_P] * 3)
-    with torch.cuda.device(x.device):
-        rc = fn(x.data_ptr(), w.data_ptr(), _nullable(bf), y.data_ptr(),
-                count.data_ptr(), count.numel(), M, K, N,
-                _DTYPE_CODE[x.dtype], code, inv_qmax, q.data_ptr(),
-                scale.data_ptr(), _stream(x.device))
-    if rc != 0:
-        raise RuntimeError(f"fusion_proj_quant launch failed (code {rc})")
+    scheme = WireScheme("int8_row", N)
+    with cost.launch("fusion_proj_quant", lambda: cost.fusion_proj_encode(
+            M, K, scheme, False, x.dtype, b is not None)):
+        bf = _check_proj("fusion_proj_quant", x, w, b, x.device)
+        q = torch.empty((*lead, N), dtype=torch.int8, device=x.device)
+        scale = torch.empty((*lead, 1), dtype=torch.float32, device=x.device)
+        if x.device.type == "meta":
+            fusion_proj_quant.meta_launches += 1
+            return q, scale
+        y, count = _encode_scratch(M, N, x.device)
+        inv_qmax, _ = _qparams(scheme)
+        fn = _c_fn("fusion_proj", "fusion_proj_quant",
+                   [_P] * 5 + [_I] * 6 + [_F] + [_P] * 3)
+        with torch.cuda.device(x.device):
+            rc = fn(x.data_ptr(), w.data_ptr(), _nullable(bf), y.data_ptr(),
+                    count.data_ptr(), count.numel(), M, K, N,
+                    _DTYPE_CODE[x.dtype], code, inv_qmax, q.data_ptr(),
+                    scale.data_ptr(), _stream(x.device))
+        if rc != 0:
+            raise RuntimeError(f"fusion_proj_quant launch failed (code {rc})")
     fusion_proj_quant.launches += 1
     return q, scale
 
 
 fusion_proj_quant.launches = 0
+fusion_proj_quant.meta_launches = 0
 
 
 def fusion_proj_encode(x: torch.Tensor, w: torch.Tensor,
@@ -606,7 +697,8 @@ def fusion_proj_encode(x: torch.Tensor, w: torch.Tensor,
     composition on every device; so does a CPU tensor
     (``ref.fusion_proj_encode_ref``). A CUDA tensor of a codec with a
     scheme launches the kernel (x, w fp32 or bf16, e fp32, contiguous)
-    or raises."""
+    or raises; a meta tensor is checked the same way and returns the
+    empty payload (and e') (``meta_launches``)."""
     code = _act_code(act)
     is_ef = isinstance(codec, codec_mod.EFCodec)
     if ef_state is not None and not is_ef:
@@ -618,41 +710,50 @@ def fusion_proj_encode(x: torch.Tensor, w: torch.Tensor,
         return ref.fusion_proj_encode_ref(x, w, b, act, codec=codec,
                                           e=ef_state)
     dev = x.device
-    bf = _check_proj("fusion_proj_encode", x, w, b, dev)
     lead = tuple(x.shape[:-1])
     ef = ef_state is not None
-    if ef and (ef_state.device != dev or ef_state.dtype != torch.float32
-               or tuple(ef_state.shape) != (*lead, N)
-               or not ef_state.is_contiguous()):
-        raise ValueError(f"fusion_proj_encode: ef_state "
-                         f"{ef_state.dtype}{tuple(ef_state.shape)} on "
-                         f"{ef_state.device}, want contiguous float32 "
-                         f"{(*lead, N)} on {dev}")
     K = w.shape[0]
     M = x.numel() // K
-    outs = {name: torch.empty((*lead, *tail), dtype=dt, device=dev)
-            for name, (tail, dt) in scheme.leaves.items()}
-    bufs = list(outs.values()) + [None] * (2 - len(outs))
-    e_out = torch.empty_like(ef_state) if ef else None
-    y, count = _encode_scratch(M, N, dev)
-    fn = _c_fn("fusion_proj", "fusion_proj_encode",
-               [_I, _I] + [_P] * 6 + [_I] * 7 + [_F, _F, _I, _F] + [_P] * 9)
-    with torch.cuda.device(dev):
-        rc = fn(_SCHEME_CODE[scheme.kind], int(ef), x.data_ptr(),
-                w.data_ptr(), _nullable(bf), _nullable(ef_state),
-                y.data_ptr(), count.data_ptr(), count.numel(),
-                M, K, N, scheme.n, _DTYPE_CODE[x.dtype], code,
-                *_qparams(scheme), *_clip(codec.max_ratio if is_ef else None),
-                *(_nullable(t) for t in scheme.tables(dev)),
-                _nullable(bufs[0]), _nullable(bufs[1]), _nullable(e_out),
-                _stream(dev))
-    if rc != 0:
-        raise RuntimeError(f"fusion_proj_encode launch failed (code {rc})")
+    with cost.launch("fusion_proj_encode", lambda: cost.fusion_proj_encode(
+            M, K, scheme, ef, x.dtype, b is not None)):
+        bf = _check_proj("fusion_proj_encode", x, w, b, dev)
+        if ef and (ef_state.device != dev or ef_state.dtype != torch.float32
+                   or tuple(ef_state.shape) != (*lead, N)
+                   or not ef_state.is_contiguous()):
+            raise ValueError(f"fusion_proj_encode: ef_state "
+                             f"{ef_state.dtype}{tuple(ef_state.shape)} on "
+                             f"{ef_state.device}, want contiguous float32 "
+                             f"{(*lead, N)} on {dev}")
+        outs = {name: torch.empty((*lead, *tail), dtype=dt, device=dev)
+                for name, (tail, dt) in scheme.leaves.items()}
+        e_out = torch.empty_like(ef_state) if ef else None
+        if dev.type == "meta":
+            fusion_proj_encode.meta_launches += 1
+            return (outs, e_out) if ef else outs
+        bufs = list(outs.values()) + [None] * (2 - len(outs))
+        y, count = _encode_scratch(M, N, dev)
+        fn = _c_fn("fusion_proj", "fusion_proj_encode",
+                   [_I, _I] + [_P] * 6 + [_I] * 7 + [_F, _F, _I, _F]
+                   + [_P] * 9)
+        with torch.cuda.device(dev):
+            rc = fn(_SCHEME_CODE[scheme.kind], int(ef), x.data_ptr(),
+                    w.data_ptr(), _nullable(bf), _nullable(ef_state),
+                    y.data_ptr(), count.data_ptr(), count.numel(),
+                    M, K, N, scheme.n, _DTYPE_CODE[x.dtype], code,
+                    *_qparams(scheme),
+                    *_clip(codec.max_ratio if is_ef else None),
+                    *(_nullable(t) for t in scheme.tables(dev)),
+                    _nullable(bufs[0]), _nullable(bufs[1]),
+                    _nullable(e_out), _stream(dev))
+        if rc != 0:
+            raise RuntimeError(
+                f"fusion_proj_encode launch failed (code {rc})")
     fusion_proj_encode.launches += 1
     return (outs, e_out) if ef else outs
 
 
 fusion_proj_encode.launches = 0
+fusion_proj_encode.meta_launches = 0
 
 
 def decode_proj(payload: dict, w: torch.Tensor,
@@ -666,7 +767,9 @@ def decode_proj(payload: dict, w: torch.Tensor,
     A codec with no wire scheme at d runs the plain composition on every
     device; so does a payload on the CPU (``ref.decode_proj_ref``). A
     CUDA payload of a codec with a scheme launches the kernel (the
-    scheme's leaves, contiguous; w fp32 or bf16) or raises."""
+    scheme's leaves, contiguous; w fp32 or bf16) or raises; a meta
+    payload is checked the same way and returns an empty y
+    (``meta_launches``)."""
     code = _act_code(act)
     shape = tuple(int(s) for s in shape)
     d = shape[-1]
@@ -676,29 +779,36 @@ def decode_proj(payload: dict, w: torch.Tensor,
     if scheme is None or dev.type == "cpu":
         return ref.decode_proj_ref(payload, w, b, act, codec=codec,
                                    shape=shape)
-    bf = _check_proj("decode_proj", None, w, b, dev)
-    if w.shape[0] != d:
-        raise ValueError(f"decode_proj: w {tuple(w.shape)} is not ({d}, N)")
     rows = int(np.prod(shape[:-1]))
-    leaves = scheme.payload_rows(payload, rows, dev)
-    N = w.shape[1]
-    y = torch.empty((rows, N), dtype=torch.float32, device=dev)
-    sign, inv_counts, hsh, _, _ = scheme.tables(dev)
-    fn = _c_fn("fusion_proj", "decode_proj",
-               [_I] + [_P] * 5 + [_I] * 6 + [_P] * 4)
-    with torch.cuda.device(dev):
-        rc = fn(_SCHEME_CODE[scheme.kind], leaves[0].data_ptr(),
-                _nullable(leaves[1] if len(leaves) > 1 else None),
-                w.data_ptr(), _nullable(bf), y.data_ptr(), rows, d, N,
-                scheme.n, _DTYPE_CODE[w.dtype], code, _nullable(sign),
-                _nullable(inv_counts), _nullable(hsh), _stream(dev))
-    if rc != 0:
-        raise RuntimeError(f"decode_proj launch failed (code {rc})")
+    N = w.shape[-1]
+    with cost.launch("decode_proj", lambda: cost.decode_proj(
+            rows, N, scheme, w.dtype, b is not None)):
+        bf = _check_proj("decode_proj", None, w, b, dev)
+        if w.shape[0] != d:
+            raise ValueError(f"decode_proj: w {tuple(w.shape)} is not "
+                             f"({d}, N)")
+        leaves = scheme.payload_rows(payload, rows, dev)
+        y = torch.empty((rows, N), dtype=torch.float32, device=dev)
+        if dev.type == "meta":
+            decode_proj.meta_launches += 1
+            return y.reshape(*shape[:-1], N)
+        sign, inv_counts, hsh, _, _ = scheme.tables(dev)
+        fn = _c_fn("fusion_proj", "decode_proj",
+                   [_I] + [_P] * 5 + [_I] * 6 + [_P] * 4)
+        with torch.cuda.device(dev):
+            rc = fn(_SCHEME_CODE[scheme.kind], leaves[0].data_ptr(),
+                    _nullable(leaves[1] if len(leaves) > 1 else None),
+                    w.data_ptr(), _nullable(bf), y.data_ptr(), rows, d, N,
+                    scheme.n, _DTYPE_CODE[w.dtype], code, _nullable(sign),
+                    _nullable(inv_counts), _nullable(hsh), _stream(dev))
+        if rc != 0:
+            raise RuntimeError(f"decode_proj launch failed (code {rc})")
     decode_proj.launches += 1
     return y.reshape(*shape[:-1], N)
 
 
 decode_proj.launches = 0
+decode_proj.meta_launches = 0
 
 
 # ---------------------------------------------------------------- rmsnorm
@@ -712,13 +822,14 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor, *,
     A CPU tensor takes the plain version (``ref.rmsnorm_ref``) on the
     flattened (M, D) rows; a CUDA tensor launches ``csrc/rmsnorm.cu``
     (x fp32 or bf16, scale fp32 or bf16 independently, both contiguous,
-    any M >= 1 and D >= 1) or raises."""
+    any M >= 1 and D >= 1) or raises; a meta tensor is checked the same
+    way and returns an empty y (``meta_launches``)."""
     if x.dim() < 1:
         raise ValueError("rmsnorm: x is 0-d, want (..., D)")
     D = x.shape[-1]
     if x.device.type == "cpu":
         return ref.rmsnorm_ref(x.reshape(-1, D), scale, eps).reshape(x.shape)
-    if x.device.type != "cuda":
+    if x.device.type not in ("cuda", "meta"):
         raise ValueError(f"rmsnorm takes CUDA tensors, got {x.device}")
     if scale.device != x.device:
         raise ValueError(f"rmsnorm: scale on {scale.device}, x on {x.device}")
@@ -730,20 +841,26 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor, *,
                          f"{tuple(scale.shape)}, want (..., D) and (D,)")
     if not x.is_contiguous() or not scale.is_contiguous():
         raise ValueError("rmsnorm: tensors must be contiguous")
-    y = torch.empty_like(x)
-    fn = _c_fn("rmsnorm", "rmsnorm",
-               [_P] * 3 + [ctypes.c_longlong] + [_I] * 3 + [_F, _P])
-    with torch.cuda.device(x.device):
-        rc = fn(x.data_ptr(), scale.data_ptr(), y.data_ptr(), x.numel() // D,
-                D, _DTYPE_CODE[x.dtype], _DTYPE_CODE[scale.dtype], float(eps),
-                _stream(x.device))
-    if rc != 0:
-        raise RuntimeError(f"rmsnorm launch failed (code {rc})")
+    with cost.launch("rmsnorm", lambda: cost.rmsnorm(
+            x.numel() // D, D, x.dtype, scale.dtype)):
+        y = torch.empty_like(x)
+        if x.device.type == "meta":
+            rmsnorm.meta_launches += 1
+            return y
+        fn = _c_fn("rmsnorm", "rmsnorm",
+                   [_P] * 3 + [ctypes.c_longlong] + [_I] * 3 + [_F, _P])
+        with torch.cuda.device(x.device):
+            rc = fn(x.data_ptr(), scale.data_ptr(), y.data_ptr(),
+                    x.numel() // D, D, _DTYPE_CODE[x.dtype],
+                    _DTYPE_CODE[scale.dtype], float(eps), _stream(x.device))
+        if rc != 0:
+            raise RuntimeError(f"rmsnorm launch failed (code {rc})")
     rmsnorm.launches += 1
     return y
 
 
 rmsnorm.launches = 0
+rmsnorm.meta_launches = 0
 
 
 # ------------------------------------------------------ flash attention
@@ -752,7 +869,7 @@ rmsnorm.launches = 0
 def _check_attn(name: str, q: torch.Tensor, k: torch.Tensor,
                 v: torch.Tensor) -> None:
     dev = q.device
-    if dev.type != "cuda":
+    if dev.type not in ("cuda", "meta"):
         raise ValueError(f"{name} takes CUDA tensors, got {dev}")
     if k.device != dev or v.device != dev:
         raise ValueError(f"{name}: tensors on different devices")
@@ -774,7 +891,7 @@ def _check_attn(name: str, q: torch.Tensor, k: torch.Tensor,
                          "[8, hd], S >= 1")
     if not all(t.is_contiguous() for t in (q, k, v)):
         raise ValueError(f"{name}: tensors must be contiguous")
-    if any(t.data_ptr() % 16 for t in (q, k, v)):
+    if dev.type == "cuda" and any(t.data_ptr() % 16 for t in (q, k, v)):
         raise ValueError(f"{name}: tensors must start on 16 bytes (the "
                          "bf16 kernels copy 16-byte chunks)")
 
@@ -801,19 +918,26 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     anything the kernel does not take. ``causal=False`` lets every row
     see every key (the window, if any, still bounds keys from below).
     Counts in ``flash_attention.launches`` (and, with ``causal=False``,
-    in ``flash_attention.bidir_launches``)."""
+    in ``flash_attention.bidir_launches``). Meta tensors are checked the
+    same way and launch nothing: o and lse come back empty, counted in
+    ``flash_attention.meta_launches``."""
     _check_attn("flash_attention", q, k, v)
     B, S, H, hd = q.shape
-    hdv = v.shape[3]
+    KVH, hdv = k.shape[2], v.shape[3]
     scale = scale if scale is not None else 1.0 / math.sqrt(hd)
-    o = torch.empty((B, S, H, hdv), dtype=q.dtype, device=q.device)
-    lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        _attn_call("flash_attention_fwd", q.data_ptr(), k.data_ptr(),
-                   v.data_ptr(), o.data_ptr(), lse.data_ptr(), B, S, H,
-                   k.shape[2], hd, hdv, int(window), int(bool(causal)),
-                   _DTYPE_CODE[q.dtype], float(scale), stream)
+    with cost.launch("flash_attention", lambda: cost.flash_attention(
+            B, S, H, KVH, hd, hdv, int(window), bool(causal), q.dtype)):
+        o = torch.empty((B, S, H, hdv), dtype=q.dtype, device=q.device)
+        lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+        if q.device.type == "meta":
+            flash_attention.meta_launches += 1
+            return o, lse
+        with torch.cuda.device(q.device):
+            stream = torch.cuda.current_stream(q.device).cuda_stream
+            _attn_call("flash_attention_fwd", q.data_ptr(), k.data_ptr(),
+                       v.data_ptr(), o.data_ptr(), lse.data_ptr(), B, S, H,
+                       KVH, hd, hdv, int(window), int(bool(causal)),
+                       _DTYPE_CODE[q.dtype], float(scale), stream)
     flash_attention.launches += 1
     if not causal:
         flash_attention.bidir_launches += 1
@@ -827,32 +951,40 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Launch the backward kernels (dQ with D = rowsum(dO * O), then dK
     and dV) on the forward's tensors and dO -> (dq, dk, dv) in the
     inputs' dtype. One call counts one launch of the backward (and one
-    in ``flash_attention_bwd.bidir_launches`` with ``causal=False``)."""
+    in ``flash_attention_bwd.bidir_launches`` with ``causal=False``; on
+    meta tensors one in ``flash_attention_bwd.meta_launches``, and
+    nothing launches)."""
     _check_attn("flash_attention_bwd", q, k, v)
     B, S, H, hd = q.shape
-    hdv = v.shape[3]
+    KVH, hdv = k.shape[2], v.shape[3]
     if (o.shape != (B, S, H, hdv) or do.shape != o.shape
             or o.dtype != q.dtype
             or do.dtype != q.dtype or lse.shape != (B, H, S)
             or lse.dtype != torch.float32
             or not all(t.is_contiguous() and t.device == q.device
                        for t in (o, do, lse))
-            or o.data_ptr() % 16 or do.data_ptr() % 16):
+            or (q.device.type == "cuda"
+                and (o.data_ptr() % 16 or do.data_ptr() % 16))):
         raise ValueError("flash_attention_bwd: o, dO must be (B, S, H, hdv) "
                          "in q's dtype and lse (B, H, S) fp32, all "
                          "contiguous on q's device, o and dO starting on "
                          "16 bytes")
     scale = scale if scale is not None else 1.0 / math.sqrt(hd)
-    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
-    dsum = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        _attn_call("flash_attention_bwd", q.data_ptr(), k.data_ptr(),
-                   v.data_ptr(), o.data_ptr(), do.data_ptr(),
-                   lse.data_ptr(), dsum.data_ptr(), dq.data_ptr(),
-                   dk.data_ptr(), dv.data_ptr(), B, S, H, k.shape[2], hd,
-                   hdv, int(window), int(bool(causal)), _DTYPE_CODE[q.dtype],
-                   float(scale), stream)
+    with cost.launch("flash_attention_bwd", lambda: cost.flash_attention_bwd(
+            B, S, H, KVH, hd, hdv, int(window), bool(causal), q.dtype)):
+        dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+        if q.device.type == "meta":
+            flash_attention_bwd.meta_launches += 1
+            return dq, dk, dv
+        dsum = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+        with torch.cuda.device(q.device):
+            stream = torch.cuda.current_stream(q.device).cuda_stream
+            _attn_call("flash_attention_bwd", q.data_ptr(), k.data_ptr(),
+                       v.data_ptr(), o.data_ptr(), do.data_ptr(),
+                       lse.data_ptr(), dsum.data_ptr(), dq.data_ptr(),
+                       dk.data_ptr(), dv.data_ptr(), B, S, H, KVH, hd,
+                       hdv, int(window), int(bool(causal)),
+                       _DTYPE_CODE[q.dtype], float(scale), stream)
     flash_attention_bwd.launches += 1
     if not causal:
         flash_attention_bwd.bidir_launches += 1
@@ -861,6 +993,7 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 flash_attention_bwd.launches = 0
 flash_attention_bwd.bidir_launches = 0
+flash_attention_bwd.meta_launches = 0
 
 
 class _FlashAttention(torch.autograd.Function):
@@ -894,7 +1027,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     model's layout, GQA read directly (no repeated K/V); hdv may be
     smaller than hd (MLA). Returns (B, S, H, hdv). ``scale`` defaults to
     1 / sqrt(hd). CPU tensors run ``ref.flash_attention_ref``; CUDA
-    tensors run the kernels through a ``torch.autograd.Function``
+    (and meta) tensors run the kernels through a ``torch.autograd.Function``
     (contiguous and starting on 16 bytes, float32 or bfloat16, hd a
     multiple of 8 in [8, 192], hdv one in [8, hd]) or raise: bf16 on
     the tensor-core kernels, float32 on the SIMT ones (tensor cores
@@ -908,6 +1041,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 flash_attention.launches = 0
 flash_attention.bidir_launches = 0
+flash_attention.meta_launches = 0
 
 
 # ------------------------------------------------- serve-plan autotuner

@@ -133,10 +133,10 @@ def blocked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """Causal (optionally sliding-window) attention over a full
     sequence. q: (B, S, H, hd); k, v: (B, S, KVH, hd) -> (B, S, H, hd).
 
-    CUDA tensors: the ``flash_attention`` kernels, for any S. CPU
-    tensors: the reference's blocked path, which needs S divisible by
-    ``min(q_block, S)``."""
-    if q.device.type == "cuda":
+    CUDA (and meta) tensors: the ``flash_attention`` kernels, for any
+    S. CPU tensors: the reference's blocked path, which needs S
+    divisible by ``min(q_block, S)``."""
+    if q.device.type != "cpu":
         return kops.flash_attention(q.contiguous(), k.contiguous(),
                                     v.contiguous(), window=window,
                                     scale=scale)
@@ -403,11 +403,11 @@ def _bidir_qkv(p, cfg: ModelConfig, x, kv_in):
 
 def enc_self_attn_forward(p, cfg: ModelConfig, x):
     """The encoder's bidirectional self-attention over x (B, S_enc, d):
-    the ``flash_attention`` kernels with ``causal=False`` on CUDA
-    tensors, the reference's blocked path on the CPU."""
+    the ``flash_attention`` kernels with ``causal=False`` on CUDA (and
+    meta) tensors, the reference's blocked path on the CPU."""
     B, S, _ = x.shape
     q, k, v = _bidir_qkv(p, cfg, x, x)
-    if x.device.type == "cuda":
+    if x.device.type != "cpu":
         o = kops.flash_attention(q.contiguous(), k.contiguous(),
                                  v.contiguous(), causal=False)
     else:

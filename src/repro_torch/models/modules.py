@@ -25,17 +25,33 @@ def dtype_of(name: str) -> torch.dtype:
 _DRAW_CHUNK = 1 << 28
 
 
+def _is_meta(device) -> bool:
+    return device is not None and torch.device(device).type == "meta"
+
+
+def randn(shape, generator, device) -> torch.Tensor:
+    """N(0, 1) in fp32 from ``generator`` on ``device``. On the meta
+    device an empty tensor of that shape: there is no meta generator,
+    and a meta tensor has a shape and a dtype but no values."""
+    if _is_meta(device):
+        return torch.empty(shape, dtype=torch.float32, device=device)
+    return torch.randn(shape, generator=generator, device=device,
+                       dtype=torch.float32)
+
+
 def normal(shape, std: float, generator, device,
            dtype=torch.float32) -> torch.Tensor:
     """N(0, std^2) in ``dtype``. In fp32 one draw of the whole leaf. In
     another dtype the leaf is drawn in fp32 a slab of leading rows at a
     time and cast as it is drawn, so a bf16 model never holds more than
     ``_DRAW_CHUNK`` fp32 elements at once (one routed-expert leaf of
-    deepseek-v3, 256 x 7168 x 2048, would be 15 GB in fp32)."""
+    deepseek-v3, 256 x 7168 x 2048, would be 15 GB in fp32). On the
+    meta device nothing is drawn (``randn``)."""
     def draw(s):
-        return torch.randn(s, generator=generator, device=device,
-                           dtype=torch.float32) * std
+        return randn(s, generator, device) * std
 
+    if _is_meta(device):
+        return torch.empty(shape, dtype=dtype, device=device)
     if dtype == torch.float32:
         return draw(shape)
     out = torch.empty(shape, dtype=dtype, device=device)

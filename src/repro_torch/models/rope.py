@@ -52,7 +52,8 @@ def apply_mrope(x: torch.Tensor, positions: torch.Tensor, theta: float,
     ang_all = positions[..., None].float() * inv  # (3, B, S, half)
     owner = torch.repeat_interleave(
         torch.arange(len(sections), device=x.device),
-        torch.tensor(sections, device=x.device))  # (half,) axis a band reads
+        torch.tensor(sections, device=x.device),
+        output_size=half)  # (half,) axis a band reads
     ang = torch.gather(ang_all, 0,
                        owner.expand(1, *ang_all.shape[1:]))[0]  # (B, S, half)
     cos = torch.cos(ang)[:, :, None, :].to(x.dtype)

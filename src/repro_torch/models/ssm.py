@@ -44,8 +44,8 @@ def init_mamba(generator, cfg: ModelConfig, *, device=None, lead=()):
     a_init = torch.arange(1, ds + 1, dtype=torch.float32, device=device)
     return {
         "in_proj": nn.init_linear(generator, d, 2 * di, **kw),
-        "conv_w": torch.randn((*lead, cfg.ssm_d_conv, di), generator=generator,
-                              device=device) * 0.2,
+        "conv_w": nn.randn((*lead, cfg.ssm_d_conv, di), generator,
+                           device) * 0.2,
         "conv_b": torch.zeros((*lead, di), device=device),
         "x_proj": nn.init_linear(generator, di, dtr + 2 * ds, **kw),
         "dt_proj": nn.init_linear(generator, dtr, di, bias=True, **kw),

@@ -489,6 +489,15 @@ def lm_apply(params: Params, cfg: ModelConfig, batch):
     return out[0], aux_b + out[1], mtp_logits
 
 
+def lm_logits(params: Params, cfg: ModelConfig, batch) -> torch.Tensor:
+    """The LM head's fp32 logits (B, S, V), ``lm_apply``'s first output,
+    without the MTP head, whose logits a prefill does not return (the
+    reference's compiled prefill drops that work too)."""
+    z, _ = base_forward(params["base"], cfg, batch)
+    h, _, _ = modular_trunk(params["modular"], cfg, z)
+    return _head_logits(params["modular"], cfg, h)
+
+
 def _next_token_ce(logits, tokens, offset: int, start: int) -> torch.Tensor:
     """Mean CE of predicting tokens[t + offset] from position t."""
     lp = F.log_softmax(logits[:, start:logits.shape[1] - offset], dim=-1)

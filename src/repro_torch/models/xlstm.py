@@ -56,8 +56,7 @@ def init_mlstm(generator, cfg: ModelConfig, *, device=None, lead=()):
     kw = dict(device=device, lead=lead)
     return {
         "up": nn.init_linear(generator, d, 2 * di, **kw),
-        "conv_w": torch.randn((*lead, 4, di), generator=generator,
-                              device=device) * 0.2,
+        "conv_w": nn.randn((*lead, 4, di), generator, device) * 0.2,
         "conv_b": torch.zeros((*lead, di), device=device),
         "wq": nn.init_linear(generator, di, dqk, **kw),
         "wk": nn.init_linear(generator, di, dqk, **kw),
@@ -223,10 +222,9 @@ def init_slstm(generator, cfg: ModelConfig, *, device=None, lead=()):
     dff = (8 * d // 3 + 63) // 64 * 64  # gated FFN, pf ~4/3 * 2
     kw = dict(device=device, lead=lead)
     return {
-        "wx": torch.randn((*lead, 4, d, d), generator=generator,
-                          device=device) / math.sqrt(d),
-        "wr": torch.randn((*lead, 4, nh, hd, hd), generator=generator,
-                          device=device) / math.sqrt(hd),
+        "wx": nn.randn((*lead, 4, d, d), generator, device) / math.sqrt(d),
+        "wr": nn.randn((*lead, 4, nh, hd, hd), generator,
+                       device) / math.sqrt(hd),
         "b": torch.zeros((*lead, 4, d), device=device),
         "gn": {"scale": torch.ones((*lead, d), device=device)},
         "ffn": {

@@ -47,6 +47,12 @@ def test_import_loads_no_jax_and_no_reference_module():
         "import repro_torch.benchmarks.fleet_scale\n"
         "import repro_torch.api.spmd, repro_torch.examples.llm_ifl_train\n"
         "import repro_torch.serve.prng, repro_torch.examples.serve_demo\n"
+        "import repro_torch.kernels.cost, repro_torch.configs.shapes\n"
+        "import repro_torch.roofline, repro_torch.roofline.analysis\n"
+        "import repro_torch.roofline.accounting, repro_torch.launch.dryrun\n"
+        "import repro_torch.benchmarks.kernel_bench\n"
+        "import repro_torch.benchmarks.roofline_report\n"
+        "import repro_torch.benchmarks.ifl_vs_dp_collectives\n"
         "assert 'jax' not in sys.modules, 'jax loaded'\n"
         "bad = [m for m in sys.modules if m == 'repro' "
         "or m.startswith('repro.')]\n"

@@ -85,15 +85,26 @@ def test_cpu_dispatch_is_the_plain_version_and_launches_nothing():
     assert ops.rmsnorm.launches == before
 
 
-def test_rmsnorm_off_the_cpu_raises_without_falling_back():
+def test_rmsnorm_off_the_cpu_raises_without_falling_back(monkeypatch):
     """A tensor that is not on the CPU never takes the plain version: it
-    goes to the kernel, or raises (here a device with no kernel at all)."""
+    goes to the kernel's path, or raises. A meta tensor (a dry-run) goes
+    through the kernel's checks, which raise on what the kernel does not
+    take, and counts a meta launch of it; the plain version is never
+    called and nothing launches."""
+    def plain(*a, **k):
+        raise AssertionError("a meta tensor reached the plain version")
+
+    monkeypatch.setattr(ref, "rmsnorm_ref", plain)
     x = torch.empty((4, 32), device="meta")
-    s = torch.empty((32,), device="meta")
-    before = ops.rmsnorm.launches
-    with pytest.raises(ValueError, match="CUDA tensors"):
-        ops.rmsnorm(x, s)
-    assert ops.rmsnorm.launches == before
+    before = (ops.rmsnorm.launches, ops.rmsnorm.meta_launches)
+    with pytest.raises(ValueError, match="shapes"):
+        ops.rmsnorm(x, torch.empty((31,), device="meta"))
+    with pytest.raises(ValueError, match="dtypes"):
+        ops.rmsnorm(x.double(), torch.empty((32,), device="meta"))
+    y = ops.rmsnorm(x, torch.empty((32,), device="meta"))
+    assert y.device.type == "meta" and y.shape == x.shape
+    assert (ops.rmsnorm.launches, ops.rmsnorm.meta_launches) == (
+        before[0], before[1] + 1)
 
 
 def test_rmsnorm_rejects_a_0d_tensor_on_every_device():
