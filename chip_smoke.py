@@ -82,7 +82,7 @@ port's main paths through the entry points a user calls:
     the path of ``flash_decode`` (olmo-1b's 8 layers in either half);
     ``python -m repro_torch.launch.train --arch xlstm-350m`` at B 2 and
     its lr 3e-3 (1 DP step at S 512, 1 IFL round of N 4, tau 2 at S
-    128) and the full-width gradient held to the first-order drop of
+    64) and the full-width gradient held to the first-order drop of
     its loss, fp32 and bf16; the reduced
     xlstm-350m, a small Mamba hybrid and the composition twin's four
     dense <-> xLSTM pairs card against CPU in fp32; and ``python -m
@@ -126,7 +126,20 @@ port's main paths through the entry points a user calls:
     card's name and power limit; and ``python -m
     repro_torch.launch.dryrun`` (deepseek-v3-671b at train_4k, and
     ``--all --accounting-only``) run beside the other phases on this
-    machine's CPU.
+    machine's CPU;
+  * launch plans keyed by the card and the last tooling twins (phase
+    4q): the card's SM count (``ops.sm_count``) and every choice read
+    from it (``decode_splits``' (S, chunk), ``fusion_proj.cu``'s tiles,
+    ``rmsnorm.cu``'s grid) at phase 3's and 4's shapes and the timed
+    shapes of #3-#7, equal to the rules at the H100 SXM's 132 SMs;
+    ``ops.autotune_wire_plan`` of the wire encode's team and the fused
+    encode's and the decode's tile (every candidate's time, each
+    candidate's outputs bitwise the kernel rule's), then the wrappers
+    launching with the tuned entries in a fresh read of the plan file;
+    the ``serving_bench`` twin's ``--smoke`` on the card (parity exact
+    on every arm; its speedup over horizon 1 printed); the
+    ``perf_probe`` twin on meta and the ``gen_experiments`` twin over
+    its files.
 
 It checks each path's results, compares short runs on the card with the
 same runs on the CPU, and times each kernel at the shapes its path gives
@@ -308,7 +321,7 @@ def decode_split_checks(ops, ref, gen):
     -> max |err| over the fp32 cases."""
     err = 0.0
     for B, L, KVH, G, hd, dtype, lengths in DECODE_SPLIT_CASES:
-        S, _ = ops.decode_splits(B, KVH, G, L, hd)
+        S, _ = ops.decode_splits(B, KVH, G, L, hd, ops.sm_count("cuda"))
         check(S > 1 or L <= ops.decode_tile_rows(hd),
               f"flash_decode L {L}: {S} split")
         ins = decode_inputs(gen, B, L, KVH, G, hd, dtype, lengths)
@@ -576,7 +589,7 @@ def guarded_decode(ops, q, k, v, valid) -> None:
     L = k.shape[1]
     nan = float("nan")
     want = ops.cached_attn_decode(q, k, v, valid)[:, 0]
-    S, chunk = ops.decode_splits(B, KVH, G, L, hd)
+    S, chunk = ops.decode_splits(B, KVH, G, L, hd, ops.sm_count("cuda"))
     ins = [_banded(q[:, 0].contiguous(), nan), _banded(k, nan),
            _banded(v, nan), _banded(valid, True)]
     out = _banded(torch.empty_like(want), nan)
@@ -2493,10 +2506,11 @@ def llm_twin_phase(ops):
 # runs at its published widths but for d_fusion: the two vendors share
 # xlstm-350m's 1024 as their common fusion dim (olmo-1b's own is 2048).
 CROSS_D_FUSION = 1024
-# The IFL run's sequence is cut to 128: sLSTM is an eager loop over time
+# The IFL run's sequence is cut to 64: sLSTM is an eager loop over time
 # (plain PyTorch, ~20 launches a step a layer, three passes under remat),
-# so a full-width DP step at S 512 takes ~10 s on the card and an IFL
-# round (N 4, tau 2: 8 full and 16 modular passes) would take ~300 s.
+# so a full-width DP step at S 512 takes ~10-18 s on the card and an IFL
+# round (N 4, tau 2: 8 full and 16 modular passes) would take ~300 s (at
+# S 128 up to 63.5 s, the phase's largest step).
 # Both runs use the CLI's lr 3e-3. At init xlstm-350m's gradient is large
 # (|g| ~1e2, printed by the gradient check), so one SGD step at 3e-3 is
 # far past the first-order regime and a batch's loss after three steps may
@@ -2504,7 +2518,7 @@ CROSS_D_FUSION = 1024
 # width is checked directly, by the first-order drop of the loss along it
 # (``full_width_grad_check``).
 RECUR_RUN = dict(arch="xlstm-350m", tau=2, n_clients=4, batch=2, seq=512,
-                 ifl_seq=128, dp_steps=1, ifl_rounds=1, lr=3e-3)
+                 ifl_seq=64, dp_steps=1, ifl_rounds=1, lr=3e-3)
 # The gradient check's step: eps = GRAD_DROP / |g|^2 along -g lowers the
 # loss by GRAD_DROP to first order (~1e3 times the fp32 loss's rounding,
 # and ~1e-3 of the 3e-3 step); the measured drop must be within
@@ -2747,7 +2761,7 @@ def cross_family_phase(ops, profile):
 
 def recurrent_train_phase(train_cli, ops):
     """xlstm-350m through the training CLI at B 2 and its lr 3e-3: one DP
-    step at S 512 and one IFL round (N 4, tau 2) at S 128, the counts set
+    step at S 512 and one IFL round (N 4, tau 2) at S 64, the counts set
     to 0 before each run; then the full-width gradient check. No
     attention kernel, and no wire kernel: the LM IFL CLI ships z in fp32
     (phase 4e counts none either). Losses finite."""
@@ -3960,13 +3974,15 @@ def sampled_serve_phase(ops, cfg, store, reqs, greedy, greedy_warm_s):
 
 def autotune_phase(ops, store, reqs, comps):
     """``ServeEngine.autotune`` on the full-width store (W 4, cache 64)
-    over horizons 1, 4, 8 and the two default edge sets, into a plan
+    over horizons 4 and 8 and the two default edge sets, into a plan
     file under a temporary directory; a ``horizon="auto"`` engine takes
     the plan and serves ``reqs`` to the integer-horizon engine's
     streams (``comps``). The tuning workload is the first two of
     ``reqs`` (their prompts and staggered arrivals) cut to 8 new tokens:
-    each of the 6 candidates serves it twice, and at horizon 1 every
-    arrival is its own 32-step prefill. -> the plan."""
+    each of the 4 candidates serves it twice. Horizon 1, where every
+    arrival is its own 32-step prefill, took half the phase's time and is
+    served in phases 4 (sampled) and 4q (``serving_bench``). -> the
+    plan."""
     import dataclasses
     import os
     import tempfile
@@ -3983,12 +3999,12 @@ def autotune_phase(ops, store, reqs, comps):
             eng = ServeEngine(store, width=4, cache_len=64, device="cuda")
             t0 = time.perf_counter()
             plan = eng.autotune([dataclasses.replace(r, max_new_tokens=8)
-                                 for r in reqs[:2]], horizons=(1, 4, 8))
+                                 for r in reqs[:2]], horizons=(4, 8))
             tune_s = time.perf_counter() - t0
             with open(path) as f:
                 on_disk = json.load(f)
             key = ops._serve_key(eng.plan_key(), "cuda")
-            check(list(on_disk) == [key] and len(plan["candidates"]) == 6,
+            check(list(on_disk) == [key] and len(plan["candidates"]) == 4,
                   f"autotune: plan file {list(on_disk)}, {plan}")
             auto = ServeEngine(store, width=4, cache_len=64, horizon="auto",
                                device="cuda")
@@ -4221,6 +4237,270 @@ def dryrun_phase(ops, cfg, smi):
         del args
         torch.cuda.empty_cache()
     return out
+
+
+# ------------------------------- phase 4q: launch plans and the tooling
+#
+# (a) The launch choices read from the card's SM count, held to the
+# rules at the H100 SXM's 132 SMs (tests/_launch_rules.py) at phase 3's
+# and 4's shapes and the timed shapes of #3-#7. (b) The wire plan's
+# autotuner at PLAN_TUNE into a temporary plan file, then the wrappers in
+# a fresh read of it. (c) The serving_bench twin's --smoke on the card.
+# (d) The perf_probe twin on meta (this machine's CPU) and the
+# gen_experiments twin over what it wrote.
+
+PLAN_PROJ = ([(32, K, N) for K, N in PATH_FCS]
+             + [(32, 1568, 432), (1024, 432, 432), (33, 433, 433),
+                (32, 40, 8192), (1000, 432, 432), LM_PROJ])
+PLAN_ENCODE = [(32, 1568, 432), (1024, 432, 432), (4096, 96, 432),
+               (33, 433, 433), (4096, 1024, 1024)]
+PLAN_DECODE = [(32, 432, 256), (32, 432, 128), (32, 432, 10),
+               (1024, 432, 432), (33, 433, 433), (32, 8192, 40)]
+# (kind, codec, rows, d) of the autotuner's runs; proj_encode's fresh-read
+# launch is at client 2's fusion FC, K 1568.
+PLAN_TUNE = [("encode", "int8_row", 32, 432), ("encode", "ef(int4)", 32, 432),
+             ("encode", "int4", 4096, 1024), ("proj_encode", "int8_row", 32, 432),
+             ("decode_proj", "int8_row", 32, 432)]
+PLAN_PROJ_K = 1568
+PROBE_ROW = ("qwen1.5-0.5b", "train_4k", "dp", ["remat_none", "ce_chunk"])
+
+
+def plan_choices(ops) -> int:
+    """Every choice the launch rules make from the card's SM count at the
+    checked shapes, against the rule at 132 SMs -> the choices checked."""
+    import _launch_rules as rules
+
+    sms = ops.sm_count("cuda")
+    n = 0
+    decode = set(rules.DECODE_SPLITS_132) | {
+        (B, KVH, G, L, hd) for B, L, KVH, G, hd, *_ in
+        DECODE_SPLIT_CASES + DECODE_SHAPES}
+    for shape in sorted(decode):
+        got = ops.decode_splits(*shape, sms)
+        want = rules.DECODE_SPLITS_132.get(shape,
+                                           ops.decode_splits(*shape, 132))
+        check(got == want, f"decode_splits{shape}: {got} at {sms} SMs, "
+                           f"{want} at 132")
+        n += 1
+    for dt, name in ((F32, "float32"), (BF16, "bfloat16")):
+        for M, K, N in PLAN_PROJ:
+            got = ops.fused_tile("fusion_proj", M, K, N, dt)
+            want = rules.proj_tile(M, N, name)
+            check(got == want == ops.fused_tile("fusion_proj", M, K, N, dt,
+                                                sms=132),
+                  f"fusion_proj tile {(M, K, N, name)}: {got}, rule {want}")
+            n += 1
+        for M, K, N in PLAN_ENCODE:
+            got = ops.fused_tile("proj_encode", M, K, N, dt)
+            want = rules.encode_tile(M, N, name)
+            check(got == want == ops.fused_tile("proj_encode", M, K, N, dt,
+                                                sms=132),
+                  f"fused encode tile {(M, K, N, name)}: {got}, rule {want}")
+            n += 1
+        for M, d, N in PLAN_DECODE:
+            got = ops.fused_tile("decode_proj", M, d, N, dt)
+            want = ops.fused_tile("decode_proj", M, d, N, dt, sms=132)
+            check(got == want >= 0,
+                  f"decode_proj tile {(M, d, N, name)}: {got}, at 132 {want}")
+            n += 1
+    for M, D, xd, _, _ in RMS_CALLS:
+        aligned = D % (4 if xd == F32 else 8) == 0
+        got = ops.rmsnorm_grid(M, D, xd)
+        want = rules.rmsnorm_grid(M, D, aligned)
+        check(got == want == ops.rmsnorm_grid(M, D, xd, sms=132),
+              f"rmsnorm grid {(M, D, xd)}: {got}, rule {want}")
+        n += 1
+    return n
+
+
+def _plan_launch(ops, get_codec, kind, codec, rows, d, tile):
+    """One wrapper launch of ``kind`` on fixed inputs at the plan's
+    shape, with ``tile`` (None: the card's plan) -> its outputs."""
+    gen = torch.Generator(device="cuda").manual_seed(rows + d)
+    c = get_codec(codec)
+    z = torch.randn((rows, d), generator=gen, device="cuda")
+    if kind == "encode":
+        if c.name.startswith("ef("):
+            e = 0.1 * torch.randn((rows, d), generator=gen, device="cuda")
+            p, e_new = ops.wire_encode_ef(z, e, c, warps=tile)
+            return {**p, "e'": e_new}
+        return ops.wire_encode(z, c, warps=tile)
+    if kind == "proj_encode":
+        x, w, b = proj_inputs(rows, PLAN_PROJ_K, d, seed=7)
+        return ops.fusion_proj_encode(x, w, b, "relu", codec=c, tile=tile)
+    payload = ops.ref.wire_encode_ref(z, c)
+    _, w, b = proj_inputs(rows, d, 256, seed=8)
+    return {"y": ops.decode_proj(payload, w, b, "relu", codec=c,
+                                 shape=(rows, d), tile=tile)}
+
+
+def wire_plan_phase(ops, get_codec) -> dict:
+    """autotune_wire_plan at PLAN_TUNE into a temporary plan file (every
+    candidate's us, each admissible), then in a fresh read of the file
+    each wrapper launches with the tuned team or tile (the value passed
+    to the C entry), bitwise the kernel rule's outputs, one launch a
+    call; the env and the plan cache put back after. -> {key: entry}."""
+    import shutil
+    import tempfile
+    import _launch_rules as rules
+
+    old = os.environ.get("REPRO_TORCH_WIRE_PLAN_CACHE")
+    tmp = tempfile.mkdtemp(prefix="wire_plan_")
+    path = os.path.join(tmp, "wire_plan.json")
+    os.environ["REPRO_TORCH_WIRE_PLAN_CACHE"] = path
+    ops._wire_cache_mem = None
+    entries = {}
+    try:
+        for kind, codec, rows, d in PLAN_TUNE:
+            t0 = time.perf_counter()
+            entry = ops.autotune_wire_plan(codec, d, kind=kind, rows=rows,
+                                           force=True)
+            knob = "warps" if kind == "encode" else "tile"
+            cands = entry["candidates"]
+            check(len(cands) > 1 and all(c["admissible"] for c in cands),
+                  f"autotune {kind} {codec} {(rows, d)}: {cands}")
+            entries[(kind, codec, rows, d)] = entry
+            print(f"[plan] autotune_wire_plan {kind} {codec} at ({rows}, "
+                  f"{d}): " + ", ".join(f"{knob} {c[knob]} {c['us']:.3f} us"
+                                        for c in cands)
+                  + f"; winner {knob} {entry[knob]} ({entry['us']:.3f} us), "
+                  f"the rule's {knob} {entry['default']}; every candidate "
+                  f"bitwise the rule's ({time.perf_counter() - t0:.1f} s)",
+                  flush=True)
+        ops._wire_cache_mem = None        # a fresh read of the file
+        sms = ops.sm_count("cuda")
+        for (kind, codec, rows, d), entry in entries.items():
+            knob = "warps" if kind == "encode" else "tile"
+            check(ops.wire_plan(get_codec(codec).name, d, kind, "cuda")
+                  == {knob: entry[knob]}, f"wire_plan {kind} {codec}")
+            want = _plan_launch(ops, get_codec, kind, codec, rows, d, -1)
+            with rules.KnobSpy(ops) as spy:
+                got = _plan_launch(ops, get_codec, kind, codec, rows, d, None)
+            entry_name = {"encode": "wire_encode", "decode_proj":
+                          "decode_proj"}.get(kind, "fusion_proj_encode")
+            passed, passed_sms = spy.knob(entry_name)
+            torch.cuda.synchronize()
+            check(passed == entry[knob] and passed_sms in (None, sms),
+                  f"{kind} {codec}: launched with {knob} {passed} (sms "
+                  f"{passed_sms}), plan {entry[knob]}")
+            check(spy.count(entry_name) == 1,
+                  f"{kind} {codec}: {spy.count(entry_name)} launches")
+            check(ops._first_differing(want, got) is None,
+                  f"{kind} {codec}: tuned outputs differ from the rule's")
+        print(f"[plan] fresh read of the plan file: every wrapper launched "
+              f"with its tuned team or tile, one C launch a call, outputs "
+              f"bitwise the kernel rule's", flush=True)
+    finally:
+        if old is None:
+            os.environ.pop("REPRO_TORCH_WIRE_PLAN_CACHE", None)
+        else:
+            os.environ["REPRO_TORCH_WIRE_PLAN_CACHE"] = old
+        ops._wire_cache_mem = None
+        shutil.rmtree(tmp, ignore_errors=True)
+    return entries
+
+
+def serving_bench_phase() -> dict:
+    """The serving_bench twin's --smoke on the card (W 8, T 8, gen 48):
+    parity exact on every arm (a hard check); tok/s and the fused arm's
+    speedup over horizon 1 printed beside the reference's 1.5x gate, a
+    finding, not a check."""
+    import shutil
+    import tempfile
+    from repro_torch.benchmarks import serving_bench
+
+    tmp = tempfile.mkdtemp(prefix="serving_")
+    t0 = time.perf_counter()
+    res = serving_bench.main(["--smoke", "--out",
+                              os.path.join(tmp, "BENCH_serving.json"),
+                              "--device", "cuda"])
+    shutil.rmtree(tmp, ignore_errors=True)
+    arms = res["arms"]
+    check(all(a["parity_exact"] for a in arms),
+          "serving_bench --smoke: an arm differs from its oracle")
+    fused = [a for a in arms if a.get("speedup_vs_h1") is not None]
+    gate = serving_bench.check_failures(res, 1.5)
+    print(f"[plan] serving_bench --smoke on the card: parity exact on "
+          f"{len(arms)} arms + sequential; tok/s sequential "
+          f"{res['sequential'][0]['tok_per_s']:.1f}, "
+          + ", ".join(f"W {a['width']} S {a['horizon']} {a['tok_per_s']:.1f}"
+                      for a in arms)
+          + f"; fused over horizon 1 x{fused[0]['speedup_vs_h1']:.3f}; the "
+          f"reference's gate (1.5x, batched > sequential) "
+          f"{'holds' if not gate else 'does not hold: ' + '; '.join(gate)}"
+          f" ({time.perf_counter() - t0:.1f} s)", flush=True)
+    return res
+
+
+def probe_phase() -> None:
+    """The perf_probe twin on meta (this machine's CPU) at PROBE_ROW,
+    beside its baseline, then the gen_experiments twin over that
+    directory: every variant file written and all five sections."""
+    import shutil
+    import tempfile
+    from repro_torch.benchmarks import gen_experiments, perf_probe
+    from repro_torch.launch import dryrun
+
+    arch, shape, step, probes = PROBE_ROW
+    out = tempfile.mkdtemp(prefix="probe_")
+    t0 = time.perf_counter()
+    dryrun.run_one(arch, shape, step_kind=step, n_clients=4, tau=2,
+                   variant="", out_dir=out, force=True)
+    rows = perf_probe.run(arch, shape, probes, step=step, out=out)
+    names = sorted(os.listdir(out))
+    want = [f"{arch}__{shape}__h100__{step}{'__' + v if v else ''}.json"
+            for v in ["", *probes]]
+    check(sorted(want) == names and [n for n, _ in rows]
+          == ["baseline", *probes], f"perf_probe wrote {names}")
+    # §Perf embeds PERF.md §5-§6 where the checkout has that log, and
+    # says in one line that it is missing where it has not.
+    log = ROOT / "PERF.md"
+    log_text = log.read_text() if log.is_file() else ""
+    md = gen_experiments.generate(os.path.join(out, "EXPERIMENTS.md"),
+                                  dryrun_dir=out, perf=str(log))
+    with open(md) as f:
+        text = f.read()
+    heads = ["## §Paper", "## §Dry-run", "## §Roofline",
+             "## §IFL vs FL-equivalent", "## §Perf"]
+    perf = text[text.find("## §Perf"):]
+    has_log = "\n## 5." in log_text
+    if has_log:
+        embedded = "\n## 5." in perf and "\n## 7." not in perf
+    else:
+        embedded = ("_PERF.md not found_" in perf
+                    or "_PERF.md has no §5_" in perf)
+    check(all(h in text for h in heads) and embedded,
+          f"gen_experiments: sections {[h for h in heads if h in text]}, "
+          f"§Perf {perf[:200]!r} (PERF.md "
+          f"{'present' if log_text else 'absent'})")
+    print(f"[plan] perf_probe {arch} {shape} --step {step} --probe "
+          f"{' '.join(probes)} on meta: " + "; ".join(
+              f"{n} compute {r['roofline']['compute_s']:.3f} s memory "
+              f"{r['roofline']['memory_s']:.3f} s temp "
+              f"{r['memory']['temp_bytes'] / 1e9:.1f} GB" for n, r in rows)
+          + f"; gen_experiments wrote {len(text.splitlines())} lines with "
+          f"all five sections, PERF.md §5-§6 "
+          f"{'embedded' if has_log else 'not in the checkout'}"
+          f" ({time.perf_counter() - t0:.1f} s)",
+          flush=True)
+    shutil.rmtree(out, ignore_errors=True)
+
+
+def tooling_phase(ops, get_codec) -> dict:
+    """Phase 4q: (a) the card's SM count and the choices read from it,
+    (b) the wire plan, (c) serving_bench, (d) perf_probe and
+    gen_experiments. -> the autotuner's entries."""
+    sms = ops.sm_count("cuda")
+    n = plan_choices(ops)
+    print(f"[plan] {torch.cuda.get_device_name(0)}: multi_processor_count "
+          f"{sms}; {n} launch choices (decode_splits' (S, chunk), "
+          f"fusion_proj.cu's tiles of #3-#6, rmsnorm.cu's grid) at phase "
+          f"3's and 4's shapes and the timed shapes equal the rules' at "
+          f"132 SMs", flush=True)
+    entries = wire_plan_phase(ops, get_codec)
+    serving_bench_phase()
+    probe_phase()
+    return entries
 
 
 def tree_numpy(tree):
@@ -4598,10 +4878,17 @@ def main() -> None:
     print(f"[dryrun] phase 4p took {time.perf_counter() - t0:.1f}s",
           flush=True)
 
+    # -- 4q. launch plans keyed by the card, and the last tooling twins ----
+    t0 = time.perf_counter()
+    tooling_phase(ops, get_codec)
+    print(f"[plan] phase 4q took {time.perf_counter() - t0:.1f}s",
+          flush=True)
+
     # -- 5. times at the slice's shape ------------------------------------
     decode_t = []
     for Bt, Lt, KVHt, Gt, hdt, lengths, n_sets in DECODE_SHAPES:
-        S, chunk = ops.decode_splits(Bt, KVHt, Gt, Lt, hdt)
+        S, chunk = ops.decode_splits(Bt, KVHt, Gt, Lt, hdt,
+                                     ops.sm_count("cuda"))
         decode_t.append(decode_times(ops, ref, gen, Bt, Lt, KVHt, Gt, hdt,
                                      lengths, n_sets,
                                      note=f"(S {S} x {chunk} rows)"))

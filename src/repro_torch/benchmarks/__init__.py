@@ -15,4 +15,10 @@ the JAX package's ``results/paper/``.
   run                  the Table I and Fig. 2-4 sections in one run
   async_vs_sync        sync barrier against async ticks at matched uplink
   fleet_scale          cohort rounds at N >> C: bytes and wall flat in N
+  kernel_bench         each kernel's cost row, and its times on the card
+  roofline_report      the dry-run's roofline table and the wire table
+  ifl_vs_dp_collectives  a round's boundary bytes against DP's all-reduce
+  perf_probe           a dry-run row's terms over config variants
+  gen_experiments      EXPERIMENTS.md from the dry-run's files and the runs
+  serving_bench        the serving sweep (sequential, horizon 1, fused)
 """

@@ -24,7 +24,8 @@ from typing import Dict, List
 
 
 def run(quiet: bool = False, *, codec: str = "fp32", n_clients: int = 4,
-        shape: str = "train_4k") -> List[Dict]:
+        shape: str = "train_4k", archs=None) -> List[Dict]:
+    """One row per arch (``archs``, default every config)."""
     from repro_torch.config import INPUT_SHAPES
     from repro_torch.configs import ARCH_IDS, get_config
     from repro_torch.core.comm import ifl_round_bytes
@@ -34,7 +35,7 @@ def run(quiet: bool = False, *, codec: str = "fp32", n_clients: int = 4,
     sh = INPUT_SHAPES[shape]
     rows_per_client = (sh.global_batch // n_clients) * sh.seq_len
     out = []
-    for arch in ARCH_IDS:
+    for arch in archs or ARCH_IDS:
         cfg = get_config(arch)
         b = ifl_round_bytes(n_clients, rows_per_client, cfg.d_fusion,
                             codec=codec)

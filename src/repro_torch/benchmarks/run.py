@@ -12,6 +12,13 @@ timed; ``--device cpu`` gives the rows alone), ``roofline_report`` (the
 files of ``python -m repro_torch.launch.dryrun`` under
 ``results/torch/dryrun``, and the wire table) and
 ``ifl_vs_dp_collectives`` (analytic bytes).
+
+Three twins run only when called: ``perf_probe`` (a dry-run row's terms
+over config variants), ``gen_experiments`` (``results/torch/
+EXPERIMENTS.md`` from the dry-run's files and these runs) and
+``serving_bench`` (the serving sweep and its ``--check`` gate), as the
+reference's ``run.py`` runs neither ``perf_probe`` nor
+``serving_bench``.
 """
 
 from __future__ import annotations

@@ -22,8 +22,9 @@
 //  * Too few blocks: L is split across blocks (flash-decoding). The grid
 //    is (B * KVH, S); split s takes rows [s * chunk, (s + 1) * chunk).
 //    S and chunk come from ops.decode_splits, a function of the shape
-//    alone that aims at one to two waves of 132 SMs with at least one
-//    tile of rows a split (S = 1 at the path's L 64). With S > 1 each
+//    and the card's SM count (132 on the H100 SXM) that aims at one to
+//    two waves of the SMs with at least one tile of rows a split (S = 1
+//    at the path's L 64). With S > 1 each
 //    split writes its fp32 (m, l, acc) to scratch; the last split of a
 //    (b, h) to arrive (__threadfence, then an atomicAdd on a per-(b, h)
 //    counter, which that block resets to 0) merges the S partials in

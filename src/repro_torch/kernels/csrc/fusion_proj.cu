@@ -61,7 +61,11 @@
 //    tensor cores sum in their own order, so bf16 #4 is not bitwise
 //    equal to the SIMT #3 on the same bf16 inputs (nor is it compared
 //    so); the fp32 identities above are untouched.
-// A launch takes the first tile of its list that gives enough blocks.
+// A launch takes the first tile of its list that gives enough blocks
+// for the card (its SM count, which the caller reads from the card once
+// and passes in). A tuned launch plan (ops.wire_plan) may name another
+// tile of the list for the fused encode (#5, #6) and the decode (#3): in
+// fp32 the chain rule below keeps every output's bits whatever the tile.
 // Tiles stage by 16-byte copies where rows and starts allow (fp32: K
 // and N % 4 == 0; bf16: % 8; x, w and y on 16 bytes), else by 4-byte
 // copies (fp32) or element loads (bf16): one kernel, chosen per launch.
@@ -119,7 +123,8 @@ using namespace sm90;
 using namespace wire;
 
 constexpr int kSmemLimit = 227 * 1024 - 1024;
-constexpr int kSMs = 132;  // H100 SXM: a grid this large fills the card once
+// The card's SM count (a grid this large fills it once) comes with every
+// launch, as `sms`: the caller reads it from the card once.
 enum Act { kNone = 0, kRelu = 1, kSilu = 2 };
 enum DType { kF32 = 0, kBF16 = 1 };
 
@@ -198,10 +203,10 @@ struct F32Tile {
   static constexpr int BM = BM_, BN = BN_, TM = TM_, TN = TN_, BK = BK_;
   static constexpr int ST = ST_, MINB = MINB_;
   static constexpr bool KX = KX_, kBf16 = false;
-  // The fewest blocks at which a launch takes this tile (the last tile of
-  // a list takes any): measured, 64 x 64 tiles beat the small ones from
-  // half a wave on, as at (1024, 432, 432).
-  static constexpr int kWave = BM >= 128 ? kSMs : kSMs / 2;
+  // A launch takes this tile from a wave of blocks, one an SM (the last
+  // tile of a list takes any); measured, 64 x 64 tiles beat the small
+  // ones from half a wave on, as at (1024, 432, 432) (wave_of).
+  static constexpr bool kHalfWave = BM < 128;
   static constexpr int RV = TM < 4 ? TM : 4, CV = TN < 4 ? TN : 4;
   static constexpr int RT = BM / TM, CT = BN / TN;  // threads along M, N
   static constexpr int kThreads = RT * CT;
@@ -481,7 +486,7 @@ struct BfTile {
   static constexpr int BM = BM_, BN = BN_, WM = WM_, WN = WN_, ST = ST_;
   static constexpr int MINB = MINB_, BK = 32;
   static constexpr bool kBf16 = true;
-  static constexpr int kWave = kSMs;
+  static constexpr bool kHalfWave = false;
   static constexpr int kThreads = WM * WN * 32;
   static constexpr int MI = BM / WM / 16, NJ = BN / WN / 16;
   static constexpr int LDA = BK + 8, LDB = BN + 8;
@@ -903,10 +908,20 @@ dim3 grid_of(int M, int N) {
   return dim3((M + C::BM - 1) / C::BM, (N + C::BN - 1) / C::BN);
 }
 
+// A grid of tile C at (M, N) gives one block to each of the card's sms
+// SMs.
 template <class C>
-bool fills_card(int M, int N) {
+bool fills_card(int M, int N, int sms) {
   const dim3 g = grid_of<C>(M, N);
-  return static_cast<long>(g.x) * g.y >= kSMs;
+  return static_cast<long>(g.x) * g.y >= sms;
+}
+
+// A grid of tile C at (M, N) reaches the wave from which a launch takes
+// C: the card's sms blocks, half of them for tiles under 128 rows.
+template <class C>
+bool reaches_wave(int M, int N, int sms) {
+  const dim3 g = grid_of<C>(M, N);
+  return static_cast<long>(g.x) * g.y >= (C::kHalfWave ? sms / 2 : sms);
 }
 
 template <class Kernel, class A>
@@ -940,17 +955,32 @@ int launch_proj(const ProjArgs& a, bool vec, cudaStream_t s) {
   }
 }
 
-// The largest of the tiles (largest first) whose grid reaches its kWave
-// blocks, else the last.
+// The index in a list of tiles (largest first) of the first whose grid
+// reaches its wave, else of the last.
 template <class T, class... Rest>
-int launch_proj_fill(const ProjArgs& a, bool vec, cudaStream_t s) {
+int first_in_wave(int M, int N, int sms, int i) {
+  if constexpr (sizeof...(Rest) == 0) {
+    return i;
+  } else {
+    return reaches_wave<T>(M, N, sms) ? i
+                                      : first_in_wave<Rest...>(M, N, sms, i + 1);
+  }
+}
+
+// #4's tile: its index in the dtype's list.
+int proj_tile(int M, int N, int dtype, int sms) {
+  return dtype == kBF16 ? first_in_wave<BfBig, BfRow32, BfRow16>(M, N, sms, 0)
+                        : first_in_wave<F32Big, F32Mid, F32Row>(M, N, sms, 0);
+}
+
+// #4 on tile i of a list.
+template <class T, class... Rest>
+int launch_proj_at(int i, const ProjArgs& a, bool vec, cudaStream_t s) {
   if constexpr (sizeof...(Rest) == 0) {
     return launch_proj<T>(a, vec, s);
   } else {
-    const dim3 g = grid_of<T>(a.M, a.N);
-    if (static_cast<long>(g.x) * g.y >= T::kWave)
-      return launch_proj<T>(a, vec, s);
-    return launch_proj_fill<Rest...>(a, vec, s);
+    return i == 0 ? launch_proj<T>(a, vec, s)
+                  : launch_proj_at<Rest...>(i - 1, a, vec, s);
   }
 }
 
@@ -970,30 +1000,41 @@ int launch_encode_tile(EncArgs a, bool vec, cudaStream_t s) {
              : launch(proj_encode_kernel<T, false, S, EF>, grid, smem, a, s);
 }
 
-// The encode's tiles: bf16 #4's 16 x 32 mma.sync tile; fp32 #4's 8 x 16
-// tile, or 16 x 64 where that gives a wave of blocks (16-row groups: the
-// encode of a group, not the product, sets the time at large M).
+// The encode's tiles: bf16 #4's 16 x 32 mma.sync tile (0, its only one);
+// fp32 a 16 x 64 tile (0) where that fills the card, else #4's 8 x 16 tile
+// (1) (16-row groups: the encode of a group, not the product, sets the
+// time at large M). tile >= 0 asks for that tile (a tuned launch plan);
+// -1 where the launch does not take it.
+int encode_tile(int M, int N, int dtype, int tile, int sms) {
+  if (dtype == kBF16) return tile <= 0 ? 0 : -1;
+  if (tile >= 0) return tile <= 1 ? tile : -1;
+  return fills_card<F32Enc>(M, N, sms) ? 0 : 1;
+}
+
 template <int S, bool EF>
-int launch_encode(const EncArgs& a, cudaStream_t s) {
+int launch_encode(const EncArgs& a, int tile, int sms, cudaStream_t s) {
   auto on16 = [](const void* p) {
     return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
   };
   const int K = a.K, N = a.p.d;
+  const int t = encode_tile(a.M, N, a.dtype, tile, sms);
+  if (t < 0) return -1;
   if (a.dtype == kBF16)
     return launch_encode_tile<BfRow16, S, EF>(
         a, K % 8 == 0 && N % 8 == 0 && on16(a.x) && on16(a.w), s);
   const bool vec = K % 4 == 0 && N % 4 == 0 && on16(a.x) && on16(a.w) && on16(a.y);
-  return fills_card<F32Enc>(a.M, N) ? launch_encode_tile<F32Enc, S, EF>(a, vec, s)
-                                    : launch_encode_tile<F32Row, S, EF>(a, vec, s);
+  return t == 0 ? launch_encode_tile<F32Enc, S, EF>(a, vec, s)
+                : launch_encode_tile<F32Row, S, EF>(a, vec, s);
 }
 
 template <bool EF>
-int launch_encode_scheme(int scheme, const EncArgs& a, cudaStream_t s) {
+int launch_encode_scheme(int scheme, const EncArgs& a, int tile, int sms,
+                         cudaStream_t s) {
   switch (scheme) {
-    case kInt8Row: return launch_encode<kInt8Row, EF>(a, s);
-    case kInt4: return launch_encode<kInt4, EF>(a, s);
-    case kTopK: return launch_encode<kTopK, EF>(a, s);
-    case kSketch: return launch_encode<kSketch, EF>(a, s);
+    case kInt8Row: return launch_encode<kInt8Row, EF>(a, tile, sms, s);
+    case kInt4: return launch_encode<kInt4, EF>(a, tile, sms, s);
+    case kTopK: return launch_encode<kTopK, EF>(a, tile, sms, s);
+    case kSketch: return launch_encode<kSketch, EF>(a, tile, sms, s);
     default: return -1;
   }
 }
@@ -1004,40 +1045,51 @@ int launch_dec(const DecArgs& a, cudaStream_t s) {
                 dec_smem<T, WT, RES>(a.p.d), a, s, T::kThreads);
 }
 
-// #3 on #4's tiles (largest first): the first whose grid reaches its
-// kWave blocks and whose decoded rows fit beside its ring; else the last,
-// its rows resident where they fit, else decoded a stage at a time.
-template <int S, class WT, class T, class... Rest>
-int launch_decode(const DecArgs& a, cudaStream_t s) {
-  const bool fits = dec_smem<T, WT, true>(a.p.d) <= static_cast<size_t>(kSmemLimit);
-  if constexpr (sizeof...(Rest) == 0) {
-    return fits ? launch_dec<T, S, WT, true>(a, s)
-                : launch_dec<T, S, WT, false>(a, s);
-  } else {
-    const dim3 g = grid_of<T>(a.M, a.N);
-    if (fits && static_cast<long>(g.x) * g.y >= T::kWave)
-      return launch_dec<T, S, WT, true>(a, s);
-    return launch_decode<S, WT, Rest...>(a, s);
+// Tile T holds a block's decoded rows of d beside its ring.
+template <class T, class WT>
+bool dec_fits(int d) {
+  return dec_smem<T, WT, true>(d) <= static_cast<size_t>(kSmemLimit);
+}
+
+// #3's tiles: #4's list (0 F32Big, 1 F32Mid, 2 F32Row) and F32Narrow (3).
+// The rule (tile -1): under 16 columns F32Narrow where its rows fit; else
+// the first of #4's list whose grid reaches its wave and whose decoded
+// rows fit beside its ring; else F32Row, its rows resident where they
+// fit, else decoded a stage at a time. tile >= 0 asks for that tile (a
+// tuned launch plan), which must hold its rows (F32Row need not); -1
+// where the launch does not take it.
+template <class WT>
+int decode_tile(int M, int d, int N, int tile, int sms) {
+  const bool fit[4] = {dec_fits<F32Big, WT>(d), dec_fits<F32Mid, WT>(d),
+                       true, dec_fits<F32Narrow, WT>(d)};
+  if (tile >= 0) return tile <= 3 && fit[tile] ? tile : -1;
+  if (N < F32Row::BN && fit[3]) return 3;
+  if (fit[0] && reaches_wave<F32Big>(M, N, sms)) return 0;
+  if (fit[1] && reaches_wave<F32Mid>(M, N, sms)) return 1;
+  return 2;
+}
+
+template <int S, class WT>
+int launch_decode_tiles(const DecArgs& a, int tile, int sms, cudaStream_t s) {
+  switch (decode_tile<WT>(a.M, a.p.d, a.N, tile, sms)) {
+    case 0: return launch_dec<F32Big, S, WT, true>(a, s);
+    case 1: return launch_dec<F32Mid, S, WT, true>(a, s);
+    case 2: return dec_fits<F32Row, WT>(a.p.d)
+                       ? launch_dec<F32Row, S, WT, true>(a, s)
+                       : launch_dec<F32Row, S, WT, false>(a, s);
+    case 3: return launch_dec<F32Narrow, S, WT, true>(a, s);
+    default: return -1;
   }
 }
 
-// #3 on its tiles: under 16 columns F32Narrow where its rows fit (else
-// the list's last tile), otherwise #4's list.
-template <int S, class WT>
-int launch_decode_tiles(const DecArgs& a, cudaStream_t s) {
-  if (a.N < F32Row::BN &&
-      dec_smem<F32Narrow, WT, true>(a.p.d) <= static_cast<size_t>(kSmemLimit))
-    return launch_dec<F32Narrow, S, WT, true>(a, s);
-  return launch_decode<S, WT, F32Big, F32Mid, F32Row>(a, s);
-}
-
 template <class WT>
-int launch_decode_scheme(int scheme, const DecArgs& a, cudaStream_t s) {
+int launch_decode_scheme(int scheme, const DecArgs& a, int tile, int sms,
+                         cudaStream_t s) {
   switch (scheme) {
-    case kInt8Row: return launch_decode_tiles<kInt8Row, WT>(a, s);
-    case kInt4: return launch_decode_tiles<kInt4, WT>(a, s);
-    case kTopK: return launch_decode_tiles<kTopK, WT>(a, s);
-    case kSketch: return launch_decode_tiles<kSketch, WT>(a, s);
+    case kInt8Row: return launch_decode_tiles<kInt8Row, WT>(a, tile, sms, s);
+    case kInt4: return launch_decode_tiles<kInt4, WT>(a, tile, sms, s);
+    case kTopK: return launch_decode_tiles<kTopK, WT>(a, tile, sms, s);
+    case kSketch: return launch_decode_tiles<kSketch, WT>(a, tile, sms, s);
     default: return -1;
   }
 }
@@ -1053,25 +1105,29 @@ bool bad_common(int M, int K, int N, int dtype, int act) {
 // take, else the cudaError_t of the launch. dtype: 0 fp32, 1 bf16 (x and
 // w, and y for fusion_proj); act: 0 none, 1 relu, 2 silu; b (fp32, N)
 // may be null. scheme: 0 int8_row, 1 int4, 2 topk, 3 sketch; n is k
-// (topk) or w (sketch). Everything runs on `stream`; nothing syncs.
+// (topk) or w (sketch). sms is the card's SM count, which sets the tile
+// rule; tile (the fused encode's and the decode's) picks a tile of the
+// kernel's list (fusion_proj_tile), -1 the rule. Everything runs on
+// `stream`; nothing syncs.
 
 // y (M, N) = act(x (M, K) @ w (K, N) + b), in x's dtype.
 extern "C" int fusion_proj(const void* x, const void* w, const float* b,
                            void* y, int M, int K, int N, int dtype, int act,
-                           void* stream) {
-  if (bad_common(M, K, N, dtype, act)) return -1;
+                           int sms, void* stream) {
+  if (bad_common(M, K, N, dtype, act) || sms < 1) return -1;
   const ProjArgs a{x, w, b, y, M, K, N, dtype, act};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   auto on16 = [](const void* p) {
     return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
   };
+  const int t = proj_tile(M, N, dtype, sms);
   int rc;
   if (dtype == kBF16) {
     const bool vec = K % 8 == 0 && N % 8 == 0 && on16(x) && on16(w);
-    rc = launch_proj_fill<BfBig, BfRow32, BfRow16>(a, vec, s);
+    rc = launch_proj_at<BfBig, BfRow32, BfRow16>(t, a, vec, s);
   } else {
     const bool vec = K % 4 == 0 && N % 4 == 0 && on16(x) && on16(w) && on16(y);
-    rc = launch_proj_fill<F32Big, F32Mid, F32Row>(a, vec, s);
+    rc = launch_proj_at<F32Big, F32Mid, F32Row>(t, a, vec, s);
   }
   if (rc != 0) return rc;
   return static_cast<int>(cudaGetLastError());
@@ -1091,8 +1147,9 @@ extern "C" int fusion_proj_encode(int scheme, int ef, const void* x,
                                   const float* sign, const float* inv_counts,
                                   const int* hash, const int* order,
                                   const int* ptr, void* out0, void* out1,
-                                  float* e_out, void* stream) {
-  if (bad_common(M, K, N, dtype, act) || N > kMaxD) return -1;
+                                  float* e_out, int tile, int sms,
+                                  void* stream) {
+  if (bad_common(M, K, N, dtype, act) || N > kMaxD || sms < 1) return -1;
   if (!y || !count || ncount < (M + F32Row::BM - 1) / F32Row::BM) return -1;
   if ((scheme == kTopK || scheme == kSketch) && (n < 1 || n > N)) return -1;
   if (scheme == kSketch && (!sign || !inv_counts || !hash || !order || !ptr))
@@ -1102,8 +1159,8 @@ extern "C" int fusion_proj_encode(int scheme, int ef, const void* x,
                   {N, n, inv_qmax, qmax, clip, max_ratio, sign, inv_counts,
                    hash, order, ptr, out0, out1, e_out}};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int rc = ef ? launch_encode_scheme<true>(scheme, a, s)
-                    : launch_encode_scheme<false>(scheme, a, s);
+  const int rc = ef ? launch_encode_scheme<true>(scheme, a, tile, sms, s)
+                    : launch_encode_scheme<false>(scheme, a, tile, sms, s);
   if (rc != 0) return rc;
   return static_cast<int>(cudaGetLastError());
 }
@@ -1115,13 +1172,14 @@ extern "C" int fusion_proj_quant(const void* x, const void* w, const float* b,
                                  float* y, int* count, int ncount, int M,
                                  int K, int N, int dtype, int act,
                                  float inv_qmax, void* q, float* scale,
-                                 void* stream) {
-  if (bad_common(M, K, N, dtype, act) || N > kMaxD) return -1;
+                                 int tile, int sms, void* stream) {
+  if (bad_common(M, K, N, dtype, act) || N > kMaxD || sms < 1) return -1;
   if (!y || !count || ncount < (M + F32Row::BM - 1) / F32Row::BM) return -1;
   const EncArgs a{x, w, b, nullptr, y, count, M, K, dtype, act, 0,
                   {N, 0, inv_qmax, 127.f, 0, 0.f, nullptr, nullptr, nullptr,
                    nullptr, nullptr, q, scale, nullptr}};
-  const int rc = launch_encode<kInt8Row, false>(a, static_cast<cudaStream_t>(stream));
+  const int rc = launch_encode<kInt8Row, false>(
+      a, tile, sms, static_cast<cudaStream_t>(stream));
   if (rc != 0) return rc;
   return static_cast<int>(cudaGetLastError());
 }
@@ -1133,8 +1191,9 @@ extern "C" int decode_proj(int scheme, const void* in0, const void* in1,
                            const void* w, const float* b, float* y, int M,
                            int d, int N, int n, int dtype, int act,
                            const float* sign, const float* inv_counts,
-                           const int* hash, void* stream) {
-  if (bad_common(M, d, N, dtype, act) || d > kMaxD) return -1;
+                           const int* hash, int tile, int sms,
+                           void* stream) {
+  if (bad_common(M, d, N, dtype, act) || d > kMaxD || sms < 1) return -1;
   if ((scheme == kTopK || scheme == kSketch) && (n < 1 || n > d)) return -1;
   if (scheme == kSketch && (!sign || !inv_counts || !hash)) return -1;
   auto on16 = [](const void* p) {
@@ -1146,9 +1205,28 @@ extern "C" int decode_proj(int scheme, const void* in0, const void* in1,
                   {d, n, 0.f, 0.f, 0, 0.f, sign, inv_counts, hash, nullptr,
                    nullptr, nullptr, nullptr, nullptr}};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int rc = dtype == kBF16
-                     ? launch_decode_scheme<__nv_bfloat16>(scheme, a, s)
-                     : launch_decode_scheme<float>(scheme, a, s);
+  const int rc =
+      dtype == kBF16
+          ? launch_decode_scheme<__nv_bfloat16>(scheme, a, tile, sms, s)
+          : launch_decode_scheme<float>(scheme, a, tile, sms, s);
   if (rc != 0) return rc;
   return static_cast<int>(cudaGetLastError());
+}
+
+// The tile a launch takes, as its index in the kernel's list, or -1
+// where it takes none (launches nothing): op 0 fusion_proj (tile -1
+// only), 1 the fused encode (N the fusion dim), 2 decode_proj (K the
+// fusion dim d, dtype w's).
+extern "C" int fusion_proj_tile(int op, int M, int K, int N, int dtype,
+                                int tile, int sms) {
+  if (bad_common(M, K, N, dtype, kNone) || sms < 1) return -1;
+  switch (op) {
+    case 0: return tile == -1 ? proj_tile(M, N, dtype, sms) : -1;
+    case 1: return N > kMaxD ? -1 : encode_tile(M, N, dtype, tile, sms);
+    case 2:
+      if (K > kMaxD) return -1;
+      return dtype == kBF16 ? decode_tile<__nv_bfloat16>(M, K, N, tile, sms)
+                            : decode_tile<float>(M, K, N, tile, sms);
+    default: return -1;
+  }
 }

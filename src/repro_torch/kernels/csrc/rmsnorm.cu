@@ -46,7 +46,6 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kBlocksPerSM = 2;   // resident blocks a launch plans for
-constexpr int kSMs = 132;         // H100 SXM
 constexpr int kEPT = 32;          // row elements a thread holds in registers
 constexpr int kWarpRowMaxD = 32 * kEPT;         // 1024: a warp a row
 constexpr int kBlockRowMaxD = kThreads * kEPT;  // 8192: a block a row
@@ -242,17 +241,21 @@ rmsnorm_two_pass_kernel(const TX* __restrict__ x, const TS* __restrict__ s,
 
 bool on16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
 
-// The register kernel with TPR threads a row: a grid of at most
-// kBlocksPerSM blocks an SM, the rows split evenly over its row slots
-// (each slot walks ceil(rows / slots) rows).
+// The register kernel's grid with TPR threads a row on a card of sms
+// SMs: at most kBlocksPerSM blocks an SM, the rows split evenly over its
+// row slots (each slot walks ceil(rows / slots) rows).
+long long reg_blocks(long long rows, int tpr, int sms) {
+  const long long rows_per_block = kThreads / tpr;
+  const long long slots =
+      static_cast<long long>(sms) * kBlocksPerSM * rows_per_block;
+  const long long per = (rows + slots - 1) / slots;  // rows a slot walks
+  return (rows + per * rows_per_block - 1) / (per * rows_per_block);
+}
+
 template <typename TX, typename TS, int TPR>
 int launch_reg(const TX* x, const TS* s, TX* y, long long rows, int d,
-               float eps, cudaStream_t stream) {
-  constexpr long long kRowsPerBlock = kThreads / TPR;
-  constexpr long long kSlots = kSMs * kBlocksPerSM * kRowsPerBlock;
-  const long long per = (rows + kSlots - 1) / kSlots;  // rows a slot walks
-  const long long blocks =
-      (rows + per * kRowsPerBlock - 1) / (per * kRowsPerBlock);
+               float eps, int sms, cudaStream_t stream) {
+  const long long blocks = reg_blocks(rows, TPR, sms);
   // The scale in vector loads: 16 bytes of x's elements are 8, 16 or 32
   // bytes of scale, each on its size when s is on 16 bytes.
   rmsnorm_reg_kernel<TX, TS, TPR><<<static_cast<unsigned>(blocks), kThreads,
@@ -273,19 +276,28 @@ int launch_two_pass(const TX* x, const TS* s, TX* y, long long rows, int d,
   return 0;
 }
 
+// Threads a row (32 or kThreads) and whether the register kernel takes
+// the rows (else the two-pass kernel) at d, rows all on 16 bytes or not.
+int threads_a_row(int d) { return d <= kWarpRowMaxD ? 32 : kThreads; }
+bool in_registers(int d, bool aligned) {
+  return aligned && d <= kBlockRowMaxD;
+}
+
 template <typename TX, typename TS>
 int launch(const void* x, const void* s, void* y, long long rows, int d,
-           float eps, cudaStream_t stream) {
+           float eps, int sms, cudaStream_t stream) {
   const TX* xp = static_cast<const TX*>(x);
   const TS* sp = static_cast<const TS*>(s);
   TX* yp = static_cast<TX*>(y);
   const bool aligned = d % (16 / sizeof(TX)) == 0 && on16(x) && on16(y);
-  if (d <= kWarpRowMaxD)
-    return aligned ? launch_reg<TX, TS, 32>(xp, sp, yp, rows, d, eps, stream)
-                   : launch_two_pass<TX, TS, 32>(xp, sp, yp, rows, d, eps,
-                                                 stream);
-  if (d <= kBlockRowMaxD && aligned)
-    return launch_reg<TX, TS, kThreads>(xp, sp, yp, rows, d, eps, stream);
+  if (threads_a_row(d) == 32)
+    return in_registers(d, aligned)
+               ? launch_reg<TX, TS, 32>(xp, sp, yp, rows, d, eps, sms, stream)
+               : launch_two_pass<TX, TS, 32>(xp, sp, yp, rows, d, eps,
+                                             stream);
+  if (in_registers(d, aligned))
+    return launch_reg<TX, TS, kThreads>(xp, sp, yp, rows, d, eps, sms,
+                                        stream);
   return launch_two_pass<TX, TS, kThreads>(xp, sp, yp, rows, d, eps, stream);
 }
 
@@ -293,23 +305,38 @@ int launch(const void* x, const void* s, void* y, long long rows, int d,
 
 // Returns 0 on success, -1 for a shape or type this kernel does not take,
 // else the cudaError_t of the launch. x_dtype, s_dtype: 0 fp32, 1 bf16;
-// y has x's type. x and y are contiguous (rows, d), scale (d,).
+// y has x's type. x and y are contiguous (rows, d), scale (d,). sms is
+// the card's SM count, which sets the register kernel's grid.
 extern "C" int rmsnorm(const void* x, const void* scale, void* y,
                        long long rows, int d, int x_dtype, int s_dtype,
-                       float eps, void* stream) {
-  if (rows < 1 || d < 1 || !x || !scale || !y) return -1;
+                       float eps, int sms, void* stream) {
+  if (rows < 1 || d < 1 || !x || !scale || !y || sms < 1) return -1;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   int rc;
   if (x_dtype == 0 && s_dtype == 0)
-    rc = launch<float, float>(x, scale, y, rows, d, eps, st);
+    rc = launch<float, float>(x, scale, y, rows, d, eps, sms, st);
   else if (x_dtype == 0 && s_dtype == 1)
-    rc = launch<float, __nv_bfloat16>(x, scale, y, rows, d, eps, st);
+    rc = launch<float, __nv_bfloat16>(x, scale, y, rows, d, eps, sms, st);
   else if (x_dtype == 1 && s_dtype == 0)
-    rc = launch<__nv_bfloat16, float>(x, scale, y, rows, d, eps, st);
+    rc = launch<__nv_bfloat16, float>(x, scale, y, rows, d, eps, sms, st);
   else if (x_dtype == 1 && s_dtype == 1)
-    rc = launch<__nv_bfloat16, __nv_bfloat16>(x, scale, y, rows, d, eps, st);
+    rc = launch<__nv_bfloat16, __nv_bfloat16>(x, scale, y, rows, d, eps, sms,
+                                               st);
   else
     return -1;
   if (rc != 0) return rc;
   return static_cast<int>(cudaGetLastError());
+}
+
+// The grid a launch at (rows, d) takes on a card of sms SMs (launches
+// nothing): the register kernel's blocks, or the two-pass kernel's (a
+// row a warp or a block) where the rows are not all on 16 bytes
+// (aligned 0) or longer than 8192; -1 for arguments the kernel does not
+// take.
+extern "C" long long rmsnorm_grid(long long rows, int d, int aligned,
+                                  int sms) {
+  if (rows < 1 || d < 1 || sms < 1) return -1;
+  const int tpr = threads_a_row(d);
+  if (in_registers(d, aligned != 0)) return reg_blocks(rows, tpr, sms);
+  return (rows + kThreads / tpr - 1) / (kThreads / tpr);
 }

@@ -73,10 +73,20 @@ __global__ void __launch_bounds__(kThreads) wire_encode_warps(Args a) {
                         c + pad4(a.p.d), nullptr, row);
 }
 
+// Shared bytes of a block of `warps` teams (0: one block team) of `team`
+// floats each.
+size_t block_smem(int team, int warps) {
+  const size_t bytes = sizeof(float) * team;
+  return warps ? warps * bytes : bytes;
+}
+
+bool team_ok(int warps) {
+  return warps == 0 || warps == 1 || warps == 2 || warps == 4 || warps == 8;
+}
+
 template <int S, bool EF>
 int launch(const Args& a, int warps, cudaStream_t stream) {
-  const size_t team = sizeof(float) * a.team;
-  const size_t smem = warps ? warps * team : team;
+  const size_t smem = block_smem(a.team, warps);
   if (smem > kSmemMax) return -1;
   auto kernel = warps ? wire_encode_warps<S, EF> : wire_encode_block<S, EF>;
   if (smem > (warps ? 48 * 1024 : kOptInAbove)) {
@@ -120,8 +130,7 @@ extern "C" int wire_encode(int scheme, int ef, const float* z, const float* e,
   if (scheme == kSketch && (!sign || !inv_counts || !hash || !order || !ptr))
     return -1;
   if (ef && (!e || !e_out)) return -1;
-  if (warps != 0 && warps != 1 && warps != 2 && warps != 4 && warps != 8)
-    return -1;
+  if (!team_ok(warps)) return -1;
   const Args a{z, e, rows, static_cast<int>(team_floats(scheme, d, n)),
                {d, n, inv_qmax, qmax, clip, max_ratio, sign, inv_counts, hash,
                 order, ptr, out0, out1, e_out}};
@@ -130,4 +139,14 @@ extern "C" int wire_encode(int scheme, int ef, const float* z, const float* e,
                     : launch_scheme<false>(scheme, a, warps, s);
   if (rc != 0) return rc;
   return static_cast<int>(cudaGetLastError());
+}
+
+// 1 where a launch takes the team `warps` at (d, n) under scheme, its
+// rows' buffers within shared memory; else 0. Launches nothing.
+extern "C" int wire_encode_takes(int scheme, int d, int n, int warps) {
+  if (d < 1 || d > kMaxD || scheme < kInt8Row || scheme > kSketch ||
+      !team_ok(warps))
+    return 0;
+  const int team = static_cast<int>(team_floats(scheme, d, n));
+  return block_smem(team, warps) <= kSmemMax ? 1 : 0;
 }

@@ -60,6 +60,15 @@ The serve-plan autotuner (``serve_plan``, ``autotune_serve_plan``) is
 the JAX package's: a wall-clock search of the serving engine's horizon
 and prompt-length bucket edges, persisted to a JSON file of the port's
 own, keyed by the card's name and the engine's geometry.
+
+The launch choices that depend on the card read it, not a constant:
+``flash_decode``'s split (``decode_splits``), ``fusion_proj.cu``'s tile
+rule and ``rmsnorm.cu``'s grid take the card's SM count (``sm_count``,
+read once a device). The wire kernels' launch plan (``wire_plan``,
+``autotune_wire_plan``) is the JAX package's ``wire_blocks`` /
+``autotune_wire_blocks`` on the card: the wire encode's team and the
+fused encode's and the decode's tile, tuned per card and persisted;
+untuned, every launch takes the kernel's own rule.
 """
 
 from __future__ import annotations
@@ -103,6 +112,42 @@ def attn_head_dims_ok(hd: int, hdv: int) -> bool:
             and hdv % 8 == 0 and 8 <= hdv <= hd)
 
 
+# The card the launch choices below were measured on, and its SM count.
+H100_SXM_SMS = 132
+_SM_COUNT: Dict[int, int] = {}
+_CARD_NAME: Dict[int, str] = {}
+
+
+def _index(device) -> int:
+    dev = torch.device(device)
+    return dev.index if dev.index is not None else torch.cuda.current_device()
+
+
+def sm_count(device) -> int:
+    """The SM count of a CUDA device, read from the card once a device
+    index (a launch reads a dict, not the card's properties)."""
+    idx = _index(device)
+    n = _SM_COUNT.get(idx)
+    if n is None:
+        n = _SM_COUNT[idx] = torch.cuda.get_device_properties(
+            idx).multi_processor_count
+    return n
+
+
+def card_name(device) -> str:
+    """The card's name with spaces as '_', read once a device index;
+    ``"cpu"`` for any other device (the plan files' keys)."""
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        return "cpu"
+    idx = _index(dev)
+    name = _CARD_NAME.get(idx)
+    if name is None:
+        name = _CARD_NAME[idx] = torch.cuda.get_device_name(idx).replace(
+            " ", "_")
+    return name
+
+
 # The split of the cache across blocks (csrc/flash_decode.cu). A tile is
 # 4096 / HD cache rows (16 KB of K and V in bf16 at hd == HD), the
 # kernel's Decode::TL, HD the instance's head dim (``kernel_head_dim``);
@@ -119,18 +164,21 @@ def decode_tile_rows(hd: int) -> int:
     return 4096 // kernel_head_dim(hd)
 
 
-def decode_splits(B: int, KVH: int, G: int, L: int, hd: int) -> Tuple[int, int]:
+def decode_splits(B: int, KVH: int, G: int, L: int, hd: int,
+                  sms: int = H100_SXM_SMS) -> Tuple[int, int]:
     """(S, chunk): ``flash_decode`` splits each (row, KV head)'s L cache
     rows into S splits of ``chunk`` rows (the last may be shorter, none
-    is empty), whole tiles a split. Aims at 4 blocks an SM of the H100
-    SXM's 132 over the B * KVH * S blocks, one wave (an SM holds more
-    than 4): on that card 4 beat 2 and 8 at G 1 and tied 2 at G 16
-    (``PERF.md``), so G, which each block serves whole, does not enter.
-    On another card only the count of blocks is off. S = 1 where the
-    cache is one tile, as at the serving path's L 64."""
+    is empty), whole tiles a split. Aims at 4 blocks an SM over the B *
+    KVH * S blocks, one wave (an SM holds more than 4), ``sms`` the
+    card's SM count (the wrapper passes ``sm_count``): on the H100 SXM's
+    132, 4 beat 2 and 8 at G 1 and tied 2 at G 16 (``PERF.md``), so G,
+    which each block serves whole, does not enter. A card with another
+    count gets other blocks (S and chunk), not another tolerance: the
+    merge of any split is held to the plain version alike. S = 1 where
+    the cache is one tile, as at the serving path's L 64."""
     tile = decode_tile_rows(hd)
     n_tiles = -(-L // tile)
-    want = max(1, round(4 * 132 / (B * KVH)))
+    want = max(1, round(4 * sms / (B * KVH)))
     S = min(want, n_tiles, MAX_DECODE_SPLITS)
     per = -(-n_tiles // S)          # tiles a split
     return -(-n_tiles // per), per * tile
@@ -206,7 +254,7 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.data_ptr() % 16 or k.data_ptr() % 16 or v.data_ptr() % 16:
         raise ValueError("flash_decode: q/k/v must be 16-byte aligned")
     scale = scale if scale is not None else 1.0 / math.sqrt(hd)
-    S, chunk = decode_splits(B, KVH, G, L, hd)
+    S, chunk = decode_splits(B, KVH, G, L, hd, sm_count(dev))
     with cost.launch("flash_decode", work):
         out = torch.empty_like(q)
         part_ml = part_acc = count = None
@@ -425,12 +473,14 @@ def _check_rows(name: str, t: torch.Tensor, d: int) -> None:
 
 
 def _launch_wire(name: str, scheme: WireScheme, z: torch.Tensor,
-                 e: Optional[torch.Tensor],
-                 max_ratio: Optional[float]):
+                 e: Optional[torch.Tensor], max_ratio: Optional[float],
+                 codec_name: str, warps: Optional[int]):
     """Launch ``csrc/wire_encode.cu`` on z (and e) -> (payload, e'),
-    counted as ``name`` in the active accounting. On meta tensors
-    nothing launches: the outputs are empty tensors of their shapes,
-    and the call counts in ``<name>.meta_launches``."""
+    counted as ``name`` in the active accounting, on the team ``warps``
+    (None: the card's plan for ``codec_name``, ``wire_plan``; -1 or an
+    untuned plan: ``encode_warps``). On meta tensors nothing launches:
+    the outputs are empty tensors of their shapes, and the call counts
+    in ``<name>.meta_launches``."""
     d = scheme.d
     rows = z.numel() // d
     lead = tuple(z.shape[:-1])
@@ -441,6 +491,10 @@ def _launch_wire(name: str, scheme: WireScheme, z: torch.Tensor,
                 for leaf, (tail, dt) in scheme.leaves.items()}
         e_out = torch.empty_like(z) if e is not None else None
         if dev.type != "meta":
+            if warps is None:
+                warps = wire_plan(codec_name, d, "encode", dev)["warps"]
+            if warps < 0:
+                warps = encode_warps(rows, d, scheme.kind)
             bufs = list(outs.values()) + [None] * (2 - len(outs))
             fn = _c_fn("wire_encode", "wire_encode",
                        [_I, _I, _P, _P, _I, _I, _I, _F, _F, _I, _F]
@@ -451,8 +505,7 @@ def _launch_wire(name: str, scheme: WireScheme, z: torch.Tensor,
                         *_qparams(scheme), *_clip(max_ratio),
                         *(_nullable(t) for t in scheme.tables(dev)),
                         _nullable(bufs[0]), _nullable(bufs[1]),
-                        _nullable(e_out), encode_warps(rows, d, scheme.kind),
-                        _stream(dev))
+                        _nullable(e_out), warps, _stream(dev))
             if rc != 0:
                 raise RuntimeError(f"wire_encode launch failed (code {rc})")
     payload = {leaf: o.reshape(*lead, *o.shape[1:])
@@ -460,14 +513,17 @@ def _launch_wire(name: str, scheme: WireScheme, z: torch.Tensor,
     return payload, e_out
 
 
-def wire_encode(z: torch.Tensor, codec) -> Optional[dict]:
+def wire_encode(z: torch.Tensor, codec, *,
+                warps: Optional[int] = None) -> Optional[dict]:
     """Encode z with ``codec`` -> the payload dict, or None when the
     codec has no wire scheme at z's fusion dim (module docstring).
 
     A CPU tensor takes the plain version (``ref.wire_encode_ref``, the
     codec's own encode); a CUDA tensor launches ``csrc/wire_encode.cu``
-    (z fp32 and contiguous, d <= MAX_FUSED_D) or raises; a meta tensor
-    is checked the same way and returns the payload's empty leaves
+    (z fp32 and contiguous, d <= MAX_FUSED_D) or raises, on the team
+    ``warps`` (1, 2, 4 or 8 rows a block, 0 a block a row, -1
+    ``encode_warps``; None the card's ``wire_plan``); a meta tensor is
+    checked the same way and returns the payload's empty leaves
     (``_launch_wire``)."""
     scheme = scheme_for(codec, z.shape[-1])
     if scheme is None:
@@ -475,7 +531,8 @@ def wire_encode(z: torch.Tensor, codec) -> Optional[dict]:
     if z.device.type == "cpu":
         return ref.wire_encode_ref(z, codec)
     _check_rows("wire_encode", z, scheme.d)
-    payload, _ = _launch_wire("wire_encode", scheme, z, None, None)
+    payload, _ = _launch_wire("wire_encode", scheme, z, None, None,
+                              codec.name, warps)
     if z.device.type == "meta":
         wire_encode.meta_launches += 1
     else:
@@ -487,7 +544,8 @@ wire_encode.launches = 0
 wire_encode.meta_launches = 0
 
 
-def wire_encode_ef(z: torch.Tensor, e: torch.Tensor, ef_codec):
+def wire_encode_ef(z: torch.Tensor, e: torch.Tensor, ef_codec, *,
+                   warps: Optional[int] = None):
     """The EF21 encode of ``ef_codec`` (an ``EFCodec``) -> (payload, e'),
     or None when its inner codec has no wire scheme at z's fusion dim.
 
@@ -495,8 +553,8 @@ def wire_encode_ef(z: torch.Tensor, e: torch.Tensor, ef_codec):
     trust-region-clipped residual e' = c - z_hat, in one launch. A CPU
     tensor takes the plain version (``ref.wire_encode_ef_ref``); a CUDA
     tensor launches the kernel (z, e fp32, contiguous, one shape) or
-    raises; a meta tensor is checked the same way and launches
-    nothing."""
+    raises, on the team ``warps`` as ``wire_encode``'s; a meta tensor is
+    checked the same way and launches nothing."""
     scheme = scheme_for(ef_codec.inner, z.shape[-1])
     if scheme is None:
         return None
@@ -507,7 +565,8 @@ def wire_encode_ef(z: torch.Tensor, e: torch.Tensor, ef_codec):
     if e.shape != z.shape or e.device != z.device:
         raise ValueError(f"wire_encode_ef: e {tuple(e.shape)} on {e.device} "
                          f"vs z {tuple(z.shape)} on {z.device}")
-    out = _launch_wire("wire_encode_ef", scheme, z, e, ef_codec.max_ratio)
+    out = _launch_wire("wire_encode_ef", scheme, z, e, ef_codec.max_ratio,
+                       ef_codec.name, warps)
     if z.device.type == "meta":
         wire_encode_ef.meta_launches += 1
     else:
@@ -524,8 +583,11 @@ def fused_wire_report(codec, z_shape) -> dict:
     for the dry-run's ``client_boundary`` (the JAX package's
     ``ops.fused_wire_report``, with the port's kernels): the encode
     kernel (``csrc/wire_encode.cu``; ``csrc/fusion_proj.cu`` where the
-    fusion FC's epilogue encodes), the scheme, the team ``encode_warps``
-    picks, the payload's leaves and bytes, and the bytes the kernel must
+    fusion FC's epilogue encodes), the scheme, the team it runs (the
+    card's ``wire_plan``, else ``encode_warps``'), the fused encode's
+    plan (``proj_epilogue_plan``: its tile, -1 the kernel's rule; the
+    reference's ``proj_epilogue_blocks``), the payload's leaves and
+    bytes, and the bytes the kernel must
     move (``cost.wire_bytes_moved``) beside those of the plain
     composition, whose c and decoded z_hat make a round trip each under
     EF (the reference's count). A codec without a scheme at that dim
@@ -541,6 +603,7 @@ def fused_wire_report(codec, z_shape) -> dict:
                             f"d={d}"}
     ef = is_ef and codec.has_state
     fused = cost.wire_bytes_moved(scheme, rows, ef)
+    warps = wire_plan(codec.name, d, "encode")["warps"]
     return {
         "fused": True,
         "path": "cuda",
@@ -548,7 +611,9 @@ def fused_wire_report(codec, z_shape) -> dict:
         "source": "src/repro_torch/kernels/csrc/wire_encode.cu",
         "proj_epilogue_source": "src/repro_torch/kernels/csrc/fusion_proj.cu",
         "scheme": scheme.kind,
-        "encode_warps": encode_warps(rows, d, scheme.kind),
+        "encode_warps": (warps if warps >= 0
+                         else encode_warps(rows, d, scheme.kind)),
+        "proj_epilogue_plan": wire_plan(codec.name, d, "proj_encode"),
         "payload_leaves": list(scheme.leaves),
         "payload_bytes": scheme.payload_bytes(rows),
         "hbm_bytes_fused": fused,
@@ -614,10 +679,11 @@ def fusion_proj(x: torch.Tensor, w: torch.Tensor,
         if x.device.type == "meta":
             fusion_proj.meta_launches += 1
             return y
-        fn = _c_fn("fusion_proj", "fusion_proj", [_P] * 4 + [_I] * 5 + [_P])
+        fn = _c_fn("fusion_proj", "fusion_proj", [_P] * 4 + [_I] * 6 + [_P])
         with torch.cuda.device(x.device):
             rc = fn(x.data_ptr(), w.data_ptr(), _nullable(bf), y.data_ptr(),
-                    M, K, N, _DTYPE_CODE[x.dtype], code, _stream(x.device))
+                    M, K, N, _DTYPE_CODE[x.dtype], code, sm_count(x.device),
+                    _stream(x.device))
         if rc != 0:
             raise RuntimeError(f"fusion_proj launch failed (code {rc})")
     fusion_proj.launches += 1
@@ -636,12 +702,22 @@ def _encode_scratch(M: int, N: int, dev: torch.device):
             _arrival_counters(dev, -(-M // 8)))
 
 
+def _encode_tile(codec_name: str, x: torch.Tensor, N: int) -> int:
+    """The fused encode's tile from the card's plan for fp32 launches
+    (bf16 ones sum on the tensor cores in an order the tile moves, so
+    they keep the kernel's rule, -1)."""
+    if x.dtype != torch.float32:
+        return -1
+    return wire_plan(codec_name, N, "proj_encode", x.device)["tile"]
+
+
 def fusion_proj_quant(x: torch.Tensor, w: torch.Tensor,
                       b: Optional[torch.Tensor] = None, act: str = "none"):
     """The projection with the int8_row wire encode in one launch:
     x (..., K), w (K, N) -> (q int8 (..., N), scale fp32 (..., 1)); the
     fp32 activation goes only to a scratch the kernel reads back from
-    L2 (``_encode_scratch``).
+    L2 (``_encode_scratch``), on the tile of the card's int8_row plan
+    (``fusion_proj_encode``'s).
 
     A CPU tensor, or N above ``MAX_FUSED_D`` on any device, takes the
     plain version (``ref.fusion_proj_quant_ref``); a CUDA tensor launches
@@ -667,12 +743,13 @@ def fusion_proj_quant(x: torch.Tensor, w: torch.Tensor,
         y, count = _encode_scratch(M, N, x.device)
         inv_qmax, _ = _qparams(scheme)
         fn = _c_fn("fusion_proj", "fusion_proj_quant",
-                   [_P] * 5 + [_I] * 6 + [_F] + [_P] * 3)
+                   [_P] * 5 + [_I] * 6 + [_F] + [_P] * 2 + [_I] * 2 + [_P])
         with torch.cuda.device(x.device):
             rc = fn(x.data_ptr(), w.data_ptr(), _nullable(bf), y.data_ptr(),
                     count.data_ptr(), count.numel(), M, K, N,
                     _DTYPE_CODE[x.dtype], code, inv_qmax, q.data_ptr(),
-                    scale.data_ptr(), _stream(x.device))
+                    scale.data_ptr(), _encode_tile("int8_row", x, N),
+                    sm_count(x.device), _stream(x.device))
         if rc != 0:
             raise RuntimeError(f"fusion_proj_quant launch failed (code {rc})")
     fusion_proj_quant.launches += 1
@@ -685,7 +762,8 @@ fusion_proj_quant.meta_launches = 0
 
 def fusion_proj_encode(x: torch.Tensor, w: torch.Tensor,
                        b: Optional[torch.Tensor] = None, act: str = "none",
-                       *, codec, ef_state: Optional[torch.Tensor] = None):
+                       *, codec, ef_state: Optional[torch.Tensor] = None,
+                       tile: Optional[int] = None):
     """The projection with ``codec``'s wire encode (and the EF21 step)
     in one launch: x (..., K), w (K, N) -> the payload, or (payload, e')
     with ``ef_state``, the carried residual of an ``ef(...)`` codec,
@@ -697,8 +775,10 @@ def fusion_proj_encode(x: torch.Tensor, w: torch.Tensor,
     composition on every device; so does a CPU tensor
     (``ref.fusion_proj_encode_ref``). A CUDA tensor of a codec with a
     scheme launches the kernel (x, w fp32 or bf16, e fp32, contiguous)
-    or raises; a meta tensor is checked the same way and returns the
-    empty payload (and e') (``meta_launches``)."""
+    or raises, on ``tile`` (0 the 16 x 64 tile, 1 the 8 x 16 one, -1
+    the kernel's rule; None the card's ``wire_plan`` for fp32 x, the
+    rule for bf16); a meta tensor is checked the same way and returns
+    the empty payload (and e') (``meta_launches``)."""
     code = _act_code(act)
     is_ef = isinstance(codec, codec_mod.EFCodec)
     if ef_state is not None and not is_ef:
@@ -734,7 +814,7 @@ def fusion_proj_encode(x: torch.Tensor, w: torch.Tensor,
         y, count = _encode_scratch(M, N, dev)
         fn = _c_fn("fusion_proj", "fusion_proj_encode",
                    [_I, _I] + [_P] * 6 + [_I] * 7 + [_F, _F, _I, _F]
-                   + [_P] * 9)
+                   + [_P] * 8 + [_I] * 2 + [_P])
         with torch.cuda.device(dev):
             rc = fn(_SCHEME_CODE[scheme.kind], int(ef), x.data_ptr(),
                     w.data_ptr(), _nullable(bf), _nullable(ef_state),
@@ -744,7 +824,10 @@ def fusion_proj_encode(x: torch.Tensor, w: torch.Tensor,
                     *_clip(codec.max_ratio if is_ef else None),
                     *(_nullable(t) for t in scheme.tables(dev)),
                     _nullable(bufs[0]), _nullable(bufs[1]),
-                    _nullable(e_out), _stream(dev))
+                    _nullable(e_out),
+                    tile if tile is not None else _encode_tile(codec.name,
+                                                               x, N),
+                    sm_count(dev), _stream(dev))
         if rc != 0:
             raise RuntimeError(
                 f"fusion_proj_encode launch failed (code {rc})")
@@ -758,7 +841,7 @@ fusion_proj_encode.meta_launches = 0
 
 def decode_proj(payload: dict, w: torch.Tensor,
                 b: Optional[torch.Tensor] = None, act: str = "none", *,
-                codec, shape) -> torch.Tensor:
+                codec, shape, tile: Optional[int] = None) -> torch.Tensor:
     """Decode as the prologue of the modular block's first FC:
     act(codec.decode(payload) @ w + b) in one launch, the fp32
     reconstruction held in shared memory. ``shape`` is z's shape (...,
@@ -767,9 +850,11 @@ def decode_proj(payload: dict, w: torch.Tensor,
     A codec with no wire scheme at d runs the plain composition on every
     device; so does a payload on the CPU (``ref.decode_proj_ref``). A
     CUDA payload of a codec with a scheme launches the kernel (the
-    scheme's leaves, contiguous; w fp32 or bf16) or raises; a meta
-    payload is checked the same way and returns an empty y
-    (``meta_launches``)."""
+    scheme's leaves, contiguous; w fp32 or bf16) or raises, on ``tile``
+    (0-2 ``fusion_proj``'s fp32 tiles, 3 the 16 x 8 one, -1 the
+    kernel's rule; None the card's ``wire_plan`` for fp32 w, the rule
+    for bf16); a meta payload is checked the same way and returns an
+    empty y (``meta_launches``)."""
     code = _act_code(act)
     shape = tuple(int(s) for s in shape)
     d = shape[-1]
@@ -793,14 +878,18 @@ def decode_proj(payload: dict, w: torch.Tensor,
             decode_proj.meta_launches += 1
             return y.reshape(*shape[:-1], N)
         sign, inv_counts, hsh, _, _ = scheme.tables(dev)
+        if tile is None:
+            tile = (wire_plan(codec.name, d, "decode_proj", dev)["tile"]
+                    if w.dtype == torch.float32 else -1)
         fn = _c_fn("fusion_proj", "decode_proj",
-                   [_I] + [_P] * 5 + [_I] * 6 + [_P] * 4)
+                   [_I] + [_P] * 5 + [_I] * 6 + [_P] * 3 + [_I] * 2 + [_P])
         with torch.cuda.device(dev):
             rc = fn(_SCHEME_CODE[scheme.kind], leaves[0].data_ptr(),
                     _nullable(leaves[1] if len(leaves) > 1 else None),
                     w.data_ptr(), _nullable(bf), y.data_ptr(), rows, d, N,
                     scheme.n, _DTYPE_CODE[w.dtype], code, _nullable(sign),
-                    _nullable(inv_counts), _nullable(hsh), _stream(dev))
+                    _nullable(inv_counts), _nullable(hsh), tile,
+                    sm_count(dev), _stream(dev))
         if rc != 0:
             raise RuntimeError(f"decode_proj launch failed (code {rc})")
     decode_proj.launches += 1
@@ -848,11 +937,12 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor, *,
             rmsnorm.meta_launches += 1
             return y
         fn = _c_fn("rmsnorm", "rmsnorm",
-                   [_P] * 3 + [ctypes.c_longlong] + [_I] * 3 + [_F, _P])
+                   [_P] * 3 + [ctypes.c_longlong] + [_I] * 3 + [_F, _I, _P])
         with torch.cuda.device(x.device):
             rc = fn(x.data_ptr(), scale.data_ptr(), y.data_ptr(),
                     x.numel() // D, D, _DTYPE_CODE[x.dtype],
-                    _DTYPE_CODE[scale.dtype], float(eps), _stream(x.device))
+                    _DTYPE_CODE[scale.dtype], float(eps), sm_count(x.device),
+                    _stream(x.device))
         if rc != 0:
             raise RuntimeError(f"rmsnorm launch failed (code {rc})")
     rmsnorm.launches += 1
@@ -1079,10 +1169,7 @@ def _load_serve_cache(refresh: bool = False) -> dict:
 def _serve_key(plan_key: str, device) -> str:
     """The card's name with spaces as '_' (``"cpu"`` on the CPU),
     ``|serve|`` and the engine's plan key."""
-    dev = torch.device(device)
-    name = ("cpu" if dev.type == "cpu"
-            else torch.cuda.get_device_name(dev).replace(" ", "_"))
-    return f"{name}|serve|{plan_key}"
+    return f"{card_name(device)}|serve|{plan_key}"
 
 
 def serve_plan(plan_key: str, device) -> dict:
@@ -1120,6 +1207,241 @@ def autotune_serve_plan(plan_key: str, timer, device, *,
     best["candidates"] = candidates
     cache[key] = best
     path = _serve_cache_path()
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    with open(path, "w") as f:
+        json.dump(cache, f, indent=1, sort_keys=True)
+    return best
+
+
+# -------------------------------------------------- the wire launch plan
+#
+# The JAX package's ``wire_blocks`` / ``autotune_wire_blocks`` on the
+# card: the launch choice of each wire kernel, per (card, kind, codec,
+# d), from a JSON file of the port's own. ``wire_plan`` is the read side
+# and never times anything; an untuned key gives the kernel's own rule
+# (-1), so tuning is an optimization, never a requirement. The knobs:
+#   encode       (#1/#2, wire_encode.cu): the team, "warps" in
+#                ENCODE_TEAMS (-1: ``encode_warps``);
+#   proj_encode  (#5/#6, fusion_proj.cu): the fused encode's "tile", 0
+#                the 16 x 64 tile, 1 the 8 x 16 one (-1: the rule);
+#   decode_proj  (#3, fusion_proj.cu): the "tile", 0-2 ``fusion_proj``'s
+#                fp32 tiles, 3 the 16 x 8 one (-1: the rule).
+# An entry applies to the fp32 launches of its (kind, codec, d): a bf16
+# fused encode sums on the tensor cores in an order the tile moves, so
+# it keeps the rule; in fp32 every output is one fmaf chain, so a tile
+# or a team moves no bit (the tuner checks that candidate by candidate).
+
+ENCODE_TEAMS = (0, 1, 2, 4, 8)
+# Launches a timed CUDA graph holds: one graph launch costs more than a
+# wire kernel at the path's shapes, so a single call would time the graph.
+_TUNE_CALLS = 16
+_WIRE_TILES = {"proj_encode": 2, "decode_proj": 4}
+_WIRE_PLAN_DEFAULTS = {
+    "encode": {"warps": -1},
+    "proj_encode": {"tile": -1},
+    "decode_proj": {"tile": -1},
+}
+_wire_cache_mem: Optional[dict] = None
+
+
+def _wire_cache_path() -> str:
+    """The port's own plan file (the JAX package writes another), under
+    ``REPRO_TORCH_WIRE_PLAN_CACHE`` if it is set."""
+    return os.environ.get(
+        "REPRO_TORCH_WIRE_PLAN_CACHE",
+        os.path.join(os.path.expanduser("~"), ".cache", "repro_torch",
+                     "wire_plan.json"))
+
+
+def _load_wire_cache(refresh: bool = False) -> dict:
+    global _wire_cache_mem
+    if _wire_cache_mem is None or refresh:
+        try:
+            with open(_wire_cache_path()) as f:
+                _wire_cache_mem = json.load(f)
+        except (OSError, ValueError):
+            _wire_cache_mem = {}
+    return _wire_cache_mem
+
+
+def _plan_device(device) -> torch.device:
+    if device is None:
+        return torch.device("cuda" if torch.cuda.is_available() else "cpu")
+    return torch.device(device)
+
+
+def _wire_key(codec_name: str, d: int, kind: str, device) -> str:
+    return f"{card_name(device)}|{kind}|{codec_name}|d{d}"
+
+
+def wire_plan(codec_name: str, d: int, kind: str = "encode",
+              device=None) -> dict:
+    """The launch plan of one wire kernel ``kind`` for ``codec_name`` at
+    fusion dim ``d`` on ``device`` (None: the card if there is one):
+    ``{"warps": w}`` (encode) or ``{"tile": t}`` (proj_encode,
+    decode_proj), tuned if the plan file holds this card's entry, else
+    -1, the kernel's own rule. Pure read side: the file is read once a
+    process, and a lookup reads a dict."""
+    knob = "warps" if kind == "encode" else "tile"
+    entry = _load_wire_cache().get(
+        _wire_key(codec_name, d, kind, _plan_device(device)))
+    if entry and knob in entry:
+        return {knob: int(entry[knob])}
+    return dict(_WIRE_PLAN_DEFAULTS[kind])
+
+
+def fused_tile(op: str, M: int, K: int, N: int, dtype=torch.float32,
+               tile: int = -1, device="cuda",
+               sms: Optional[int] = None) -> int:
+    """The tile ``csrc/fusion_proj.cu`` takes (its index in the kernel's
+    list, as the wrappers' ``tile`` counts them), or -1 where it takes
+    none, for ``op`` "fusion_proj" (#4), "proj_encode" (#5/#6, N the
+    fusion dim) or "decode_proj" (#3, K the fusion dim, dtype w's), on
+    a card of ``sms`` SMs (None: ``device``'s). Launches nothing."""
+    fn = _c_fn("fusion_proj", "fusion_proj_tile", [_I] * 7)
+    return fn({"fusion_proj": 0, "proj_encode": 1, "decode_proj": 2}[op],
+              M, K, N, _DTYPE_CODE[dtype], tile,
+              sm_count(device) if sms is None else sms)
+
+
+def rmsnorm_grid(rows: int, d: int, dtype=torch.float32, *,
+                 aligned: bool = True, device="cuda",
+                 sms: Optional[int] = None) -> int:
+    """The blocks of ``csrc/rmsnorm.cu``'s launch at (rows, d) in
+    ``dtype``, the rows all on 16 bytes or not, on a card of ``sms`` SMs
+    (None: ``device``'s). Launches nothing."""
+    fn = _c_fn("rmsnorm", "rmsnorm_grid", [ctypes.c_longlong] + [_I] * 3)
+    fn.restype = ctypes.c_longlong
+    ok = aligned and d % (16 // dtype.itemsize) == 0
+    return int(fn(rows, d, int(ok), sm_count(device) if sms is None else sms))
+
+
+def _wire_candidates(kind: str, scheme: WireScheme, M: int, K: int, N: int,
+                     dev) -> list:
+    """The knob values a launch takes: every team whose rows fit in
+    shared memory, every fused-encode tile, every decode tile that holds
+    its rows."""
+    if kind == "encode":
+        takes = _c_fn("wire_encode", "wire_encode_takes", [_I] * 4)
+        return [{"warps": w} for w in ENCODE_TEAMS
+                if takes(_SCHEME_CODE[scheme.kind], scheme.d, scheme.n, w)]
+    return [{"tile": t} for t in range(_WIRE_TILES[kind])
+            if fused_tile(kind, M, K, N, tile=t, device=dev) == t]
+
+
+def _first_differing(a: dict, b: dict) -> Optional[str]:
+    """The first leaf name whose bits differ between two output dicts,
+    or None."""
+    for k in a:
+        x, y = a[k], b[k]
+        if x.dtype == torch.float32:
+            x, y = x.view(torch.int32), y.view(torch.int32)
+        if not torch.equal(x, y):
+            return k
+    return None
+
+
+def autotune_wire_plan(codec, d: int, *, kind: str = "encode",
+                       rows: int = 512, reps: int = 3, candidates=None,
+                       force: bool = False, device=None) -> dict:
+    """Search one wire kernel's launch knob for (codec, d, kind) on the
+    card and persist the winner keyed by (card name, kind, codec, d), so
+    that later launches, and other processes, take it from
+    ``wire_plan``. Returns the winning entry (also on a cache hit,
+    unless ``force``): the knob, its "us", and every candidate's "us"
+    with whether it is "admissible" and, if not, the first leaf that
+    "differs".
+
+    As the JAX package's tuner: fp32 inputs from seeded generators (z
+    (rows, d); x (rows, 128) and w (128, d) for proj_encode; the codec's
+    payload of z and w_d (d, 256) for decode_proj; e for an ``ef(...)``
+    codec), each candidate timed best of ``reps`` (here: the
+    ``kernel_bench`` twin's CUDA-graph timer over ``_TUNE_CALLS``
+    launches on the same inputs). Each candidate's payload
+    (and e', or y) must be bitwise the kernel rule's on the same inputs;
+    one that differs is reported as not admissible and never chosen.
+    Unlike the JAX package's tuner, which skips a candidate that raises,
+    a launch that raises raises here: a kernel failure must not vanish
+    into a plan. The entry applies to fp32 launches only (``wire_plan``).
+    The plan never times anything on the CPU: without a card, or for a
+    device that is not one, this raises. A codec with no wire scheme at
+    d has no kernel: the defaults come back, with "us" None, and nothing
+    is written."""
+    from repro_torch.benchmarks.kernel_bench import graph_time_ms
+
+    dev = _plan_device(device)
+    if dev.type != "cuda" or not torch.cuda.is_available():
+        raise ValueError(f"autotune_wire_plan times launches on a card; "
+                         f"got device {dev}")
+    codec = codec_mod.get_codec(codec)
+    if kind not in _WIRE_PLAN_DEFAULTS:
+        raise ValueError(f"kind {kind!r} not in {sorted(_WIRE_PLAN_DEFAULTS)}")
+    key = _wire_key(codec.name, d, kind, dev)
+    cache = _load_wire_cache(refresh=True)
+    if key in cache and not force:
+        return cache[key]
+    is_ef = isinstance(codec, codec_mod.EFCodec)
+    inner = codec.inner if is_ef else codec
+    scheme = scheme_for(inner, d)
+    if scheme is None:
+        return dict(_WIRE_PLAN_DEFAULTS[kind], us=None)
+    knob = "warps" if kind == "encode" else "tile"
+
+    def draw(seed, shape, scale=1.0):
+        g = torch.Generator(device=dev).manual_seed(seed)
+        return torch.randn(shape, generator=g, device=dev) * scale
+
+    z = draw(0, (rows, d))
+    e = draw(4, (rows, d), 0.1) if is_ef and codec.has_state else None
+    K, N = {"encode": (d, d), "proj_encode": (128, d),
+            "decode_proj": (d, 256)}[kind]
+    if kind == "encode":
+        def run(v):
+            if e is not None:
+                p, e_new = wire_encode_ef(z, e, codec, warps=v)
+                return {**p, "e'": e_new}
+            return wire_encode(z, inner, warps=v)
+    elif kind == "proj_encode":
+        x, w = draw(1, (rows, K)), draw(2, (K, N), 0.05)
+
+        def run(v):
+            out = fusion_proj_encode(x, w, codec=codec, ef_state=e, tile=v)
+            return {**out[0], "e'": out[1]} if e is not None else out
+    else:
+        payload = ref.wire_encode_ref(z, inner)
+        wd = draw(3, (K, N), 0.05)
+
+        def run(v):
+            return {"y": decode_proj(payload, wd, codec=codec,
+                                     shape=(rows, d), tile=v)}
+
+    counters = [f.launches for f in (wire_encode, wire_encode_ef,
+                                     fusion_proj_encode, decode_proj)]
+    try:
+        want = run(-1)
+        default = (encode_warps(rows, d, scheme.kind) if kind == "encode"
+                   else fused_tile(kind, rows, K, N, device=dev))
+        if candidates is None:
+            candidates = _wire_candidates(kind, scheme, rows, K, N, dev)
+        tried, best = [], None
+        for cand in candidates:
+            v = int(cand[knob])
+            differs = _first_differing(want, run(v))
+            us = 1e3 * min(graph_time_ms([lambda: run(v)] * _TUNE_CALLS)
+                           for _ in range(reps))
+            tried.append({knob: v, "us": round(us, 3),
+                          "admissible": differs is None, "differs": differs})
+            if differs is None and (best is None or us < best["us"]):
+                best = {knob: v, "us": round(us, 3)}
+    finally:
+        for f, n in zip((wire_encode, wire_encode_ef, fusion_proj_encode,
+                         decode_proj), counters):
+            f.launches = n
+    if best is None:
+        return dict(_WIRE_PLAN_DEFAULTS[kind], us=None, candidates=tried)
+    best.update(default=default, rows=rows, candidates=tried)
+    cache[key] = best
+    path = _wire_cache_path()
     os.makedirs(os.path.dirname(path), exist_ok=True)
     with open(path, "w") as f:
         json.dump(cache, f, indent=1, sort_keys=True)

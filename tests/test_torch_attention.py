@@ -22,6 +22,7 @@ import numpy as np
 import pytest
 import torch
 
+from _port_parity import one_torch_thread  # noqa: F401 (autouse)
 from repro.kernels import ops as jops
 from repro.models import attention as jattn
 from repro_torch.kernels import ops, ref

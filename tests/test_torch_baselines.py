@@ -19,6 +19,7 @@ import numpy as np
 import pytest
 import torch
 
+from _port_parity import one_torch_thread  # noqa: F401 (autouse)
 from repro.api import DataSpec as JDataSpec
 from repro.api import ExperimentSpec as JSpec
 from repro.api import FleetSpec as JFleetSpec

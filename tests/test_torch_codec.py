@@ -17,6 +17,7 @@ import numpy as np
 import pytest
 import torch
 
+from _port_parity import one_torch_thread  # noqa: F401 (autouse)
 from repro.core import codec as jcodec
 from repro.kernels import wire_fused
 from repro_torch.core import codec as tcodec

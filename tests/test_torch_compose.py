@@ -19,6 +19,7 @@ import numpy as np
 import pytest
 import torch
 
+from _port_parity import one_torch_thread  # noqa: F401 (autouse)
 from repro.config import LayerSpec as JLayerSpec
 from repro.config import ModelConfig as JModelConfig
 from repro.models import transformer as jtf

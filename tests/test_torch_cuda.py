@@ -9,10 +9,13 @@ so it runs on the machine with the card:
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 """
 
+import json
+
 import numpy as np
 import pytest
 import torch
 
+import _launch_rules as rules
 import _wire_budget as budget
 from repro_torch.core.codec import get_codec
 from repro_torch.kernels import ops, ref
@@ -76,7 +79,7 @@ def test_flash_decode_splits_and_merges_on_card(G, hd, L):
     plain mirror of the kernel's split-and-merge order."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
-    splits = ops.decode_splits(4, 2, G, L, hd)
+    splits = ops.decode_splits(4, 2, G, L, hd, ops.sm_count("cuda"))
     assert splits[0] > 1
     q, k, v, valid = (torch.from_numpy(a).cuda() for a in
                       _inputs(L + G, B=4, L=L, KVH=2, G=G, hd=hd))
@@ -102,7 +105,7 @@ def test_flash_decode_twice_in_one_cuda_graph(dtype, G, hd, L):
     arrival counters were zero at every launch."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
-    assert ops.decode_splits(4, 2, G, L, hd)[0] > 1
+    assert ops.decode_splits(4, 2, G, L, hd, ops.sm_count("cuda"))[0] > 1
     q, k, v, valid = (torch.from_numpy(a).cuda() for a in
                       _inputs(3 * L + G, B=4, L=L, KVH=2, G=G, hd=hd))
     q, k, v = (t.to(dtype) for t in (q, k, v))
@@ -1129,3 +1132,160 @@ def test_batched_sampler_bits_on_card_equal_the_cpus():
                                     temp.to(dev), top_k.to(dev)).cpu()
             for dev in ("cpu", "cuda")}
     assert torch.equal(toks["cuda"], toks["cpu"])
+
+
+# ------------------------------------------------------- launch plans
+
+
+@pytest.fixture
+def wire_plan_file(tmp_path, monkeypatch):
+    """A plan file of the test's own, read afresh."""
+    path = tmp_path / "wire_plan.json"
+    monkeypatch.setenv("REPRO_TORCH_WIRE_PLAN_CACHE", str(path))
+    monkeypatch.setattr(ops, "_wire_cache_mem", None)
+    yield path
+    ops._wire_cache_mem = None
+
+
+def _launches():
+    return [f.launches for f in (ops.wire_encode, ops.wire_encode_ef,
+                                 ops.fusion_proj_encode, ops.fusion_proj_quant,
+                                 ops.decode_proj)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,codec,rows,d", [
+    ("encode", "int8_row", 32, 432), ("encode", "ef(int4)", 32, 432),
+    ("encode", "topk", 1024, 432), ("encode", "int4", 4096, 1024),
+    ("proj_encode", "int8_row", 32, 432), ("proj_encode", "ef(int4)", 512, 432),
+    ("proj_encode", "sketch", 32, 433), ("decode_proj", "int8_row", 32, 432),
+    ("decode_proj", "ef(int4)", 512, 1024), ("decode_proj", "topk", 33, 433)])
+def test_autotune_wire_plan_writes_an_admissible_entry_on_card(
+        wire_plan_file, kind, codec, rows, d):
+    """Every candidate's outputs bitwise the kernel rule's, the winner
+    among them, persisted under this card's key and read back by
+    wire_plan; the launch counters as they were; a second call is a
+    cache hit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    knob = "warps" if kind == "encode" else "tile"
+    before = _launches()
+    entry = ops.autotune_wire_plan(codec, d, kind=kind, rows=rows, reps=1)
+    assert _launches() == before
+    cands = entry["candidates"]
+    assert len(cands) > 1 and all(c["admissible"] for c in cands), cands
+    assert entry[knob] in [c[knob] for c in cands]
+    assert entry["us"] == min(c["us"] for c in cands)
+    name = get_codec(codec).name
+    key = f"{ops.card_name('cuda')}|{kind}|{name}|d{d}"
+    assert json.loads(wire_plan_file.read_text())[key] == entry
+    ops._wire_cache_mem = None
+    assert ops.wire_plan(name, d, kind, "cuda") == {knob: entry[knob]}
+    assert ops.autotune_wire_plan(codec, d, kind=kind, rows=rows) == entry
+
+
+def _spied(entry, call):
+    with rules.KnobSpy(ops) as spy:
+        out = call()
+    torch.cuda.synchronize()
+    assert spy.count(entry) == 1
+    return out, spy.knob(entry)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("warps", [1, 2, 4, 8])
+def test_a_tuned_encode_team_is_the_team_launched_on_card(wire_plan_file,
+                                                          warps):
+    """A plan entry's team, other than encode_warps' block team at
+    (32, 432), is the one the wrapper passes; the payload and e' are
+    bitwise the rule's, one launch a call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    codec = get_codec("ef(int4)")
+    assert ops.encode_warps(32, 432, "int4") == 0
+    z, e = _wire_z(32, 432, seed=1), _wire_z(32, 432, seed=2, scale=0.1)
+    want, e_want = ops.wire_encode_ef(z, e, codec, warps=-1)
+    wire_plan_file.write_text(json.dumps(
+        {f"{ops.card_name('cuda')}|encode|ef(int4)|d432": {"warps": warps}}))
+    before = ops.wire_encode_ef.launches
+    (got, e_got), (passed, _) = _spied(
+        "wire_encode", lambda: ops.wire_encode_ef(z, e, codec))
+    assert passed == warps
+    assert ops.wire_encode_ef.launches == before + 1
+    assert ops._first_differing({**want, "e": e_want}, {**got, "e": e_got}) \
+        is None
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,tile", [("proj_encode", 0),
+                                       ("decode_proj", 1),
+                                       ("decode_proj", 3)])
+def test_a_tuned_tile_is_the_tile_launched_on_card(wire_plan_file, kind,
+                                                   tile):
+    """A plan entry's tile, other than the rule's at the boundary's M
+    32, is the one the wrapper passes (with the card's SM count); the
+    outputs are bitwise the rule's; bf16 launches keep the rule."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    codec = get_codec("int8_row")
+    sms = ops.sm_count("cuda")
+    x, w, b = (torch.randn(s, device="cuda") for s in ((32, 1568),
+                                                       (1568, 432), (432,)))
+    payload = ref.wire_encode_ref(_wire_z(32, 432, seed=3), codec)
+    wd = torch.randn((432, 256), device="cuda") * 0.05
+
+    if kind == "proj_encode":
+        def call(t, dtype=torch.float32):
+            return ops.fusion_proj_encode(x.to(dtype), w.to(dtype), b,
+                                          "relu", codec=codec, tile=t)
+        entry_name = "fusion_proj_encode"
+        assert ops.fused_tile(kind, 32, 1568, 432) != tile
+    else:
+        def call(t, dtype=torch.float32):
+            return {"y": ops.decode_proj(payload, wd.to(dtype), b[:256],
+                                         "relu", codec=codec,
+                                         shape=(32, 432), tile=t)}
+        entry_name = "decode_proj"
+        assert ops.fused_tile(kind, 32, 432, 256) != tile
+        assert ops.fused_tile(kind, 32, 432, 256, tile=tile) == tile
+    want = call(-1)
+    wire_plan_file.write_text(json.dumps(
+        {f"{ops.card_name('cuda')}|{kind}|int8_row|d432": {"tile": tile}}))
+    got, passed = _spied(entry_name, lambda: call(None))
+    assert passed == (tile, sms)
+    assert ops._first_differing(want, got) is None
+    _, passed = _spied(entry_name, lambda: call(None, torch.bfloat16))
+    assert passed == (-1, sms)
+
+
+@pytest.mark.cuda
+def test_tile_and_grid_choices_at_the_cards_count_are_the_rule_at_132():
+    """#4's tile, the fused encode's tile and #7's grid as the kernels
+    choose them at the card's SM count: the rule at that count, and at
+    132 SMs the rule the H100 SXM was tuned with."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    sms = ops.sm_count("cuda")
+    assert sms == torch.cuda.get_device_properties(0).multi_processor_count
+    for dt, name in ((torch.float32, "float32"), (torch.bfloat16, "bfloat16")):
+        for M in (1, 32, 33, 256, 1000, 1024, 4096, 8192):
+            for K, N in ((784, 1024), (1568, 432), (64, 10), (4096, 2048),
+                         (432, 432), (96, 432), (40, 8192)):
+                for n_sm in (sms, 132):
+                    assert ops.fused_tile("fusion_proj", M, K, N, dt,
+                                          sms=n_sm) == rules.proj_tile(
+                        M, N, name, n_sm), (M, K, N, name, n_sm)
+                    assert ops.fused_tile("proj_encode", M, K, N, dt,
+                                          sms=n_sm) == rules.encode_tile(
+                        M, N, name, n_sm), (M, K, N, name, n_sm)
+                assert ops.fused_tile("fusion_proj", M, K, N, dt) == \
+                    ops.fused_tile("fusion_proj", M, K, N, dt, sms=sms)
+        for rows in (1, 3, 37, 1000, 4096, 8192, 100000):
+            for d in (432, 1023, 1024, 4096, 8192, 8193):
+                aligned = d % (4 if dt == torch.float32 else 8) == 0
+                for n_sm in (sms, 132):
+                    assert ops.rmsnorm_grid(rows, d, dt, sms=n_sm) == \
+                        rules.rmsnorm_grid(rows, d, aligned, n_sm)
+                assert ops.rmsnorm_grid(rows, d, dt, aligned=False) == \
+                    rules.rmsnorm_grid(rows, d, False, sms)
+

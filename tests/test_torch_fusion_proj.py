@@ -28,6 +28,7 @@ import pytest
 import torch
 
 import _wire_budget as budget
+from _port_parity import one_torch_thread  # noqa: F401 (autouse)
 from repro.core import codec as jcodec
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref

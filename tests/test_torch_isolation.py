@@ -53,6 +53,9 @@ def test_import_loads_no_jax_and_no_reference_module():
         "import repro_torch.benchmarks.kernel_bench\n"
         "import repro_torch.benchmarks.roofline_report\n"
         "import repro_torch.benchmarks.ifl_vs_dp_collectives\n"
+        "import repro_torch.benchmarks.perf_probe\n"
+        "import repro_torch.benchmarks.gen_experiments\n"
+        "import repro_torch.benchmarks.serving_bench\n"
         "assert 'jax' not in sys.modules, 'jax loaded'\n"
         "bad = [m for m in sys.modules if m == 'repro' "
         "or m.startswith('repro.')]\n"

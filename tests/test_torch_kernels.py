@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 
+from _port_parity import one_torch_thread  # noqa: F401 (autouse)
 from repro.kernels import ref as jax_ref
 from repro.kernels.flash_attention import flash_decode_pallas
 from repro_torch.kernels import ops, ref

@@ -24,6 +24,7 @@ import pytest
 import torch
 from jax.sharding import Mesh
 
+from _port_parity import one_torch_thread  # noqa: F401 (autouse)
 from repro.configs import get_config as jax_get_config
 from repro.core import ifl_spmd as jspmd
 from repro.core.codec import get_codec as jax_get_codec

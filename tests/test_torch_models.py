@@ -14,6 +14,7 @@ import numpy as np
 import pytest
 import torch
 
+from _port_parity import one_torch_thread  # noqa: F401 (autouse)
 from repro.configs import ARCH_IDS as JAX_ARCH_IDS
 from repro.configs import get_config as jax_get_config
 from repro.models import attention as jattn

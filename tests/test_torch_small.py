@@ -14,6 +14,7 @@ import numpy as np
 import pytest
 import torch
 
+from _port_parity import one_torch_thread  # noqa: F401 (autouse)
 from repro.core.ifl import softmax_xent as jax_xent
 from repro.models import small as jsmall
 from repro_torch.checkpoint import params_from_numpy
