@@ -60,7 +60,9 @@ port's main paths through the entry points a user calls:
     (``make_ifl_round_step(partial_participation=True)`` with an
     ``SPMDFusionExchange``: ef(int4), max_staleness 1, delta) on
     full-width qwen1.5-0.5b at phase 4e's shapes, k2 masks from a
-    ``RoundEngine`` and the ledger from ``account_round``, 3 rounds, the
+    ``RoundEngine`` and the ledger from ``account_round``, 1 round (3
+    until phase 4r came; the stale cache is the smoke run's, below) on
+    a (1, 1, 1) mesh of one NCCL rank, the
     path of ``wire_encode_ef`` over all 4096 x 1024 fusion rows at once
     and of the attention kernels; ``run_experiment(ifl_spmd)`` card
     against CPU on the smoke config (head dim 24, which the attention
@@ -71,6 +73,15 @@ port's main paths through the entry points a user calls:
     and an int8_row run (``wire_encode``); the trained run exported by
     ``CompositionStore.from_spmd_trainer`` and served (``flash_decode``);
     and ``python -m repro_torch.examples.llm_ifl_train`` for 5 rounds;
+  * the SPMD round on a mesh of ranks (phase 4r): 4 spawned ranks (NCCL
+    with a card each where the machine has 4 cards, else gloo with all
+    4 on cuda:0, CUDA tensors and the hand-written kernels on every
+    rank), full-width qwen1.5-0.5b at phase 4l's shapes: one int8_row
+    round on a (4, 1, 1) mesh, bitwise the same round in one process,
+    and one ef(int4) round under a k2 mask on (2, 2, 1), within its
+    tolerances; the launch counts of every rank, the bytes each hands
+    to the fusion all-gather against the ledger, the gather's and the
+    round's wall;
   * the recurrent mixers and cross-family composition (phase 4m):
     full-width xlstm-350m (24 layers of mLSTM and sLSTM, d 1024, vocab
     50,304, bf16) served to 4 tenants at W 4 (prompt 32, gen 32; no
@@ -2035,7 +2046,7 @@ def twins_phase(device="cuda"):
 # RoundEngine under k2, ef(int4), max_staleness 1, the delta broadcast,
 # the ledger from the plane's account_round (what SPMDIFLTrainer composes;
 # its front door reduces named configs, as the reference's does).
-SPMD_RUN = dict(arch="qwen1.5-0.5b", rounds=3, tau=2, n_clients=4, batch=2,
+SPMD_RUN = dict(arch="qwen1.5-0.5b", rounds=1, tau=2, n_clients=4, batch=2,
                 seq=512, codec="ef(int4)", participation="k2",
                 max_staleness=1, broadcast="delta", lr=3e-3)
 # The front door on the card. The smoke config's head dim (24) is outside
@@ -2066,8 +2077,10 @@ def spmd_attn_launches(cfg, tau, rounds, evals=0):
 
 
 def spmd_full_width_phase(ops, cfg, smi):
-    """Phase 4l (a): 3 masked rounds at full width, counts set to 0 just
-    before and read just after. Checks: one ``wire_encode_ef`` launch (over
+    """Phase 4l (a): masked rounds at full width on a (1, 1, 1) mesh of
+    this process alone (an NCCL group of one rank, destroyed after the
+    phase; phase 4r runs several ranks), counts set to 0 just before and
+    read just after. Checks: one ``wire_encode_ef`` launch (over
     all N x B x S rows) a round with a participant; attention launches ==
     the count derived from the participants and valid chunks drawn;
     cache_valid == account_round's valid entries; ledger ==
@@ -2081,21 +2094,31 @@ def spmd_full_width_phase(ops, cfg, smi):
     from repro_torch.core.ifl_spmd import (init_ef_state, init_ifl_state,
                                            init_payload_cache,
                                            make_ifl_round_step)
+    import tempfile
+
+    import torch.distributed as dist
+
     from repro_torch.core.rounds import RoundEngine
     from repro_torch.data.synthetic import SyntheticLM
     from repro_torch.kernels import ref
+    from repro_torch.launch.mesh import IFL_AXES, make_mesh
 
     r = SPMD_RUN
     n, tau, b, s = r["n_clients"], r["tau"], r["batch"], r["seq"]
+    store_dir = tempfile.TemporaryDirectory()
+    dist.init_process_group("nccl", store=dist.FileStore(
+        os.path.join(store_dir.name, "store"), 1), rank=0, world_size=1)
+    mesh = make_mesh((1, 1, 1), IFL_AXES)
     plane = SPMDFusionExchange(r["codec"], n_clients=n,
                                max_staleness=r["max_staleness"],
-                               broadcast=r["broadcast"])
+                               broadcast=r["broadcast"], mesh=mesh)
     engine = RoundEngine(n, r["participation"], seed=0, exchange=plane)
     gen = torch.Generator(device="cuda").manual_seed(0)
     params, opt_state = init_ifl_state(cfg, n_clients=n, generator=gen,
-                                       device="cuda")
-    step = make_ifl_round_step(cfg, n_clients=n, tau=tau, lr_base=r["lr"],
-                               lr_modular=r["lr"], partial_participation=True,
+                                       device="cuda", mesh=mesh)
+    step = make_ifl_round_step(cfg, mesh=mesh, n_clients=n, tau=tau,
+                               lr_base=r["lr"], lr_modular=r["lr"],
+                               partial_participation=True,
                                debug_return_zhat=True, exchange=plane)
     z_shape = (n, b, s, cfg.d_fusion)
     cache = init_payload_cache(plane.codec, z_shape, (n, b, s), device="cuda")
@@ -2177,8 +2200,13 @@ def spmd_full_width_phase(ops, cfg, smi):
     check(all(got[k] == 0 for k in got if k not in (
         "wire_encode_ef", "flash_attention", "flash_attention_bwd")),
           f"spmd full width: other kernels launched {got}")
+    gathered = [g["payload"] + g["labels"] + g["age"] for g in plane.gathered]
+    dist.destroy_process_group()
+    store_dir.cleanup()
     print(f"[spmd] full width {cfg.name} ({cfg.num_layers} layers, d "
-          f"{cfg.d_model}, vocab {cfg.vocab_size}, {cfg.compute_dtype}), N "
+          f"{cfg.d_model}, vocab {cfg.vocab_size}, {cfg.compute_dtype}) on a "
+          f"(1, 1, 1) mesh of one NCCL rank (bytes handed to the all-gather "
+          f"a round {gathered}), N "
           f"{n}, tau {tau}, B {b}, S {s}, {r['codec']} over "
           f"{n * b * s} x {cfg.d_fusion} rows, {r['participation']} masks, "
           f"max_staleness {r['max_staleness']}, delta, {r['rounds']} rounds: "
@@ -2501,6 +2529,389 @@ def llm_twin_phase(ops):
           f"launches fwd {fwd} bwd {bwd} == derived; {wall:.1f} s, round walls "
           f"(s) {[round(w, 3) for w in out['walls']]}", flush=True)
 
+
+# ---------------------------------------- 4r: the round on a mesh of ranks
+
+# Phase 4r: phase 4l's model and shapes (full-width qwen1.5-0.5b, N 4,
+# tau 2, B 2, S 512, lr 3e-3) on MESH_RANKS spawned ranks, one round per
+# mesh: full participation under int8_row on (4, 1, 1), where each rank
+# holds one client, and ef(int4) under the first k2 mask of a
+# RoundEngine (max_staleness 1) on (2, 2, 1), where each rank holds two
+# clients and one row of their minibatches. Each is held to the same
+# round in one process on the card. The tokens are a numpy draw
+# (phase 4l runs the host's SyntheticLM draw; here it would only add
+# time). Both sides run under torch's deterministic algorithms.
+MESH_RANKS = 4
+MESH_SEED = 0
+MESH_RUNS = (
+    dict(shape=(4, 1, 1), codec="int8_row", participation="full"),
+    dict(shape=(2, 2, 1), codec="ef(int4)", participation="k2"),
+)
+# (2, 2, 1) against one process: each gradient is the mean of two
+# one-row gradients, whose bf16 products sum in other orders than the
+# two-row ones, so params, and with them the bf16 fusion outputs z,
+# drift by bf16 roundings. Losses within MESH_LOSS_TOL; each client's
+# params within MESH_UPDATE_TOL of its largest update in the one-process
+# round; z within MESH_Z_TOL of the one-process z's largest magnitude
+# (1.754e-2 on an H100 80GB HBM3, both sides under deterministic
+# algorithms). The codes are a function of z: a rank's new cache slots
+# and EF rows are held to the plain ``wire_encode_ef`` of its own z
+# (codes bitwise, floats within WIRE_TOL). The share of int4 codes that
+# differ from the one-process round's is printed, not held: with z
+# itself apart by bf16 roundings it is 2.6%, past the 2% flip budget of
+# tests/_wire_budget.py, which bounds two summation orders of one
+# projection on the same inputs. Ages and labels exact; absent clients
+# bitwise.
+MESH_LOSS_TOL = 1e-2
+MESH_UPDATE_TOL = 0.05
+MESH_Z_TOL = 0.02
+
+
+def mesh_state(cfg, run, device, mesh=None):
+    """Phase 4r's init, plane, step and carried state for one mesh run
+    (``mesh`` None: the one-process round)."""
+    from repro_torch.core.exchange import SPMDFusionExchange
+    from repro_torch.core.ifl_spmd import (init_ef_state, init_ifl_state,
+                                           init_payload_cache,
+                                           make_ifl_round_step)
+
+    r, n = SPMD_RUN, SPMD_RUN["n_clients"]
+    gen = torch.Generator(device=device).manual_seed(MESH_SEED)
+    params, opt_state = init_ifl_state(cfg, n_clients=n, generator=gen,
+                                       device=device, mesh=mesh)
+    plane = SPMDFusionExchange(run["codec"], n_clients=n, max_staleness=1,
+                               mesh=mesh)
+    plane.time_gather = mesh is not None
+    masked = run["participation"] != "full"
+    step = make_ifl_round_step(cfg, mesh=mesh, n_clients=n, tau=r["tau"],
+                               lr_base=r["lr"], lr_modular=r["lr"],
+                               partial_participation=masked,
+                               debug_return_zhat=True, exchange=plane)
+    lay = plane.layout
+    per = n if lay is None else lay.per
+    rows = r["batch"] if lay is None else r["batch"] // lay.n_data
+    z_shape = (per, rows, r["seq"], cfg.d_fusion)
+    ef = init_ef_state(plane.codec, z_shape, device=device)
+    cache = (init_payload_cache(plane.codec, z_shape, z_shape[:3],
+                                device=device) if masked else None)
+    return params, opt_state, plane, step, ef, cache
+
+
+def mesh_batch(cfg, device):
+    r = SPMD_RUN
+    toks = np.random.default_rng(MESH_SEED).integers(
+        0, cfg.vocab_size, size=(r["n_clients"], r["tau"] + 1, r["batch"],
+                                 r["seq"])).astype(np.int32)
+    return {"tokens": torch.from_numpy(toks).to(device)}
+
+
+def mesh_round(cfg, run, mask, device, mesh=None):
+    """One phase 4r round -> (params, metrics, cache, ef, wall s, plane)."""
+    params, opt_state, plane, step, ef, cache = mesh_state(cfg, run, device,
+                                                           mesh)
+    args = [params, opt_state, mesh_batch(cfg, device)]
+    if mask is not None:
+        args += [torch.tensor(mask, device=device), cache]
+    if plane.codec.has_state:
+        args.append(ef)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = step(*args)
+    m = out[2]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if mask is not None:
+        cache = out[3]
+    if plane.codec.has_state:
+        ef = out[-1]
+    return out[0], m, cache, ef, wall, plane
+
+
+def mesh_rank(rank, world, backend, store_path, out_dir, masks, refs):
+    """One rank of phase 4r: joins the world, runs each MESH_RUNS round on
+    its mesh, holds its clients' results to the one-process ``refs``
+    (CUDA tensors shared by the parent), checks its launch counts, and
+    writes what it saw to ``out_dir/rank<r>.json``."""
+    import warnings
+
+    import torch.distributed as dist
+
+    from _wire_budget import codes
+    from repro_torch.configs import get_config
+    from repro_torch.core.comm import tree_leaves
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import wire_encode_ef_ref
+    from repro_torch.launch.mesh import IFL_AXES, make_mesh
+
+    # The parent frees the blocks it shared into ``refs`` only once every
+    # rank has dropped its handles, and a spawned rank leaves through
+    # ``os._exit``, which runs no destructor: move them out of the
+    # argument list, so they die when this function returns.
+    refs, shared = list(refs), refs
+    shared.clear()
+    torch.cuda.set_device(rank % torch.cuda.device_count())
+    dev = torch.device("cuda", torch.cuda.current_device())
+    dist.init_process_group(backend, store=dist.FileStore(store_path, world),
+                            rank=rank, world_size=world)
+    warnings.simplefilter("ignore")
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        cfg = get_config(SPMD_RUN["arch"])
+        tau, d = SPMD_RUN["tau"], cfg.d_fusion
+        result = {"rank": rank, "device": str(dev), "runs": []}
+        for run, mask, ref in zip(MESH_RUNS, masks, refs):
+            mesh = make_mesh(run["shape"], IFL_AXES)
+            reset_counts(ops)
+            params, m, cache, ef, wall, plane = mesh_round(cfg, run, mask,
+                                                           dev, mesh)
+            counts = launch_counts(ops)
+            lay = plane.layout
+            mine, rows = lay.clients, lay.rows(SPMD_RUN["batch"])
+            act = [i for i, k in enumerate(mine) if mask is None or mask[k]]
+            losses = [float(m["base_loss"]), float(m["mod_loss"])]
+            valid = (SPMD_RUN["n_clients"] if mask is None
+                     else int(m["cache_valid"]))
+            fwd, bwd = expected_attn_launches(
+                cfg, steps_full=len(act) * tau, steps_mod=len(act) * valid,
+                fwd_only=len(act))
+            kern = "wire_encode_ef" if plane.codec.has_state else "wire_encode"
+            check(counts[kern] == (1 if act else 0)
+                  and counts["flash_attention"] == fwd
+                  and counts["flash_attention_bwd"] == bwd
+                  and all(v == 0 for k, v in counts.items() if k not in (
+                      kern, "flash_attention", "flash_attention_bwd")),
+                  f"mesh {run['shape']} rank {rank}: launches {counts} != "
+                  f"{kern} {1 if act else 0}, fwd {fwd}, bwd {bwd}")
+            rec = {"shape": run["shape"], "codec": run["codec"],
+                   "clients": mine, "active": [mine[i] for i in act],
+                   "losses": losses, "wall_s": wall, "launches": counts,
+                   "gathered": plane.gathered}
+            exact = run["participation"] == "full"
+            if exact:
+                check(losses == ref["losses"]
+                      and torch.equal(m["z_hat"], ref["z_hat"][:, rows].to(dev))
+                      and all(torch.equal(a, b.to(dev))
+                              for i, k in enumerate(mine)
+                              for a, b in zip(tree_leaves(params[i]),
+                                              tree_leaves(ref["params"][k]))),
+                      f"mesh {run['shape']} rank {rank}: not bitwise the "
+                      f"one-process round (losses {losses} vs "
+                      f"{ref['losses']})")
+            else:
+                loss_err = max(abs(a - b) for a, b in zip(losses,
+                                                          ref["losses"]))
+                upd = []
+                for i, k in enumerate(mine):
+                    err = max(float((a - b.to(dev)).abs().max())
+                              for a, b in zip(tree_leaves(params[i]),
+                                              tree_leaves(ref["params"][k])))
+                    if k in rec["active"]:
+                        upd.append(err / ref["update"][k])
+                    else:   # absent: bitwise its init, as in one process
+                        check(err == 0.0, f"mesh rank {rank}: absent client "
+                              f"{k} moved by {err}")
+                # The codes against the plain encode of this rank's z
+                # (the first round's EF residual is zeros).
+                z_err = wire_err = 0.0
+                if act:
+                    z_ref = ref["z"][mine][:, rows].to(dev).float()[act]
+                    z_err = (float((m["z"].float()[act] - z_ref).abs().max())
+                             / float(z_ref.abs().max()))
+                    plain, e_plain = wire_encode_ef_ref(
+                        m["z"].float(), torch.zeros_like(ef), plane.codec)
+                    wire_err = payload_err(
+                        {k: v[act] for k, v in cache["payload"].items()},
+                        {k: v[act] for k, v in plain.items()},
+                        f"mesh rank {rank} cache")
+                    torch.testing.assert_close(ef[act], e_plain[act],
+                                               **WIRE_TOL)
+                    wire_err = max(wire_err, float(
+                        (ef[act] - e_plain[act]).abs().max()))
+                want = {name: v[mine][:, rows].to(dev)
+                        for name, v in ref["cache"]["payload"].items()}
+                flips = codes("int4", cache["payload"], d) != codes(
+                    "int4", want, d)
+                check(torch.equal(cache["age"],
+                                  ref["cache"]["age"][mine].to(dev))
+                      and torch.equal(cache["tokens"], ref["cache"]["tokens"][
+                          mine][:, rows].to(dev))
+                      and loss_err <= MESH_LOSS_TOL
+                      and max(upd, default=0.0) <= MESH_UPDATE_TOL
+                      and z_err <= MESH_Z_TOL,
+                      f"mesh {run['shape']} rank {rank}: loss err "
+                      f"{loss_err}, params/update {upd}, z err {z_err}")
+                rec.update(loss_err=loss_err, update_err=max(upd, default=0),
+                           z_err=z_err, flips=float(flips.mean()),
+                           wire_err=wire_err)
+            result["runs"].append(rec)
+            del params, cache, ef, m
+            torch.cuda.empty_cache()
+            dist.barrier()
+        with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+            json.dump(result, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def mesh_phase(ops, smi):
+    """Phase 4r: the MESH_RUNS rounds on MESH_RANKS spawned ranks (NCCL,
+    one card each, where the machine has that many; else gloo, every
+    rank on cuda:0, CUDA tensors and the kernels on every rank), each
+    held to the same round in one process; the kernels the earlier
+    phases built are loaded, not rebuilt. -> the launches of #1, #2, #8
+    and #8b summed over the ranks."""
+    import tempfile
+    import warnings
+
+    import torch.multiprocessing as mp
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.codec import get_codec
+    from repro_torch.core.comm import tree_leaves
+    from repro_torch.core.rounds import RoundEngine
+    from repro_torch.kernels import build
+
+    t0 = time.perf_counter()
+    mem0 = torch.cuda.memory_allocated()
+    cfg = get_config(SPMD_RUN["arch"])
+    n = SPMD_RUN["n_clients"]
+    masks = []
+    for run in MESH_RUNS:
+        if run["participation"] == "full":
+            masks.append(None)
+            continue
+        parts = {int(k) for k in RoundEngine(
+            n, run["participation"], seed=MESH_SEED).participants()}
+        masks.append([k in parts for k in range(n)])
+    # The one-process rounds, kept on the card for the ranks.
+    refs = []
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            for run, mask in zip(MESH_RUNS, masks):
+                params, m, cache, ef, wall, _ = mesh_round(cfg, run, mask,
+                                                           "cuda")
+                ref = {"losses": [float(m["base_loss"]),
+                                  float(m["mod_loss"])],
+                       "z_hat": m["z_hat"], "params": params,
+                       "cache": cache, "wall_s": wall,
+                       "z": m["z"]}
+                if mask is not None:
+                    # Each client's largest update, against its init drawn
+                    # again (the init is a function of the seed alone).
+                    init = mesh_state(cfg, run, "cuda")[0]
+                    ref["update"] = [max(float((a - b).abs().max()) for a, b
+                                         in zip(tree_leaves(p),
+                                                tree_leaves(q)))
+                                     for p, q in zip(params, init)]
+                    del init
+                    ref["z_hat"] = None
+                refs.append(ref)
+                del m
+                torch.cuda.empty_cache()
+        finally:
+            torch.use_deterministic_algorithms(False)
+    ref_s = time.perf_counter() - t0
+    ref_walls = [ref.pop("wall_s") for ref in refs]
+    cards = torch.cuda.device_count()
+    backend = "nccl" if cards >= MESH_RANKS else "gloo"
+    built = sorted(p.name for p in build.BUILD_DIR.iterdir())
+    with tempfile.TemporaryDirectory() as tmp:
+        t1 = time.perf_counter()
+        ctx = mp.start_processes(
+            mesh_rank, args=(MESH_RANKS, backend, os.path.join(tmp, "store"),
+                             tmp, masks, refs),
+            nprocs=MESH_RANKS, join=False, start_method="spawn")
+        deadline = time.monotonic() + 600
+        try:
+            while not ctx.join(timeout=1.0):
+                check(time.monotonic() < deadline,
+                      "mesh ranks still running after 600 s")
+        finally:
+            for p in ctx.processes:
+                if p.is_alive():
+                    p.kill()
+        ranks_s = time.perf_counter() - t1
+        res = []
+        for r in range(MESH_RANKS):
+            with open(os.path.join(tmp, f"rank{r}.json")) as f:
+                res.append(json.load(f))
+    check(sorted(p.name for p in build.BUILD_DIR.iterdir()) == built,
+          "mesh ranks built kernels again")
+    # The references went to the ranks through CUDA IPC: their blocks are
+    # freed once collected here (after each rank dropped its handles),
+    # not when the last name goes.
+    del refs, ref, params, cache, ef
+    torch.cuda.ipc_collect()
+    torch.cuda.empty_cache()
+    check(torch.cuda.memory_allocated() <= mem0,
+          f"mesh phase kept {torch.cuda.memory_allocated() - mem0} bytes on "
+          f"the card")
+    out = {"wire_encode": 0, "wire_encode_ef": 0, "flash_attention": 0,
+           "flash_attention_bwd": 0}
+    how = (f"NCCL, one card a rank ({cards} cards)" if backend == "nccl" else
+           f"gloo, all {MESH_RANKS} ranks sharing cuda:0 ({cards} card"
+           f"{'s' if cards > 1 else ''})")
+    print(f"[mesh] phase 4r: {MESH_RANKS} ranks over {how}; {cfg.name} at "
+          f"its widths, N {n}, tau {SPMD_RUN['tau']}, B {SPMD_RUN['batch']}, "
+          f"S {SPMD_RUN['seq']}, lr {SPMD_RUN['lr']}; the kernels loaded, "
+          f"not rebuilt ({len(built)} files in the build directory before "
+          f"and after)", flush=True)
+    for j, run in enumerate(MESH_RUNS):
+        recs = [r["runs"][j] for r in res]
+        for rec in recs:
+            for k in out:
+                out[k] += rec["launches"][k]
+        handed = [sum(v for k, v in g.items() if k != "seconds")
+                  for rec in recs for g in rec["gathered"]]
+        secs = [g["seconds"] for rec in recs for g in rec["gathered"]]
+        entry = (get_codec(run["codec"]).encoded_nbytes(
+            (SPMD_RUN["batch"], SPMD_RUN["seq"], cfg.d_fusion))
+            + SPMD_RUN["batch"] * SPMD_RUN["seq"] * 4)
+        if run["participation"] == "full":
+            check(sum(handed) == n * entry,
+                  f"mesh {run['shape']}: {sum(handed)} bytes handed to the "
+                  f"collective != the ledger's uplink {n} x {entry}")
+            note = (f"bitwise the one-process round (losses "
+                    f"{recs[0]['losses']}, every rank's params and decoded "
+                    f"chunks); bytes handed to the all-gather {handed} "
+                    f"(sum {sum(handed)} == the ledger's uplink {n} x "
+                    f"{entry})")
+        else:
+            part = sum(masks[j])
+            ages = run["shape"][1] * n * 4
+            check(sum(handed) == n * entry + ages,
+                  f"mesh {run['shape']}: {sum(handed)} bytes handed to the "
+                  f"collective != the whole cache {n} x {entry} + {ages}")
+            note = (f"mask {masks[j]}: losses {recs[0]['losses']} vs one "
+                    f"process {[round(x, 6) for x in recs[0]['losses']]}"
+                    f", max |loss err| {max(r['loss_err'] for r in recs):.2e}"
+                    f" (tol {MESH_LOSS_TOL}), params max|err| / the "
+                    f"client's largest update "
+                    f"{max(r['update_err'] for r in recs):.3e} (tol "
+                    f"{MESH_UPDATE_TOL}), z max|err| / max|z| "
+                    f"{max(r['z_err'] for r in recs):.3e} (tol "
+                    f"{MESH_Z_TOL}); the participants' cache slots and EF "
+                    f"rows vs the plain wire_encode_ef of the rank's own z: "
+                    f"codes bitwise, floats max|err| "
+                    f"{max(r['wire_err'] for r in recs):.2e}; int4 codes "
+                    f"that differ from the one-process round's "
+                    f"{max(r['flips'] for r in recs):.2e}; ages, "
+                    f"labels and absent clients exact; bytes handed "
+                    f"{handed} (the whole cache: {n} entries of {entry} == "
+                    f"{n * entry}, plus {ages} of int32 ages, where the "
+                    f"ledger counts "
+                    f"{part} fresh uploads)")
+        print(f"[mesh] {run['shape']} {run['codec']}: {note}; round wall per "
+              f"rank (s) {[round(r['wall_s'], 3) for r in recs]} (one "
+              f"process {ref_walls[j]:.3f}); all-gather wall per rank (s) "
+              f"{[round(s, 4) for s in secs]}; launches per rank "
+              f"{[{k: r['launches'][k] for k in out} for r in recs]} == "
+              f"derived; card {smi}", flush=True)
+    print(f"[mesh] phase 4r took {time.perf_counter() - t0:.1f}s (one-process "
+          f"references {ref_s:.1f}s, ranks {ranks_s:.1f}s)", flush=True)
+    return out
 
 # Phase 4m: the recurrent mixers and cross-family composition. olmo-1b
 # runs at its published widths but for d_fusion: the two vendors share
@@ -4843,6 +5254,9 @@ def main() -> None:
     llm_twin_phase(ops)
     print(f"[spmd] phase 4l took {time.perf_counter() - t0:.1f}s", flush=True)
 
+    # -- 4r. the SPMD round on a mesh of ranks -----------------------------
+    mesh_launches = mesh_phase(ops, smi)
+
     # -- 4m. the recurrent mixers and cross-family composition -----------
     t0 = time.perf_counter()
     recurrent_serve_phase(ops)
@@ -4946,6 +5360,8 @@ def main() -> None:
                          else "src/repro/kernels/wire_fused.py:389"),
             "launches": ifl_launches[kname],
             "spmd_launches": spmd[kname],
+            # Phase 4r: summed over its ranks and rounds.
+            "mesh_launches": mesh_launches[kname],
             "max_abs_err": wire_err[kname],
             "ms": t["ms"],
             "plain_ms": t["plain_ms"],
@@ -4977,6 +5393,7 @@ def main() -> None:
             "replaces": replaces,
             "launches": lm["launches"][kname],
             "spmd_launches": spmd[kname],
+            "mesh_launches": mesh_launches[kname],
             "smoke_launches": spmd["smoke_" + kname[6:]],
             "max_abs_err": err,
             "ms": at[key],

@@ -2,10 +2,11 @@
 
 The port of ``repro.api.spmd``. It adapts
 ``repro_torch.core.ifl_spmd.make_ifl_round_step`` (one round of
-Algorithm 1 over N per-client LM trees, on one device) to the front
-door, so ``run_experiment(spec.replace(scheme="ifl_spmd"))`` drives the
-LM path with the eager engine's scheduling, staleness and byte
-accounting:
+Algorithm 1 over N per-client LM trees, in one process or on a
+('client', 'data', 'model') mesh of ``torch.distributed`` ranks) to the
+front door, so ``run_experiment(spec.replace(scheme="ifl_spmd"))``
+drives the LM path with the eager engine's scheduling, staleness and
+byte accounting:
 
   - participation masks come from the same ``RoundEngine`` (or the
     ``AsyncRoundEngine`` under ``mode="async"``: one tick is one round,
@@ -28,6 +29,15 @@ False mask, and paged in and out of host ``PopulationStore``s (params and
 optimizer state; EF residuals, which age out by ``max_staleness``); the
 payload cache is rebuilt fresh every round, since cohort positions are
 bound to other slots each round.
+
+On a mesh (``mesh=``, legacy regime) every rank builds the trainer
+from the same spec: it holds its block of clients (their params,
+optimizer states, EF rows and cache slots, its rows of their
+minibatches), draws its own clients' tokens only, and keeps the same
+engine, masks and ledger as every other rank; ``snapshot`` gathers the
+blocks into the one-process layout on every rank, ``restore`` keeps
+each rank's block, so a run saved on one mesh resumes on another or in
+one process. The population regime runs on a client axis of 1 only.
 
 Data: minibatch t of round r for client k is ``SyntheticLM.sample(...,
 step=r * (tau + 1) + t, client=k)`` (the ``synth_tokens`` dataset), a
@@ -69,9 +79,17 @@ from repro_torch.core.rounds import (
 )
 from repro_torch.data.synthetic import SyntheticLM
 from repro_torch.device import resolve_device
+from repro_torch.launch.mesh import ClientLayout
 from repro_torch.models import modules as nn
 from repro_torch.models.transformer import base_forward, modular_forward
 from repro_torch.optim import make_optimizer
+from repro_torch.sharding.rules import (
+    all_gather_cat,
+    gather_block,
+    local_block,
+    param_pspecs,
+    placements_of,
+)
 
 __all__ = ["SPMDIFLTrainer", "smoke_model_config"]
 
@@ -112,8 +130,26 @@ class SPMDIFLTrainer:
     """
 
     def __init__(self, spec: ExperimentSpec, *, seq: int = 32, device=None,
-                 init_params: Optional[Callable[[int], Any]] = None):
-        self.device = resolve_device(device)
+                 init_params: Optional[Callable[[int], Any]] = None,
+                 mesh=None):
+        self.mesh = mesh
+        self.layout = None
+        if mesh is not None:
+            if spec.fleet.cohort and int(mesh.mesh.shape[0]) > 1:
+                raise NotImplementedError(
+                    "SPMDIFLTrainer: the population regime (fleet.cohort) "
+                    "on a client axis above 1 is not in the port yet "
+                    "(ROADMAP item 1 (ii)); use a client axis of 1")
+            width = (spec.fleet.cohort if spec.fleet.cohort
+                     else spec.fleet.n_clients)
+            self.layout = ClientLayout.of(mesh, width)
+            self.device = self.layout.device()
+            if device is not None and torch.device(device).type != \
+                    self.device.type:
+                raise ValueError(f"SPMDIFLTrainer: device {device!r} is not "
+                                 f"the mesh's {self.device.type!r}")
+        else:
+            self.device = resolve_device(device)
         if spec.model:
             from repro_torch.configs import get_config
 
@@ -143,6 +179,11 @@ class SPMDIFLTrainer:
             spec.codec, n_clients=self.n_clients,
             max_staleness=spec.max_staleness, broadcast=spec.broadcast,
             population=self._population)
+        # The step's own plane on a mesh: the cohort's wire is C wide;
+        # the accounting plane above stays N wide on every rank.
+        self._wire = (self.exchange if mesh is None else SPMDFusionExchange(
+            spec.codec, n_clients=self.width,
+            max_staleness=spec.max_staleness, mesh=mesh))
         cohort = spec.fleet.cohort_size
         if spec.mode == "async":
             self.engine = AsyncRoundEngine(
@@ -161,6 +202,15 @@ class SPMDIFLTrainer:
         self._z_shape = (self.width, spec.batch_size, seq,
                          self.model_cfg.d_fusion)
         self._tok_shape = (self.width, spec.batch_size, seq)
+        # This rank's block of the carried state: its clients, its rows.
+        self._mine = list(range(self.width))
+        rows = spec.batch_size
+        if self.layout is not None:
+            self._mine = self.layout.clients
+            rows = len(range(spec.batch_size)[self.layout.rows(
+                spec.batch_size)])
+        self._local_tok = (len(self._mine), rows, seq)
+        self._local_z = self._local_tok + (self.model_cfg.d_fusion,)
         pdt = nn.dtype_of(self.model_cfg.param_dtype)
         opt = make_optimizer("sgd")
         model_cfg, seed = self.model_cfg, spec.seed
@@ -191,18 +241,18 @@ class SPMDIFLTrainer:
             self._last_cohort: List[int] = []
         else:
             self.store = self.ef_store = None
-            slots = [init_slot(k) for k in range(self.n_clients)]
+            slots = [init_slot(k) for k in self._mine]
             self.params = [nn.tree_map(lambda a: a.to(self.device),
                                        s["params"]) for s in slots]
             self.opt_state = [nn.tree_map(lambda a: a.to(self.device),
                                           s["opt"]) for s in slots]
-            self.ef_state = (self.codec.init_state(self._z_shape,
+            self.ef_state = (self.codec.init_state(self._local_z,
                                                    device=self.device)
                              if self.codec.has_state else None)
         self._step = make_ifl_round_step(
-            self.model_cfg, n_clients=self.width, tau=spec.tau,
+            self.model_cfg, mesh=mesh, n_clients=self.width, tau=spec.tau,
             lr_base=spec.lr, lr_modular=spec.lr,
-            partial_participation=self.partial, exchange=self.exchange)
+            partial_participation=self.partial, exchange=self._wire)
         self.cache = self._fresh_cache() if self.partial else None
         self._stream = SyntheticLM(self.model_cfg.vocab_size, seed=spec.seed)
         # One client's fusion payload (+ int32 labels), analytically.
@@ -210,8 +260,35 @@ class SPMDIFLTrainer:
                              + spec.batch_size * seq * 4)
 
     def _fresh_cache(self):
-        return init_payload_cache(self.codec, self._z_shape, self._tok_shape,
+        return init_payload_cache(self.codec, self._local_z, self._local_tok,
                                   device=self.device)
+
+    # ------------------------------------------------- the mesh's blocks
+
+    def _blocks(self, tree, specs, gather: bool):
+        """``tree`` (dicts of tensors) cut to this rank's block (gather
+        False: the whole tree in) or put back together from every rank's
+        block (gather True: a collective), leaf by leaf, by ``specs``."""
+        mesh = self.mesh
+
+        def go(t, sp):
+            if isinstance(t, dict):
+                return {k: go(t[k], sp[k]) for k in t}
+            pl = placements_of(mesh, sp)
+            return (gather_block(t, mesh, pl) if gather
+                    else local_block(t, mesh, pl).clone())
+
+        return go(tree, specs)
+
+    def _client_blocks(self, stacked, gather: bool):
+        """Params or optimizer states stacked over the clients, by the
+        rules (``param_pspecs(client_axis=True)``)."""
+        return self._blocks(stacked, param_pspecs(stacked, client_axis=True),
+                            gather)
+
+    def _carried_blocks(self, tree, gather: bool):
+        """The EF residual or the payload cache, by the plane's layout."""
+        return self._blocks(tree, self._wire.carried_pspecs(tree), gather)
 
     # ------------------------------------------------------------- data
 
@@ -255,7 +332,10 @@ class SPMDIFLTrainer:
         participants = [int(k) for k in eng.participants()]
         live = np.zeros(self.n_clients, bool)
         live[participants] = True
-        batch = self._round_batch(eng.round_idx, range(self.n_clients), live)
+        mine = np.zeros(self.n_clients, bool)
+        mine[self._mine] = True
+        batch = self._round_batch(eng.round_idx, range(self.n_clients),
+                                  live & mine)
         args = [self.params, self.opt_state, batch]
         if self.partial:
             args += [torch.from_numpy(live).to(self.device), self.cache]
@@ -290,13 +370,17 @@ class SPMDIFLTrainer:
             args = [params, opt, batch, torch.from_numpy(live).to(
                 self.device), self._fresh_cache()]
             if self.codec.has_state:
-                args.append(self.ef_store.page_in(cohort,
-                                                  device=self.device))
+                ef = self.ef_store.page_in(cohort, device=self.device)
+                args.append(ef if self.mesh is None
+                            else self._carried_blocks(ef, gather=False))
             out = self._step(*args)
             self.store.page_out(slots, {"params": _stack(params),
                                         "opt": _stack(opt)}, eng.round_idx)
             if self.codec.has_state:
-                self.ef_store.page_out(slots, out[-1], eng.round_idx)
+                ef = out[-1]
+                if self.mesh is not None:
+                    ef = self._carried_blocks(ef, gather=True)
+                self.ef_store.page_out(slots, ef, eng.round_idx)
                 self.ef_store.prune(eng.round_idx)
             base_loss = float(out[2]["base_loss"])
             mod_loss = float(out[2]["mod_loss"])
@@ -336,8 +420,11 @@ class SPMDIFLTrainer:
                 z, _ = base_forward(p["base"], cfg, {"tokens": toks})
                 pred = modular_forward(p["modular"], cfg,
                                        z)[0][:, :-1].argmax(-1)
-                accs.append(float((pred == toks[:, 1:]).float().mean()))
-        return accs
+                accs.append((pred == toks[:, 1:]).float().mean())
+        accs = torch.stack(accs)
+        if self.mesh is not None and not self._population:
+            accs = all_gather_cat(accs, self.layout.client_group, 0)
+        return [float(a) for a in accs.tolist()]
 
     # ------------------------------------------------- snapshot/restore
 
@@ -370,6 +457,11 @@ class SPMDIFLTrainer:
             tree["ef"] = self.ef_state.clone()
         if self.cache is not None:
             tree["cache"] = nn.tree_map(torch.clone, self.cache)
+        if self.mesh is not None:
+            tree = {k: (self._client_blocks(v, gather=True)
+                        if k in ("params", "opt")
+                        else self._carried_blocks(v, gather=True))
+                    for k, v in tree.items()}
         return tree, self.engine.aux_state()
 
     def snapshot_template(self, extra):
@@ -397,7 +489,13 @@ class SPMDIFLTrainer:
             self._last_cohort = [int(s) for s in pop.get("last_cohort", [])]
             self.engine.restore_aux(aux)
             return
-        n = self.n_clients
+        whole = tree
+        if self.mesh is not None:
+            tree = {k: (self._client_blocks(v, gather=False)
+                        if k in ("params", "opt")
+                        else self._carried_blocks(v, gather=False))
+                    for k, v in tree.items()}
+        n = len(self._mine)
         self.params = _unstack(tree["params"], n)
         if tree["opt"]["base"] or tree["opt"]["modular"]:
             self.opt_state = _unstack(tree["opt"], n)
@@ -414,4 +512,4 @@ class SPMDIFLTrainer:
             last = self.engine.round_idx - 1
             self.exchange._last_upload = [
                 None if int(a) >= _NEVER else last - int(a)
-                for a in self.cache["age"].tolist()]
+                for a in whole["cache"]["age"].tolist()]

@@ -44,9 +44,22 @@ class Trainer(Protocol):
 
 
 def save_trainer(path: str, trainer: Trainer) -> None:
-    """Checkpoint a mid-run trainer (.npz + manifest)."""
+    """Checkpoint a mid-run trainer (.npz + manifest). A trainer on a
+    mesh (``trainer.mesh``) gathers its ranks' blocks into the
+    one-process layout (every rank calls this), rank 0 writes the file,
+    and every rank waits for the write."""
     tree, aux = trainer.snapshot()
-    save_checkpoint(path, tree, step=int(aux.get("round_idx", 0)), extra=aux)
+    mesh = getattr(trainer, "mesh", None)
+    if mesh is None:
+        save_checkpoint(path, tree, step=int(aux.get("round_idx", 0)),
+                        extra=aux)
+        return
+    import torch.distributed as dist
+
+    if dist.get_rank() == 0:
+        save_checkpoint(path, tree, step=int(aux.get("round_idx", 0)),
+                        extra=aux)
+    dist.barrier()
 
 
 def load_trainer(path: str, trainer: Trainer) -> Trainer:
@@ -56,7 +69,9 @@ def load_trainer(path: str, trainer: Trainer) -> Trainer:
     another fleet or codec fails instead of mixing states. A trainer
     whose snapshot's structure depends on its history (a population's
     sparse one) gives ``snapshot_template(extra)``, read from the
-    manifest's aux first."""
+    manifest's aux first. A trainer on a mesh reads the whole file on
+    every rank and keeps its own block, whatever mesh (or one process)
+    saved it."""
     extra = load_extra(path)
     if hasattr(trainer, "snapshot_template"):
         template = trainer.snapshot_template(extra)

@@ -46,19 +46,22 @@ catch-up), exactly the state of a client never seen. A population
 trainer snapshots the cache sparsely, slot by slot, never through
 ``cache_tree``, which stacks all N slots.
 
-``SPMDFusionExchange`` is the one-card counterpart of the reference's
-SPMD backend: the wire block of the LM round step
+``SPMDFusionExchange`` is the counterpart of the reference's SPMD
+backend: the wire block of the LM round step
 (``repro_torch.core.ifl_spmd``) over a stacked client dim, with partial
 participation (the carried payload cache, ``max_staleness``), the full
 or delta broadcast, the population regime and the host-side
 ``account_round``; ``expected_delta_entries`` replays a schedule
 through it, and ``init_ef_state`` / ``init_payload_cache`` build its
-carried state. On one card the 'client'-axis all-gather is the stacking
-of the N payloads, and the receivers decode them.
+carried state. Without a mesh the 'client'-axis all-gather is the
+stacking of the N payloads in one process; on a ('client', 'data',
+'model') mesh it is a real all-gather of the encoded payload over the
+client group.
 """
 
 from __future__ import annotations
 
+import time
 from dataclasses import dataclass
 from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 
@@ -400,44 +403,63 @@ def _tree_where(mask: torch.Tensor, new, old):
 
 class SPMDFusionExchange(ExchangePlane):
     """The fusion wire block of the LM round step over a stacked client
-    dim, on one card: the port of the reference's SPMD backend.
+    dim: the port of the reference's SPMD backend.
 
     ``wire(z, tokens, mask, cache, ef_state)`` is the in-step half. It
-    takes the N clients' fusion outputs stacked as z (N, Bc, S, d_fusion)
-    and their tokens (N, Bc, S). A codec with a wire scheme encodes all N
+    takes the clients' fusion outputs stacked as z (n, Bc, S, d_fusion)
+    and their tokens (n, Bc, S). A codec with a wire scheme encodes all n
     clients' rows in one ``wire_encode`` / ``wire_encode_ef`` call (the
     rows of a row-wise scheme are independent, so this is the
     per-client encode; the reference's fused path flattens the same
     axes), with z in fp32, the kernel's input type (every scheme's plain
     encode upcasts to fp32 first). Every other codec encodes each
-    client's z as it is. On one card the reference's 'client'-axis
-    all-gather is the stacked payload itself, and its sharding
-    constraints (``_gather_payload``, ``_ef_constrain``,
-    ``_cache_constrain``) have no counterpart: there is no mesh and no
-    ``torch.distributed`` here.
+    client's z as it is.
 
-    Under partial participation (``mask`` not None) the carried payload
-    cache (``init_payload_cache``) is refreshed for the participants
-    only: the one encode is selected by the mask (``_tree_where``), so
-    absent clients keep their EF residual and their cache slot bitwise,
-    ``age`` is 0 for a participant and ``min(age, _NEVER - 1) + 1`` for
-    everyone else, and ``valid = age <= age_bound`` weights the cached
-    chunks of the modular update (the eager cache's eviction, at fixed
-    shapes). A round without a participant encodes nothing.
+    Without a mesh, n is N and the reference's 'client'-axis all-gather
+    is the stacked payload itself. With ``mesh`` (a ('client', 'data',
+    'model') ``DeviceMesh``, ``launch.mesh.ClientLayout``) each rank
+    holds its block of n = N / C clients and its rows of their
+    minibatches; ``wire`` encodes only those rows, then gathers every
+    payload leaf and the labels over the client group, in client order,
+    each leaf in its own dtype (a bool leaf as uint8): the paper's
+    upload + concat + broadcast as one collective of the compressed
+    bytes. The rows stay this rank's after the gather (the reference's
+    ``_gather_payload`` keeps 'data' on the per-client batch axis), so a
+    codec that encodes a client's whole tensor at once (``int8``,
+    ``int8_channel``) needs a data axis of 1. The EF residual and the
+    payload cache never cross: they stay this rank's block, as the
+    reference's ``_ef_constrain`` / ``_cache_constrain`` keep them
+    (``carried_pspecs``). ``gathered`` records what each wire call hands
+    to the collective, in bytes per part (payload, labels, and the cache
+    ages under a mask); with ``time_gather`` set it also records the
+    gathers' wall seconds, from a barrier of the client group (the
+    device synchronized) to the device synchronized after.
+
+    Under partial participation (``mask``, the (N,) bool vector, not
+    None) the carried payload cache (``init_payload_cache``) is refreshed
+    for the participants only: the one encode is selected by the mask
+    (``_tree_where``), so absent clients keep their EF residual and
+    their cache slot bitwise, ``age`` is 0 for a participant and
+    ``min(age, _NEVER - 1) + 1`` for everyone else, and ``valid = age <=
+    age_bound`` weights the cached chunks of the modular update (the
+    eager cache's eviction, at fixed shapes). A rank none of whose
+    clients takes part encodes nothing, but still joins the gather.
 
     The host half: ``account_round`` replays the mask stream against a
     host replica of the cache ages (``_last_upload``, equal to the
     in-step ``age`` vector: both are functions of the mask history) and
     ledgers the codec's analytic ``encoded_nbytes`` per boundary
     crossing under the full or delta policy, with the eager plane's
-    ``_DeltaMirrors``. ``population=True`` (the cohort regime) accounts
+    ``_DeltaMirrors``; on a mesh every rank keeps the same replica and
+    the same ledger. ``population=True`` (the cohort regime) accounts
     the round's fresh cohort only and lets ``prune`` age mirrors out.
     ``expected_delta_entries`` replays a schedule through it.
     """
 
     def __init__(self, codec: Union[str, Codec, None], *, n_clients: int,
                  max_staleness: Optional[int] = None,
-                 broadcast: str = "full", population: bool = False):
+                 broadcast: str = "full", population: bool = False,
+                 mesh=None):
         super().__init__()
         self.codec = get_codec(codec)
         self.n_clients = n_clients
@@ -449,11 +471,19 @@ class SPMDFusionExchange(ExchangePlane):
         self.mirrors = _DeltaMirrors(n_clients)
         # Host replica of each slot's last upload round (None = never).
         self._last_upload: List[Optional[int]] = [None] * n_clients
+        self.mesh = mesh
+        self.layout = None
+        if mesh is not None:
+            from repro_torch.launch.mesh import ClientLayout
+
+            self.layout = ClientLayout.of(mesh, n_clients)
+        self.gathered: List[Dict[str, float]] = []
+        self.time_gather = False
 
     # ------------------------------------------------ in-step wire
 
     def _encode(self, z, ef_state):
-        """All N clients' payloads, stacked leaf by leaf, and the EF
+        """All n clients' payloads, stacked leaf by leaf, and the EF
         residual threaded through -> (payload, ef')."""
         zf = z.float()
         if self.codec.has_state:
@@ -476,8 +506,8 @@ class SPMDFusionExchange(ExchangePlane):
         return payload, (torch.stack(efs) if efs else ef_state)
 
     def _decode(self, payload, shape, dtype, keep=None) -> torch.Tensor:
-        """The stacked payload decoded -> (N, *shape) in ``dtype``. A
-        row-wise wire scheme's payload decodes in one call over all N
+        """The stacked payload decoded -> (n, *shape) in ``dtype``. A
+        row-wise wire scheme's payload decodes in one call over all n
         clients' rows; any other codec decodes client by client, and
         only the clients in ``keep`` (None: all), zeros elsewhere."""
         lead = next(iter(payload.values()))
@@ -500,38 +530,113 @@ class SPMDFusionExchange(ExchangePlane):
         return ops.scheme_for(getattr(self.codec, "inner", self.codec),
                               d) is not None
 
+    def _row_local(self, d: int) -> bool:
+        """True when a row's payload depends on that row alone (a wire
+        scheme, the identity, a cast), so a data rank can encode its
+        rows by itself."""
+        from repro_torch.core.codec import CastCodec, IdentityCodec
+
+        inner = getattr(self.codec, "inner", self.codec)
+        return self._rowwise(d) or isinstance(inner,
+                                              (IdentityCodec, CastCodec))
+
+    def _gather(self, parts: Dict[str, Any]) -> Dict[str, Any]:
+        """Each part's tensors (payload leaves, labels, ages) gathered
+        over the client group in client order; records the bytes handed
+        to the collective (and the wall, under ``time_gather``)."""
+        from repro_torch.sharding.rules import all_gather_cat
+
+        import torch.distributed as dist
+
+        group = self.layout.client_group
+        rec: Dict[str, float] = {}
+        if self.time_gather:
+            # The gathers alone: every rank of the group has arrived.
+            if self.layout.mesh.device_type == "cuda":
+                torch.cuda.synchronize()
+            dist.barrier(group=group)
+        t0 = time.perf_counter()
+        out = {}
+        for key, tree in parts.items():
+            leaves = tree if isinstance(tree, dict) else {"": tree}
+            rec[key] = float(sum(v.numel() * v.element_size()
+                                 for v in leaves.values()))
+            got = {name: all_gather_cat(v, group, 0)
+                   for name, v in leaves.items()}
+            out[key] = got if isinstance(tree, dict) else got[""]
+        if self.time_gather:
+            if self.layout.mesh.device_type == "cuda":
+                torch.cuda.synchronize()
+            rec["seconds"] = time.perf_counter() - t0
+        self.gathered.append(rec)
+        return out
+
     def wire(self, z, tokens, mask, cache, ef_state):
         """-> (zg, yg, valid, new_cache, ef_state'): the decoded fusion
         outputs (N, Bc, S, d_fusion) in z's dtype and their tokens,
         ``valid`` the (N,) 0/1 fp32 staleness weights and ``new_cache``
         the refreshed cache (both None at full participation), and the
         EF residual (``()`` for a stateless codec). ``mask`` is an (N,)
-        bool tensor; absent clients' rows of z are never read. The
-        staleness arithmetic runs where the cache's ``age`` lives: on the
-        host in a dry-run on the meta device (``init_payload_cache``'s
-        ``age_device``), whose tensors have no values to read."""
+        bool tensor; absent clients' rows of z are never read. On a mesh
+        z, tokens, the cache and the EF residual are this rank's block
+        (its clients, its rows), and so are the rows of zg and yg: all N
+        clients, this rank's rows. The staleness arithmetic runs where
+        the cache's ``age`` lives: on the host in a dry-run on the meta
+        device (``init_payload_cache``'s ``age_device``), whose tensors
+        have no values to read."""
         shape = tuple(z.shape[1:])
+        lay = self.layout
+        if lay is not None and lay.n_data > 1 and not self._row_local(
+                shape[-1]):
+            raise ValueError(
+                f"codec {self.codec.name!r} encodes a client's whole "
+                "tensor at once; on a data axis above 1 use a row-wise "
+                "codec (a wire scheme, fp32 or a cast)")
         if mask is None:
             payload, ef_state = self._encode(z, ef_state)
-            return (self._decode(payload, shape, z.dtype), tokens, None,
-                    None, ef_state)
-        any_upload = bool(mask.any())
-        age_mask = mask.to(device=cache["age"].device, dtype=torch.bool)
-        mask = mask.to(device=z.device, dtype=torch.bool)
+            if lay is None:
+                return (self._decode(payload, shape, z.dtype), tokens, None,
+                        None, ef_state)
+            got = self._gather({"payload": payload,
+                                "labels": tokens.to(torch.int32)})
+            return (self._decode(got["payload"], shape, z.dtype),
+                    got["labels"], None, None, ef_state)
+        own = mask if lay is None else mask[lay.clients]
+        any_upload = bool(own.any())
+        age_mask = own.to(device=cache["age"].device, dtype=torch.bool)
+        own = own.to(device=z.device, dtype=torch.bool)
         payload, toks = cache["payload"], cache["tokens"]
         if any_upload:
             enc, ef_new = self._encode(z, ef_state)
             if self.codec.has_state:
-                ef_state = _tree_where(mask, ef_new, ef_state)
-            payload = _tree_where(mask, enc, payload)
-            toks = _tree_where(mask, tokens.to(toks.dtype), toks)
+                ef_state = _tree_where(own, ef_new, ef_state)
+            payload = _tree_where(own, enc, payload)
+            toks = _tree_where(own, tokens.to(toks.dtype), toks)
         age = torch.where(age_mask, torch.zeros_like(cache["age"]),
                           torch.clamp_max(cache["age"], _NEVER - 1) + 1)
         new_cache = {"payload": payload, "tokens": toks, "age": age}
+        if lay is not None:
+            got = self._gather({"payload": payload, "labels": toks,
+                                "age": age})
+            payload, toks, age = got["payload"], got["labels"], got["age"]
         valid = (age <= self.age_bound).float()
         keep = set(torch.nonzero(valid.cpu()).flatten().tolist())
         return (self._decode(payload, shape, z.dtype, keep), toks, valid,
                 new_cache, ef_state)
+
+    def carried_pspecs(self, tree):
+        """The mesh layout of the carried state a round step threads
+        (the EF residual, the payload cache): every leaf leads with its
+        clients on 'client' and, where it has rows, their rows on 'data'
+        (sidecars of a row-wise scheme too: a scale per row stays with
+        its row); the cache ages on 'client' alone."""
+        def spec(a):
+            return (("client", "data") + (None,) * (a.dim() - 2)
+                    if a.dim() >= 2 else ("client",))
+
+        if isinstance(tree, dict):
+            return {k: self.carried_pspecs(v) for k, v in tree.items()}
+        return spec(tree)
 
     # ------------------------------------------------ host accounting
 

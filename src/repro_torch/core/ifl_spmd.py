@@ -1,9 +1,10 @@
-"""IFL on a language model as one round step over N clients, on one card:
-the port of ``repro.core.ifl_spmd``.
+"""IFL on a language model as one round step over N clients: the port of
+``repro.core.ifl_spmd``, in one process or on a ('client', 'data',
+'model') mesh of ``torch.distributed`` ranks.
 
 The reference runs a round as one jitted SPMD program with every
 parameter leaf stacked along a leading (N,) client dim. The port keeps
-the N clients' parameter trees in a Python list and loops over them; the
+the clients' parameter trees in a Python list and loops over them; the
 phases and their order are the reference's (Algorithm 1, lines 5-31):
 
   1. tau local base-block steps (eq. 7): at each step every client takes
@@ -12,16 +13,28 @@ phases and their order are the reference's (Algorithm 1, lines 5-31):
      tau with the clients inside);
   2. the fusion forward z_k = f_b(x_k) on each client's fusion
      minibatch, without autograd, then the wire
-     (``SPMDFusionExchange.wire``: encode, EF, "all-gather", decode);
+     (``SPMDFusionExchange.wire``: encode, EF, all-gather, decode);
   3. the modular phase: for each gathered chunk (z_i, y_i) in client
      order, every client takes one modular step on it.
+
+Without a mesh one process holds all N clients, and the all-gather is
+the stacking of their payloads. With ``mesh=`` each rank holds the
+contiguous block of N / C clients that P('client', ...) gives it (C the
+client axis's size) and rows [d * Bc / D, (d + 1) * Bc / D) of their
+minibatches (D the data axis's size): phases 1 and 3 run on its own
+clients and rows, and every gradient is averaged over the client's data
+group, so it equals the full minibatch's mean; phase 2 gathers the
+encoded payloads over the client group, a real collective. The 'model'
+axis stays at 1 (``launch.mesh.ClientLayout``).
 
 Each client's step builds and frees its own graph, so no more than one
 client's activations are alive at a time. Params and optimizer state are
 updated in place (``repro_torch.optim``). Losses are the reference's
 means: ``base_loss`` over tau steps and the participating clients,
-``mod_loss`` over the valid chunks and the participating clients; they
-are read from the card once per round.
+``mod_loss`` over the valid chunks and the participating clients; on a
+mesh each rank's losses are averaged over its data group and gathered
+over the client group, and the mean is taken in the one-process order,
+so every rank reports the same numbers. They are read once per round.
 
 Partial participation (``partial_participation=True``) threads an (N,)
 bool mask and the carried payload cache (``init_payload_cache``)
@@ -122,6 +135,7 @@ def value_and_grad(fn, tree, *args):
 def make_ifl_round_step(
     cfg: ModelConfig,
     *,
+    mesh=None,
     n_clients: int,
     tau: int,
     lr_base: float = 1e-3,
@@ -175,11 +189,32 @@ def make_ifl_round_step(
     Params and state are updated in place and returned.
     ``debug_return_zhat`` adds the pre-encode ``z`` (zeros in absent
     clients' rows) and the decoded ``z_hat`` (stacked) to metrics.
+
+    ``mesh``: a ('client', 'data', 'model') ``DeviceMesh`` (module
+    docstring). Then params and opt_state are the lists of this rank's
+    clients only (``init_ifl_state(..., mesh=)``), ``ef_state`` and the
+    cache this rank's block (its clients, its rows: shapes (N / C, Bc /
+    D, ...), ``SPMDFusionExchange.carried_pspecs``), while ``batch`` and
+    ``mask`` keep their whole shapes, the same on every rank (the rows of
+    other ranks' clients are never read, and may be zeros); z and z_hat
+    in the metrics are this rank's rows. A given ``exchange`` must be
+    on the same mesh. Raises where the mesh has a 'model' axis above 1,
+    a client axis that does not divide N, or no process group.
     """
+    from repro_torch.sharding.rules import (
+        all_gather_cat,
+        batch_pspec,
+        local_block,
+        tree_shardings,
+    )
+
     opt = make_optimizer(optimizer)
     if exchange is None:
         exchange = SPMDFusionExchange(codec, n_clients=n_clients,
-                                      max_staleness=max_staleness)
+                                      max_staleness=max_staleness, mesh=mesh)
+    elif exchange.mesh is not mesh:
+        raise ValueError("make_ifl_round_step: the exchange plane is on "
+                         "another mesh than the step; build both on one")
     else:
         if codec is not None and get_codec(codec).name != exchange.codec.name:
             raise ValueError(
@@ -194,58 +229,92 @@ def make_ifl_round_step(
                 f"{exchange.max_staleness!r}; configure it on the plane")
     stateful = exchange.codec.has_state
 
+    lay = exchange.layout
+    mine = list(range(n_clients)) if lay is None else lay.clients
+
+    def _local(batch):
+        """This rank's block of the batch: its clients, its rows."""
+        if lay is None:
+            return batch
+        specs = tree_shardings(lay.mesh, batch_pspec(batch,
+                                                     client_axis=True))
+        return {name: local_block(a, lay.mesh, specs[name])
+                for name, a in batch.items()}
+
+    def _mean(losses, n_rows, active):
+        """The reference's mean of the (row, client) losses over every
+        row and the participating clients, in the one-process order (row
+        major). On a mesh each rank's losses are first averaged over its
+        data group and gathered over the client group."""
+        if lay is None:
+            return torch.stack([losses[r, k] for r in range(n_rows)
+                                for k in active]) if active else None
+        local = torch.zeros((n_rows, len(mine)), dtype=torch.float32,
+                            device=lay.device())
+        for (r, k), loss in losses.items():
+            local[r, k] = loss
+        lay.mean_over_data([local])
+        everyone = all_gather_cat(local, lay.client_group, 1)
+        return everyone[:, active].reshape(-1) if active else None
+
     def _round_impl(params: List, opt_state: List, batch, ef_state, mask,
                     cache):
+        batch = _local(batch)
         tokens = batch["tokens"]
         if mask is None:
             active = list(range(n_clients))
         else:
             active = [int(k) for k in torch.nonzero(mask.cpu()).flatten()]
+        live = set(active)
+        mine_active = [i for i, k in enumerate(mine) if k in live]
+
+        def step(tree, fn, args, lr, state):
+            loss, g = value_and_grad(fn, tree, *args)
+            if lay is not None:
+                lay.mean_over_data(tree_leaves(g))
+            opt.update(tree, g, state, lr)
+            return loss
+
         # Phase 1: tau local base-block updates (eq. 7).
-        base_losses = []
+        base_losses = {}
         for t in range(tau):
-            for k in active:
-                mb = {name: a[k, t] for name, a in batch.items()}
-                loss, g = value_and_grad(_full_loss_wrt_base,
-                                         params[k]["base"],
-                                         params[k]["modular"], cfg, mb)
-                opt.update(params[k]["base"], g, opt_state[k]["base"],
-                           lr_base)
-                base_losses.append(loss)
-                del g
+            for i in mine_active:
+                mb = {name: a[i, t] for name, a in batch.items()}
+                base_losses[t, i] = step(
+                    params[i]["base"], _full_loss_wrt_base,
+                    (params[i]["modular"], cfg, mb), lr_base,
+                    opt_state[i]["base"])
         # Phase 2: fusion forward and the wire (lines 13-21).
         fusion_tokens = tokens[:, tau]
         with torch.no_grad():
-            zs = {k: base_forward(params[k]["base"], cfg,
-                                  {name: a[k, tau]
+            zs = {i: base_forward(params[i]["base"], cfg,
+                                  {name: a[i, tau]
                                    for name, a in batch.items()})[0]
-                  for k in active}
+                  for i in mine_active}
             shape = (fusion_tokens.shape[1], fusion_tokens.shape[2],
                      cfg.d_fusion)
             z0 = torch.zeros(shape, dtype=nn.dtype_of(cfg.compute_dtype),
                              device=tokens.device)
-            z = torch.stack([zs.get(k, z0) for k in range(n_clients)])
+            z = torch.stack([zs.get(i, z0) for i in range(len(mine))])
         zg, yg, valid, new_cache, ef_state = exchange.wire(
             z, fusion_tokens, mask, cache, ef_state)
         # Phase 3: modular updates, chunk by chunk (lines 22-31), on the
         # valid chunks only.
         chunks = (range(n_clients) if valid is None else
                   [int(i) for i in torch.nonzero(valid.cpu()).flatten()])
-        mod_losses = []
-        for i in chunks:
-            for k in active:
-                loss, g = value_and_grad(_modular_loss, params[k]["modular"],
-                                         cfg, zg[i], yg[i])
-                opt.update(params[k]["modular"], g, opt_state[k]["modular"],
-                           lr_modular)
-                mod_losses.append(loss)
-                del g
+        mod_losses = {}
+        for c, ch in enumerate(chunks):
+            for i in mine_active:
+                mod_losses[c, i] = step(
+                    params[i]["modular"], _modular_loss,
+                    (cfg, zg[ch], yg[ch]), lr_modular,
+                    opt_state[i]["modular"])
         nan = torch.tensor(float("nan"), device=tokens.device)
+        base = _mean(base_losses, tau, active)
+        mod = _mean(mod_losses, len(chunks), active) if chunks else None
         metrics = {
-            "base_loss": (torch.stack(base_losses).mean() if base_losses
-                          else nan),
-            "mod_loss": (torch.stack(mod_losses).mean() if mod_losses
-                         else nan),
+            "base_loss": nan if base is None else base.mean(),
+            "mod_loss": nan if mod is None else mod.mean(),
         }
         if mask is not None:
             metrics["participating"] = mask.float().sum()
@@ -278,17 +347,28 @@ def make_ifl_round_step(
 
 def init_ifl_state(cfg: ModelConfig, *, n_clients: int,
                    generator: torch.Generator, device,
-                   optimizer: str = "sgd"):
+                   optimizer: str = "sgd", mesh=None):
     """N clients' params (``init_lm``, drawn one client after another
     from ``generator``, cast to ``cfg.param_dtype``) and their optimizer
     states. -> (list of N param trees, list of N {"base", "modular"}
     states). The reference's stacked init, carried across as numpy,
-    becomes the same lists through ``checkpoint.unstack_clients``."""
+    becomes the same lists through ``checkpoint.unstack_clients``.
+
+    With ``mesh`` the lists hold this rank's clients only, each exactly
+    the tree the one-process init gives it: the rank draws every client
+    in turn from ``generator`` (so it reaches its clients' draws by the
+    same sequence) and keeps its own."""
+    from repro_torch.launch.mesh import ClientLayout
+
     opt = make_optimizer(optimizer)
     pdt = nn.dtype_of(cfg.param_dtype)
+    keep = (range(n_clients) if mesh is None
+            else ClientLayout.of(mesh, n_clients).clients)
     params, states = [], []
-    for _ in range(n_clients):
+    for k in range(n_clients):
         p = init_lm(cfg, generator=generator, device=device, dtype=pdt)
+        if k not in keep:
+            continue
         params.append(p)
         states.append({"base": opt.init(p["base"]),
                        "modular": opt.init(p["modular"])})

@@ -36,11 +36,14 @@ dry-run gives the round a host mask of max(1, round(E[K])) participants,
 the first slots, and keeps the cache's ages on the host; the JSON
 states the mask (``mask``).
 
-Left out, with the reason: ``--multi-pod`` and ``--both-meshes`` (the
-reference's 16x16 and 2x16x16 TPU meshes: one card has no mesh),
-``--fsdp`` (ZeRO-3 sharding of params over a mesh's data axis) and
-``--fused`` (the port's wire path follows from the codec and the shape
-alone, ``ops.fused_wire_report``).
+Left out, with the reason: ``--multi-pod``, ``--both-meshes`` and
+``--fsdp``. The meshes (``launch.mesh``) and the sharding rules
+(``sharding.rules``) are in the port, and the IFL round runs on a
+('client', 'data', 'model') mesh of ranks, but a dry-run row of a mesh
+needs per-rank memory from the rules and the collectives' bytes counted
+under ``roofline/accounting.py``: a later slice (ROADMAP item 1 (iii)).
+``--fused`` is left out too (the port's wire path follows from the codec
+and the shape alone, ``ops.fused_wire_report``).
 
 Usage:
   python -m repro_torch.launch.dryrun --arch qwen1.5-0.5b --shape train_4k

@@ -220,8 +220,24 @@ class CompositionStore:
         valid rides along as decoded ``{z_hat, y}`` fusion state; a
         population run exports its materialized working set (the slots
         the cohorts trained, paged through its ``PopulationStore``),
-        whose cache is rebuilt every round and so is not exported."""
+        whose cache is rebuilt every round and so is not exported.
+
+        A legacy trainer on a mesh gathers its blocks (every rank calls
+        this, a collective); rank 0 builds the store from the gathered
+        trees and returns it, every other rank returns None."""
         cfg = trainer.model_cfg
+        params, cache = trainer.params, trainer.cache
+        if getattr(trainer, "mesh", None) is not None and \
+                not trainer._population:
+            import torch.distributed as dist
+
+            from repro_torch.api.spmd import _unstack
+
+            tree, _ = trainer.snapshot()
+            if dist.get_rank() != 0:
+                return None
+            params = _unstack(tree["params"], trainer.n_clients)
+            cache = tree.get("cache")
         # The spec's resolvable arch id ('' is the smoke config): the
         # trainer's cfg.name carries reduced()'s suffix.
         arch_name = trainer.spec.model or cfg.name
@@ -241,7 +257,7 @@ class CompositionStore:
             slots = list(range(trainer.n_clients))
 
             def get_params(k):
-                return trainer.params[k]
+                return params[k]
         if tenants is None:
             tenants = [f"client{k}" for k in slots]
         if len(tenants) != len(slots):
@@ -254,9 +270,9 @@ class CompositionStore:
         mslot = modular_slot if modular_slot in slots else slots[0]
         store.set_modular(arch_name, copy(get_params(mslot)["modular"]))
         fusion = {}
-        if not trainer._population and trainer.cache is not None:
+        if not trainer._population and cache is not None:
             z_shape = (trainer.spec.batch_size, trainer.seq, cfg.d_fusion)
-            ctree = trainer.exchange.cache_tree(trainer.cache, z_shape)
+            ctree = trainer.exchange.cache_tree(cache, z_shape)
             ages = ctree["age"].tolist()
             fusion = {k: {"z_hat": ctree["z_hat"][k].clone(),
                           "y": ctree["y"][k].clone()}

@@ -1,7 +1,10 @@
 """Training loops for LM-scale IFL and the dense DP baseline, the port of
 ``repro.train.loop``: the same ``SyntheticLM`` draws, the same analytic
 ledger lines and the same history records as the reference, on one
-device (the card unless the caller passes ``device="cpu"``).
+device (the card unless the caller passes ``device="cpu"``) or, for IFL,
+on a ('client', 'data', 'model') mesh of ``torch.distributed`` ranks
+(``mesh=``: every rank runs the loop, draws its own clients' tokens and
+returns its own clients' params, with the same history and ledger).
 
 The returned dict also carries ``walls``: the host-clock seconds of each
 round (or step), taken after the loss read that ends it, which waits for
@@ -25,6 +28,7 @@ from repro_torch.core.ifl_spmd import (
 )
 from repro_torch.data.synthetic import SyntheticLM
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.launch.mesh import ClientLayout
 from repro_torch.models import modules as nn
 from repro_torch.models.transformer import check_supported, init_lm
 from repro_torch.optim import make_optimizer
@@ -32,20 +36,20 @@ from repro_torch.optim import make_optimizer
 
 def _ifl_batch(stream: SyntheticLM, cfg: ModelConfig, n_clients: int,
                tau: int, batch: int, seq: int, step: int, *,
-               device) -> Dict:
+               device, clients=None) -> Dict:
     """Round ``step``'s tokens (N, tau + 1, B, S): client k's minibatch t
-    is ``stream.sample(..., step=step * (tau + 1) + t, client=k)``. An
+    is ``stream.sample(..., step=step * (tau + 1) + t, client=k)`` for
+    k in ``clients`` (None: all), zeros for the others. An
     image config adds ``image_embeds`` (N, tau + 1, B, n_img, d), normal
     draws of numpy's ``default_rng(step)``, and an encoder-decoder
     ``frame_embeds`` (N, tau + 1, B, S_enc, d) of ``default_rng(step +
     1)``, fp32, as the reference draws them."""
-    toks = np.stack([
-        np.stack([
+    toks = np.zeros((n_clients, tau + 1, batch, seq), np.int32)
+    for k in (range(n_clients) if clients is None else clients):
+        toks[k] = np.stack([
             stream.sample(batch, seq, step=step * (tau + 1) + t, client=k)
             for t in range(tau + 1)
         ])
-        for k in range(n_clients)
-    ])
     out = {"tokens": torch.from_numpy(toks).to(device)}
     lead = (n_clients, tau + 1, batch)
     if cfg.num_image_tokens:
@@ -93,15 +97,27 @@ def train_ifl_lm(
     seed: int = 0,
     log_every: int = 5,
     device: DeviceLike = None,
+    mesh=None,
 ) -> Dict:
-    """IFL rounds on an LM; returns history + comm ledger (+ walls)."""
-    dev = resolve_device(device)
+    """IFL rounds on an LM; returns history + comm ledger (+ walls). On
+    ``mesh`` the device is the mesh's and ``params`` this rank's
+    clients'."""
+    clients = None
+    if mesh is None:
+        dev = resolve_device(device)
+    else:
+        lay = ClientLayout.of(mesh, n_clients)
+        dev, clients = lay.device(), lay.clients
+        if device is not None and torch.device(device).type != dev.type:
+            raise ValueError(f"train_ifl_lm: device {device!r} is not the "
+                             f"mesh's {dev.type!r}")
     check_supported(cfg)
     gen = torch.Generator(device=dev).manual_seed(seed)
     params, opt_state = init_ifl_state(cfg, n_clients=n_clients,
-                                       generator=gen, device=dev)
-    step_fn = make_ifl_round_step(cfg, n_clients=n_clients, tau=tau,
-                                  lr_base=lr_base, lr_modular=lr_modular)
+                                       generator=gen, device=dev, mesh=mesh)
+    step_fn = make_ifl_round_step(cfg, mesh=mesh, n_clients=n_clients,
+                                  tau=tau, lr_base=lr_base,
+                                  lr_modular=lr_modular)
     stream = SyntheticLM(cfg.vocab_size, seed=seed)
     ledger = CommLedger()
     z_bytes = batch * seq * cfg.d_fusion * 2  # bf16 fusion activations
@@ -111,7 +127,7 @@ def train_ifl_lm(
     for r in range(rounds):
         t_round = time.perf_counter()
         b = _ifl_batch(stream, cfg, n_clients, tau, batch, seq, r,
-                       device=dev)
+                       device=dev, clients=clients)
         params, opt_state, m = step_fn(params, opt_state, b)
         # ledger: what crossed the client boundary this round.
         up = n_clients * (z_bytes + batch * seq * 4)

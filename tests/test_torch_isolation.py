@@ -56,6 +56,8 @@ def test_import_loads_no_jax_and_no_reference_module():
         "import repro_torch.benchmarks.perf_probe\n"
         "import repro_torch.benchmarks.gen_experiments\n"
         "import repro_torch.benchmarks.serving_bench\n"
+        "import repro_torch.sharding, repro_torch.sharding.rules\n"
+        "import repro_torch.launch.mesh\n"
         "assert 'jax' not in sys.modules, 'jax loaded'\n"
         "bad = [m for m in sys.modules if m == 'repro' "
         "or m.startswith('repro.')]\n"
